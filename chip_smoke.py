@@ -10,7 +10,14 @@ Phases, each printing one JSON line:
             (fp32 and bf16, main-path and ragged shapes), with its time,
             the plain version's, two torch.addmm GEMMs as a yardstick and
             the card's bound for the same work;
-  4. slice  the flagship (conformer_rnnt_bias, full width, seeded random
+  4. k1_bwd its forward and backward kernels with dropout against autograd
+            through the plain version with the same seed (N = 256*127
+            swish/0.5, 256*33 relu/1.0 and a ragged 1000; fp32 and bf16;
+            rates 0 and 0.1), the keep rate of both masks as the kernel
+            draws them, and at the training shapes in bf16 the times of
+            both directions, the plain versions', five torch.mm GEMMs of
+            the same backward as a yardstick, and the bounds;
+  5. slice  the flagship (conformer_rnnt_bias, full width, seeded random
             weights) decodes the 16 committed test-clean WAVs through
             init_model → Decoder.rnnt_greedy_search: no context, and 8
             hotwords with the gate "on" and "off". The same model in fp32
@@ -18,13 +25,23 @@ Phases, each printing one JSON line:
             gates, except where the CPU run's top-2 logit gap at that step
             is under 1e-3; the kernel's launch count must be 24 per
             encoder pass;
-  5. bench  bf16 decode at the bench shape (B=64, T=512): audio-s/s of the
+  6. bench  bf16 decode at the bench shape (B=64, T=512): audio-s/s of the
             plain and gated greedy decode, encoder ms, peak memory, at two
-            blank biases (see SLICE_BLANK_BIAS); then each decode once
-            under torch.profiler (phase "profile"): the card's busy time,
-            idle share and top kernels.
-Then the card's name and power limit, the kernels' JSON record, and last
-{"ok": true, "device": {...}}. Any failed check exits non-zero without it.
+            blank biases (see SLICE_BLANK_BIAS);
+  7. train_check  one training step of conformer_ctc_aed at full width in
+            fp32, every dropout rate 0, on the card and on the CPU with the
+            same weights and batch (16 committed train-clean-100 WAVs with
+            character tokens): loss terms, pre-clip gradient norm and every
+            parameter's gradient, and 30 + 30 K1 launches;
+  8. train  the training path init_model → make_optimizer →
+            create_train_state → make_train_step in bf16 with dropout 0.1
+            at bench.py's training shape (B=256, T=512, U=32; vocab 5002 as
+            configs.py has it, where bench.py uses 1024): ms per step,
+            audio-s/s, peak memory, K1 launches per step; then 24 steps on
+            the committed train-clean-100 WAVs (warmup cut to 4 steps) whose
+            loss must fall;
+  9. profile  each decode and one training step under torch.profiler, last:
+            the card's busy time, idle share and top kernels.
 """
 
 from __future__ import annotations
@@ -40,7 +57,9 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-WAV_DIR = ROOT / "examples" / "librispeech" / "data_hw" / "test-clean" / "wavs"
+DATA_DIR = ROOT / "examples" / "librispeech" / "data_hw"
+WAV_DIR = DATA_DIR / "test-clean" / "wavs"
+TRAIN_DIR = DATA_DIR / "train-clean-100"
 # Added to the joint's blank logit. bench.py adds 4.0 so that a random
 # model emits at a trained model's rate; on this port's random model 4.0
 # leaves nearly every frame blank, and 2.5 or less makes every frame emit
@@ -50,6 +69,8 @@ SLICE_BLANK_BIAS = 3.0
 BENCH_BLANK_BIASES = (4.0, 3.0)
 NEAR_TIE = 1e-3
 K1_PER_ENCODER_PASS = 24  # 12 blocks x 2 macaron FFN halves
+K1_PER_TRAIN_STEP = 30    # ... + 6 decoder blocks (conformer_ctc_aed)
+K1_GRADS = ("y", "dx", "dg", "dbl", "dw1", "db1", "dw2", "db2")
 
 failures: list = []
 
@@ -144,6 +165,168 @@ def phase_k1(ffn, bounds) -> dict:
     return record
 
 
+def k1_inputs(n: int, dtype, seed: int, d: int = 256, f: int = 2048):
+    """K1's arguments (x, g, bl, w1, b1, w2, b2) and an upstream dy."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (mean + torch.randn(*shape, generator=g) * std).cuda()
+    args = (rnd(n, d).to(dtype), rnd(d, std=0.1, mean=1.0), rnd(d, std=0.1),
+            rnd(f, d, std=d ** -0.5).to(dtype), rnd(f, std=0.1),
+            rnd(d, f, std=f ** -0.5).to(dtype), rnd(d, std=0.1))
+    return args, rnd(n, d).to(dtype)
+
+
+def kernel_keep_rates(ffn, dropout, rate: float = 0.1, seed: int = 99,
+                      n: int = 256 * 127, d: int = 256, f: int = 2048):
+    """The keep rate of each mask as the forward kernel draws it, and
+    whether each bit equals the plain mask function's. With W1 = 0,
+    b1 = 2 and W2 = [I | 0] (relu) the output is y = x + drop2(drop1(2)
+    + b2) on the first D hidden columns, so y == x exactly where a mask
+    dropped."""
+    x = torch.randn(n, d, generator=torch.Generator().manual_seed(1)).cuda()
+    ones, zeros = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
+    w1 = torch.zeros(f, d, device="cuda")
+    b1 = torch.full((f,), 2.0, device="cuda")
+    w2 = torch.zeros(d, f, device="cuda")
+    w2[:, :d] = torch.eye(d, device="cuda")
+    thresh = dropout.threshold(rate)[0]
+    rows = torch.arange(n, device="cuda")[:, None]
+    cols = torch.arange(d, device="cuda")[None, :]
+    out = {}
+    for name, stream, b2, rates, index in (
+            ("hidden", dropout.STREAM_FFN_HIDDEN, zeros, (rate, 0.0),
+             rows * f + cols),
+            ("output", dropout.STREAM_FFN_OUT, ones, (0.0, rate),
+             rows * d + cols)):
+        y = ffn.forward_kernel(x, ones, zeros, w1, b1, w2, b2, "relu", 1.0,
+                               1e-5, *rates, seed)
+        kept = y != x
+        plain = dropout.keep_mask(seed, stream, index, thresh)
+        out[name] = {"keep_rate": float(kept.double().mean()),
+                     "draws": kept.numel(),
+                     "equals_plain_mask": bool(torch.equal(kept, plain))}
+    return out
+
+
+def relu_kink_free_rows(args, eps: float = 1e-5):
+    """Rows whose hidden pre-activations z1 = LN(x) W1^T + b1 (the plain
+    version's, in fp32) all lie further than eps from relu's kink."""
+    x, g, bl, w1, b1 = args[:5]
+    xn = torch.nn.functional.layer_norm(x.float(), (x.shape[1],), g, bl,
+                                        1e-5).to(x.dtype).float()
+    z1 = xn @ w1.float().t() + b1
+    return ~(z1.abs() < eps).any(dim=1)
+
+
+def phase_k1_bwd(ffn, bounds, dropout) -> dict:
+    """K1's forward and backward kernels with dropout against autograd
+    through the plain version on the card; returns the backward's record
+    at the encoder's training shape in bf16 at rate 0.1."""
+    d, f = 256, 2048
+    record, agree = {}, True
+    for n, act, scale in ((256 * 127, "swish", 0.5),
+                          (256 * 33, "relu", 1.0), (1000, "relu", 1.0)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args, dy = k1_inputs(n, dtype, seed=n)
+            for rate in (0.0, 0.1):
+                cfg = (act, scale, 1e-5, rate, rate, 4242)
+                ins = [a.detach().requires_grad_(True) for a in args]
+                y = ffn.ln_ffn_residual(*ins, *cfg)
+                got = torch.autograd.grad(y, ins, dy)
+                torch.cuda.synchronize()
+                want = (ffn.ln_ffn_residual_ref(*args, *cfg),
+                        *ffn.backward_ref(args[0], dy, *args[1:], *cfg))
+                errs, ok = {}, True
+                rows = relu_kink_free_rows(args) if act == "relu" else None
+                for name, a, b in zip(K1_GRADS, (y.detach(), *got), want):
+                    err = a.float() - b.float()
+                    rel = float(err.norm() / b.float().norm())
+                    if dtype == torch.float32 and name in ("y", "dx"):
+                        bad = err.abs() > 1e-4 + 1e-4 * b.float().abs()
+                        if name == "dx" and rows is not None:
+                            bad = bad[rows]
+                        good = not bool(bad.any())
+                    else:
+                        good = rel <= 1e-2
+                    good = good and bool(torch.isfinite(a).all())
+                    errs[name] = {"max_abs": float(err.abs().max()),
+                                  "rel_fro": rel, "ok": good}
+                    ok = ok and good
+                check(ok, f"k1_bwd n={n} {act} {dtype} rate={rate} "
+                          f"disagrees with the plain version: {errs}")
+                if rate > 0:
+                    agree = agree and ok
+                line = {"n": n, "activation": act, "ff_scale": scale,
+                        "dtype": str(dtype).split(".")[-1], "rate": rate,
+                        "ok": ok, "errors": errs, "tolerance":
+                        "fp32 y, dx: max abs <= 1e-4 + 1e-4*|ref| (relu: "
+                        "over the rows with no |z1| < 1e-5, where fp32 "
+                        "rounding in another order can flip relu' between "
+                        "0 and 1); bf16 and weight gradients (N-row sums in "
+                        "another order, bf16 rounding of dh/dy2 before the "
+                        "GEMMs as the Pallas kernel does): relative "
+                        "Frobenius <= 1e-2"}
+                if rows is not None:
+                    line["relu_rows_near_kink"] = int((~rows).sum())
+                if dtype == torch.bfloat16 and rate > 0 and n != 1000:
+                    line.update(k1_times(ffn, bounds, args, dy, cfg))
+                    if n == 256 * 127:
+                        record = {"max_abs_err": errs["dx"]["max_abs"],
+                                  **{k: line[k] for k in (
+                                      "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}}
+                emit("k1_bwd", **line)
+    keep = kernel_keep_rates(ffn, dropout)
+    for name, r in keep.items():
+        sigma = (0.9 * 0.1 / r["draws"]) ** 0.5
+        check(r["equals_plain_mask"] and abs(r["keep_rate"] - 0.9)
+              < 5 * sigma, f"k1 {name} mask: {r}")
+    emit("k1_masks", rate=0.1, expected_keep=1 - 0.1, masks=keep,
+         fwd_bwd_masks_agree=agree,
+         how="forward kernel output against the plain mask function; the "
+             "backward's masks by its gradients at rate 0.1 against "
+             "autograd through the plain version with the same seed")
+    return record
+
+
+def k1_times(ffn, bounds, args, dy, cfg) -> dict:
+    """Forward and backward kernel ms, the plain versions' ms, five
+    torch.mm GEMMs of the same backward (never called by the port) and
+    the bounds; bf16 inputs."""
+    x, g, bl, w1, b1, w2, b2 = args
+    n, d = x.shape
+    f = w1.shape[0]
+    fwd_ms = cuda_ms(lambda: ffn.forward_kernel(*args, *cfg), iters=20)
+    ms = cuda_ms(lambda: ffn.backward_kernel(x, dy, *args[1:], *cfg),
+                 iters=20)
+    plain_fwd_ms = cuda_ms(lambda: ffn.ln_ffn_residual_ref(*args, *cfg),
+                           iters=10)
+    plain_ms = cuda_ms(lambda: ffn.backward_ref(x, dy, *args[1:], *cfg),
+                       iters=10)
+    h = torch.randn(n, f, device=x.device).to(x.dtype)
+    dz = torch.randn_like(h)
+
+    def gemms():
+        torch.mm(x, w1.t())          # recomputed z1 = xn W1^T
+        torch.mm(dy, w2)             # dh = dy2 W2
+        torch.mm(dz, w1)             # dxn = dz1 W1
+        torch.mm(dz.t(), x)          # dW1 = dz1^T xn
+        torch.mm(dy.t(), h)          # dW2 = dy2^T h
+    library_ms = cuda_ms(gemms, iters=20)
+    flops, nbytes = bounds.ln_ffn_residual_bwd(n, d, f, "bf16")
+    bound, by = bounds.bound_ms(flops, nbytes, "bf16")
+    fwd_flops, fwd_bytes = bounds.ln_ffn_residual(n, d, f, "bf16")
+    fwd_bound, fwd_by = bounds.bound_ms(fwd_flops, fwd_bytes, "bf16")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "five torch.mm bf16 GEMMs of the backward",
+            "bound_ms": bound, "bound_by": by, "flops": flops,
+            "bytes": nbytes, "share_of_bound": bound / ms,
+            "fwd_ms": fwd_ms, "fwd_plain_ms": plain_fwd_ms,
+            "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
+            "bound_source": "H100 SXM data sheet at 700 W (ops/bounds.py)"}
+
+
 def load_wavs():
     from wenet_celoss_tpu_torch.data.wav import read_wav
     from wenet_celoss_tpu_torch.ops.fbank import compute_fbank_np
@@ -159,6 +342,61 @@ def load_wavs():
     for i, x in enumerate(feats):
         batch[i, :len(x)] = x
     return [p.name for p in paths], batch, lens
+
+
+def load_train_wavs():
+    """The committed train-clean-100 WAVs through the port's numpy fbank,
+    with character tokens from ``text`` (ids 1.. in sorted character
+    order, 0 is blank, labels padded with -1). Utterances whose characters
+    (plus one blank between repeats) outnumber their subsampled frames
+    cannot be aligned by CTC and are left out. Returns the padded numpy
+    batch and the count left out."""
+    from wenet_celoss_tpu_torch.data.wav import read_wav
+    from wenet_celoss_tpu_torch.ops.fbank import compute_fbank_np
+    text = dict(line.rstrip("\n").split(" ", 1)
+                for line in (TRAIN_DIR / "text").read_text().splitlines())
+    ids = {c: i + 1 for i, c in enumerate(sorted(set("".join(
+        text.values()))))}
+    feats, labels, dropped = [], [], 0
+    for p in sorted((TRAIN_DIR / "wavs").glob("*.wav")):
+        wav, sr = read_wav(str(p))
+        if sr != 16000:
+            raise ValueError(f"{p}: sample rate {sr}")
+        fb = compute_fbank_np(wav)
+        chars = text[p.stem]
+        frames = ((len(fb) - 3) // 2 + 1 - 3) // 2 + 1   # conv2d x4
+        if frames < len(chars) + sum(a == b for a, b in zip(chars,
+                                                             chars[1:])):
+            dropped += 1
+            continue
+        feats.append(fb)
+        labels.append([ids[c] for c in chars])
+    return pad_batch(feats, labels), dropped
+
+
+def pad_batch(feats, labels):
+    lens = np.array([len(x) for x in feats], np.int64)
+    llen = np.array([len(y) for y in labels], np.int64)
+    batch = {"feats": np.zeros((len(feats), lens.max(), 80), np.float32),
+             "feat_lengths": lens,
+             "labels": np.full((len(labels), llen.max()), -1, np.int64),
+             "label_lengths": llen}
+    for i, (x, y) in enumerate(zip(feats, labels)):
+        batch["feats"][i, :len(x)] = x
+        batch["labels"][i, :len(y)] = y
+    return batch
+
+
+def head(batch, n: int):
+    """The first n utterances, re-padded."""
+    lens, llen = batch["feat_lengths"][:n], batch["label_lengths"][:n]
+    return {"feats": batch["feats"][:n, :lens.max()], "feat_lengths": lens,
+            "labels": batch["labels"][:n, :llen.max()],
+            "label_lengths": llen}
+
+
+def on(batch, device):
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
 def hotwords(vocab: int, n: int = 8, length: int = 4, seed: int = 0):
@@ -376,15 +614,182 @@ def phase_bench(init_model, Decoder, conformer_rnnt_bias, ffn,
              out[f"{mode}_ms_per_batch"]) for mode in ("plain", "gated_on")]
 
 
+def no_dropout(cfg):
+    """The config with every dropout rate 0."""
+    for conf in (cfg["encoder_conf"], cfg["decoder_conf"]):
+        for k in list(conf) + ["positional_dropout_rate"]:
+            if k.endswith("dropout_rate"):
+                conf[k] = 0.0
+    return cfg
+
+
+def phase_train_check(init_model, conformer_ctc_aed, train, ffn,
+                      wavs) -> None:
+    """One fp32 step of the full-width model, dropout 0, on the card and
+    on the CPU with the same weights and batch."""
+    cfg = no_dropout(conformer_ctc_aed())
+    batch = head(wavs, 16)
+    model = init_model(cfg, seed=0)
+    ffn.ln_ffn_residual.launches = ffn.ln_ffn_residual.bwd_launches = 0
+    card_g, card_m = train.make_grad_fn(model)(
+        train.TrainState(0, model, None), on(batch, "cuda"),
+        torch.Generator())
+    torch.cuda.synchronize()
+    launches = (ffn.ln_ffn_residual.launches,
+                ffn.ln_ffn_residual.bwd_launches)
+    check(launches == (K1_PER_TRAIN_STEP, K1_PER_TRAIN_STEP),
+          f"train_check: K1 launches {launches}, want "
+          f"{K1_PER_TRAIN_STEP} forward and backward")
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = init_model(cfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_g, cpu_m = train.make_grad_fn(cpu)(
+        train.TrainState(0, cpu, None), on(batch, "cpu"), torch.Generator())
+    losses = {k: (float(card_m[k]), float(cpu_m[k])) for k in card_m}
+    for k, (a, b) in losses.items():
+        check(abs(a - b) <= 1e-4 * abs(b), f"train_check {k}: card {a} "
+                                           f"cpu {b}")
+    gn_card = float(train.global_norm(card_g))
+    gn_cpu = float(train.global_norm(cpu_g))
+    check(abs(gn_card - gn_cpu) <= 1e-4 * gn_cpu,
+          f"train_check gnorm card {gn_card} cpu {gn_cpu}")
+    worst, worst_name = 0.0, None
+    for (name, _), a, b in zip(model.named_parameters(), card_g, cpu_g):
+        diff = float((a.cpu() - b).norm())
+        # Key-projection biases have a zero gradient in exact arithmetic
+        # (softmax ignores a shift shared by all keys): floor the scale.
+        rel = diff / max(float(b.norm()), 1e-6 * gn_cpu)
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= 1e-3, f"train_check gradient {worst_name} relative "
+                         f"Frobenius {worst}")
+    emit("train_check", model="conformer_ctc_aed", dtype="float32",
+         dropout=0.0, utterances=len(batch["feat_lengths"]),
+         frames_max=int(batch["feat_lengths"].max()),
+         labels_max=int(batch["label_lengths"].max()),
+         losses_card_cpu=losses, gnorm_card=gn_card, gnorm_cpu=gn_cpu,
+         worst_grad_rel_fro=worst, worst_grad=worst_name,
+         k1_launches_fwd_bwd=list(launches),
+         tolerance="losses and gnorm 1e-4 relative; each gradient 1e-3 "
+                   "relative Frobenius (fp32 sums in another order over "
+                   "18 blocks; floor 1e-6 * gnorm for the key biases)")
+
+
+def phase_train(init_model, conformer_ctc_aed, train, ffn, b: int = 256,
+                t: int = 512, u: int = 32):
+    """bf16, dropout 0.1, at bench.py's training shape. This is the
+    training path's run: the K1 counts are set to 0 just before it and
+    read just after. Returns (what phase_train_profile needs, launches)."""
+    warm, iters = 2, 5
+    cfg = conformer_ctc_aed()
+    cfg["dtype"] = "bfloat16"
+    v = cfg["output_dim"]
+    model = init_model(cfg, seed=0)
+    tx, _ = train.make_optimizer(cfg)
+    state = train.create_train_state(model, tx)
+    step = train.make_train_step(model, tx)
+    rng = np.random.default_rng(0)
+    batch = on({"feats": rng.standard_normal((b, t, 80)).astype(np.float32),
+                "feat_lengths": np.full((b,), t, np.int64),
+                "labels": rng.integers(1, v - 2, (b, u)),
+                "label_lengths": np.full((b,), u, np.int64)}, "cuda")
+    gen = torch.Generator().manual_seed(0)
+    ffn.ln_ffn_residual.launches = ffn.ln_ffn_residual.bwd_launches = 0
+    losses = []
+    for _ in range(warm):
+        state, m, _ = step(state, batch, gen)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m, gnorm = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    launches = (ffn.ln_ffn_residual.launches,
+                ffn.ln_ffn_residual.bwd_launches)
+    steps = warm + iters
+    check(launches == (K1_PER_TRAIN_STEP * steps,) * 2,
+          f"train: K1 launches {launches} over {steps} steps")
+    check(all(np.isfinite(losses)), f"train: losses {losses}")
+    med = sorted(times)[iters // 2]
+    audio_s = b * t * 0.01
+    emit("train", model="conformer_ctc_aed", dtype="bfloat16", dropout=0.1,
+         batch=b, frames=t, labels=u, vocab=v, steps_timed=iters,
+         warmup_steps_run=warm, ms_per_step=med,
+         ms_min_max=[min(times), max(times)], audio_s_per_s=audio_s / (
+             med / 1e3), peak_mem_gib=torch.cuda.max_memory_allocated()
+         / 2**30, k1_launches_per_step=[n / steps for n in launches],
+         losses=losses, last_gnorm=float(gnorm),
+         timing="median host ms per step, synchronised")
+    return (state, step, batch, gen, med), launches
+
+
+def phase_train_wavs(init_model, conformer_ctc_aed, train, wavs) -> None:
+    """24 bf16 steps with dropout 0.1 on the committed WAVs (one batch of
+    every usable utterance); warmup cut from 25000 to 4 steps so that the
+    learning rate reaches its peak within the run. The median of the last
+    5 losses must be below the first."""
+    cfg = conformer_ctc_aed()
+    cfg["dtype"] = "bfloat16"
+    cfg["scheduler_conf"]["warmup_steps"] = 4
+    model = init_model(cfg, seed=0)
+    tx, _ = train.make_optimizer(cfg)
+    state = train.create_train_state(model, tx)
+    step = train.make_train_step(model, tx)
+    batch, gen = on(wavs, "cuda"), torch.Generator().manual_seed(1)
+    curve = []
+    for _ in range(24):
+        state, m, gnorm = step(state, batch, gen)
+        curve.append({"loss": float(m["loss"]),
+                      "loss_ctc": float(m["loss_ctc"]),
+                      "loss_att": float(m["loss_att"]),
+                      "acc": float(m["acc"]), "gnorm": float(gnorm)})
+    first = curve[0]["loss"]
+    last5 = float(np.median([c["loss"] for c in curve[-5:]]))
+    check(last5 < first, f"train_wavs: loss did not fall ({first} → "
+                         f"{last5})")
+    emit("train_wavs", wavs=str(TRAIN_DIR.relative_to(ROOT)),
+         utterances=len(wavs["feat_lengths"]), warmup_steps=4,
+         first_loss=first, median_last5=last5, curve=curve)
+
+
+def phase_train_profile(state, step, batch, gen, timed_ms) -> None:
+    """One training step under torch.profiler, run after every timing."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, by_name = device_busy(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    emit("profile", mode="train", timed_ms=timed_ms,
+         profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+         idle_share=1.0 - busy_ms / timed_ms,
+         idle_share_profiled=1.0 - busy_ms / wall_ms,
+         k1_fwd_ms=sum(v for k, v in by_name.items() if "ln_ffn_fwd" in k),
+         k1_bwd_ms=sum(v for k, v in by_name.items()
+                       if "ln_ffn_bwd" in k or "sum_partials" in k),
+         kernels=len(by_name),
+         top=[{"kernel": k[:90], "ms": v} for k, v in top])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from wenet_celoss_tpu_torch.configs import conformer_rnnt_bias
+    from wenet_celoss_tpu_torch.configs import (conformer_ctc_aed,
+                                                conformer_rnnt_bias)
     from wenet_celoss_tpu_torch.decode.api import Decoder
     from wenet_celoss_tpu_torch.models.factory import init_model
-    from wenet_celoss_tpu_torch.ops import _build, bounds, ffn
+    from wenet_celoss_tpu_torch.ops import _build, bounds, dropout, ffn
+    from wenet_celoss_tpu_torch.parallel import train
 
     name = torch.cuda.get_device_name(0)
     card = smi()
@@ -398,24 +803,43 @@ def main() -> int:
          per_source=_build.build_seconds)
 
     k1 = phase_k1(ffn, bounds)
-    launches = phase_slice(init_model, Decoder, conformer_rnnt_bias, ffn)
+    k1_bwd = phase_k1_bwd(ffn, bounds, dropout)
+    decode_launches = phase_slice(init_model, Decoder, conformer_rnnt_bias,
+                                  ffn)
     to_profile = []
     for bias in BENCH_BLANK_BIASES:
         to_profile += phase_bench(init_model, Decoder, conformer_rnnt_bias,
                                   ffn, bias)
+    wavs, dropped = load_train_wavs()
+    emit("train_wavs_loaded", utterances=len(wavs["feat_lengths"]),
+         left_out_unalignable=dropped)
+    phase_train_check(init_model, conformer_ctc_aed, train, ffn, wavs)
+    train_profile, (train_fwd, train_bwd) = phase_train(
+        init_model, conformer_ctc_aed, train, ffn)
+    phase_train_wavs(init_model, conformer_ctc_aed, train, wavs)
     for args in to_profile:
         phase_profile(*args)
+    phase_train_profile(*train_profile)
+    check(decode_launches > 0 and train_fwd > 0 and train_bwd > 0,
+          f"a kernel of a main path was not launched: decode "
+          f"{decode_launches}, train {train_fwd} + {train_bwd}")
 
     if failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(failures),
               file=sys.stderr)
         return 1
+    source = "wenet_celoss_tpu_torch/csrc/ln_ffn_residual.cu"
     print(card)
-    print(json.dumps({"kernels": [dict(
-        name="ln_ffn_residual", route="cuda",
-        source="wenet_celoss_tpu_torch/csrc/ln_ffn_residual.cu",
-        replaces="wenet_celoss_tpu/ops/ffn_pallas.py:272",
-        launches=launches, **k1)]}))
+    print(json.dumps({"kernels": [
+        dict(name="ln_ffn_residual", route="cuda", source=source,
+             replaces="wenet_celoss_tpu/ops/ffn_pallas.py:272",
+             launches=decode_launches + train_fwd,
+             launches_by_path={"decode": decode_launches,
+                               "train": train_fwd}, **k1),
+        dict(name="ln_ffn_residual_bwd", route="cuda", source=source,
+             replaces="wenet_celoss_tpu/ops/ffn_pallas.py:294",
+             launches=train_bwd, launches_by_path={"train": train_bwd},
+             **k1_bwd)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,12 @@
 """``ln_ffn_residual`` of the port (ops/ffn.py) against the JAX package:
-the plain PyTorch version against the Pallas kernel run in interpret mode
-and against the XLA ``PositionwiseFeedForward(ln=)`` block; the wrapper's
-checks. The CUDA kernel itself is tested in test_torch_kernels.py."""
+the plain PyTorch version, forward and backward through the port's
+autograd Function, against the Pallas kernel and its VJP run in interpret
+mode and against the XLA ``PositionwiseFeedForward(ln=)`` block; the
+counter-based dropout masks (ops/dropout.py); the wrapper's checks. The
+CUDA kernels themselves are tested in test_torch_kernels.py."""
 
 import flax.linen as fnn
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +18,7 @@ from wenet_celoss_tpu.ops.ffn_pallas import ln_ffn_residual as jax_ln_ffn
 from wenet_celoss_tpu_torch.models.encoder_layer import \
     PositionwiseFeedForward
 from wenet_celoss_tpu_torch.models.layers import LayerNorm
-from wenet_celoss_tpu_torch.ops import ffn
+from wenet_celoss_tpu_torch.ops import dropout, ffn
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 CASES = [("swish", 0.5, 37), ("relu", 1.0, 300), ("swish", 1.0, 130)]
@@ -58,6 +61,68 @@ def test_plain_version_matches_pallas_interpret(activation, ff_scale, n):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("activation,ff_scale,n", CASES)
+def test_backward_matches_pallas_vjp_interpret(activation, ff_scale, n):
+    """All seven gradients of the port's autograd Function on the CPU
+    (the plain version's VJP) against ``jax.vjp`` of the Pallas kernel,
+    whose backward also runs in interpret mode; rates 0."""
+    args = _args(n)
+    dy = np.random.default_rng(9).standard_normal(args[0].shape).astype(
+        np.float32)
+
+    def fn(*a):
+        return jax_ln_ffn(*a, jnp.zeros((), jnp.int32), activation, 0.0, 0.0,
+                          ff_scale, interpret=True)
+    _, vjp = jax.vjp(fn, *[jnp.asarray(a) for a in args])
+    want = vjp(jnp.asarray(dy))
+    ins = [t.requires_grad_(True) for t in _torch_args(*args)]
+    y = ffn.ln_ffn_residual(*ins, activation, ff_scale)
+    got = torch.autograd.grad(y, ins, torch.from_numpy(dy))
+    for i, (a, b) in enumerate(zip(got, want)):
+        a = a.numpy()
+        if i in (3, 5):                      # w1, w2: Linear layout
+            a = a.T
+        np.testing.assert_allclose(a, np.asarray(b), **TOL)
+
+
+def test_dropout_gradcheck_float64():
+    """With both rates 0.3 the mask depends only on seed and position, so
+    gradcheck's repeated forwards see one mask: the plain version and the
+    autograd Function on the CPU are differentiable through it."""
+    x, g, bl, w1, b1, w2, b2 = (t.double() for t in _torch_args(
+        *_args(6, d=16, f=32)))
+    ins = tuple(t.requires_grad_(True) for t in (x, g, bl, w1, b1, w2, b2))
+    for fn in (ffn.ln_ffn_residual_ref, ffn.ln_ffn_residual):
+        assert torch.autograd.gradcheck(
+            lambda *a: fn(*a, "swish", 0.5, 1e-5, 0.3, 0.3, 77), ins)
+
+
+def test_dropout_masks_keep_rate_and_seeds():
+    """Keep rate within 5 sigma of 1 - rate over 2^17 draws per stream,
+    the 1/2^16 threshold of the JAX package, and independent masks for two
+    seeds and two streams (agreement p^2 + (1-p)^2)."""
+    n, rate = 1 << 17, 0.1
+    keep = 1.0 - rate
+    thresh, scale = dropout.threshold(rate)
+    assert (thresh, scale) == (round(keep * 65536), 1.0 / keep)
+    idx = torch.arange(n)
+    masks = {(s, st): dropout.keep_mask(s, st, idx, thresh)
+             for s in (11, 12) for st in (1, 2)}
+    sigma = (keep * rate / n) ** 0.5
+    for m in masks.values():
+        assert abs(m.double().mean().item() - keep) < 5 * sigma
+    agree = keep ** 2 + rate ** 2
+    for a, b in (((11, 1), (12, 1)), ((11, 1), (11, 2))):
+        same = (masks[a] == masks[b]).double().mean().item()
+        assert abs(same - agree) < 0.01, (a, b, same)
+    x = torch.ones(64, 32)
+    y = dropout.apply_mask(x, 11, 1, rate)
+    assert set(y.unique().tolist()) <= {0.0, float(torch.tensor(scale))}
+    assert torch.equal(y != 0, masks[(11, 1)][:64 * 32].reshape(64, 32))
+    assert dropout.dropout(x, rate, None) is x
+    assert dropout.hash32(12345) == int(dropout.hash32(torch.tensor(12345)))
+
+
 class _JaxBlock(fnn.Module):
     """LayerNorm + FFN block through the JAX package's XLA path."""
     activation: str
@@ -96,8 +161,10 @@ def test_ffn_block_matches_jax_xla_path(activation, ff_scale, n):
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     args = _torch_args(*_args(8))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        ffn.ln_ffn_residual(*args, "swish", 0.5, rate1=0.1)
+    with pytest.raises(ValueError, match="dropout rate"):
+        ffn.ln_ffn_residual(*args, "swish", 0.5, rate1=1.0)
+    with pytest.raises(ValueError, match="dropout rate"):
+        ffn.ln_ffn_residual(*args, "swish", 0.5, rate2=-0.1)
     x, g, bl, w1, b1, w2, b2 = args
     with pytest.raises(ValueError, match="multiple of 16"):
         ffn.check_args(x[:, :24].contiguous(), g[:24], bl[:24],
@@ -116,11 +183,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_kernel_bound_at_main_path_shape():
-    """4·N·D·F operations at the bf16 peak: 17.05 GFLOP, 17.2 us."""
+    """Forward 4·N·D·F operations at the bf16 peak: 17.05 GFLOP, 17.2 us;
+    backward 10·N·D·F at the training shape: 170.4 GFLOP, 0.172 ms."""
     from wenet_celoss_tpu_torch.ops import bounds
     flops, nbytes = bounds.ln_ffn_residual(64 * 127, 256, 2048, "bf16")
     assert flops == 4 * 64 * 127 * 256 * 2048
     ms, by = bounds.bound_ms(flops, nbytes, "bf16")
     assert by == "operations" and abs(ms - flops / 989e12 * 1e3) < 1e-12
+    flops, nbytes = bounds.ln_ffn_residual_bwd(256 * 127, 256, 2048, "bf16")
+    assert flops == 10 * 256 * 127 * 256 * 2048
+    ms, by = bounds.bound_ms(flops, nbytes, "bf16")
+    assert by == "operations" and abs(ms - 0.1723) < 1e-3
     assert {r["kernel"].split()[0] for r in bounds.flagship()} == {
         "K1", "K2", "K3", "K4", "K6", "K7", "K8", "K9"}

@@ -54,6 +54,62 @@ def test_kernel_matches_plain_version_on_card(dtype, n, activation,
         assert float(err.norm() / want.float().norm()) <= 1e-2
 
 
+def _k1_args(n, dt, seed=7, d=256, f=2048):
+    rng = np.random.default_rng(seed)
+
+    def arr(*shape, std=1.0, mean=0.0):
+        return torch.as_tensor(mean + std * rng.standard_normal(shape),
+                               dtype=torch.float32, device="cuda")
+    x = arr(n, d).to(dt)
+    g, bl = arr(d, std=0.1, mean=1.0), arr(d, std=0.1)
+    w1, b1 = arr(f, d, std=d ** -0.5).to(dt), arr(f, std=0.1)
+    w2, b2 = arr(d, f, std=f ** -0.5).to(dt), arr(d, std=0.1)
+    dy = arr(n, d).to(dt)
+    return (x, g, bl, w1, b1, w2, b2), dy
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n,activation,ff_scale",
+                         [(1000, "relu", 1.0), (4064, "swish", 0.5)])
+def test_backward_kernel_matches_plain_version_on_card(dtype, rate, n,
+                                                       activation, ff_scale):
+    """The forward with dropout and all seven gradients against autograd
+    through the plain version with the same seed: the masks of the forward
+    and both backward passes must agree. dx to 1e-4 + 1e-4*|ref| in fp32
+    (for relu over the rows with no |z1| < 1e-5, where another summation
+    order can flip relu' between 0 and 1); bf16 and the weight gradients
+    (sums over N rows in another order) to relative Frobenius 1e-2."""
+    dt = getattr(torch, dtype)
+    args, dy = _k1_args(n, dt)
+    cfg = (activation, ff_scale, 1e-5, rate, rate, 12345)
+    k1 = ffn.ln_ffn_residual
+    before = (k1.launches, k1.bwd_launches)
+    ins = [a.detach().requires_grad_(True) for a in args]
+    y = ffn.ln_ffn_residual(*ins, *cfg)
+    got = torch.autograd.grad(y, ins, dy)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want_y = ffn.ln_ffn_residual_ref(*args, *cfg)
+    want = ffn.backward_ref(*args[:1], dy, *args[1:], *cfg)
+    rows = slice(None)
+    if activation == "relu":
+        x, g, bl, w1, b1 = args[:5]
+        xn = torch.nn.functional.layer_norm(x.float(), (x.shape[1],), g, bl)
+        z1 = xn.to(dt).float() @ w1.float().t() + b1
+        rows = (z1.abs() >= 1e-5).all(dim=1)
+    for name, a, b in zip(["y", "dx", "dg", "dbl", "dw1", "db1", "dw2",
+                           "db2"], [y, *got], [want_y, *want]):
+        assert a.dtype == b.dtype, name
+        err = a.float() - b.float()
+        if dt == torch.float32 and name in ("y", "dx"):
+            ok = err.abs() <= 1e-4 + 1e-4 * b.abs()
+            assert bool(ok[rows].all() if name == "dx" else ok.all()), name
+        else:
+            rel = float(err.norm() / b.float().norm())
+            assert rel <= 1e-2, (name, rel)
+
+
 def test_tiny_model_on_card_matches_cpu():
     """The tiny flagship in fp32: encoder within 1e-4 of the CPU run
     (plain versions), identical plain and gated hyps, and 2 kernel

@@ -199,10 +199,13 @@ def test_greedy_decode_matches_jax(context):
 def test_bridge_raises_on_unknown_leaf():
     _, _, v, tm = _pair()
     params = dict(v["params"])
-    params["decoder"] = {"anything": np.zeros(3, np.float32)}  # not ported
     sd = params_from_jax({"params": params,
                           "batch_stats": v.get("batch_stats", {})})
     assert set(sd) == set(tm.state_dict())
+    # No subtree is skipped any more: the decoder maps leaf by leaf.
+    with pytest.raises(KeyError, match="anything"):
+        params_from_jax({"params": dict(params, decoder=dict(
+            params["decoder"], anything=np.zeros(3, np.float32)))})
     bad = dict(params, context_bias=dict(
         params["context_bias"], mystery={"kernel": np.zeros((2, 2))}))
     with pytest.raises(KeyError, match="mystery"):

@@ -1,0 +1,92 @@
+"""Hybrid CTC + attention ASR model, training forward (port of
+``wenet_celoss_tpu/models/asr_model.py``: ``__call__`` and
+``_calc_att_loss``; the decode-support methods come with the decode
+slices).
+
+loss = ctc_weight * ctc + (1 - ctc_weight) * att, where att mixes the
+left-to-right and (U2++) right-to-left decoders' label-smoothed losses by
+``reverse_weight``. sos = eos = vocab - 1.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from wenet_celoss_tpu_torch.models.ctc_head import CTC
+from wenet_celoss_tpu_torch.models.decoder import BiTransformerDecoder
+from wenet_celoss_tpu_torch.models.encoder import ConformerEncoder
+from wenet_celoss_tpu_torch.models.label_smoothing import \
+    label_smoothing_loss
+from wenet_celoss_tpu_torch.utils.common import (IGNORE_ID, accuracy,
+                                                 add_sos_eos,
+                                                 reverse_pad_list)
+
+
+class ASRModel(nn.Module):
+
+    def __init__(self, vocab_size: int, encoder: ConformerEncoder,
+                 decoder: BiTransformerDecoder, ctc: CTC,
+                 ctc_weight: float = 0.5, ignore_id: int = IGNORE_ID,
+                 reverse_weight: float = 0.0, lsm_weight: float = 0.1,
+                 length_normalized_loss: bool = False):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.encoder = encoder
+        self.decoder = decoder
+        self.ctc = ctc
+        self.ctc_weight = ctc_weight
+        self.ignore_id = ignore_id
+        self.reverse_weight = reverse_weight
+        self.lsm_weight = lsm_weight
+        self.length_normalized_loss = length_normalized_loss
+        self.sos = self.eos = vocab_size - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.ctc.ctc_lo.weight.device
+
+    def forward(self, speech, speech_lengths, text, text_lengths,
+                gen: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Training forward → {'loss', 'loss_att', 'loss_ctc', 'acc'}; with
+        ``gen`` every dropout runs (training), without it none does."""
+        encoder_out, enc_pad_mask = self.encoder(speech, speech_lengths, gen)
+        encoder_lens = enc_pad_mask.sum(dim=1)
+        zero = torch.zeros((), device=encoder_out.device)
+        loss_att, acc = zero, zero
+        if self.ctc_weight < 1.0:
+            loss_att, acc = self._calc_att_loss(
+                encoder_out, enc_pad_mask, text, text_lengths, gen)
+        loss_ctc = zero
+        if self.ctc_weight > 0.0:
+            loss_ctc = self.ctc(encoder_out, encoder_lens, text,
+                                text_lengths)
+        loss = self.ctc_weight * loss_ctc + (1 - self.ctc_weight) * loss_att
+        return {"loss": loss, "loss_att": loss_att, "loss_ctc": loss_ctc,
+                "acc": acc}
+
+    def _calc_att_loss(self, encoder_out, enc_pad_mask, ys_pad, ys_lens,
+                       gen=None):
+        ys_in, ys_out = add_sos_eos(ys_pad, ys_lens, self.sos, self.eos,
+                                    self.ignore_id)
+        # The reversed labels pad with float(ignore_id) and are cast back,
+        # as the JAX package does.
+        r_ys = reverse_pad_list(ys_pad, ys_lens, float(self.ignore_id))
+        r_ys_in, r_ys_out = add_sos_eos(r_ys.to(ys_pad.dtype), ys_lens,
+                                        self.sos, self.eos, self.ignore_id)
+        l_logits, r_logits = self.decoder(
+            encoder_out, enc_pad_mask, ys_in, ys_lens + 1, r_ys_in,
+            self.reverse_weight, gen)
+        loss = label_smoothing_loss(l_logits, ys_out, self.lsm_weight,
+                                    self.length_normalized_loss,
+                                    self.ignore_id)
+        if self.reverse_weight > 0.0:
+            loss_r = label_smoothing_loss(
+                r_logits, r_ys_out, self.lsm_weight,
+                self.length_normalized_loss, self.ignore_id)
+            loss = (1 - self.reverse_weight) * loss \
+                + self.reverse_weight * loss_r
+        return loss, accuracy(l_logits, ys_out, self.ignore_id)

@@ -1,6 +1,7 @@
 """Multi-head attention, full context (port of
 ``wenet_celoss_tpu/models/attention.py``; the streaming KV cache comes
-with the streaming slice).
+with the streaming slice). Dropout on the attention probabilities runs
+when the caller passes a generator (training).
 
 The rel-pos variant follows the reference's simplification: matrix_bd is
 computed from the sinusoid pos_emb WITHOUT rel_shift. That is deliberate
@@ -16,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from wenet_celoss_tpu_torch.models.layers import Dense
+from wenet_celoss_tpu_torch.ops.dropout import dropout
 
 # Additive mask value (an attention bias of 0 keeps a key, NEG_INF drops
 # it). exp(NEG_INF - max) underflows to exactly 0 in the fp32 softmax.
@@ -24,13 +26,14 @@ NEG_INF = -1.0e9
 
 class MultiHeadedAttention(nn.Module):
 
-    def __init__(self, n_head: int, n_feat: int,
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         if n_feat % n_head:
             raise ValueError(f"n_feat {n_feat} not divisible by {n_head}")
         self.n_head, self.n_feat = n_head, n_feat
         self.d_k = n_feat // n_head
+        self.dropout_rate = dropout_rate
         self.compute_dtype = dtype
         self.linear_q = Dense(n_feat, n_feat, dtype=dtype)
         self.linear_k = Dense(n_feat, n_feat, dtype=dtype)
@@ -66,8 +69,9 @@ class MultiHeadedAttention(nn.Module):
                 self._split(v))
 
     def _softmax_out(self, scores: torch.Tensor, mask, v: torch.Tensor,
-                     dtype: torch.dtype) -> torch.Tensor:
-        """Mask, fp32 softmax, weighted sum of v, output projection.
+                     dtype: torch.dtype, gen=None) -> torch.Tensor:
+        """Mask, fp32 softmax, dropout, weighted sum of v, output
+        projection.
 
         ``mask``: [B, 1|Tq, Tk] additive float bias (fully masked pad query
         rows get uniform attention; every consumer masks pad frames by
@@ -80,28 +84,29 @@ class MultiHeadedAttention(nn.Module):
         attn = torch.softmax(scores.float(), dim=-1).to(dtype)
         if mask is not None and not additive:
             attn = attn.masked_fill(~mask[:, None], 0.0)
+        attn = dropout(attn, self.dropout_rate, gen)
         x = torch.matmul(attn, v)
         b = x.shape[0]
         return self.linear_out(x.transpose(1, 2).reshape(b, -1, self.n_feat))
 
-    def forward(self, query, key, value, mask=None, pos_emb=None):
+    def forward(self, query, key, value, mask=None, pos_emb=None, gen=None):
         q, k, v = self.qkv(query, key, value)
         scores = torch.matmul(q, k.transpose(-2, -1)) / torch.sqrt(
             torch.tensor(float(self.d_k), dtype=q.dtype))
-        return self._softmax_out(scores, mask, v, q.dtype)
+        return self._softmax_out(scores, mask, v, q.dtype, gen)
 
 
 class RelPositionMultiHeadedAttention(MultiHeadedAttention):
     """Rel-pos MHA with the Transformer-XL u/v biases and no rel_shift."""
 
-    def __init__(self, n_head: int, n_feat: int,
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0,
                  dtype: Optional[torch.dtype] = None):
-        super().__init__(n_head, n_feat, dtype)
+        super().__init__(n_head, n_feat, dropout_rate, dtype)
         self.linear_pos = Dense(n_feat, n_feat, bias=False, dtype=dtype)
         self.pos_bias_u = nn.Parameter(torch.zeros(n_head, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.zeros(n_head, self.d_k))
 
-    def forward(self, query, key, value, mask=None, pos_emb=None):
+    def forward(self, query, key, value, mask=None, pos_emb=None, gen=None):
         """pos_emb [1|B, Tk, n_feat] (a batch-1 table broadcasts)."""
         q, k, v = self.qkv(query, key, value)
         p = self.linear_pos(pos_emb)
@@ -113,4 +118,4 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         matrix_bd = torch.matmul(q_v, p.transpose(-2, -1))
         scores = (matrix_ac + matrix_bd) / torch.sqrt(
             torch.tensor(float(self.d_k), dtype=q.dtype))
-        return self._softmax_out(scores, mask, v, q.dtype)
+        return self._softmax_out(scores, mask, v, q.dtype, gen)

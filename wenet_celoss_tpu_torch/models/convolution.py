@@ -33,7 +33,11 @@ class BatchNormEval(nn.Module):
         self.register_buffer("running_var", torch.ones(size))
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            raise NotImplementedError(
+                "batch_norm in training mode is not ported (use the "
+                "layer_norm conv module)")
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         return (x.float() - self.running_mean) * mul + self.bias
 
@@ -61,8 +65,10 @@ class ConvolutionModule(nn.Module):
         self.pointwise_conv2 = Dense(channels, channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x [B, T, C] (already pre-normed); pad_mask [B, T] True = valid."""
+                pad_mask: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
+        """x [B, T, C] (already pre-normed); pad_mask [B, T] True = valid;
+        ``train`` puts batch_norm in training mode (not ported: raises)."""
         if pad_mask is not None:
             x = torch.where(pad_mask[..., None], x, torch.zeros_like(x))
         h = F.glu(self.pointwise_conv1(x), dim=-1)           # [B, T, C]
@@ -72,7 +78,8 @@ class ConvolutionModule(nn.Module):
         y = F.conv1d(h.to(cdt).transpose(1, 2), w.weight.to(cdt),
                      w.bias.to(cdt), padding=pad,
                      groups=w.groups).transpose(1, 2)
-        y = F.silu(self.norm_layer(y))
+        y = F.silu(self.norm_layer(y, train) if self.norm == "batch_norm"
+                   else self.norm_layer(y))
         y = self.pointwise_conv2(y)
         if pad_mask is not None:
             y = torch.where(pad_mask[..., None], y, torch.zeros_like(y))

@@ -1,0 +1,129 @@
+"""Attention decoders, teacher-forced (port of
+``wenet_celoss_tpu/models/decoder.py``): the left-to-right transformer
+decoder and the bidirectional (U2++) wrapper with its right-to-left
+decoder. Pre-norm layers only; each FFN block is one launch of the K1
+kernel (relu, ff_scale 1). ``forward_one_step`` comes with the decode
+slice. Dropout runs when the caller passes a generator (training).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from wenet_celoss_tpu_torch.models.attention import MultiHeadedAttention
+from wenet_celoss_tpu_torch.models.embedding import PositionalEncoding
+from wenet_celoss_tpu_torch.models.encoder_layer import \
+    PositionwiseFeedForward
+from wenet_celoss_tpu_torch.models.layers import Dense, LayerNorm
+from wenet_celoss_tpu_torch.ops.dropout import dropout
+from wenet_celoss_tpu_torch.utils.mask import (make_non_pad_mask,
+                                               subsequent_mask)
+
+
+class DecoderLayer(nn.Module):
+    """Pre-norm self-attention → cross-attention → FFN block, each with a
+    residual."""
+
+    def __init__(self, size: int, attention_heads: int, linear_units: int,
+                 dropout_rate: float = 0.1,
+                 self_attention_dropout_rate: float = 0.0,
+                 src_attention_dropout_rate: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.self_attn = MultiHeadedAttention(
+            attention_heads, size, self_attention_dropout_rate, dtype=dtype)
+        self.src_attn = MultiHeadedAttention(
+            attention_heads, size, src_attention_dropout_rate, dtype=dtype)
+        self.feed_forward = PositionwiseFeedForward(
+            size, linear_units, "relu", dropout_rate, dtype=dtype)
+        self.norm1 = LayerNorm(size, dtype=dtype)
+        self.norm2 = LayerNorm(size, dtype=dtype)
+        self.norm3 = LayerNorm(size, dtype=dtype)
+
+    def forward(self, tgt, tgt_mask, memory, memory_mask, gen=None):
+        """tgt [B, U, D]; tgt_mask [B, U, U] bool; memory [B, T, D];
+        memory_mask [B, 1, T] bool."""
+        xn = self.norm1(tgt)
+        x = tgt + dropout(self.self_attn(xn, xn, xn, tgt_mask, gen=gen),
+                          self.dropout_rate, gen)
+        xn = self.norm2(x)
+        x = x + dropout(self.src_attn(xn, memory, memory, memory_mask,
+                                      gen=gen), self.dropout_rate, gen)
+        return self.feed_forward(x, ln=self.norm3, ff_scale=1.0, gen=gen)
+
+
+class TransformerDecoder(nn.Module):
+
+    def __init__(self, vocab_size: int, encoder_output_size: int,
+                 attention_heads: int = 4, linear_units: int = 2048,
+                 num_blocks: int = 6, dropout_rate: float = 0.1,
+                 positional_dropout_rate: float = 0.1,
+                 self_attention_dropout_rate: float = 0.0,
+                 src_attention_dropout_rate: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        d = encoder_output_size
+        self.embed_tokens = nn.Embedding(vocab_size, d)
+        self.pos_enc = PositionalEncoding(d, positional_dropout_rate)
+        self.decoders = nn.ModuleList([DecoderLayer(
+            d, attention_heads, linear_units, dropout_rate,
+            self_attention_dropout_rate, src_attention_dropout_rate,
+            dtype=dtype) for _ in range(num_blocks)])
+        self.after_norm = LayerNorm(d, dtype=dtype)
+        self.output_layer = Dense(d, vocab_size, dtype=dtype)
+
+    def forward(self, memory, memory_pad_mask, ys_in_pad, ys_in_lens,
+                gen=None):
+        """memory [B, T, D], memory_pad_mask [B, T] True = valid,
+        ys_in_pad [B, U] (<sos> + tokens), ys_in_lens [B] → logits
+        [B, U, V]."""
+        u = ys_in_pad.shape[1]
+        tgt_mask = (make_non_pad_mask(ys_in_lens, u)[:, None, :]
+                    & subsequent_mask(u, ys_in_pad.device)[None])
+        x, _ = self.pos_enc(self.embed_tokens(ys_in_pad), gen)
+        mem_mask = memory_pad_mask[:, None, :]
+        for layer in self.decoders:
+            x = layer(x, tgt_mask, memory, mem_mask, gen)
+        return self.output_layer(self.after_norm(x))
+
+
+class BiTransformerDecoder(nn.Module):
+    """Left-to-right decoder plus, with ``r_num_blocks > 0``, a
+    right-to-left one over the reversed labels (U2++)."""
+
+    def __init__(self, vocab_size: int, encoder_output_size: int,
+                 attention_heads: int = 4, linear_units: int = 2048,
+                 num_blocks: int = 6, r_num_blocks: int = 0,
+                 dropout_rate: float = 0.1,
+                 positional_dropout_rate: float = 0.1,
+                 self_attention_dropout_rate: float = 0.0,
+                 src_attention_dropout_rate: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        kw = dict(vocab_size=vocab_size,
+                  encoder_output_size=encoder_output_size,
+                  attention_heads=attention_heads,
+                  linear_units=linear_units, dropout_rate=dropout_rate,
+                  positional_dropout_rate=positional_dropout_rate,
+                  self_attention_dropout_rate=self_attention_dropout_rate,
+                  src_attention_dropout_rate=src_attention_dropout_rate,
+                  dtype=dtype)
+        self.left_decoder = TransformerDecoder(num_blocks=num_blocks, **kw)
+        self.right_decoder = (TransformerDecoder(num_blocks=r_num_blocks,
+                                                 **kw)
+                              if r_num_blocks > 0 else None)
+
+    def forward(self, memory, memory_pad_mask, ys_in_pad, ys_in_lens,
+                r_ys_in_pad=None, reverse_weight: float = 0.0, gen=None):
+        """→ (left logits, right logits or zeros like them)."""
+        l_x = self.left_decoder(memory, memory_pad_mask, ys_in_pad,
+                                ys_in_lens, gen)
+        if self.right_decoder is None or reverse_weight <= 0.0:
+            return l_x, torch.zeros_like(l_x)
+        r_x = self.right_decoder(memory, memory_pad_mask, r_ys_in_pad,
+                                 ys_in_lens, gen)
+        return l_x, r_x

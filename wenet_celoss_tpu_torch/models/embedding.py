@@ -1,5 +1,5 @@
-"""Relative positional encoding (port of
-``wenet_celoss_tpu/models/embedding.py``)."""
+"""Positional encodings (port of ``wenet_celoss_tpu/models/embedding.py``),
+with their dropout when the caller passes a generator (training)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,8 @@ import math
 
 import torch
 import torch.nn as nn
+
+from wenet_celoss_tpu_torch.ops.dropout import dropout
 
 
 def sinusoid_table(positions: torch.Tensor, d_model: int) -> torch.Tensor:
@@ -24,16 +26,27 @@ def sinusoid_table(positions: torch.Tensor, d_model: int) -> torch.Tensor:
 
 
 class RelPositionalEncoding(nn.Module):
-    """Scales x by sqrt(d) and returns the position table separately,
-    [1, T, d] in x's dtype (dropout is an identity at decode time). The
-    streaming offset comes with the streaming slice."""
+    """Scales x by sqrt(d), then dropout, and returns the position table
+    separately, [1, T, d] in x's dtype. The streaming offset comes with the
+    streaming slice."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dropout_rate: float = 0.0):
         super().__init__()
         self.d_model = d_model
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, gen=None):
         pos = torch.arange(x.shape[1], device=x.device)
         pe = sinusoid_table(pos[None, :], self.d_model).to(x.dtype)
         x = x * torch.tensor(self.d_model ** 0.5, dtype=x.dtype)
-        return x, pe
+        return dropout(x, self.dropout_rate, gen), pe
+
+
+class PositionalEncoding(RelPositionalEncoding):
+    """Absolute encoding: ``dropout(x * sqrt(d) + pe)``, and the table."""
+
+    def forward(self, x: torch.Tensor, gen=None):
+        pos = torch.arange(x.shape[1], device=x.device)
+        pe = sinusoid_table(pos[None, :], self.d_model).to(x.dtype)
+        x = x * torch.tensor(self.d_model ** 0.5, dtype=x.dtype) + pe
+        return dropout(x, self.dropout_rate, gen), pe

@@ -35,8 +35,6 @@ class ConformerEncoder(nn.Module):
                  dropout_rate: float = 0.0,
                  positional_dropout_rate: float = 0.0,
                  attention_dropout_rate: float = 0.0):
-        # The dropout rates are accepted for config compatibility; every
-        # dropout is an identity at decode time.
         super().__init__()
         if input_layer != "conv2d" or pos_enc_layer_type != "rel_pos":
             raise NotImplementedError(
@@ -47,7 +45,8 @@ class ConformerEncoder(nn.Module):
         self.input_layer = input_layer
         self.compute_dtype = dtype
         self.embed = Conv2dSubsampling4(
-            input_size, output_size, RelPositionalEncoding(output_size),
+            input_size, output_size,
+            RelPositionalEncoding(output_size, positional_dropout_rate),
             dtype=dtype)
         self.layers = nn.ModuleList([
             ConformerEncoderLayer(
@@ -55,7 +54,8 @@ class ConformerEncoder(nn.Module):
                 macaron_style=macaron_style, use_cnn_module=use_cnn_module,
                 cnn_module_kernel=cnn_module_kernel,
                 cnn_module_norm=cnn_module_norm, causal=causal,
-                activation=activation_type, dtype=dtype)
+                activation=activation_type, dropout_rate=dropout_rate,
+                attention_dropout_rate=attention_dropout_rate, dtype=dtype)
             for _ in range(num_blocks)])
         self.after_norm = LayerNorm(output_size, dtype=dtype)
         if cmvn is not None:
@@ -66,17 +66,19 @@ class ConformerEncoder(nn.Module):
         else:
             self.cmvn_mean = self.cmvn_istd = None
 
-    def forward(self, xs: torch.Tensor, xs_lens: torch.Tensor):
+    def forward(self, xs: torch.Tensor, xs_lens: torch.Tensor,
+                gen: Optional[torch.Generator] = None):
         """xs [B, T, F] features, xs_lens [B] → (ys [B, T', D],
-        pad_mask [B, T'] True = valid)."""
+        pad_mask [B, T'] True = valid). With ``gen`` (training) every
+        dropout runs, drawing its seed from it."""
         if self.cmvn_mean is not None:
             xs = apply_cmvn(xs, self.cmvn_mean, self.cmvn_istd)
-        xs, pos_emb, xs_lens = self.embed(xs, xs_lens)
+        xs, pos_emb, xs_lens = self.embed(xs, xs_lens, gen)
         pad_mask = make_non_pad_mask(xs_lens, xs.shape[1])
         att_mask = pad_mask[:, None, :] & pad_mask[:, :, None]
         # The mask as an ADDITIVE bias, built once and shared by all layers.
         att_bias = torch.where(
             att_mask, 0.0, NEG_INF).to(self.compute_dtype or torch.float32)
         for layer in self.layers:
-            xs = layer(xs, att_bias, pos_emb, pad_mask)
+            xs = layer(xs, att_bias, pos_emb, pad_mask, gen)
         return self.after_norm(xs), pad_mask

@@ -2,8 +2,11 @@
 ``wenet_celoss_tpu/models/encoder_layer.py``, full context).
 
 ½-FFN → MHSA → conv → ½-FFN → final LN (macaron), all pre-norm with
-residuals. Each FFN block (pre-LN + FFN + scaled residual) is ONE launch
-of the hand-written ``ln_ffn_residual`` kernel on the card.
+residuals. Each FFN block (pre-LN + FFN + dropout + scaled residual) is
+ONE launch of the hand-written ``ln_ffn_residual`` kernel on the card, and
+one launch of its backward kernel under autograd. Dropout runs when the
+caller passes a generator (training); without one every layer is
+deterministic.
 """
 
 from __future__ import annotations
@@ -17,32 +20,45 @@ from wenet_celoss_tpu_torch.models.attention import \
     RelPositionMultiHeadedAttention
 from wenet_celoss_tpu_torch.models.convolution import ConvolutionModule
 from wenet_celoss_tpu_torch.models.layers import Dense, LayerNorm
+from wenet_celoss_tpu_torch.ops.dropout import draw_seed, dropout
 from wenet_celoss_tpu_torch.ops.ffn import ln_ffn_residual
 
 
 class PositionwiseFeedForward(nn.Module):
-    """The whole pre-norm FFN block ``x + ff_scale * w_2(act(w_1(ln(x))))``
-    with the LayerNorm ``ln`` passed in, dispatched to
-    ``ops.ffn.ln_ffn_residual`` (the kernel on the card). The post-norm
-    FFN without ``ln`` is not ported."""
+    """The whole pre-norm FFN block
+    ``x + ff_scale * drop(w_2(drop(act(w_1(ln(x))))))`` with the LayerNorm
+    ``ln`` passed in, dispatched to ``ops.ffn.ln_ffn_residual`` (the kernel
+    on the card). The hidden dropout rate is ``dropout_rate``, the output's
+    ``out_rate`` (default ``dropout_rate``); both are 0 without a
+    generator. The post-norm FFN without ``ln`` is not ported."""
 
     def __init__(self, idim: int, hidden_units: int,
-                 activation: str = "relu",
+                 activation: str = "relu", dropout_rate: float = 0.0,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.activation = activation
+        self.dropout_rate = dropout_rate
         self.compute_dtype = dtype
         self.w_1 = Dense(idim, hidden_units, dtype=dtype)
         self.w_2 = Dense(hidden_units, idim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, ln: LayerNorm,
-                ff_scale: float = 1.0) -> torch.Tensor:
+                ff_scale: float = 1.0, out_rate: Optional[float] = None,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         b, t, d = x.shape
         cdt = self.compute_dtype or x.dtype
+        rate1 = rate2 = 0.0
+        seed = 0
+        if gen is not None:
+            rate1 = self.dropout_rate
+            rate2 = self.dropout_rate if out_rate is None else out_rate
+            if rate1 > 0.0 or rate2 > 0.0:
+                seed = draw_seed(gen)
         y = ln_ffn_residual(
             x.reshape(b * t, d).to(cdt).contiguous(), ln.weight, ln.bias,
             self.w_1.weight.to(cdt), self.w_1.bias, self.w_2.weight.to(cdt),
-            self.w_2.bias, self.activation, ff_scale, ln.eps)
+            self.w_2.bias, self.activation, ff_scale, ln.eps, rate1, rate2,
+            seed)
         return y.reshape(b, t, d)
 
 
@@ -52,17 +68,19 @@ class ConformerEncoderLayer(nn.Module):
                  macaron_style: bool = True, use_cnn_module: bool = True,
                  cnn_module_kernel: int = 15,
                  cnn_module_norm: str = "batch_norm", causal: bool = False,
-                 activation: str = "swish",
+                 activation: str = "swish", dropout_rate: float = 0.0,
+                 attention_dropout_rate: float = 0.0,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.self_attn = RelPositionMultiHeadedAttention(
-            attention_heads, size, dtype=dtype)
+            attention_heads, size, attention_dropout_rate, dtype=dtype)
         self.feed_forward = PositionwiseFeedForward(
-            size, linear_units, activation, dtype=dtype)
+            size, linear_units, activation, dropout_rate, dtype=dtype)
         self.feed_forward_macaron = None
         if macaron_style:
             self.feed_forward_macaron = PositionwiseFeedForward(
-                size, linear_units, activation, dtype=dtype)
+                size, linear_units, activation, dropout_rate, dtype=dtype)
             self.norm_ff_macaron = LayerNorm(size, dtype=dtype)
         self.conv_module = None
         if use_cnn_module:
@@ -77,17 +95,23 @@ class ConformerEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, att_bias: torch.Tensor,
                 pos_emb: torch.Tensor,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pad_mask: Optional[torch.Tensor] = None,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, T, D]; att_bias [B, T, T] additive; pos_emb [1, T, D];
-        pad_mask [B, T] True = valid."""
+        pad_mask [B, T] True = valid; ``gen`` (training) drives dropout
+        and puts the conv module's norm in training mode."""
+        def drop(h):
+            return dropout(h, self.dropout_rate, gen)
         if self.feed_forward_macaron is not None:
             x = self.feed_forward_macaron(x, ln=self.norm_ff_macaron,
-                                          ff_scale=self.ff_scale)
+                                          ff_scale=self.ff_scale, gen=gen)
         xn = self.norm_mha(x)
-        x = x + self.self_attn(xn, xn, xn, att_bias, pos_emb)
+        x = x + drop(self.self_attn(xn, xn, xn, att_bias, pos_emb, gen))
         if self.conv_module is not None:
-            x = x + self.conv_module(self.norm_conv(x), pad_mask)
-        x = self.feed_forward(x, ln=self.norm_ff, ff_scale=self.ff_scale)
+            x = x + drop(self.conv_module(self.norm_conv(x), pad_mask,
+                                          train=gen is not None))
+        x = self.feed_forward(x, ln=self.norm_ff, ff_scale=self.ff_scale,
+                              gen=gen)
         if self.conv_module is not None:
             x = self.norm_final(x)
         return x

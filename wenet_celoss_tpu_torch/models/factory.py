@@ -1,23 +1,27 @@
-"""Model factory, transducer branch (port of
-``wenet_celoss_tpu/models/factory.py``).
+"""Model factory (port of ``wenet_celoss_tpu/models/factory.py``).
 
-``init_model(cfg)`` builds the RNN-T model with context bias from the same
-config dicts as the JAX package, initialises its weights from a seeded
-``torch.Generator`` and puts it on the card. The attention decoder and the
-CTC head (used by other decode modes and by training) are not built yet.
+``init_model(cfg)`` builds, from the same config dicts as the JAX package,
+the hybrid CTC/attention ``ASRModel`` (no ``predictor`` in the config) or
+the RNN-T ``Transducer`` with context bias; both carry the conformer
+encoder, the bidirectional attention decoder and the CTC head, so a JAX
+weight tree maps onto either whole. It initialises the weights from a
+seeded ``torch.Generator`` and puts the model on the card.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 import torch.nn as nn
 
+from wenet_celoss_tpu_torch.models.asr_model import ASRModel
 from wenet_celoss_tpu_torch.models.cmvn import load_cmvn
 from wenet_celoss_tpu_torch.models.context_bias import ContextBias
 from wenet_celoss_tpu_torch.models.convolution import BatchNormEval
+from wenet_celoss_tpu_torch.models.ctc_head import CTC
+from wenet_celoss_tpu_torch.models.decoder import BiTransformerDecoder
 from wenet_celoss_tpu_torch.models.encoder import ConformerEncoder
 from wenet_celoss_tpu_torch.models.joint import TransducerJoint
 from wenet_celoss_tpu_torch.models.layers import LayerNorm, LSTMCellParams
@@ -46,15 +50,17 @@ def compute_dtype(cfg: Dict[str, Any]) -> Optional[torch.dtype]:
     return _DTYPES[name]
 
 
-def build_model(cfg: Dict[str, Any]) -> Transducer:
+Model = Union[ASRModel, Transducer]
+
+
+def build_model(cfg: Dict[str, Any]) -> Model:
     """The module tree for ``cfg`` (weights as the modules' defaults;
     :func:`init_params` replaces them)."""
-    if "predictor" not in cfg:
-        raise NotImplementedError("only the transducer branch is ported")
     if cfg.get("encoder", "conformer") != "conformer":
         raise NotImplementedError("only the conformer encoder is ported")
-    if cfg.get("predictor", "rnn") != "rnn":
-        raise NotImplementedError("only the RNN predictor is ported")
+    if cfg.get("decoder", "bitransformer") not in ("bitransformer",
+                                                   "transformer"):
+        raise NotImplementedError(f"decoder {cfg['decoder']!r}")
     dtype = compute_dtype(cfg)
     vocab = cfg["output_dim"]
     cmvn = None
@@ -64,6 +70,22 @@ def build_model(cfg: Dict[str, Any]) -> Transducer:
     encoder = ConformerEncoder(cfg["input_dim"], cmvn=cmvn, dtype=dtype,
                                **enc_conf)
     enc_out = enc_conf.get("output_size", 256)
+    dec_conf = dict(cfg.get("decoder_conf", {}))
+    if cfg.get("decoder") == "transformer":
+        dec_conf.setdefault("r_num_blocks", 0)
+    decoder = BiTransformerDecoder(vocab, enc_out, dtype=dtype, **dec_conf)
+    ctc = CTC(vocab, enc_out)
+    if "predictor" not in cfg:
+        model_conf = cfg.get("model_conf", {})
+        return ASRModel(
+            vocab, encoder, decoder, ctc,
+            ctc_weight=model_conf.get("ctc_weight", 0.5),
+            reverse_weight=model_conf.get("reverse_weight", 0.0),
+            lsm_weight=model_conf.get("lsm_weight", 0.1),
+            length_normalized_loss=model_conf.get("length_normalized_loss",
+                                                  False))
+    if cfg.get("predictor", "rnn") != "rnn":
+        raise NotImplementedError("only the RNN predictor is ported")
     pred_conf = dict(cfg.get("predictor_conf", {}))
     predictor = RNNPredictor(voca_size=vocab, **pred_conf)
     joint = TransducerJoint(
@@ -77,7 +99,7 @@ def build_model(cfg: Dict[str, Any]) -> Transducer:
         context_bias = ContextBias(output_size=enc_out, vocab_size=vocab,
                                    **ctx_conf)
     return Transducer(vocab, encoder, predictor, joint, context_bias,
-                      blank=0)
+                      blank=0, decoder=decoder, ctc=ctc)
 
 
 def _normal(shape, std: float, g: torch.Generator) -> torch.Tensor:
@@ -131,8 +153,7 @@ def init_params(model: nn.Module, seed: int = 0) -> None:
             p.copy_((torch.rand(p.shape, generator=g) * 2 - 1) * limit)
 
 
-def init_model(cfg: Dict[str, Any], device=None, seed: int = 0
-               ) -> Transducer:
+def init_model(cfg: Dict[str, Any], device=None, seed: int = 0) -> Model:
     """Build the model for ``cfg`` with seeded random weights, in eval
     mode, on ``device`` (the card by default; see :func:`resolve_device`).
 

@@ -1,6 +1,7 @@
 """RNN-T model with contextual biasing, decode-support methods (port of
-``wenet_celoss_tpu/models/transducer.py``; the losses come with the
-training slice)."""
+``wenet_celoss_tpu/models/transducer.py``). It carries the attention
+decoder and the CTC head of the JAX model so that its weights map whole;
+the transducer losses come with the flagship's training slice."""
 
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ class Transducer(nn.Module):
     def __init__(self, vocab_size: int, encoder: ConformerEncoder,
                  predictor: RNNPredictor, joint: TransducerJoint,
                  context_bias: Optional[ContextBias] = None,
-                 blank: int = 0):
+                 blank: int = 0, decoder: Optional[nn.Module] = None,
+                 ctc: Optional[nn.Module] = None):
         super().__init__()
         self.vocab_size = vocab_size
         self.blank = blank
@@ -28,6 +30,8 @@ class Transducer(nn.Module):
         self.predictor = predictor
         self.joint = joint
         self.context_bias = context_bias
+        self.decoder = decoder
+        self.ctc = ctc
 
     @property
     def device(self) -> torch.device:

@@ -9,9 +9,10 @@ type. Peaks are the H100 SXM data sheet's (dense, 700 W).
     python -m wenet_celoss_tpu_torch.ops.bounds   # every kernel, flagship
 
 prints one row per kernel at the flagship shapes: the decode bench
-(B=64, 512 frames → T'=127 after subsampling) for the encoder kernels, the
-train bench (B=256, T'=127, 32 labels → U+1=33) for the loss and
-predictor kernels, d=256, F=2048, join dim 512, vocab 5002, bf16.
+(B=64, 512 frames → T'=127 after subsampling) for the encoder kernels'
+forwards, the train bench (B=256, T'=127, 32 labels → U+1=33) for K1's
+backward and the loss and predictor kernels, d=256, F=2048, join dim 512,
+vocab 5002, bf16.
 """
 
 from __future__ import annotations
@@ -35,6 +36,16 @@ def ln_ffn_residual(n: int, d: int, f: int, dtype: str):
     b1, b2; two GEMMs of 2·N·D·F operations each."""
     e = ELT[dtype]
     return 4 * n * d * f, 2 * n * d * e + 2 * d * f * e + 4 * (3 * d + f)
+
+
+def ln_ffn_residual_bwd(n: int, d: int, f: int, dtype: str):
+    """K1 backward: x and dy [N, D] in, dx [N, D] out, W1/W2 [D, F] in and
+    their gradients out (in the weights' dtype), fp32 γ, β, b1 in and
+    dγ, dβ, db1, db2 out; the recomputed first GEMM and four gradient GEMMs
+    of 2·N·D·F operations each."""
+    e = ELT[dtype]
+    return (10 * n * d * f,
+            3 * n * d * e + 4 * d * f * e + 4 * (2 * d + f) + 4 * (3 * d + f))
 
 
 def ffn_fused(n: int, d: int, f: int, dtype: str):
@@ -98,11 +109,14 @@ def lstm2_seq(b: int, u1: int, h: int, dtype: str):
 
 
 def flagship() -> List[Dict]:
-    n_dec = 64 * 127
+    n_dec, n_train = 64 * 127, 256 * 127
     rows = [
         ("K1 ln_ffn_residual", "ops/ffn_pallas.py:357",
          f"N={n_dec} D=256 F=2048",
          ln_ffn_residual(n_dec, 256, 2048, "bf16")),
+        ("K1 ln_ffn_residual backward", "ops/ffn_pallas.py:294",
+         f"N={n_train} D=256 F=2048",
+         ln_ffn_residual_bwd(n_train, 256, 2048, "bf16")),
         ("K6 ffn_fused", "ops/ffn_pallas.py:141",
          f"N={n_dec} D=256 F=2048", ffn_fused(n_dec, 256, 2048, "bf16")),
         ("K7 ln_matmul", "ops/ffn_pallas.py:535",

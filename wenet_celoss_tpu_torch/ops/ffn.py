@@ -1,11 +1,14 @@
-"""Fused conformer FFN block: LayerNorm -> FFN -> scaled residual.
+"""Fused conformer FFN block: LayerNorm -> FFN -> dropout -> scaled residual.
 
 ``ln_ffn_residual`` is the port of ``wenet_celoss_tpu/ops/ffn_pallas.py::
-ln_ffn_residual`` (forward, dropout rates 0). On a CUDA tensor it launches
-the hand-written kernel in ``csrc/ln_ffn_residual.cu``; on a CPU tensor it
-runs ``ln_ffn_residual_ref``, the plain PyTorch version with the same
-rounding points. Weights are in ``torch.nn.Linear`` layout: w1 [F, D],
-w2 [D, F].
+ln_ffn_residual``, forward and backward, with both dropout masks (rate1 on
+the hidden, rate2 on the FFN output; masks from ``ops/dropout.py``). It is
+a ``torch.autograd.Function`` that saves only ``x2``, the parameters and
+the seed, as the Pallas VJP does. On CUDA tensors its forward and backward
+launch the hand-written kernels in ``csrc/ln_ffn_residual.cu``; on CPU
+tensors they run ``ln_ffn_residual_ref``, the plain PyTorch version with
+the same rounding points and masks (the backward by autograd through it).
+Weights are in ``torch.nn.Linear`` layout: w1 [F, D], w2 [D, F].
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import ctypes
 
 import torch
 
+from wenet_celoss_tpu_torch.ops import dropout as drop
 from wenet_celoss_tpu_torch.ops._build import load_library
 
 _ACTS = {"relu": 0, "swish": 1}
@@ -31,22 +35,30 @@ def _act(name: str, z: torch.Tensor) -> torch.Tensor:
 
 
 def ln_ffn_residual_ref(x2, g, bl, w1, b1, w2, b2, activation: str,
-                        ff_scale: float = 1.0, eps: float = 1e-5):
-    """Plain version: x2 + ff_scale * (act(LN(x2) @ w1^T + b1) @ w2^T + b2).
+                        ff_scale: float = 1.0, eps: float = 1e-5,
+                        rate1: float = 0.0, rate2: float = 0.0,
+                        seed: int = 0):
+    """Plain version:
+    x2 + ff_scale * drop2(drop1(act(LN(x2) @ w1^T + b1)) @ w2^T + b2).
 
     LN in fp32 then cast to x2's dtype; each matmul takes the cast
     operands and accumulates in fp32 (products of two bf16 values are
-    exact in fp32); the activation runs in fp32 and is cast; the residual
-    is summed in fp32 and cast once."""
+    exact in fp32); the activation and dropout run in fp32 and are cast;
+    the residual is summed in fp32 and cast once. Differentiable by
+    autograd, which reproduces the Pallas backward's rounding points up to
+    fp32 summation order."""
     cdt = x2.dtype
-    xf = x2.float()
+    af = torch.promote_types(cdt, torch.float32)   # fp64 stays fp64
+    xf = x2.to(af)
     mu = xf.mean(dim=1, keepdim=True)
     xc = xf - mu
     var = (xc * xc).mean(dim=1, keepdim=True)
     xn = (xc * torch.rsqrt(var + eps) * g + bl).to(cdt)
-    z1 = xn.float() @ w1.to(cdt).float().t() + b1
-    h = _act(activation, z1).to(cdt)
-    y2 = h.float() @ w2.to(cdt).float().t() + b2
+    z1 = xn.to(af) @ w1.to(cdt).to(af).t() + b1
+    h = drop.apply_mask(_act(activation, z1), seed,
+                        drop.STREAM_FFN_HIDDEN, rate1).to(cdt)
+    y2 = drop.apply_mask(h.to(af) @ w2.to(cdt).to(af).t() + b2, seed,
+                         drop.STREAM_FFN_OUT, rate2)
     return (xf + ff_scale * y2).to(cdt)
 
 
@@ -88,39 +100,35 @@ def check_args(x2, g, bl, w1, b1, w2, b2, activation):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
 
 
-def ln_ffn_residual(x2, g, bl, w1, b1, w2, b2, activation: str,
-                    ff_scale: float = 1.0, eps: float = 1e-5,
-                    rate1: float = 0.0, rate2: float = 0.0):
-    """x2 + ff_scale * (act(LN(x2) @ w1^T + b1) @ w2^T + b2).
+def _masks(seed: int, rate1: float, rate2: float):
+    """The kernel's dropout arguments: (key, threshold, scale) per
+    stream."""
+    out = []
+    for stream, rate in ((drop.STREAM_FFN_HIDDEN, rate1),
+                         (drop.STREAM_FFN_OUT, rate2)):
+        thresh, scale = drop.threshold(rate)
+        out += [drop.stream_key(seed, stream), thresh, scale]
+    return out
 
-    x2 [N, D] float32 or bfloat16; g, bl, b1, b2 float32; w1 [F, D] and
-    w2 [D, F] in x2's dtype. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises. Dropout (rate1 inside the FFN,
-    rate2 on its output) comes with the training slice: any rate above 0
-    raises."""
-    if rate1 > 0.0 or rate2 > 0.0:
-        raise NotImplementedError("ln_ffn_residual dropout is not ported")
-    if x2.device.type == "cpu":
-        return ln_ffn_residual_ref(x2, g, bl, w1, b1, w2, b2, activation,
-                                   ff_scale, eps)
-    if x2.device.type != "cuda":
-        raise ValueError(f"unsupported device {x2.device}")
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def forward_kernel(x2, g, bl, w1, b1, w2, b2, activation, ff_scale, eps,
+                   rate1, rate2, seed):
+    """Launch the forward kernel on CUDA tensors (no autograd)."""
     check_args(x2, g, bl, w1, b1, w2, b2, activation)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x2, g, bl, w1, b1, w2, b2)):
-        raise NotImplementedError(
-            "ln_ffn_residual backward is not ported; call under no_grad")
     y = torch.empty_like(x2)
     n, d = x2.shape
     if n == 0:
         return y
-    lib = _lib()
-    rc = lib.ln_ffn_residual_fwd(
+    rc = _lib().ln_ffn_residual_fwd(
         1 if x2.dtype == torch.bfloat16 else 0, x2.data_ptr(), g.data_ptr(),
         bl.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), y.data_ptr(), n, d, w1.shape[0], float(ff_scale),
-        float(eps), _ACTS[activation],
-        torch.cuda.current_stream(x2.device).cuda_stream)
+        float(eps), _ACTS[activation], *_masks(seed, rate1, rate2),
+        _stream(x2))
     if rc != 0:
         raise RuntimeError(f"ln_ffn_residual kernel launch failed: "
                            f"cudaError {rc}")
@@ -128,15 +136,121 @@ def ln_ffn_residual(x2, g, bl, w1, b1, w2, b2, activation: str,
     return y
 
 
+def backward_kernel(x2, dy, g, bl, w1, b1, w2, b2, activation, ff_scale,
+                    eps, rate1, rate2, seed):
+    """Launch the backward kernels on CUDA tensors → (dx, dg, dbl, dw1,
+    db1, dw2, db2): dx in x2's dtype, the weight gradients in fp32 (b2 is
+    checked, not read)."""
+    check_args(x2, g, bl, w1, b1, w2, b2, activation)
+    if dy.shape != x2.shape or dy.dtype != x2.dtype or \
+            not dy.is_contiguous() or dy.device != x2.device:
+        raise ValueError("dy must be a contiguous tensor like x2")
+    n, d = x2.shape
+    f = w1.shape[0]
+    dtype = 1 if x2.dtype == torch.bfloat16 else 0
+    f32 = dict(dtype=torch.float32, device=x2.device)
+    new = torch.zeros if n == 0 else torch.empty   # the kernels write all
+    dx = torch.empty_like(x2)
+    dg, dbl, db2 = (new(d, **f32) for _ in range(3))
+    dw1, dw2, db1 = new(f, d, **f32), new(d, f, **f32), new(f, **f32)
+    if n == 0:
+        return dx, dg, dbl, dw1, db1, dw2, db2
+    lib = _lib()
+    words = lib.ln_ffn_residual_bwd_workspace(dtype, n, d, f)
+    if words == 0:
+        raise ValueError(f"D={d} does not fit the backward kernel's "
+                         f"shared memory")
+    ws = torch.empty(words, **f32)
+    rows = torch.empty(2, n, d, dtype=x2.dtype, device=x2.device)
+    rc = lib.ln_ffn_residual_bwd(
+        dtype, x2.data_ptr(), dy.data_ptr(), g.data_ptr(), bl.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dx.data_ptr(),
+        dg.data_ptr(), dbl.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+        dw2.data_ptr(), db2.data_ptr(), ws.data_ptr(), rows.data_ptr(),
+        n, d, f,
+        float(ff_scale), float(eps), _ACTS[activation],
+        *_masks(seed, rate1, rate2), _stream(x2))
+    if rc != 0:
+        raise RuntimeError(f"ln_ffn_residual backward kernel launch "
+                           f"failed: cudaError {rc}")
+    ln_ffn_residual.bwd_launches += 1
+    return dx, dg, dbl, dw1, db1, dw2, db2
+
+
+def backward_ref(x2, dy, g, bl, w1, b1, w2, b2, activation, ff_scale, eps,
+                 rate1, rate2, seed):
+    """The plain backward: recompute the plain forward from x2 and take
+    its vector-Jacobian product by autograd (what the CPU path runs)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (x2, g, bl, w1, b1, w2, b2)]
+        y = ln_ffn_residual_ref(*ins, activation, ff_scale, eps, rate1,
+                                rate2, seed)
+        return torch.autograd.grad(y, ins, dy)
+
+
+class _LnFfnResidual(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x2, g, bl, w1, b1, w2, b2, activation, ff_scale, eps,
+                rate1, rate2, seed):
+        cfg = (activation, ff_scale, eps, rate1, rate2, seed)
+        ctx.cfg = cfg
+        ctx.save_for_backward(x2, g, bl, w1, b1, w2, b2)
+        if x2.device.type == "cpu":
+            return ln_ffn_residual_ref(x2, g, bl, w1, b1, w2, b2, *cfg)
+        return forward_kernel(x2, g, bl, w1, b1, w2, b2, *cfg)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, g, bl, w1, b1, w2, b2 = ctx.saved_tensors
+        dy = dy.to(x2.dtype).contiguous()
+        if x2.device.type == "cpu":
+            grads = backward_ref(x2, dy, g, bl, w1, b1, w2, b2, *ctx.cfg)
+        else:
+            grads = backward_kernel(x2, dy, g, bl, w1, b1, w2, b2,
+                                    *ctx.cfg)
+            # Each gradient in its input's dtype, as the Pallas VJP returns.
+            grads = [gr.to(t.dtype) for gr, t in
+                     zip(grads, (x2, g, bl, w1, b1, w2, b2))]
+        return (*grads, None, None, None, None, None, None)
+
+
+def ln_ffn_residual(x2, g, bl, w1, b1, w2, b2, activation: str,
+                    ff_scale: float = 1.0, eps: float = 1e-5,
+                    rate1: float = 0.0, rate2: float = 0.0, seed: int = 0):
+    """x2 + ff_scale * drop2(drop1(act(LN(x2) @ w1^T + b1)) @ w2^T + b2).
+
+    x2 [N, D] float32 or bfloat16; g, bl, b1, b2 float32; w1 [F, D] and
+    w2 [D, F] in x2's dtype; rate1 on the hidden and rate2 on the FFN
+    output, both in [0, 1), masks drawn from ``seed``. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel (and, under
+    autograd, the backward kernels) or raises."""
+    drop.threshold(rate1)
+    drop.threshold(rate2)
+    if x2.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x2.device}")
+    return _LnFfnResidual.apply(x2, g, bl, w1, b1, w2, b2, activation,
+                                float(ff_scale), float(eps), float(rate1),
+                                float(rate2), int(seed))
+
+
 ln_ffn_residual.launches = 0
+ln_ffn_residual.bwd_launches = 0
 
 
 def _lib() -> ctypes.CDLL:
     lib = load_library("ln_ffn_residual")
-    fn = lib.ln_ffn_residual_fwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-                       + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    if lib.ln_ffn_residual_fwd.argtypes is None:
+        p, i, u, fl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                       ctypes.c_float)
+        masks = [u, i, fl, u, i, fl]
+        lib.ln_ffn_residual_fwd.argtypes = (
+            [i] + [p] * 8 + [i] * 3 + [fl] * 2 + [i] + masks + [p])
+        lib.ln_ffn_residual_fwd.restype = i
+        lib.ln_ffn_residual_bwd_workspace.argtypes = [i] * 4
+        lib.ln_ffn_residual_bwd_workspace.restype = ctypes.c_longlong
+        lib.ln_ffn_residual_bwd.argtypes = (
+            [i] + [p] * 16 + [i] * 3 + [fl] * 2 + [i] + masks + [p])
+        lib.ln_ffn_residual_bwd.restype = i
     return lib

@@ -6,6 +6,28 @@ import torch
 import torch.nn.functional as F
 
 IGNORE_ID = -1
+# Log-domain "zero" of the CTC recursion (finite, as in the JAX package:
+# an impossible alignment gives a large finite loss, not inf).
+LOG_ZERO = -1.0e6
+
+
+def add_sos_eos(ys_pad: torch.Tensor, ys_lens: torch.Tensor, sos: int,
+                eos: int, ignore_id: int = IGNORE_ID):
+    """[B, U] labels padded with ``ignore_id`` → (ys_in [B, U+1] = sos +
+    labels, pad eos; ys_out [B, U+1] = labels + eos, pad ignore_id)."""
+    b, u = ys_pad.shape
+    valid = torch.arange(u, device=ys_pad.device)[None, :] < ys_lens[:, None]
+    ys = torch.where(valid, ys_pad, torch.zeros_like(ys_pad))
+    ys_in = torch.cat([torch.full_like(ys_pad[:, :1], sos),
+                       torch.where(valid, ys, torch.full_like(ys, eos))],
+                      dim=1)
+    pos = torch.arange(u + 1, device=ys_pad.device)[None, :]
+    ys_ext = torch.cat([ys, torch.zeros_like(ys_pad[:, :1])], dim=1)
+    lens = ys_lens[:, None]
+    ys_out = torch.where(pos < lens, ys_ext,
+                         torch.where(pos == lens, torch.full_like(ys_ext, eos),
+                                     torch.full_like(ys_ext, ignore_id)))
+    return ys_in, ys_out
 
 
 def add_blank(ys_pad: torch.Tensor, ys_lens: torch.Tensor, blank: int,
@@ -28,6 +50,15 @@ def reverse_pad_list(ys_pad: torch.Tensor, ys_lens: torch.Tensor,
     gathered = torch.gather(ys_pad, 1, idx.clamp_min(0))
     return torch.where(idx >= 0, gathered,
                        torch.full_like(ys_pad, pad_value))
+
+
+def accuracy(logits: torch.Tensor, targets: torch.Tensor,
+             ignore_id: int = IGNORE_ID) -> torch.Tensor:
+    """Token accuracy over the positions that are not ``ignore_id``."""
+    pred = torch.argmax(logits, dim=-1)
+    mask = targets != ignore_id
+    correct = ((pred == targets) & mask).sum()
+    return correct.float() / mask.sum().clamp_min(1).float()
 
 
 def get_activation(name: str):

@@ -16,8 +16,7 @@ module) and inverts the layout facts of
   its conv output in the same (f, c) order as the JAX package's NHWC
   layout.
 
-Every leaf must match a rule below; anything else raises, except the
-subtrees of modules that are not ported yet (``NOT_PORTED``).
+Every leaf must match a rule below; anything else raises.
 """
 
 from __future__ import annotations
@@ -27,8 +26,6 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
-
-NOT_PORTED = ("decoder", "ctc")
 
 _I = r"(\d+)"
 _RULES = [
@@ -58,6 +55,22 @@ _RULES = [
     (rf"predictor/rnn_{_I}", r"predictor.rnn.\1", "lstm"),
     (r"predictor/projection", "predictor.projection", "dense"),
     (r"joint/(enc_ffn|pred_ffn|post_ffn|ffn_out)", r"joint.\1", "dense"),
+    (r"decoder/(left|right)/embed_tokens", r"decoder.\1_decoder.embed_tokens",
+     "embed"),
+    (rf"decoder/(left|right)/layer_{_I}/(self_attn|src_attn)/"
+     r"(linear_q|linear_k|linear_v|linear_out)",
+     r"decoder.\1_decoder.decoders.\2.\3.\4", "dense"),
+    (rf"decoder/(left|right)/layer_{_I}/feed_forward/Dense_0",
+     r"decoder.\1_decoder.decoders.\2.feed_forward.w_1", "dense"),
+    (rf"decoder/(left|right)/layer_{_I}/feed_forward/Dense_1",
+     r"decoder.\1_decoder.decoders.\2.feed_forward.w_2", "dense"),
+    (rf"decoder/(left|right)/layer_{_I}/(norm1|norm2|norm3)",
+     r"decoder.\1_decoder.decoders.\2.\3", "norm"),
+    (r"decoder/(left|right)/after_norm", r"decoder.\1_decoder.after_norm",
+     "norm"),
+    (r"decoder/(left|right)/output_layer",
+     r"decoder.\1_decoder.output_layer", "dense"),
+    (r"ctc/ctc_lo", "ctc.ctc_lo", "dense"),
     (r"context_bias/extractor/embed", "context_bias.extractor.embed",
      "embed"),
     (rf"context_bias/extractor/(fwd|bwd)/lstm_{_I}",
@@ -120,16 +133,13 @@ def _lstm(prefix: str, leaves: Dict[str, np.ndarray]):
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """flax ``variables`` (nested dicts of numpy arrays) → ``state_dict``.
 
-    Raises KeyError on a collection or leaf no rule maps, other than the
-    subtrees in ``NOT_PORTED``."""
+    Raises KeyError on a collection or leaf no rule maps."""
     out: Dict[str, np.ndarray] = {}
     lstm_groups: Dict[str, Dict[str, np.ndarray]] = {}
     for collection, sub in tree.items():
         if collection not in ("params", "batch_stats"):
             raise KeyError(f"unknown variable collection {collection!r}")
         for path, arr in _flatten(sub).items():
-            if path.split("/", 1)[0] in NOT_PORTED:
-                continue
             for pattern, template, kind in _RULES:
                 m = re.fullmatch(pattern + r"/(.+)", path)
                 if m is None:

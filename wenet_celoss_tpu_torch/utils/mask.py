@@ -18,3 +18,9 @@ def make_pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
 def make_non_pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """[B, T] True at VALID positions."""
     return ~make_pad_mask(lengths, max_len)
+
+
+def subsequent_mask(size: int, device=None) -> torch.Tensor:
+    """[size, size] lower-triangular causal mask."""
+    i = torch.arange(size, device=device)
+    return i[None, :] <= i[:, None]
