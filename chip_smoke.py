@@ -13,10 +13,12 @@ Phases, each printing one JSON line:
   4. k1_bwd its forward and backward kernels with dropout against autograd
             through the plain version with the same seed (N = 256*127
             swish/0.5, 256*33 relu/1.0 and a ragged 1000; fp32 and bf16;
-            rates 0 and 0.1), the keep rate of both masks as the kernel
-            draws them, and at the training shapes in bf16 the times of
-            both directions, the plain versions', five torch.mm GEMMs of
-            the same backward as a yardstick, and the bounds;
+            rates 0 and 0.1), the weight-gradient pass on ragged N with
+            short row splits (same bits on every call), the keep rate of
+            both masks as the kernel draws them, and at the training
+            shapes in bf16 the times of both directions, the plain
+            versions', five torch.mm GEMMs of the same backward as a
+            yardstick, and the bounds;
   5. slice  the flagship (conformer_rnnt_bias, full width, seeded random
             weights) decodes the 16 committed test-clean WAVs through
             init_model → Decoder.rnnt_greedy_search: no context, and 8
@@ -277,6 +279,7 @@ def phase_k1_bwd(ffn, bounds, dropout) -> dict:
                                       "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}}
                 emit("k1_bwd", **line)
+    emit("k1_bwd_splits", **bwd_split_check(ffn))
     keep = kernel_keep_rates(ffn, dropout)
     for name, r in keep.items():
         sigma = (0.9 * 0.1 / r["draws"]) ** 0.5
@@ -288,6 +291,46 @@ def phase_k1_bwd(ffn, bounds, dropout) -> dict:
              "backward's masks by its gradients at rate 0.1 against "
              "autograd through the plain version with the same seed")
     return record
+
+
+BWD_SPLIT_NS = (132, 330, 700, 1000, 1100, 1281)
+BWD_PASS_B = (4, 5, 6)   # dw1, db1, dw2 in backward_kernel's result
+
+
+def bwd_split_check(ffn, repeats: int = 8) -> dict:
+    """Pass B of the backward on ragged N whose row splits, rounded up to
+    whole 64-row chunks, leave the last split short or would leave it
+    empty: the weight gradients must agree with autograd through the
+    plain version and be the same bits on every call, with a large
+    backward launched between calls so that shared memory holds other
+    sums when the small one starts."""
+    cfg = ("relu", 1.0, 1e-5, 0.1, 0.1, 77)
+    out, ok_all = {}, True
+    for dtype in (torch.float32, torch.bfloat16):
+        big, big_dy = k1_inputs(256 * 33, dtype, seed=3)
+        for n in BWD_SPLIT_NS:
+            args, dy = k1_inputs(n, dtype, seed=n + 1)
+            first = ffn.backward_kernel(args[0], dy, *args[1:], *cfg)
+            same = True
+            for _ in range(repeats):
+                ffn.backward_kernel(big[0], big_dy, *big[1:], *cfg)
+                again = ffn.backward_kernel(args[0], dy, *args[1:], *cfg)
+                same = same and all(torch.equal(first[i], again[i])
+                                    for i in BWD_PASS_B)
+            want = ffn.backward_ref(args[0], dy, *args[1:], *cfg)
+            rel = max(float((first[i] - want[i].float()).norm()
+                            / want[i].float().norm()) for i in BWD_PASS_B)
+            ok = same and rel <= 1e-2
+            check(ok, f"k1_bwd splits n={n} {dtype}: same bits on every "
+                      f"call {same}, worst weight-gradient rel Frobenius "
+                      f"{rel}")
+            ok_all = ok_all and ok
+            out[f"{str(dtype).split('.')[-1]}_n{n}"] = {
+                "same_bits_every_call": same, "worst_rel_fro": rel}
+    return {"ok": ok_all, "repeats": repeats, "cases": out,
+            "tolerance": "dw1, db1, dw2 the same bits on every call; "
+                         "relative Frobenius <= 1e-2 against the plain "
+                         "version"}
 
 
 def k1_times(ffn, bounds, args, dy, cfg) -> dict:

@@ -218,10 +218,43 @@ def _checksum(params):
     return sum(float(np.sum(np.asarray(p, np.float64))) for p in params)
 
 
+def _named(model):
+    return {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
+
+
+def _assert_updates_match(before, after, j_before, j_after, step):
+    """Each tensor's update of one step against the JAX package's.
+
+    Adam's first steps move an element by about lr * g / |g| whatever the
+    size of g, so an element whose gradient is near the two packages'
+    rounding difference can move by different amounts: the updates are
+    held to 5e-2 relative Frobenius per tensor, which a wrong bias
+    correction, learning rate or clip on any tensor exceeds by far. The
+    key projections' biases have a zero gradient in exact arithmetic
+    (softmax ignores a shift shared by all keys), so Adam moves them by
+    rounding noise alone; their values are held to 1e-2 of their largest
+    element instead."""
+    bad = []
+    for name, p in after.items():
+        w = j_after[name]
+        if name.endswith("linear_k.bias"):
+            err = float(np.abs(p - w).max()) / float(np.abs(w).max())
+            limit = 1e-2
+        else:
+            want = w - j_before[name]
+            err = float(np.linalg.norm(p - before[name] - want)
+                        / np.linalg.norm(want))
+            limit = 5e-2
+        if not err <= limit:
+            bad.append((name, err))
+    assert not bad, (step, bad)
+
+
 def test_train_steps_match_jax():
     """Three steps of make_train_step against the JAX package's grad and
     apply functions: losses, pre-clip gnorm (the first is above the clip
-    of 5, so the clip acts) and a parameter checksum to 1e-4 relative."""
+    of 5, so the clip acts) and a parameter checksum to 1e-4 relative, and
+    every tensor's update at every step (see _assert_updates_match)."""
     cfg, _, v, tm = _pair()
     grad_fn, apply_fn, tx = _jax_grad_fn()
     batch = _batch()
@@ -233,11 +266,18 @@ def test_train_steps_match_jax():
     t_state = train.create_train_state(model, t_tx)
     step = train.make_train_step(model, t_tx)
     gen = torch.Generator().manual_seed(0)
+    before = j_before = _named(model)
     for i in range(3):
         j_grads, j_metrics, _ = grad_fn(j_state, batch,
                                         jax.random.PRNGKey(i))
         j_state, j_gnorm = apply_fn(j_state, j_grads)
         t_state, metrics, gnorm = step(t_state, _torch_batch(batch), gen)
+        after = _named(model)
+        j_after = {k: t.numpy() for k, t in params_from_jax(
+            {"params": jax.tree_util.tree_map(np.asarray,
+                                              j_state.params)}).items()}
+        _assert_updates_match(before, after, j_before, j_after, i)
+        before, j_before = after, j_after
         if i == 0:
             assert float(j_gnorm) > cfg["grad_clip"]
         for k in ("loss", "loss_att", "loss_ctc"):

@@ -609,6 +609,8 @@ ln_ffn_bwd_weights(const bf* __restrict__ xn_g, const bf* __restrict__ dy2_g,
   for (int i = tid; i < FB * L.ld1; i += kThreads) a1[i] = 0.0f;
   for (int i = tid; i < d * L.ld2; i += kThreads) a2[i] = 0.0f;
   for (int i = tid; i < FB; i += kThreads) sb1[i] = 0.0f;
+  // The write-out below maps a1/a2 to threads otherwise than the zeroing.
+  __syncthreads();
 
   constexpr int rt_n = RB / 16, ct_n = FB / 16;
   const int dt_n = d / 16;
@@ -953,6 +955,8 @@ ln_ffn_bwd_weights(const float* __restrict__ xn_g,
   for (int i = tid; i < FB * d; i += kThreads) a1[i] = 0.0f;
   for (int i = tid; i < d * L.ld2; i += kThreads) a2[i] = 0.0f;
   for (int i = tid; i < FB; i += kThreads) sb1[i] = 0.0f;
+  // The write-out below maps a2 to threads otherwise than the zeroing.
+  __syncthreads();
 
   for (int row0 = r_begin; row0 < r_end; row0 += RB) {
     load_rows<float>(xn_g, xn, L.ldx, row0, RB, r_end, d);
@@ -1055,12 +1059,23 @@ Drop make_drop(unsigned key, int thresh, float scale) {
   return dp;
 }
 
-// Row splits of pass B: enough blocks for about two per SM.
-int bwd_splits(int n, int f) {
+// Rows of one pass-B split: enough splits for about two blocks per SM,
+// each a whole number of kChunkB-row chunks.
+int bwd_rows_per_split(int n, int f) {
   const int tiles = f / kBwdFtB;
   int s = (2 * 132 + tiles - 1) / tiles;
   const int chunks = (n + bf16k::kChunkB - 1) / bf16k::kChunkB;
   if (s > chunks) s = chunks;
+  if (s < 1) s = 1;
+  const int per = (chunks + s - 1) / s;
+  return per * bf16k::kChunkB;
+}
+
+// Row splits of pass B, counted after the rounding above, so that every
+// split holds at least one row.
+int bwd_splits(int n, int f) {
+  const int per = bwd_rows_per_split(n, f);
+  const int s = (n + per - 1) / per;
   return s < 1 ? 1 : s;
 }
 
@@ -1159,9 +1174,7 @@ int ln_ffn_residual_bwd(int dtype, const void* x, const void* dy,
   const Drop dp2 = make_drop(key2, thresh2, scale2);
   const int blocks = (n + kBwdRows - 1) / kBwdRows;
   const int splits = bwd_splits(n, f);
-  int rows_per_split = (n + splits - 1) / splits;
-  rows_per_split = (rows_per_split + bf16k::kChunkB - 1) / bf16k::kChunkB *
-                   bf16k::kChunkB;
+  const int rows_per_split = bwd_rows_per_split(n, f);
   float* dgp = ws;
   float* dblp = dgp + (size_t)blocks * d;
   float* db2p = dblp + (size_t)blocks * d;

@@ -28,9 +28,9 @@ class PositionwiseFeedForward(nn.Module):
     """The whole pre-norm FFN block
     ``x + ff_scale * drop(w_2(drop(act(w_1(ln(x))))))`` with the LayerNorm
     ``ln`` passed in, dispatched to ``ops.ffn.ln_ffn_residual`` (the kernel
-    on the card). The hidden dropout rate is ``dropout_rate``, the output's
-    ``out_rate`` (default ``dropout_rate``); both are 0 without a
-    generator. The post-norm FFN without ``ln`` is not ported."""
+    on the card). Both dropout rates (hidden and output) are
+    ``dropout_rate``, and 0 without a generator. The post-norm FFN without
+    ``ln`` is not ported."""
 
     def __init__(self, idim: int, hidden_units: int,
                  activation: str = "relu", dropout_rate: float = 0.0,
@@ -43,21 +43,16 @@ class PositionwiseFeedForward(nn.Module):
         self.w_2 = Dense(hidden_units, idim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, ln: LayerNorm,
-                ff_scale: float = 1.0, out_rate: Optional[float] = None,
+                ff_scale: float = 1.0,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
         b, t, d = x.shape
         cdt = self.compute_dtype or x.dtype
-        rate1 = rate2 = 0.0
-        seed = 0
-        if gen is not None:
-            rate1 = self.dropout_rate
-            rate2 = self.dropout_rate if out_rate is None else out_rate
-            if rate1 > 0.0 or rate2 > 0.0:
-                seed = draw_seed(gen)
+        rate = self.dropout_rate if gen is not None else 0.0
+        seed = draw_seed(gen) if rate > 0.0 else 0
         y = ln_ffn_residual(
             x.reshape(b * t, d).to(cdt).contiguous(), ln.weight, ln.bias,
             self.w_1.weight.to(cdt), self.w_1.bias, self.w_2.weight.to(cdt),
-            self.w_2.bias, self.activation, ff_scale, ln.eps, rate1, rate2,
+            self.w_2.bias, self.activation, ff_scale, ln.eps, rate, rate,
             seed)
         return y.reshape(b, t, d)
 

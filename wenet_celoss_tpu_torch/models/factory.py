@@ -58,8 +58,7 @@ def build_model(cfg: Dict[str, Any]) -> Model:
     :func:`init_params` replaces them)."""
     if cfg.get("encoder", "conformer") != "conformer":
         raise NotImplementedError("only the conformer encoder is ported")
-    if cfg.get("decoder", "bitransformer") not in ("bitransformer",
-                                                   "transformer"):
+    if cfg.get("decoder", "bitransformer") != "bitransformer":
         raise NotImplementedError(f"decoder {cfg['decoder']!r}")
     dtype = compute_dtype(cfg)
     vocab = cfg["output_dim"]
@@ -70,10 +69,8 @@ def build_model(cfg: Dict[str, Any]) -> Model:
     encoder = ConformerEncoder(cfg["input_dim"], cmvn=cmvn, dtype=dtype,
                                **enc_conf)
     enc_out = enc_conf.get("output_size", 256)
-    dec_conf = dict(cfg.get("decoder_conf", {}))
-    if cfg.get("decoder") == "transformer":
-        dec_conf.setdefault("r_num_blocks", 0)
-    decoder = BiTransformerDecoder(vocab, enc_out, dtype=dtype, **dec_conf)
+    decoder = BiTransformerDecoder(vocab, enc_out, dtype=dtype,
+                                   **cfg.get("decoder_conf", {}))
     ctc = CTC(vocab, enc_out)
     if "predictor" not in cfg:
         model_conf = cfg.get("model_conf", {})
