@@ -370,6 +370,280 @@ def k1_times(ffn, bounds, args, dy, cfg) -> dict:
             "bound_source": "H100 SXM data sheet at 700 W (ops/bounds.py)"}
 
 
+def rel_fro(a, b) -> float:
+    b = b.float()
+    return float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def joint_inputs(b, t, u1, h, v, dtype, seed):
+    """K2/K3's arguments on the card: enc_j, pred_j, w [V, H], bias,
+    labels [B, U1-1], lengths, and plane gradients gb, ge that are 0 off
+    each utterance's lattice (shaped like occupancies: nonnegative)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).cuda()
+    enc, pred = rnd(b, t, h, std=0.5).to(dtype), rnd(b, u1, h, std=0.5).to(
+        dtype)
+    w = rnd(v, h, std=h ** -0.5).to(dtype)
+    bias = rnd(v, std=0.1)
+    labels = torch.randint(1, v, (b, u1 - 1), generator=g).cuda()
+    ilen = torch.randint(max(1, t // 2), t + 1, (b,), generator=g).cuda()
+    llen = torch.randint(0, u1, (b,), generator=g).cuda()
+    ilen[0], llen[0] = t, u1 - 1
+    on = ((torch.arange(t, device="cuda")[None, :, None] < ilen[:, None, None])
+          & (torch.arange(u1, device="cuda")[None, None, :]
+             <= llen[:, None, None]))
+    gb = torch.rand(b, t, u1, generator=g).cuda() * on
+    ge = torch.rand(b, t, u1, generator=g).cuda() * on
+    ge[..., -1] = 0.0
+    return (enc, pred, w, bias, labels), gb.contiguous(), ge.contiguous()
+
+
+JOINT_CASES = (  # (name, B, T, U1, H, V, dtype)
+    ("train_bf16", 256, 127, 33, 512, 5002, torch.bfloat16),
+    ("small_fp32", 3, 19, 5, 64, 40, torch.float32),
+    ("ragged_fp32", 5, 37, 9, 128, 1000, torch.float32),
+    ("ragged_bf16", 5, 37, 9, 128, 1000, torch.bfloat16),
+)
+
+
+def phase_k2_k3(rnnt, bounds, timed: bool = True) -> tuple:
+    """K2 and K3 against their plain versions on the card; the same bits
+    over repeated K3 calls; at the training shape in bf16 the times of
+    both, the plain versions', cuBLAS GEMMs of the same products (chunked
+    over T) and the bounds. Returns the (K2, K3) records."""
+    rec2, rec3 = {}, {}
+    for name, b, t, u1, h, v, dtype in JOINT_CASES:
+        args, gb, ge = joint_inputs(b, t, u1, h, v, dtype, seed=t + v)
+        got = rnnt.joint_planes_kernel(*args, 0, "tanh")
+        torch.cuda.synchronize()
+        want = rnnt.joint_planes_ref(*args, 0, "tanh")
+        errs = {}
+        for pname, a, r in zip(("blank_lp", "emit_lp", "lse"), got, want):
+            if pname == "emit_lp":   # row U has no label
+                a, r = a[..., :-1], r[..., :-1]
+            err = (a - r).abs()
+            errs[pname] = {"max_abs": float(err.max()),
+                           "ok": bool((err <= 1e-3 + 1e-4 * r.abs()).all())}
+        lse = got[2].contiguous()
+        bwd = [rnnt.joint_planes_bwd_kernel(*args, gb, ge, lse, 0, "tanh")
+               for _ in range(3)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for again in bwd[1:]
+                   for x, y in zip(bwd[0], again))
+        want_b = rnnt.joint_planes_bwd_ref(*args, gb, ge, lse, 0, "tanh")
+        limit = 1e-4 if dtype == torch.float32 else 1e-2
+        for gname, a, r in zip(("denc", "dpred", "dw", "db"), bwd[0],
+                               want_b):
+            rel = rel_fro(a, r)
+            errs[gname] = {"max_abs": float((a - r).abs().max()),
+                           "rel_fro": rel, "ok": rel <= limit}
+        ok = same and all(e["ok"] for e in errs.values())
+        check(ok, f"k2_k3 {name}: {errs}, same bits {same}")
+        line = {"case": name, "B": b, "T": t, "U1": u1, "H": h, "V": v,
+                "dtype": str(dtype).split(".")[-1], "ok": ok,
+                "k3_same_bits_over_3_calls": same, "errors": errs,
+                "tolerance": "planes: max abs <= 1e-3 + 1e-4*|ref| (row U "
+                             "of emit_lp excluded: no label); gradients "
+                             f"relative Frobenius <= {limit} (fp32 sums in "
+                             "another order; bf16 rounding of dlogits "
+                             "before its GEMMs as the Pallas kernel does)"}
+        if name == "train_bf16" and timed:
+            line.update(joint_times(rnnt, bounds, args, gb, ge, lse))
+            rec2 = {"max_abs_err": errs["lse"]["max_abs"],
+                    **{k: line["k2"][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")}}
+            rec3 = {"max_abs_err": errs["denc"]["max_abs"],
+                    **{k: line["k3"][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")}}
+        emit("k2_k3", **line)
+    return rec2, rec3
+
+
+def joint_times(rnnt, bounds, args, gb, ge, lse) -> dict:
+    enc, pred, w, bias, labels = args
+    b, t, h = enc.shape
+    u1, v = pred.shape[1], w.shape[0]
+    k2 = cuda_ms(lambda: rnnt.joint_planes_kernel(*args, 0, "tanh"),
+                 iters=5, warmup=1)
+    k3 = cuda_ms(lambda: rnnt.joint_planes_bwd_kernel(*args, gb, ge, lse, 0,
+                                                      "tanh"),
+                 iters=3, warmup=1)
+    p2 = cuda_ms(lambda: rnnt.joint_planes_ref(*args, 0, "tanh"), iters=2,
+                 warmup=1)
+    p3 = cuda_ms(lambda: rnnt.joint_planes_bwd_ref(*args, gb, ge, lse, 0,
+                                                   "tanh"),
+                 iters=1, warmup=1)
+    # Yardstick: cuBLAS bf16 GEMMs of the same products over 16-frame
+    # chunks (the whole [B*T*U1, V] output would take 21 GB): the logits
+    # for K2; the logits, dlogits @ W and the dW product for K3.
+    chunk = 16
+    rows = b * chunk * u1
+    hid = torch.randn(rows, h, device="cuda").to(enc.dtype)
+    dl = torch.randn(rows, v, device="cuda").to(enc.dtype)
+    n_chunks = -(-t // chunk)
+
+    def logits():
+        for _ in range(n_chunks):
+            torch.mm(hid, w.t())
+
+    def three():
+        for _ in range(n_chunks):
+            torch.mm(hid, w.t())
+            torch.mm(dl, w)
+            torch.mm(dl.t(), hid)
+    lib2 = cuda_ms(logits, iters=3, warmup=1)
+    lib3 = cuda_ms(three, iters=3, warmup=1)
+    out = {}
+    for key, ms, plain, lib, fn in (
+            ("k2", k2, p2, lib2, bounds.joint_planes_fwd),
+            ("k3", k3, p3, lib3, bounds.joint_planes_bwd)):
+        flops, nbytes = fn(b, t, u1, h, v, "bf16")
+        bound, by = bounds.bound_ms(flops, nbytes, "bf16")
+        out[key] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                    "bound_ms": bound, "bound_by": by, "flops": flops,
+                    "bytes": nbytes, "share_of_bound": bound / ms}
+    out["library"] = ("torch.mm bf16 GEMMs of the same products in "
+                      f"{chunk}-frame chunks (logits; + dlogits @ W and "
+                      "dW for K3), no softmax")
+    return out
+
+
+LSTM_CASES = (  # (name, B, U1, H, dtype)
+    ("train_bf16", 256, 33, 256, torch.bfloat16),
+    ("train_fp32", 256, 33, 256, torch.float32),
+    ("ragged_bf16", 37, 9, 256, torch.bfloat16),
+    ("ragged_fp32", 37, 9, 64, torch.float32),
+)
+K4_GRADS = ("dxw1", "dwh1", "dwi2", "dbh2", "dwh2")
+
+
+def lstm_inputs(b, u1, h, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).cuda()
+    xw1 = rnd(b, u1, 4 * h, std=0.5).to(dtype)
+    ws = [rnd(4 * h, h, std=h ** -0.5) for _ in range(3)]
+    bh2 = rnd(4 * h, std=0.1)
+    dy = rnd(b, u1, h).to(dtype)
+    return (xw1, ws[0], ws[1], bh2, ws[2]), dy
+
+
+def phase_k4(lstm, bounds, dropout, timed: bool = True) -> tuple:
+    """K4 forward and backward against autograd through the plain version
+    (dropout 0 and 0.1, same seed), the keep rate of the inter-layer mask
+    as the forward kernel draws it, the same bits over repeated backward
+    calls, and at the training shape in bf16 the times, the plain
+    versions' and cuDNN's LSTM (same weights, dropout 0). Returns the
+    (forward, backward) records."""
+    rec_f, rec_b = {}, {}
+    seed = 4242
+    for name, b, u1, h, dtype in LSTM_CASES:
+        args, dy = lstm_inputs(b, u1, h, dtype, seed=b + h)
+        for rate in (0.0, 0.1):
+            ins = [a.detach().requires_grad_(True) for a in args]
+            y = lstm.lstm2_seq(*ins, rate=rate, seed=seed)
+            got = torch.autograd.grad(y, ins, dy)
+            torch.cuda.synchronize()
+            want_y = lstm.lstm2_seq_ref(*args, rate=rate, seed=seed)
+            want = lstm.backward_ref(dy, *args, rate=rate, seed=seed)
+            _, saved = lstm.forward_kernel(*args, rate, seed, save=True)
+            again = [lstm.backward_kernel(dy, *args, saved, rate, seed)
+                     for _ in range(3)]
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, z) for a in again[1:]
+                       for x, z in zip(again[0][1:], a[1:]))
+            limit = 1e-4 if dtype == torch.float32 else 2e-2
+            errs = {}
+            for gname, a, r in zip(("y",) + K4_GRADS, (y.detach(), *got),
+                                   (want_y, *want)):
+                rel = rel_fro(a, r)
+                errs[gname] = {"max_abs": float((a.float() - r.float())
+                                                .abs().max()),
+                               "rel_fro": rel, "ok": rel <= limit}
+            ok = same and all(e["ok"] for e in errs.values())
+            check(ok, f"k4 {name} rate={rate}: {errs}, same bits {same}")
+            line = {"case": name, "B": b, "U1": u1, "H": h, "rate": rate,
+                    "dtype": str(dtype).split(".")[-1], "ok": ok,
+                    "bwd_same_bits_over_3_calls": same, "errors": errs,
+                    "tolerance": f"relative Frobenius <= {limit} against "
+                                 "autograd through the plain version (fp32 "
+                                 "sums in another order; bf16 states "
+                                 "rounded at the same points)"}
+            if rate > 0:
+                keep = saved[3] != 0
+                plain = dropout.keep_mask(
+                    seed, dropout.STREAM_LSTM_INTER,
+                    (torch.arange(u1, device="cuda")[None, :, None] * b
+                     + torch.arange(b, device="cuda")[:, None, None]) * h
+                    + torch.arange(h, device="cuda")[None, None, :],
+                    dropout.threshold(rate)[0])
+                rate_kept = float(keep.double().mean())
+                sigma = (0.9 * 0.1 / keep.numel()) ** 0.5
+                mask_ok = bool(torch.equal(keep, plain)) and \
+                    abs(rate_kept - 0.9) < 5 * sigma
+                check(mask_ok, f"k4 {name} mask: keep {rate_kept}")
+                line.update(keep_rate=rate_kept, draws=keep.numel(),
+                            mask_equals_plain=bool(torch.equal(keep, plain)))
+            if name == "train_bf16" and rate == 0.0 and timed:
+                line.update(lstm_times(lstm, bounds, args, dy))
+                rec_f = {"max_abs_err": errs["y"]["max_abs"],
+                         **{k: line["fwd"][k] for k in (
+                             "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}}
+                rec_b = {"max_abs_err": errs["dxw1"]["max_abs"],
+                         **{k: line["bwd"][k] for k in (
+                             "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}}
+            emit("k4", **line)
+    return rec_f, rec_b
+
+
+def lstm_times(lstm, bounds, args, dy) -> dict:
+    xw1, wh1, wi2, bh2, wh2 = args
+    b, u1, g4 = xw1.shape
+    h = g4 // 4
+    fwd = cuda_ms(lambda: lstm.forward_kernel(*args, save=True), iters=20)
+    _, saved = lstm.forward_kernel(*args, save=True)
+    bwd = cuda_ms(lambda: lstm.backward_kernel(dy, *args, saved), iters=20)
+    p_fwd = cuda_ms(lambda: lstm.lstm2_seq_ref(*args), iters=3, warmup=1)
+    p_bwd = cuda_ms(lambda: lstm.backward_ref(dy, *args), iters=3, warmup=1)
+    # Yardstick: cuDNN's 2-layer LSTM with the same recurrent weights,
+    # dropout 0 (it also runs layer 1's input projection, from H inputs).
+    net = torch.nn.LSTM(h, h, num_layers=2, batch_first=True).cuda().to(
+        xw1.dtype)
+    with torch.no_grad():
+        net.weight_hh_l0.copy_(wh1)
+        net.weight_ih_l1.copy_(wi2)
+        net.weight_hh_l1.copy_(wh2)
+        net.bias_hh_l1.copy_(bh2)
+    x = torch.randn(b, u1, h, device="cuda").to(xw1.dtype)
+    with torch.no_grad():
+        lib_fwd = cuda_ms(lambda: net(x), iters=20)
+    xg = x.requires_grad_(True)
+
+    def both():
+        out, _ = net(xg)
+        torch.autograd.grad(out, [xg] + list(net.parameters()), dy)
+    lib_both = cuda_ms(both, iters=20)
+    out = {"library": "torch.nn.LSTM (cuDNN), 2 layers, same recurrent "
+                      "weights, dropout 0; backward = forward+backward "
+                      "minus forward"}
+    for key, ms, plain, lib, fn in (
+            ("fwd", fwd, p_fwd, lib_fwd, bounds.lstm2_seq),
+            ("bwd", bwd, p_bwd, lib_both - lib_fwd, bounds.lstm2_seq_bwd)):
+        flops, nbytes = fn(b, u1, h, "bf16")
+        bound, by = bounds.bound_ms(flops, nbytes, "bf16")
+        out[key] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                    "bound_ms": bound, "bound_by": by, "flops": flops,
+                    "bytes": nbytes, "share_of_bound": bound / ms}
+    return out
+
+
 def load_wavs():
     from wenet_celoss_tpu_torch.data.wav import read_wav
     from wenet_celoss_tpu_torch.ops.fbank import compute_fbank_np
@@ -666,6 +940,39 @@ def no_dropout(cfg):
     return cfg
 
 
+def card_vs_cpu(what, init_model, cfg, train, model, batch, card) -> dict:
+    """The CPU's run of one gradient step of ``model`` (same weights, same
+    batch) against the card's ``card`` = (grads, metrics): every loss term
+    and the gradient norm to 1e-4 relative, each parameter's gradient to
+    1e-3 relative Frobenius. Returns the fields of the phase's line."""
+    card_g, card_m = card
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = init_model(cfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_g, cpu_m = train.make_grad_fn(cpu)(
+        train.TrainState(0, cpu, None), on(batch, "cpu"), torch.Generator())
+    losses = {k: (float(card_m[k]), float(cpu_m[k])) for k in card_m}
+    for k, (a, b) in losses.items():
+        check(abs(a - b) <= 1e-4 * abs(b), f"{what} {k}: card {a} cpu {b}")
+    gn_card = float(train.global_norm(card_g))
+    gn_cpu = float(train.global_norm(cpu_g))
+    check(abs(gn_card - gn_cpu) <= 1e-4 * gn_cpu,
+          f"{what} gnorm card {gn_card} cpu {gn_cpu}")
+    worst, worst_name = 0.0, None
+    for (name, _), a, b in zip(model.named_parameters(), card_g, cpu_g):
+        diff = float((a.cpu() - b).norm())
+        # Key-projection biases have a zero gradient in exact arithmetic
+        # (softmax ignores a shift shared by all keys): floor the scale.
+        rel = diff / max(float(b.norm()), 1e-6 * gn_cpu)
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= 1e-3, f"{what} gradient {worst_name} relative "
+                         f"Frobenius {worst}")
+    return dict(losses_card_cpu=losses, gnorm_card=gn_card,
+                gnorm_cpu=gn_cpu, worst_grad_rel_fro=worst,
+                worst_grad=worst_name)
+
+
 def phase_train_check(init_model, conformer_ctc_aed, train, ffn,
                       wavs) -> None:
     """One fp32 step of the full-width model, dropout 0, on the card and
@@ -683,39 +990,61 @@ def phase_train_check(init_model, conformer_ctc_aed, train, ffn,
     check(launches == (K1_PER_TRAIN_STEP, K1_PER_TRAIN_STEP),
           f"train_check: K1 launches {launches}, want "
           f"{K1_PER_TRAIN_STEP} forward and backward")
-    torch.set_num_threads(os.cpu_count() or 1)
-    cpu = init_model(cfg, device="cpu", seed=0)
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    cpu_g, cpu_m = train.make_grad_fn(cpu)(
-        train.TrainState(0, cpu, None), on(batch, "cpu"), torch.Generator())
-    losses = {k: (float(card_m[k]), float(cpu_m[k])) for k in card_m}
-    for k, (a, b) in losses.items():
-        check(abs(a - b) <= 1e-4 * abs(b), f"train_check {k}: card {a} "
-                                           f"cpu {b}")
-    gn_card = float(train.global_norm(card_g))
-    gn_cpu = float(train.global_norm(cpu_g))
-    check(abs(gn_card - gn_cpu) <= 1e-4 * gn_cpu,
-          f"train_check gnorm card {gn_card} cpu {gn_cpu}")
-    worst, worst_name = 0.0, None
-    for (name, _), a, b in zip(model.named_parameters(), card_g, cpu_g):
-        diff = float((a.cpu() - b).norm())
-        # Key-projection biases have a zero gradient in exact arithmetic
-        # (softmax ignores a shift shared by all keys): floor the scale.
-        rel = diff / max(float(b.norm()), 1e-6 * gn_cpu)
-        if rel > worst:
-            worst, worst_name = rel, name
-    check(worst <= 1e-3, f"train_check gradient {worst_name} relative "
-                         f"Frobenius {worst}")
+    fields = card_vs_cpu("train_check", init_model, cfg, train, model, batch,
+                         (card_g, card_m))
     emit("train_check", model="conformer_ctc_aed", dtype="float32",
          dropout=0.0, utterances=len(batch["feat_lengths"]),
          frames_max=int(batch["feat_lengths"].max()),
-         labels_max=int(batch["label_lengths"].max()),
-         losses_card_cpu=losses, gnorm_card=gn_card, gnorm_cpu=gn_cpu,
-         worst_grad_rel_fro=worst, worst_grad=worst_name,
+         labels_max=int(batch["label_lengths"].max()), **fields,
          k1_launches_fwd_bwd=list(launches),
          tolerance="losses and gnorm 1e-4 relative; each gradient 1e-3 "
                    "relative Frobenius (fp32 sums in another order over "
                    "18 blocks; floor 1e-6 * gnorm for the key biases)")
+
+
+def timed_steps(step, state, batch, gen, warm: int = 2, iters: int = 5):
+    """``warm`` steps, then ``iters`` synchronised timed ones, peak memory
+    counted from the first timed step → (state, every step's loss, the
+    timed steps' host ms, the last metrics, the last gradient norm)."""
+    losses = []
+    for _ in range(warm):
+        state, m, _ = step(state, batch, gen)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m, gnorm = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    return state, losses, times, m, gnorm
+
+
+def train_curve(what, init_model, train, cfg, batch, steps: int = 24,
+                warmup: int = 4):
+    """``steps`` bf16 steps of ``cfg``'s model from seed 0 on one batch,
+    warmup cut to ``warmup`` steps so that the learning rate peaks within
+    the run; the median of the last 5 losses must be below the first.
+    Returns (first loss, that median, every step's metrics)."""
+    cfg["dtype"] = "bfloat16"
+    cfg["scheduler_conf"]["warmup_steps"] = warmup
+    model = init_model(cfg, seed=0)
+    tx, _ = train.make_optimizer(cfg)
+    state = train.create_train_state(model, tx)
+    step = train.make_train_step(model, tx)
+    gen = torch.Generator().manual_seed(1)
+    curve = []
+    for _ in range(steps):
+        state, m, gnorm = step(state, batch, gen)
+        curve.append({**{k: float(x) for k, x in m.items()},
+                      "gnorm": float(gnorm)})
+    first = curve[0]["loss"]
+    last5 = float(np.median([c["loss"] for c in curve[-5:]]))
+    check(last5 < first, f"{what}: loss did not fall ({first} → {last5})")
+    return first, last5, curve
 
 
 def phase_train(init_model, conformer_ctc_aed, train, ffn, b: int = 256,
@@ -738,20 +1067,8 @@ def phase_train(init_model, conformer_ctc_aed, train, ffn, b: int = 256,
                 "label_lengths": np.full((b,), u, np.int64)}, "cuda")
     gen = torch.Generator().manual_seed(0)
     ffn.ln_ffn_residual.launches = ffn.ln_ffn_residual.bwd_launches = 0
-    losses = []
-    for _ in range(warm):
-        state, m, _ = step(state, batch, gen)
-        losses.append(float(m["loss"]))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(iters):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m, gnorm = step(state, batch, gen)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(m["loss"]))
+    state, losses, times, _, gnorm = timed_steps(step, state, batch, gen,
+                                                 warm, iters)
     launches = (ffn.ln_ffn_residual.launches,
                 ffn.ln_ffn_residual.bwd_launches)
     steps = warm + iters
@@ -776,32 +1093,17 @@ def phase_train_wavs(init_model, conformer_ctc_aed, train, wavs) -> None:
     every usable utterance); warmup cut from 25000 to 4 steps so that the
     learning rate reaches its peak within the run. The median of the last
     5 losses must be below the first."""
-    cfg = conformer_ctc_aed()
-    cfg["dtype"] = "bfloat16"
-    cfg["scheduler_conf"]["warmup_steps"] = 4
-    model = init_model(cfg, seed=0)
-    tx, _ = train.make_optimizer(cfg)
-    state = train.create_train_state(model, tx)
-    step = train.make_train_step(model, tx)
-    batch, gen = on(wavs, "cuda"), torch.Generator().manual_seed(1)
-    curve = []
-    for _ in range(24):
-        state, m, gnorm = step(state, batch, gen)
-        curve.append({"loss": float(m["loss"]),
-                      "loss_ctc": float(m["loss_ctc"]),
-                      "loss_att": float(m["loss_att"]),
-                      "acc": float(m["acc"]), "gnorm": float(gnorm)})
-    first = curve[0]["loss"]
-    last5 = float(np.median([c["loss"] for c in curve[-5:]]))
-    check(last5 < first, f"train_wavs: loss did not fall ({first} → "
-                         f"{last5})")
+    first, last5, curve = train_curve("train_wavs", init_model, train,
+                                      conformer_ctc_aed(), on(wavs, "cuda"))
     emit("train_wavs", wavs=str(TRAIN_DIR.relative_to(ROOT)),
          utterances=len(wavs["feat_lengths"]), warmup_steps=4,
          first_loss=first, median_last5=last5, curve=curve)
 
 
-def phase_train_profile(state, step, batch, gen, timed_ms) -> None:
-    """One training step under torch.profiler, run after every timing."""
+def profile_step(state, step, batch, gen):
+    """One training step under torch.profiler → (its wall ms, the card's
+    busy ms, ms per kernel name). Run after every timing: the profiler
+    slows what follows it in the process."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -809,7 +1111,12 @@ def phase_train_profile(state, step, batch, gen, timed_ms) -> None:
         step(state, batch, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, by_name = device_busy(prof)
+    return (wall_ms, *device_busy(prof))
+
+
+def phase_train_profile(state, step, batch, gen, timed_ms) -> None:
+    """One training step under torch.profiler, run after every timing."""
+    wall_ms, busy_ms, by_name = profile_step(state, step, batch, gen)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     emit("profile", mode="train", timed_ms=timed_ms,
          profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
@@ -822,6 +1129,202 @@ def phase_train_profile(state, step, batch, gen, timed_ms) -> None:
          top=[{"kernel": k[:90], "ms": v} for k, v in top])
 
 
+# Launch counters of the port's kernels: name -> (wrapper, attribute);
+# filled in main once the modules are imported.
+COUNTERS: dict = {}
+# Per flagship training step: 24 encoder + 3 + 3 decoder FFN blocks (K1
+# forward and backward), one joint forward and backward (K2, K3), one
+# predictor forward and backward (K4).
+RNNT_PER_STEP = {"k1": 30, "k1_bwd": 30, "k2": 1, "k3": 1, "k4": 1,
+                 "k4_bwd": 1}
+
+
+def reset_counts() -> None:
+    for obj, attr in COUNTERS.values():
+        setattr(obj, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(obj, attr) for name, (obj, attr) in
+            COUNTERS.items()}
+
+
+SPACE_ID = 1   # " " sorts first among the characters of the text
+
+
+def with_hotwords(batch, seed: int = 0, extra_slots: int = 2):
+    """The batch with hotwords sampled from its own transcripts (words
+    start at the space token) and per-token hw labels, built by the
+    port's data/context.py, plus ``extra_slots`` empty phrase slots past
+    ``context_n_valid``."""
+    import random
+
+    from wenet_celoss_tpu_torch.data.context import (context_batch,
+                                                     context_generate)
+    seqs = [[int(t) for t in y[:n]] for y, n in
+            zip(batch["labels"], batch["label_lengths"])]
+    ctx = context_generate(seqs, bpe_start_ids={SPACE_ID},
+                           rng=random.Random(seed))
+    return {**batch, **context_batch(seqs, ctx,
+                                     max_phrases=len(ctx) + extra_slots)}
+
+
+def no_dropout_rnnt(cfg):
+    cfg = no_dropout(cfg)
+    cfg["predictor_conf"].update(embed_dropout=0.0, dropout=0.0)
+    return cfg
+
+
+def phase_rnnt_train_check(init_model, conformer_rnnt_bias, train,
+                           wavs) -> dict:
+    """One fp32 step of the full-width flagship, dropout 0, on the card
+    and on the CPU with the same weights and batch (16 committed WAVs,
+    hotwords and hw labels from their transcripts): every loss term, the
+    gradient norm, every parameter's gradient and the launches of every
+    kernel. Returns the launch counts."""
+    cfg = no_dropout_rnnt(conformer_rnnt_bias())
+    batch = with_hotwords(head(wavs, 16))
+    model = init_model(cfg, seed=0)
+    reset_counts()
+    card_g, card_m = train.make_grad_fn(model)(
+        train.TrainState(0, model, None), on(batch, "cuda"),
+        torch.Generator())
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches == RNNT_PER_STEP,
+          f"rnnt_train_check: launches {launches}, want {RNNT_PER_STEP}")
+    fields = card_vs_cpu("rnnt_train_check", init_model, cfg, train, model,
+                         batch, (card_g, card_m))
+    emit("rnnt_train_check", model="conformer_rnnt_bias", dtype="float32",
+         dropout=0.0, utterances=len(batch["feat_lengths"]),
+         frames_max=int(batch["feat_lengths"].max()),
+         labels_max=int(batch["label_lengths"].max()),
+         phrases=int(batch["context_n_valid"]),
+         phrase_slots=len(batch["context_lengths"]),
+         hw_label_share=float((batch["hw_labels"] == 1).sum()
+                              / batch["label_lengths"].sum()),
+         **fields, launches=launches,
+         tolerance="losses and gnorm 1e-4 relative; each gradient 1e-3 "
+                   "relative Frobenius (floor 1e-6 * gnorm for the key "
+                   "biases, whose exact gradient is 0)")
+    return launches
+
+
+def phase_rnnt_train(init_model, conformer_rnnt_bias, train, b: int = 256,
+                     t: int = 512, u: int = 32):
+    """The flagship's training path in bf16 with dropout 0.1 at bench.py's
+    training shape with 8 hotwords of 4 tokens and random hw labels. This
+    is the flagship training path's run: every kernel count is set to 0
+    just before it and read just after. Returns (what the profile needs,
+    launches)."""
+    warm, iters = 2, 5
+    cfg = conformer_rnnt_bias()
+    cfg["dtype"] = "bfloat16"
+    v = cfg["output_dim"]
+    model = init_model(cfg, seed=0)
+    tx, _ = train.make_optimizer(cfg)
+    state = train.create_train_state(model, tx)
+    step = train.make_train_step(model, tx)
+    rng = np.random.default_rng(0)
+    batch = on({"feats": rng.standard_normal((b, t, 80)).astype(np.float32),
+                "feat_lengths": np.full((b,), t, np.int64),
+                "labels": rng.integers(1, v - 2, (b, u)),
+                "label_lengths": np.full((b,), u, np.int64),
+                "context_list": rng.integers(1, v - 2, (8, 4)),
+                "context_lengths": np.full((8,), 4, np.int64),
+                "hw_labels": rng.integers(0, 2, (b, u))}, "cuda")
+    gen = torch.Generator().manual_seed(0)
+    reset_counts()
+    state, losses, times, m, gnorm = timed_steps(step, state, batch, gen,
+                                                 warm, iters)
+    launches = read_counts()
+    steps = warm + iters
+    want = {k: n * steps for k, n in RNNT_PER_STEP.items()}
+    check(launches == want, f"rnnt_train: launches {launches} over {steps} "
+                            f"steps, want {want}")
+    check(all(np.isfinite(losses)), f"rnnt_train: losses {losses}")
+    med = sorted(times)[iters // 2]
+    emit("rnnt_train", model="conformer_rnnt_bias", dtype="bfloat16",
+         dropout=0.1, batch=b, frames=t, labels=u, vocab=v, hotwords=8,
+         steps_timed=iters, warmup_steps_run=warm, ms_per_step=med,
+         ms_min_max=[min(times), max(times)],
+         audio_s_per_s=b * t * 0.01 / (med / 1e3),
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+         launches_per_step={k: n / steps for k, n in launches.items()},
+         losses=losses, last_gnorm=float(gnorm),
+         last_terms={k: float(x) for k, x in m.items()},
+         timing="median host ms per step, synchronised")
+    return (state, step, batch, gen, med), launches
+
+
+def phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train,
+                          wavs) -> None:
+    """24 bf16 steps of the flagship with dropout 0.1 on the committed
+    WAVs with hotwords from their transcripts; warmup cut to 4 steps. The
+    median of the last 5 losses must be below the first."""
+    batch = on(with_hotwords(wavs), "cuda")
+    first, last5, curve = train_curve("rnnt_train_wavs", init_model, train,
+                                      conformer_rnnt_bias(), batch)
+    emit("rnnt_train_wavs", wavs=str(TRAIN_DIR.relative_to(ROOT)),
+         utterances=len(wavs["feat_lengths"]),
+         phrases=int(batch["context_n_valid"]), warmup_steps=4,
+         first_loss=first, median_last5=last5, curve=curve)
+
+
+def lattice_ms(batch, model) -> float:
+    """Wall ms (synchronised) of the plain-torch lattice of one step at
+    this batch's shape: alpha, then beta and the occupancies, on random
+    log-prob planes [B, T', U+1] (a loop over T' + U diagonals each way)."""
+    from wenet_celoss_tpu_torch.ops import rnnt_loss
+    b, t = batch["feats"].shape[:2]
+    t = ((t - 3) // 2 + 1 - 3) // 2 + 1
+    u1 = batch["labels"].shape[1] + 1
+    lp = torch.log_softmax(torch.randn(b, t, u1, 3, device="cuda"), -1)
+    il = torch.full((b,), t, device="cuda")
+    ll = torch.full((b,), u1 - 1, device="cuda")
+
+    def run():
+        alpha = rnnt_loss.alpha_scan(lp[..., 0], lp[..., 1])
+        rnnt_loss.occupancies(lp[..., 0], lp[..., 1], alpha, il, ll)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_rnnt_profile(state, step, batch, gen, timed_ms) -> None:
+    """One flagship training step under torch.profiler, run after every
+    timing: busy time, idle share, each kernel's time, and the lattice
+    loops' wall time at this shape, timed alone (their small kernels
+    carry no name of their own in the profile)."""
+    wall_ms, busy_ms, by_name = profile_step(state, step, batch, gen)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+
+    def ms(*keys):
+        return sum(v for k, v in by_name.items() if any(s in k for s in keys))
+    emit("profile", mode="rnnt_train", timed_ms=timed_ms,
+         profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+         idle_share=1.0 - busy_ms / timed_ms,
+         idle_share_profiled=1.0 - busy_ms / wall_ms,
+         k1_fwd_ms=ms("ln_ffn_fwd"),
+         k1_bwd_ms=ms("ln_ffn_bwd", "namespace)::sum_partials"),
+         k2_ms=ms("joint_fwd"), k3_ms=ms("joint_bwd_rows",
+                                         "joint_bwd_weights"),
+         k4_ms=ms("lstm2_fwd"), k4_bwd_ms=ms("lstm2_bwd"),
+         k2_k3_k4_partial_sums_ms=ms("tile::sum_partials"),
+         lattice_ms=lattice_ms(batch, state.model),
+         kernels=len(by_name),
+         top=[{"kernel": k[:90], "ms": v} for k, v in top])
+
+
+def kernel_line(name, source, replaces, by_path, record) -> dict:
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=sum(by_path.values()), launches_by_path=by_path,
+                **record)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -831,9 +1334,17 @@ def main() -> int:
                                                 conformer_rnnt_bias)
     from wenet_celoss_tpu_torch.decode.api import Decoder
     from wenet_celoss_tpu_torch.models.factory import init_model
-    from wenet_celoss_tpu_torch.ops import _build, bounds, dropout, ffn
+    from wenet_celoss_tpu_torch.ops import (_build, bounds, dropout, ffn,
+                                            lstm, rnnt_loss)
     from wenet_celoss_tpu_torch.parallel import train
 
+    COUNTERS.update(
+        k1=(ffn.ln_ffn_residual, "launches"),
+        k1_bwd=(ffn.ln_ffn_residual, "bwd_launches"),
+        k2=(rnnt_loss.joint_planes, "launches"),
+        k3=(rnnt_loss.joint_planes_bwd, "launches"),
+        k4=(lstm.lstm2_seq, "launches"),
+        k4_bwd=(lstm.lstm2_seq, "bwd_launches"))
     name = torch.cuda.get_device_name(0)
     card = smi()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
@@ -841,12 +1352,14 @@ def main() -> int:
          peaks="H100 SXM data sheet at 700 W; this card: " + card)
 
     t0 = time.perf_counter()
-    _build.build_all(["ln_ffn_residual"])
+    _build.build_all(["ln_ffn_residual", "rnnt_joint", "lstm2_seq"])
     emit("build", seconds=time.perf_counter() - t0,
          per_source=_build.build_seconds)
 
     k1 = phase_k1(ffn, bounds)
     k1_bwd = phase_k1_bwd(ffn, bounds, dropout)
+    k2, k3 = phase_k2_k3(rnnt_loss, bounds)
+    k4, k4_bwd = phase_k4(lstm, bounds, dropout)
     decode_launches = phase_slice(init_model, Decoder, conformer_rnnt_bias,
                                   ffn)
     to_profile = []
@@ -860,29 +1373,48 @@ def main() -> int:
     train_profile, (train_fwd, train_bwd) = phase_train(
         init_model, conformer_ctc_aed, train, ffn)
     phase_train_wavs(init_model, conformer_ctc_aed, train, wavs)
+    phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs)
+    rnnt_profile, rnnt = phase_rnnt_train(init_model, conformer_rnnt_bias,
+                                          train)
+    phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train, wavs)
     for args in to_profile:
         phase_profile(*args)
     phase_train_profile(*train_profile)
-    check(decode_launches > 0 and train_fwd > 0 and train_bwd > 0,
+    phase_rnnt_profile(*rnnt_profile)
+    check(decode_launches > 0 and train_fwd > 0 and train_bwd > 0
+          and all(n > 0 for n in rnnt.values()),
           f"a kernel of a main path was not launched: decode "
-          f"{decode_launches}, train {train_fwd} + {train_bwd}")
+          f"{decode_launches}, train {train_fwd} + {train_bwd}, flagship "
+          f"train {rnnt}")
 
     if failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(failures),
               file=sys.stderr)
         return 1
-    source = "wenet_celoss_tpu_torch/csrc/ln_ffn_residual.cu"
+    csrc = "wenet_celoss_tpu_torch/csrc/"
+    tpu = "wenet_celoss_tpu/ops/"
     print(card)
     print(json.dumps({"kernels": [
-        dict(name="ln_ffn_residual", route="cuda", source=source,
-             replaces="wenet_celoss_tpu/ops/ffn_pallas.py:272",
-             launches=decode_launches + train_fwd,
-             launches_by_path={"decode": decode_launches,
-                               "train": train_fwd}, **k1),
-        dict(name="ln_ffn_residual_bwd", route="cuda", source=source,
-             replaces="wenet_celoss_tpu/ops/ffn_pallas.py:294",
-             launches=train_bwd, launches_by_path={"train": train_bwd},
-             **k1_bwd)]}))
+        kernel_line("ln_ffn_residual", csrc + "ln_ffn_residual.cu",
+                    tpu + "ffn_pallas.py:384",
+                    {"decode": decode_launches, "train": train_fwd,
+                     "train_rnnt": rnnt["k1"]}, k1),
+        kernel_line("ln_ffn_residual_bwd", csrc + "ln_ffn_residual.cu",
+                    tpu + "ffn_pallas.py:422",
+                    {"train": train_bwd, "train_rnnt": rnnt["k1_bwd"]},
+                    k1_bwd),
+        kernel_line("streaming_joint_planes_fwd", csrc + "rnnt_joint.cu",
+                    tpu + "rnnt_pallas.py:369",
+                    {"train_rnnt": rnnt["k2"]}, k2),
+        kernel_line("streaming_joint_planes_bwd", csrc + "rnnt_joint.cu",
+                    tpu + "rnnt_pallas.py:429",
+                    {"train_rnnt": rnnt["k3"]}, k3),
+        kernel_line("lstm2_seq", csrc + "lstm2_seq.cu",
+                    tpu + "lstm_pallas.py:289",
+                    {"train_rnnt": rnnt["k4"]}, k4),
+        kernel_line("lstm2_seq_bwd", csrc + "lstm2_seq.cu",
+                    tpu + "lstm_pallas.py:327",
+                    {"train_rnnt": rnnt["k4_bwd"]}, k4_bwd)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -14,7 +14,8 @@ import torch
 from wenet_celoss_tpu_torch.configs import conformer_rnnt_bias
 from wenet_celoss_tpu_torch.decode.api import Decoder
 from wenet_celoss_tpu_torch.models.factory import init_model
-from wenet_celoss_tpu_torch.ops import ffn
+from wenet_celoss_tpu_torch.ops import ffn, lstm, rnnt_loss
+from wenet_celoss_tpu_torch.parallel import train
 
 pytestmark = pytest.mark.gpu
 
@@ -163,3 +164,114 @@ def test_tiny_model_on_card_matches_cpu():
         got = d_card.rnnt_greedy_search(feats, lens, n_steps=3, **kw)
         assert ffn.ln_ffn_residual.launches - before == 2 * blocks * passes
         assert got == d_cpu.rnnt_greedy_search(feats, lens, n_steps=3, **kw)
+
+
+def _rnd(g, *shape, std=1.0):
+    return (torch.randn(*shape, generator=g) * std).cuda()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation", ["tanh", "swish"])
+def test_joint_kernels_match_plain_versions_on_card(dtype, activation):
+    """K2's planes to 1e-3 + 1e-4*|ref| (row U of emit_lp has no label)
+    and K3's four gradients to relative Frobenius 1e-4 (fp32) or 1e-2
+    (bf16) on a ragged shape (T' = 37, V = 1000, neither a multiple of a
+    tile), the same bits on a second K3 call."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(3)
+    b, t, u1, h, v = 5, 37, 9, 128, 1000
+    args = (_rnd(g, b, t, h, std=0.5).to(dt), _rnd(g, b, u1, h, std=0.5).to(
+        dt), _rnd(g, v, h, std=h ** -0.5).to(dt), _rnd(g, v, std=0.1),
+        torch.randint(1, v, (b, u1 - 1), generator=g).cuda())
+    gb = torch.rand(b, t, u1, generator=g).cuda()
+    ge = torch.rand(b, t, u1, generator=g).cuda()
+    ge[..., -1] = 0.0
+    got = rnnt_loss.joint_planes_kernel(*args, 0, activation)
+    want = rnnt_loss.joint_planes_ref(*args, 0, activation)
+    for a, r in zip(got, want):
+        err = (a - r)[..., :-1].abs()
+        assert bool((err <= 1e-3 + 1e-4 * r[..., :-1].abs()).all())
+    lse = got[2].contiguous()
+    first = rnnt_loss.joint_planes_bwd_kernel(*args, gb, ge, lse, 0,
+                                              activation)
+    again = rnnt_loss.joint_planes_bwd_kernel(*args, gb, ge, lse, 0,
+                                              activation)
+    ref = rnnt_loss.joint_planes_bwd_ref(*args, gb, ge, lse, 0, activation)
+    limit = 1e-4 if dt == torch.float32 else 1e-2
+    for a, c, r in zip(first, again, ref):
+        assert torch.equal(a, c)
+        assert float((a - r).norm() / r.norm()) <= limit
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_lstm_kernels_match_plain_version_on_card(dtype, rate):
+    """K4's output and five gradients against autograd through the plain
+    version with the same mask, relative Frobenius 1e-4 (fp32) or 2e-2
+    (bf16), on a ragged batch of 37 rows."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(4)
+    b, u1, h = 37, 9, 64
+    args = (_rnd(g, b, u1, 4 * h, std=0.5).to(dt),
+            *(_rnd(g, 4 * h, h, std=h ** -0.5) for _ in range(2)),
+            _rnd(g, 4 * h, std=0.1), _rnd(g, 4 * h, h, std=h ** -0.5))
+    dy = _rnd(g, b, u1, h).to(dt)
+    before = (lstm.lstm2_seq.launches, lstm.lstm2_seq.bwd_launches)
+    ins = [a.detach().requires_grad_(True) for a in args]
+    y = lstm.lstm2_seq(*ins, rate=rate, seed=9)
+    got = torch.autograd.grad(y, ins, dy)
+    torch.cuda.synchronize()
+    assert (lstm.lstm2_seq.launches, lstm.lstm2_seq.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = (lstm.lstm2_seq_ref(*args, rate=rate, seed=9),
+            *lstm.backward_ref(dy, *args, rate=rate, seed=9))
+    limit = 1e-4 if dt == torch.float32 else 2e-2
+    for a, r in zip((y, *got), want):
+        assert float((a.float() - r.float()).norm()
+                     / r.float().norm()) <= limit
+
+
+def test_tiny_flagship_training_step_on_card_matches_cpu():
+    """One fp32 gradient step of the tiny flagship with hotwords, dropout
+    0: every loss term within 1e-4 and every gradient within 1e-3
+    relative Frobenius of the CPU run; one launch of K2, K3 and each
+    direction of K4, 2 * blocks + 2 K1 launches each way."""
+    cfg = conformer_rnnt_bias(tiny=True, vocab_size=30)
+    for conf in (cfg["encoder_conf"], cfg["decoder_conf"]):
+        for k in conf:
+            if k.endswith("dropout_rate"):
+                conf[k] = 0.0
+    cfg["predictor_conf"].update(embed_dropout=0.0, dropout=0.0)
+    card, cpu = init_model(cfg, seed=5), init_model(cfg, device="cpu",
+                                                    seed=5)
+    rng = np.random.default_rng(2)
+    batch = {"feats": rng.standard_normal((4, 64, 80)).astype(np.float32),
+             "feat_lengths": np.array([64, 50, 33, 20]),
+             "labels": rng.integers(1, 28, (4, 6)),
+             "label_lengths": np.array([6, 3, 0, 5]),
+             "context_list": np.array([[0, -1], [3, 4], [7, -1]]),
+             "context_lengths": np.array([1, 2, 1]),
+             "hw_labels": rng.integers(0, 2, (4, 6))}
+    counts = [(ffn.ln_ffn_residual, "launches"),
+              (ffn.ln_ffn_residual, "bwd_launches"),
+              (rnnt_loss.joint_planes, "launches"),
+              (rnnt_loss.joint_planes_bwd, "launches"),
+              (lstm.lstm2_seq, "launches"), (lstm.lstm2_seq, "bwd_launches")]
+    before = [getattr(o, a) for o, a in counts]
+    results = []
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        results.append(train.make_grad_fn(model)(
+            train.TrainState(0, model, None),
+            {k: torch.as_tensor(v, device=dev) for k, v in batch.items()},
+            torch.Generator()))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            k1 = 2 * cfg["encoder_conf"]["num_blocks"] + 2
+            assert [getattr(o, a) - n for (o, a), n in
+                    zip(counts, before)] == [k1, k1, 1, 1, 1, 1]
+    (g_card, m_card), (g_cpu, m_cpu) = results
+    for k in m_cpu:
+        assert abs(float(m_card[k]) - float(m_cpu[k])) <= \
+            1e-4 * abs(float(m_cpu[k])) + 1e-6, k
+    for a, b in zip(g_card, g_cpu):
+        assert float((a.cpu() - b).norm()) <= 1e-3 * float(b.norm()) + 1e-7

@@ -1,10 +1,16 @@
-"""Contextual biasing (hotwords), decode path (port of
+"""Contextual biasing (hotwords) (port of
 ``wenet_celoss_tpu/models/context_bias.py``: the BLSTM phrase extractor,
-the ``linear`` context encoder, the encoder/predictor bias branches and
-the ``both``-mode hotword-gate head).
+the ``linear`` context encoder, the encoder/predictor bias branches with
+the optional ``n_valid`` key mask, and the hotword-presence heads of the
+three loss modes).
 
 The whole module runs in fp32 whatever the model's compute dtype, as the
-JAX package's does (its layers carry no dtype).
+JAX package's does (its layers carry no dtype). The heads it holds depend
+on ``loss_mode``, as the JAX package's parameter tree does (flax creates a
+head's parameters only where the mode calls it): ``both`` the enc/dec
+projections and the unified-space attention, ``pred`` the predictor
+projection ``hw_pred_proj`` and the attention, ``sep`` the enc/dec
+projections alone.
 """
 
 from __future__ import annotations
@@ -73,7 +79,8 @@ class ContextBias(nn.Module):
                  num_block: int = 4, dropout_rate: float = 0.0,
                  bias_encoder_type: str = "linear",
                  context_extractor: str = "BLSTM", num_labels: int = 2,
-                 unified_hw_odim: int = 100, unified_hw_heads: int = 4):
+                 unified_hw_odim: int = 100, unified_hw_heads: int = 4,
+                 loss_mode: str = "both"):
         # linear_units / num_block / dropout_rate configure the
         # transformer context encoder, which is not ported.
         super().__init__()
@@ -82,24 +89,36 @@ class ContextBias(nn.Module):
                 f"context_extractor={context_extractor!r}, "
                 f"bias_encoder_type={bias_encoder_type!r}: only BLSTM + "
                 "linear are ported")
+        if loss_mode not in ("both", "pred", "sep"):
+            raise ValueError(f"unknown loss_mode {loss_mode!r}")
+        # Registration order is the order in which the factory draws the
+        # seeded weights; ``both`` keeps the decode model's order.
         e = embedding_size
         self.extractor = BLSTMExtractor(vocab_size, e, num_layers)
         self.context_proj = Dense(4 * e, e)
         self.context_norm = LayerNorm(e)
         self.encoder_bias = MultiHeadedAttention(attention_heads, e)
         self.predictor_bias = MultiHeadedAttention(attention_heads, e)
-        self.hw_bias = MultiHeadedAttention(unified_hw_heads,
-                                            unified_hw_odim)
+        if loss_mode != "sep":
+            self.hw_bias = MultiHeadedAttention(unified_hw_heads,
+                                                unified_hw_odim)
         self.encoder_bias_combine = Dense(2 * e, e)
         self.encoder_bias_bias_norm = LayerNorm(e)
         self.encoder_bias_out_norm = LayerNorm(e)
         self.predictor_bias_combine = Dense(2 * e, e)
         self.predictor_bias_bias_norm = LayerNorm(e)
         self.predictor_bias_out_norm = LayerNorm(e)
-        self.hw_bias_norm = LayerNorm(unified_hw_odim)
-        self.hw_output_layer = Dense(unified_hw_odim, num_labels)
-        self.hw_output_layer_enc = Dense(e, unified_hw_odim)
-        self.hw_output_layer_dec = Dense(e, unified_hw_odim)
+        if loss_mode != "sep":
+            self.hw_bias_norm = LayerNorm(unified_hw_odim)
+            self.hw_output_layer = Dense(unified_hw_odim, num_labels)
+        if loss_mode != "pred":
+            self.hw_output_layer_enc = Dense(e, unified_hw_odim)
+            self.hw_output_layer_dec = Dense(e, unified_hw_odim)
+        else:
+            # The reference feeds embedding_size activations into a
+            # unified_hw_odim attention; the JAX package makes the
+            # projection explicit.
+            self.hw_pred_proj = Dense(e, unified_hw_odim)
 
     def forward_bias_hidden(self, context_list: torch.Tensor,
                             context_lengths: torch.Tensor) -> torch.Tensor:
@@ -107,25 +126,32 @@ class ContextBias(nn.Module):
         vec = self.extractor(context_list, context_lengths)
         return self.context_norm(self.context_proj(vec))[None]
 
-    def _cross_bias(self, attn, stream, bias_hidden):
-        bias_kv = bias_hidden.expand((stream.shape[0],)
-                                     + bias_hidden.shape[1:])
-        return attn(stream.float(), bias_kv, bias_kv)
+    def _cross_bias(self, attn, stream, bias_hidden, n_valid=None):
+        """Cross-attention of ``stream`` over the phrases; with ``n_valid``
+        the phrase slots from n_valid on are masked out."""
+        b, n = stream.shape[0], bias_hidden.shape[1]
+        bias_kv = bias_hidden.expand((b,) + bias_hidden.shape[1:])
+        mask = None
+        if n_valid is not None:
+            keep = torch.arange(n, device=stream.device) < n_valid
+            mask = keep[None, None, :].expand(b, 1, n)
+        return attn(stream.float(), bias_kv, bias_kv, mask)
 
     def forward_encoder_bias(self, bias_hidden: torch.Tensor,
-                             encoder_out: torch.Tensor):
+                             encoder_out: torch.Tensor, n_valid=None):
         """→ (combined encoder_out, encoder bias branch), fp32."""
         enc_bias = self.encoder_bias_bias_norm(
-            self._cross_bias(self.encoder_bias, encoder_out, bias_hidden))
+            self._cross_bias(self.encoder_bias, encoder_out, bias_hidden,
+                             n_valid))
         cat = torch.cat([encoder_out.float(), enc_bias], dim=-1)
         return self.encoder_bias_out_norm(self.encoder_bias_combine(cat)), \
             enc_bias
 
     def forward_predictor_bias(self, bias_hidden: torch.Tensor,
-                               predictor_out: torch.Tensor):
+                               predictor_out: torch.Tensor, n_valid=None):
         pred_bias = self.predictor_bias_bias_norm(
             self._cross_bias(self.predictor_bias, predictor_out,
-                             bias_hidden))
+                             bias_hidden, n_valid))
         cat = torch.cat([predictor_out.float(), pred_bias], dim=-1)
         return (self.predictor_bias_out_norm(
             self.predictor_bias_combine(cat)), pred_bias)
@@ -138,3 +164,21 @@ class ContextBias(nn.Module):
         dec_hw = self.hw_output_layer_dec(pred_bias)
         h = self.hw_bias(dec_hw, enc_hw, enc_hw)
         return self.hw_output_layer(self.hw_bias_norm(h))
+
+    def forward_hw_pred(self, bias_hidden: torch.Tensor,
+                        predictor_out: torch.Tensor) -> torch.Tensor:
+        """``pred`` mode: the (unbiased) predictor stream attends over the
+        hotword list → [B, U, num_labels]."""
+        b = predictor_out.shape[0]
+        q = self.hw_pred_proj(predictor_out.float())
+        kv = self.hw_pred_proj(bias_hidden.expand(
+            (b,) + bias_hidden.shape[1:]))
+        h = self.hw_bias(q, kv, kv)
+        return self.hw_output_layer(self.hw_bias_norm(h))
+
+    def forward_hw_pred_both_sep(self, enc_bias: torch.Tensor,
+                                 pred_bias: torch.Tensor):
+        """``sep`` mode: independent enc/dec projections into the hw
+        space → ([B, T, odim], [B, U, odim])."""
+        return (self.hw_output_layer_enc(enc_bias),
+                self.hw_output_layer_dec(pred_bias))

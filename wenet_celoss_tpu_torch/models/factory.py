@@ -83,8 +83,13 @@ def build_model(cfg: Dict[str, Any]) -> Model:
                                                   False))
     if cfg.get("predictor", "rnn") != "rnn":
         raise NotImplementedError("only the RNN predictor is ported")
+    model_conf = cfg.get("model_conf", {})
+    if model_conf.get("rnnt_impl") == "pruned" or \
+            model_conf.get("fused_rnnt_loss"):
+        raise NotImplementedError("rnnt_impl 'pruned' and the fused loss "
+                                  "are not ported (see ROADMAP.md)")
     pred_conf = dict(cfg.get("predictor_conf", {}))
-    predictor = RNNPredictor(voca_size=vocab, **pred_conf)
+    predictor = RNNPredictor(voca_size=vocab, dtype=dtype, **pred_conf)
     joint = TransducerJoint(
         voca_size=vocab, enc_output_size=enc_out,
         pred_output_size=pred_conf.get("output_size", enc_out),
@@ -93,10 +98,26 @@ def build_model(cfg: Dict[str, Any]) -> Model:
     if cfg.get("context", "nobias") != "nobias":
         ctx_conf = dict(cfg.get("context_conf", {}))
         ctx_conf.pop("bias_encoder", None)  # unused flag in the reference
-        context_bias = ContextBias(output_size=enc_out, vocab_size=vocab,
-                                   **ctx_conf)
-    return Transducer(vocab, encoder, predictor, joint, context_bias,
-                      blank=0, decoder=decoder, ctc=ctc)
+        context_bias = ContextBias(
+            output_size=enc_out, vocab_size=vocab,
+            loss_mode=model_conf.get("loss_mode", "both"), **ctx_conf)
+    tw = model_conf.get("transducer_weight", 1.0)
+    cw = model_conf.get("ctc_weight", 0.0)
+    aw = model_conf.get("attention_weight", 1.0 - tw - cw)
+    if abs(tw + cw + aw - 1.0) >= 1e-6:
+        raise ValueError("transducer + ctc + attention weights must sum "
+                         "to 1")
+    return Transducer(
+        vocab, encoder, predictor, joint, context_bias, blank=0,
+        decoder=decoder, ctc=ctc, transducer_weight=tw, ctc_weight=cw,
+        hw_weight=model_conf.get("hw_weight", 0.4),
+        loss_mode=model_conf.get("loss_mode", "both"),
+        rnnt_impl=model_conf.get("rnnt_impl", "scan"),
+        streaming_chunk=model_conf.get("streaming_chunk", 16),
+        lsm_weight=model_conf.get("lsm_weight", 0.0),
+        reverse_weight=model_conf.get("reverse_weight", 0.0),
+        length_normalized_loss=model_conf.get("length_normalized_loss",
+                                              False))
 
 
 def _normal(shape, std: float, g: torch.Generator) -> torch.Tensor:

@@ -1,6 +1,8 @@
-"""Transducer joint network, decode path (port of
-``wenet_celoss_tpu/models/joint.py``: ``project_enc``, ``frames`` and
-``single``)."""
+"""Transducer joint network (port of ``wenet_celoss_tpu/models/joint.py``:
+``project_enc``, ``frames`` and ``single`` for decoding; ``project`` and
+``output_params`` for the streaming loss, which applies the output layer
+itself (``ops/rnnt_loss.py``); and the materialised ``forward``, which
+only the tests call)."""
 
 from __future__ import annotations
 
@@ -42,6 +44,30 @@ class TransducerJoint(nn.Module):
         if self.postjoin_linear:
             out = self.post_ffn(out)
         return self.ffn_out(get_activation(self.activation)(out))
+
+    def forward(self, enc_out: torch.Tensor,
+                pred_out: torch.Tensor) -> torch.Tensor:
+        """enc_out [B, T, E], pred_out [B, U, P] → logits [B, T, U, V],
+        materialised (small inputs only)."""
+        if self.prejoin_linear:
+            enc_out = self.enc_ffn(enc_out)
+            pred_out = self.pred_ffn(pred_out)
+        return self._combine(enc_out[:, :, None, :], pred_out[:, None, :, :])
+
+    def project(self, enc_out: torch.Tensor, pred_out: torch.Tensor):
+        """The pre-join projections only → (enc_j [B, T, J],
+        pred_j [B, U, J])."""
+        if self.prejoin_linear:
+            return self.enc_ffn(enc_out), self.pred_ffn(pred_out)
+        return enc_out, pred_out
+
+    def output_params(self):
+        """(weight [V, J], bias [V]) of the output layer, in
+        ``torch.nn.Linear`` layout."""
+        if self.postjoin_linear:
+            raise NotImplementedError("the streaming loss takes the "
+                                      "pre-join add joint only")
+        return self.ffn_out.weight, self.ffn_out.bias
 
     def single(self, enc_t: torch.Tensor, pred_u: torch.Tensor):
         """enc_t [B, E], pred_u [B, P] → logits [B, V]."""

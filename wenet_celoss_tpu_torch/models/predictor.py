@@ -1,8 +1,16 @@
-"""RNN predictor, decode path (port of
-``wenet_celoss_tpu/models/predictor.py``: ``RNNPredictor.init_state``,
-``forward_step`` with the padding freeze, and the plain ``_run_layers``).
+"""RNN predictor (port of ``wenet_celoss_tpu/models/predictor.py``:
+``RNNPredictor.init_state``, ``forward_step`` with the padding freeze, the
+plain ``_run_layers``, and the whole-sequence training forward).
 
-The whole-sequence forward for training comes with the training slice.
+The whole-sequence forward is routed as the JAX package routes it: with a
+zero state, an LSTM and 2 layers it runs the hoisted layer-1 input
+projection as one plain matmul and then K4 (``ops/lstm.py``), which holds
+both layers and the inter-layer dropout; otherwise the plain layers.
+Differences from the JAX package's fused route: it runs in the model's
+compute dtype (the TPU path hard-codes bf16), the embedding is a gather
+(the TPU path's one-hot matmul gives the same values), and there is no
+``fused_rows_for`` limit on the sequence length (that is the TPU's VMEM
+budget; the kernel keeps its states in device memory).
 """
 
 from __future__ import annotations
@@ -11,8 +19,11 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from wenet_celoss_tpu_torch.models.layers import Dense, LSTMCellParams
+from wenet_celoss_tpu_torch.ops import dropout as drop
+from wenet_celoss_tpu_torch.ops.lstm import lstm2_seq
 
 
 class RNNPredictor(nn.Module):
@@ -20,14 +31,16 @@ class RNNPredictor(nn.Module):
     def __init__(self, voca_size: int, embed_size: int, output_size: int,
                  hidden_size: int = 256, num_layers: int = 2,
                  bias: bool = True, rnn_type: str = "lstm",
-                 embed_dropout: float = 0.0, dropout: float = 0.0):
-        # Dropout rates are accepted for config compatibility; identities
-        # at decode time.
+                 embed_dropout: float = 0.0, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if rnn_type != "lstm":
             raise NotImplementedError(f"rnn_type={rnn_type!r} is not ported")
         self.hidden_size = hidden_size
         self.num_layers = num_layers
+        self.embed_dropout = embed_dropout
+        self.dropout = dropout
+        self.compute_dtype = dtype
         self.embed = nn.Embedding(voca_size, embed_size)
         self.rnn = nn.ModuleList([
             LSTMCellParams(embed_size if i == 0 else hidden_size,
@@ -40,11 +53,40 @@ class RNNPredictor(nn.Module):
         return {"h": torch.zeros(shape, device=device),
                 "c": torch.zeros(shape, device=device)}
 
-    def _run_layers(self, x: torch.Tensor, state: Dict[str, torch.Tensor]):
+    def forward(self, tokens: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Training forward from a zero state: tokens [B, U] → [B, U,
+        output_size] (fp32). With ``gen`` the embedding and inter-layer
+        dropouts run."""
+        x = drop.dropout(self.embed(tokens), self.embed_dropout, gen)
+        if self.num_layers != 2 or self.hidden_size % 16:
+            state = self.init_state(tokens.shape[0], tokens.device)
+            return self.projection(self._run_layers(x, state, gen)[0])
+        return self.projection(self._fused_seq(x, gen))
+
+    def _fused_seq(self, x: torch.Tensor,
+                   gen: Optional[torch.Generator]) -> torch.Tensor:
+        """Both layers through K4: x [B, U, E] → layer 2's h [B, U, H] in
+        the compute dtype."""
+        l1, l2 = self.rnn
+        cdt = self.compute_dtype or torch.float32
+        # Compute-dtype operands, fp32 accumulation and bias, one rounding.
+        xw1 = F.linear(x.to(cdt).float(), l1.wi.weight.to(cdt).float(),
+                       l1.wh.bias).to(cdt)
+        rate = self.dropout if gen is not None else 0.0
+        seed = drop.draw_seed(gen) if rate > 0.0 else 0
+        return lstm2_seq(xw1, l1.wh.weight, l2.wi.weight, l2.wh.bias,
+                         l2.wh.weight, rate, seed)
+
+    def _run_layers(self, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                    gen: Optional[torch.Generator] = None):
         """x [B, U, E] → (out [B, U, H], new_state); the input-side gate
-        projections of all U steps run as one matmul per layer."""
+        projections of all U steps run as one matmul per layer, with the
+        inter-layer dropout between layers when ``gen`` is given."""
         new_h, new_c = [], []
         for i, cell in enumerate(self.rnn):
+            if i:
+                x = drop.dropout(x, self.dropout, gen)
             c, h = state["c"][i], state["h"][i]
             xw = cell.input_proj(x)                          # [B, U, 4H]
             outs = []

@@ -1,41 +1,158 @@
-"""RNN-T model with contextual biasing, decode-support methods (port of
-``wenet_celoss_tpu/models/transducer.py``). It carries the attention
-decoder and the CTC head of the JAX model so that its weights map whole;
-the transducer losses come with the flagship's training slice."""
+"""RNN-T model with contextual biasing and the hotword CE loss (port of
+``wenet_celoss_tpu/models/transducer.py``): the training forward with its
+loss mix, and the decode-support methods.
+
+loss = transducer_weight * RNN-T + ctc_weight * CTC
+       + (1 - transducer_weight - ctc_weight) * attention
+       + hw_weight * hotword CE (loss_mode both | pred | sep).
+
+When hotwords are given, the BIASED encoder output feeds the joint, the
+CTC head and the attention decoder; the ``pred`` mode's hotword head reads
+the UNBIASED predictor output. The RNN-T loss is the streaming one
+(``ops/rnnt_loss.py``, K2 and K3 on the card); the JAX package's other
+``rnnt_impl`` values are not ported (``ROADMAP.md``).
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 
+from wenet_celoss_tpu_torch.models.asr_model import ASRModel
 from wenet_celoss_tpu_torch.models.context_bias import ContextBias
 from wenet_celoss_tpu_torch.models.encoder import ConformerEncoder
 from wenet_celoss_tpu_torch.models.joint import TransducerJoint
 from wenet_celoss_tpu_torch.models.predictor import RNNPredictor
+from wenet_celoss_tpu_torch.ops.rnnt_loss import rnnt_loss_streaming
+from wenet_celoss_tpu_torch.utils.common import IGNORE_ID, add_blank
 
 
-class Transducer(nn.Module):
+def cross_entropy_mean(logits: torch.Tensor,
+                       targets: torch.Tensor) -> torch.Tensor:
+    """Plain CE in fp32, the mean over ALL positions (padding was mapped to
+    class 0 first, as the JAX package does)."""
+    logq = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logq, -1, targets[..., None].long()).mean()
+
+
+class Transducer(ASRModel):
 
     def __init__(self, vocab_size: int, encoder: ConformerEncoder,
                  predictor: RNNPredictor, joint: TransducerJoint,
                  context_bias: Optional[ContextBias] = None,
                  blank: int = 0, decoder: Optional[nn.Module] = None,
-                 ctc: Optional[nn.Module] = None):
-        super().__init__()
-        self.vocab_size = vocab_size
+                 ctc: Optional[nn.Module] = None,
+                 transducer_weight: float = 1.0, ctc_weight: float = 0.0,
+                 hw_weight: float = 0.0, loss_mode: str = "both",
+                 rnnt_impl: str = "streaming", streaming_chunk: int = 16,
+                 lsm_weight: float = 0.0, reverse_weight: float = 0.0,
+                 length_normalized_loss: bool = False,
+                 ignore_id: int = IGNORE_ID):
+        super().__init__(vocab_size, encoder, decoder, ctc,
+                         ctc_weight=ctc_weight, ignore_id=ignore_id,
+                         reverse_weight=reverse_weight,
+                         lsm_weight=lsm_weight,
+                         length_normalized_loss=length_normalized_loss)
         self.blank = blank
-        self.encoder = encoder
         self.predictor = predictor
         self.joint = joint
         self.context_bias = context_bias
-        self.decoder = decoder
-        self.ctc = ctc
+        # Registration order is the order in which the factory draws the
+        # seeded weights: the decode path's modules first, then the
+        # training-only heads, so that the heads do not change them.
+        for name in ("decoder", "ctc"):
+            if name in self._modules:
+                self._modules[name] = self._modules.pop(name)
+        self.transducer_weight = transducer_weight
+        self.hw_weight = hw_weight
+        self.loss_mode = loss_mode
+        self.rnnt_impl = rnnt_impl
+        self.streaming_chunk = streaming_chunk
 
     @property
     def device(self) -> torch.device:
         return self.joint.ffn_out.weight.device
+
+    def forward(self, speech, speech_lengths, text, text_lengths,
+                context_list=None, context_lengths=None, hw_label=None,
+                context_n_valid=None, gen: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Training forward → {'loss', 'loss_att', 'loss_ctc',
+        'loss_rnnt', 'hw_loss'}; with ``gen`` every dropout runs."""
+        if self.rnnt_impl != "streaming":
+            raise NotImplementedError(
+                f"rnnt_impl={self.rnnt_impl!r} is not ported; only "
+                f"'streaming' is (see ROADMAP.md)")
+        use_bias = self.context_bias is not None and context_list is not None
+        bias_hidden = None
+        if use_bias:
+            bias_hidden = self.context_bias.forward_bias_hidden(
+                context_list, context_lengths)
+        encoder_out, enc_pad_mask = self.encoder(speech, speech_lengths, gen)
+        encoder_lens = enc_pad_mask.sum(dim=1)
+        enc_bias = pred_bias = None
+        if use_bias:
+            encoder_out, enc_bias = self.context_bias.forward_encoder_bias(
+                bias_hidden, encoder_out, context_n_valid)
+
+        ys_in = add_blank(text, text_lengths, self.blank, self.ignore_id)
+        predictor_out = self.predictor(ys_in, gen)
+        predictor_out_unbiased = predictor_out
+        if use_bias:
+            predictor_out, pred_bias = \
+                self.context_bias.forward_predictor_bias(
+                    bias_hidden, predictor_out, context_n_valid)
+
+        rnnt_text = torch.where(text == self.ignore_id,
+                                torch.zeros_like(text), text)
+        enc_j, pred_j = self.joint.project(encoder_out, predictor_out)
+        w_out, b_out = self.joint.output_params()
+        losses = rnnt_loss_streaming(
+            enc_j, pred_j, w_out, b_out, rnnt_text, encoder_lens,
+            text_lengths, self.blank, activation=self.joint.activation,
+            chunk=self.streaming_chunk)
+        loss_rnnt = losses.mean()
+        loss = self.transducer_weight * loss_rnnt
+
+        zero = torch.zeros((), device=loss.device)
+        loss_att = zero
+        attention_weight = 1.0 - self.transducer_weight - self.ctc_weight
+        if attention_weight > 0.0 and self.decoder is not None:
+            loss_att, _ = self._calc_att_loss(encoder_out, enc_pad_mask,
+                                              text, text_lengths, gen)
+            loss = loss + attention_weight * loss_att
+        loss_ctc = zero
+        if self.ctc_weight > 0.0 and self.ctc is not None:
+            loss_ctc = self.ctc(encoder_out, encoder_lens, text,
+                                text_lengths)
+            loss = loss + self.ctc_weight * loss_ctc
+        hw_loss = zero
+        if use_bias and self.hw_weight > 0.0 and hw_label is not None:
+            hw_loss = self._calc_hw_loss(bias_hidden, predictor_out_unbiased,
+                                         enc_bias, pred_bias, hw_label)
+            loss = loss + self.hw_weight * hw_loss
+        return {"loss": loss, "loss_att": loss_att, "loss_ctc": loss_ctc,
+                "loss_rnnt": loss_rnnt, "hw_loss": hw_loss}
+
+    def _calc_hw_loss(self, bias_hidden, predictor_out_unbiased, enc_bias,
+                      pred_bias, hw_label):
+        """hw_label [B, U] (ignore_id padded) → the hotword CE."""
+        clean = torch.where(hw_label == self.ignore_id,
+                            torch.zeros_like(hw_label), hw_label)
+        if self.loss_mode == "pred":
+            hw = self.context_bias.forward_hw_pred(bias_hidden,
+                                                   predictor_out_unbiased)
+            return cross_entropy_mean(hw[:, :-1], clean)
+        if self.loss_mode == "both":
+            hw = self.context_bias.forward_hw_pred_both(enc_bias, pred_bias)
+            return cross_entropy_mean(hw[:, :-1], clean)
+        # sep: the dec head classifies, targets get a prepended 0.
+        _, dec_hw = self.context_bias.forward_hw_pred_both_sep(enc_bias,
+                                                               pred_bias)
+        target = torch.cat([torch.zeros_like(clean[:, :1]), clean], dim=1)
+        return cross_entropy_mean(dec_hw, target)
 
     def bias_hidden(self, context_list: torch.Tensor,
                     context_lengths: torch.Tensor) -> torch.Tensor:

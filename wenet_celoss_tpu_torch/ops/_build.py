@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled for
 ``sm_90a`` into ``wenet_celoss_tpu_torch/_build/lib<name>-<hash>.so`` at
-first use (the hash is of the source, so an edited source rebuilds), and
+first use (the hash is of the source and ``csrc/*.cuh``, so an edited
+source or header rebuilds), and
 the library is loaded once per process. ``build_all`` starts one ``nvcc``
 per source, all at once. Nothing here runs at import time.
 """
@@ -37,9 +38,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library path, named by a hash of the source and the shared
+    headers it may include."""
+    h = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str]) -> Dict[str, Path]:

@@ -8,11 +8,11 @@ type. Peaks are the H100 SXM data sheet's (dense, 700 W).
 
     python -m wenet_celoss_tpu_torch.ops.bounds   # every kernel, flagship
 
-prints one row per kernel at the flagship shapes: the decode bench
-(B=64, 512 frames → T'=127 after subsampling) for the encoder kernels'
-forwards, the train bench (B=256, T'=127, 32 labels → U+1=33) for K1's
-backward and the loss and predictor kernels, d=256, F=2048, join dim 512,
-vocab 5002, bf16.
+prints one row per ``pallas_call`` of the JAX package at the flagship
+shapes: the decode bench (B=64, 512 frames → T'=127 after subsampling)
+for the encoder kernels' forwards, the train bench (B=256, T'=127, 32
+labels → U+1=33) for the backwards and the loss and predictor kernels,
+d=256, F=2048, join dim 512, vocab 5002, bf16.
 """
 
 from __future__ import annotations
@@ -54,11 +54,29 @@ def ffn_fused(n: int, d: int, f: int, dtype: str):
     return 4 * n * d * f, 2 * n * d * e + 2 * d * f * e + 4 * (d + f)
 
 
+def ffn_fused_bwd(n: int, d: int, f: int, dtype: str):
+    """K6 backward: x and dy in, dx out, W1/W2 in and their gradients out,
+    b1 in, db1 and db2 out; the recomputed first GEMM and four gradient
+    GEMMs of 2·N·D·F each."""
+    e = ELT[dtype]
+    return (10 * n * d * f,
+            3 * n * d * e + 4 * d * f * e + 4 * f + 4 * (d + f))
+
+
 def ln_matmul(n: int, d: int, k: int, dtype: str):
     """K7 forward: (LN(x)·rowmask) W + b, x [N, D], W [D, K]."""
     e = ELT[dtype]
     return (2 * n * d * k,
             n * d * e + d * k * e + n * k * e + 4 * (2 * d + k + n))
+
+
+def ln_matmul_bwd(n: int, d: int, k: int, dtype: str):
+    """K7 backward: x [N, D] and dy [N, K] in, dx out; W [D, K] in, dW out
+    (in W's dtype); γ, β, the row mask in; dγ, dβ, db out; two GEMMs of
+    2·N·D·K (dx̂ = dy Wᵀ and dW = LN(x)ᵀ dy)."""
+    e = ELT[dtype]
+    return (4 * n * d * k,
+            2 * n * d * e + n * k * e + 2 * d * k * e + 4 * (4 * d + k + n))
 
 
 def conv_block_residual(n: int, d: int, kernel: int, dtype: str):
@@ -67,6 +85,16 @@ def conv_block_residual(n: int, d: int, kernel: int, dtype: str):
     e = ELT[dtype]
     return (2 * n * d * (3 * d + kernel),
             2 * n * d * e + 4 * n + 3 * d * d * e + 4 * d * (kernel + 8))
+
+
+def conv_block_residual_bwd(n: int, d: int, kernel: int, dtype: str):
+    """K8 backward: the forward recomputed from x, then the input and
+    weight gradients of each of its products (twice the forward's
+    operations): three times the forward; x, dy, the row mask and the
+    weights in, dx and the 11 weight gradients out."""
+    e = ELT[dtype]
+    return (3 * 2 * n * d * (3 * d + kernel),
+            3 * n * d * e + 4 * n + 2 * (3 * d * d * e + 4 * d * (kernel + 8)))
 
 
 def alpha_beta(b: int, t: int, u1: int):
@@ -78,8 +106,11 @@ def alpha_beta(b: int, t: int, u1: int):
 
 
 def _joint_inputs(b: int, t: int, u1: int, h: int, v: int, e: int):
-    """enc_j [B, T, H], pred_j [B, U1, H], W [H, V], one-hot [B, U1, V]."""
-    return b * t * h * e + b * u1 * h * e + h * v * e + b * u1 * v * e
+    """enc_j [B, T, H], pred_j [B, U1, H], W [V, H], bias [V] and the
+    labels as int32 [B, U1 - 1] (the port's form; the TPU kernel reads a
+    [B, U1, V] one-hot, which does not change the operations bound)."""
+    return (b * t * h * e + b * u1 * h * e + h * v * e + 4 * v
+            + 4 * b * (u1 - 1))
 
 
 def joint_planes_fwd(b: int, t: int, u1: int, h: int, v: int, dtype: str):
@@ -108,33 +139,58 @@ def lstm2_seq(b: int, u1: int, h: int, dtype: str):
             + b * u1 * h * e)
 
 
+def lstm2_seq_bwd(b: int, u1: int, h: int, dtype: str):
+    """K4 backward as the port runs it, from the forward's saved states:
+    per step the three adjoint GEMMs (dh2, dh1 through Wi2, dh1 through
+    Wh1) and, over all steps, the three weight-gradient GEMMs, [B, 4H] x
+    [4H, H] each; dy, the weights and the saved states (gate
+    pre-activations and cells in fp32, h and the dropped h in the compute
+    dtype) in; dxw1 out in the compute dtype, the weight gradients in
+    fp32."""
+    e = ELT[dtype]
+    flops = 6 * 2 * b * h * 4 * h * u1
+    saved = b * u1 * (2 * 4 * h * 4 + 2 * h * 4 + 3 * h * e)
+    return (flops, b * u1 * h * e + 3 * h * 4 * h * e + saved
+            + b * u1 * 4 * h * e + 3 * h * 4 * h * 4 + 4 * 4 * h)
+
+
 def flagship() -> List[Dict]:
     n_dec, n_train = 64 * 127, 256 * 127
+    joint = "B=256 T=127 U1=33 H=512 V=5002"
     rows = [
-        ("K1 ln_ffn_residual", "ops/ffn_pallas.py:357",
+        ("K1 ln_ffn_residual", "ops/ffn_pallas.py:384",
          f"N={n_dec} D=256 F=2048",
          ln_ffn_residual(n_dec, 256, 2048, "bf16")),
-        ("K1 ln_ffn_residual backward", "ops/ffn_pallas.py:294",
+        ("K1 ln_ffn_residual backward", "ops/ffn_pallas.py:422",
          f"N={n_train} D=256 F=2048",
          ln_ffn_residual_bwd(n_train, 256, 2048, "bf16")),
-        ("K6 ffn_fused", "ops/ffn_pallas.py:141",
+        ("K2 streaming_joint_planes_fwd", "ops/rnnt_pallas.py:369", joint,
+         joint_planes_fwd(256, 127, 33, 512, 5002, "bf16")),
+        ("K3 streaming_joint_planes_bwd", "ops/rnnt_pallas.py:429", joint,
+         joint_planes_bwd(256, 127, 33, 512, 5002, "bf16")),
+        ("K4 lstm2_seq", "ops/lstm_pallas.py:289",
+         "B=256 U1=33 H=256", lstm2_seq(256, 33, 256, "bf16")),
+        ("K4 lstm2_seq backward", "ops/lstm_pallas.py:327",
+         "B=256 U1=33 H=256", lstm2_seq_bwd(256, 33, 256, "bf16")),
+        ("K6 ffn_fused", "ops/ffn_pallas.py:170",
          f"N={n_dec} D=256 F=2048", ffn_fused(n_dec, 256, 2048, "bf16")),
-        ("K7 ln_matmul", "ops/ffn_pallas.py:535",
+        ("K6 ffn_fused backward", "ops/ffn_pallas.py:201",
+         f"N={n_train} D=256 F=2048",
+         ffn_fused_bwd(n_train, 256, 2048, "bf16")),
+        ("K7 ln_matmul", "ops/ffn_pallas.py:559",
          f"N={n_dec} D=256 K=768 (QKV)",
          ln_matmul(n_dec, 256, 768, "bf16")),
-        ("K8 conv_block_residual", "ops/conv_pallas.py:239",
+        ("K7 ln_matmul backward", "ops/ffn_pallas.py:595",
+         f"N={n_train} D=256 K=768 (QKV)",
+         ln_matmul_bwd(n_train, 256, 768, "bf16")),
+        ("K8 conv_block_residual", "ops/conv_pallas.py:285",
          f"N={n_dec} D=256 K=15", conv_block_residual(n_dec, 256, 15,
                                                       "bf16")),
-        ("K9 alpha_beta_pallas", "ops/rnnt_pallas.py:125",
+        ("K8 conv_block_residual backward", "ops/conv_pallas.py:318",
+         f"N={n_train} D=256 K=15",
+         conv_block_residual_bwd(n_train, 256, 15, "bf16")),
+        ("K9 alpha_beta_pallas", "ops/rnnt_pallas.py:148",
          "B=256 T=127 U1=33 fp32", alpha_beta(256, 127, 33)),
-        ("K2 streaming_joint_planes_fwd", "ops/rnnt_pallas.py:350",
-         "B=256 T=127 U1=33 H=512 V=5002",
-         joint_planes_fwd(256, 127, 33, 512, 5002, "bf16")),
-        ("K3 streaming_joint_planes_bwd", "ops/rnnt_pallas.py:405",
-         "B=256 T=127 U1=33 H=512 V=5002",
-         joint_planes_bwd(256, 127, 33, 512, 5002, "bf16")),
-        ("K4 lstm2_seq", "ops/lstm_pallas.py:255",
-         "B=256 U1=33 H=256", lstm2_seq(256, 33, 256, "bf16")),
     ]
     out = []
     for name, where, shape, (flops, nbytes) in rows:

@@ -6,10 +6,10 @@ A mask bit is a pure function of ``(seed, stream, index)``: the 32-bit
 integer mix ``hash32`` of ``index XOR key(seed, stream)``, kept iff its
 low 16 bits are below ``round(keep * 65536)`` (the JAX package's 1/2^16
 quantisation, ``ffn_pallas._thresh``), and a kept value is scaled by
-``1/keep``. Nothing depends on tiling or device, so the K1 CUDA kernel
-(``csrc/ln_ffn_residual.cu``, which repeats ``hash32``), its backward and
-the plain versions here draw identical masks, and the CPU and the card
-agree bit for bit. The TPU's own bits cannot be reproduced; tests compare
+``1/keep``. Nothing depends on tiling or device, so the CUDA kernels
+(``csrc/ln_ffn_residual.cu`` and ``csrc/lstm2_seq.cu``, which repeat
+``hash32``), their backwards and the plain versions here draw identical
+masks, and the CPU and the card agree bit for bit. The TPU's own bits cannot be reproduced; tests compare
 against these plain versions and against the keep rate.
 
 ``hash32`` multiplies by two constants below 2^31, so on an int64 tensor
@@ -30,6 +30,9 @@ M32 = 0xFFFFFFFF
 _C1, _C2 = 0x21F0AAAD, 0x735A2D97
 KEEP_ALL = 65536      # threshold meaning "no mask"
 STREAM_PLAIN, STREAM_FFN_HIDDEN, STREAM_FFN_OUT = 0, 1, 2
+# K4's inter-layer mask, drawn at index (t * B + b) * H + j (step t, batch
+# row b, unit j), so that it does not depend on the kernel's batch blocks.
+STREAM_LSTM_INTER = 3
 
 
 def hash32(x):
@@ -66,14 +69,15 @@ def keep_mask(seed: int, stream: int, index: torch.Tensor,
 
 
 def apply_mask(x: torch.Tensor, seed: int, stream: int,
-               rate: float) -> torch.Tensor:
+               rate: float, offset: int = 0) -> torch.Tensor:
     """``where(keep, x * (1/keep), 0)`` in ``x``'s dtype, the mask drawn at
-    each element's flat index (``row * ncols + col`` for a [N, ncols]
-    tensor)."""
+    ``offset`` plus each element's flat index (``row * ncols + col`` for a
+    [N, ncols] tensor)."""
     thresh, scale = threshold(rate)
     if thresh == KEEP_ALL:
         return x
-    index = torch.arange(x.numel(), device=x.device).reshape(x.shape)
+    index = offset + torch.arange(x.numel(),
+                                  device=x.device).reshape(x.shape)
     keep = keep_mask(seed, stream, index, thresh)
     return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))

@@ -1,0 +1,440 @@
+"""Streaming RNN-T loss: the [B, T, U+1, V] joint never exists (port of
+``wenet_celoss_tpu/ops/rnnt_loss.py``: ``rnnt_loss_streaming`` with its
+custom VJP, ``_alpha_scan``, ``_beta_scan`` and ``_occupancies``).
+
+The joint's output layer is applied to the projected streams ``enc_j``
+[B, T, H] and ``pred_j`` [B, U+1, H] and reduced at once to three
+[B, T, U+1] fp32 planes, the blank and label log-probs and the
+log-normaliser:
+
+- K2 (``joint_planes``, the port of ``ops/rnnt_pallas.py::
+  streaming_joint_planes_fwd``): on CUDA tensors the kernel of
+  ``csrc/rnnt_joint.cu``; on CPU tensors ``joint_planes_ref``, the chunked
+  plain version (the JAX package's ``_streaming_chunked_planes``);
+- K3 (``joint_planes_bwd``, the port of ``streaming_joint_planes_bwd``):
+  the analytic backward from the transition occupancies, the kernel or
+  ``joint_planes_bwd_ref`` (the JAX package's chunked backward).
+
+The lattice recursions run over the T + U anti-diagonals as plain torch
+(in the JAX package they are XLA on this path; their hand-written kernel
+is K9's, later). ``rnnt_loss_streaming`` is one ``torch.autograd.Function``:
+forward = K2, then alpha; backward = beta, the occupancies, then K3.
+
+The output layer's weight is in ``torch.nn.Linear`` layout [V, H] (the JAX
+package's kernel is [H, V]); labels are [B, U] ids (0 where padded), not
+the TPU kernel's one-hot. Activations: tanh, relu, swish.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from wenet_celoss_tpu_torch.ops._build import load_library
+from wenet_celoss_tpu_torch.utils.common import LOG_ZERO
+
+ACTS = {"tanh": 0, "relu": 1, "swish": 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _act(name: str, pre: torch.Tensor) -> torch.Tensor:
+    """The activation in pre's dtype (swish as two rounded steps,
+    ``pre * sigmoid(pre)``, as the JAX package writes it)."""
+    if name == "tanh":
+        return torch.tanh(pre)
+    if name == "relu":
+        return torch.clamp_min(pre, 0.0)
+    if name == "swish":
+        return pre * torch.sigmoid(pre)
+    raise ValueError(f"unsupported joint activation: {name}")
+
+
+def _act_grad(name: str, pre: torch.Tensor, h: torch.Tensor):
+    """d act / d pre in the compute dtype, every step rounded there as in
+    the JAX package: tanh' = 1 - h*h from the activation h; relu' = pre > 0;
+    swish' = s * (1 + pre * (1 - s)), s = sigmoid(pre)."""
+    if name == "tanh":
+        return 1.0 - h * h
+    if name == "relu":
+        return (pre > 0).to(h.dtype)
+    s = torch.sigmoid(pre)
+    return s * (1.0 + pre * (1.0 - s))
+
+
+def _chunk_logits(enc_c, pred_j, w, b, activation):
+    """pre, hidden [B, Tc, U1, H] in the compute dtype and the fp32 logits
+    [B, Tc, U1, V] (compute-dtype operands, fp32 accumulation)."""
+    af = torch.promote_types(enc_c.dtype, torch.float32)
+    pre = enc_c[:, :, None, :] + pred_j[:, None, :, :]
+    hidden = _act(activation, pre)
+    logits = hidden.to(af) @ w.to(af).t() + b.to(af)
+    return pre, hidden, logits
+
+
+def joint_planes_ref(enc_j, pred_j, w, b, labels, blank: int,
+                     activation: str, chunk: int = 16):
+    """K2's plain version: (blank_lp, emit_lp, lse) [B, T, U1] fp32 from
+    enc_j [B, T, H], pred_j [B, U1, H], w [V, H] (all in the compute
+    dtype), b [V] fp32 and labels [B, U1 - 1], chunked over T. emit_lp's
+    row U is the blank column's (the caller overwrites it)."""
+    bsz, t_max, _ = enc_j.shape
+    u1 = pred_j.shape[1]
+    lab = torch.cat([labels.long(), torch.full((bsz, 1), blank,
+                                               dtype=torch.long,
+                                               device=labels.device)], 1)
+    out = [[], [], []]
+    for t0 in range(0, t_max, chunk):
+        _, _, logits = _chunk_logits(enc_j[:, t0:t0 + chunk], pred_j, w, b,
+                                     activation)
+        m = logits.max(dim=-1, keepdim=True).values
+        lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+        idx = lab[:, None, :, None].expand(-1, logits.shape[1], -1, 1)
+        out[0].append(logits[..., blank] - lse)
+        out[1].append(torch.gather(logits, -1, idx)[..., 0] - lse)
+        out[2].append(lse)
+    return tuple(torch.cat(o, dim=1).float() for o in out)
+
+
+def joint_planes_bwd_ref(enc_j, pred_j, w, b, labels, gb, ge, lse,
+                         blank: int, activation: str, chunk: int = 16):
+    """K3's plain version: (denc [B,T,H], dpred [B,U1,H], dw [V,H],
+    db [V]) fp32 from K2's inputs, the saved lse and the plane gradients
+    gb, ge [B, T, U1] (0 on invalid cells), chunked over T:
+
+        dlogits = (gb + ge) exp(logits - lse) - gb 1[blank] - ge 1[label]
+        dpre = (cdt(dlogits) @ w) * act'(pre)   (act' in the compute dtype)
+
+    with denc, dpred the sums of dpre over U and T, dw the sum of
+    cdt(dlogits)^T hidden and db of dlogits, all in fp32."""
+    bsz, t_max, h = enc_j.shape
+    u1 = pred_j.shape[1]
+    v = w.shape[0]
+    cdt = enc_j.dtype
+    af = torch.promote_types(cdt, torch.float32)
+    lab = torch.cat([labels.long(), torch.zeros(bsz, 1, dtype=torch.long,
+                                                device=labels.device)], 1)
+    ge_lab = ge.clone()
+    ge_lab[..., u1 - 1] = 0.0          # row U has no label
+    denc = []
+    dpred = torch.zeros(bsz, u1, h, dtype=af, device=enc_j.device)
+    dw = torch.zeros(v, h, dtype=af, device=enc_j.device)
+    db = torch.zeros(v, dtype=af, device=enc_j.device)
+    for t0 in range(0, t_max, chunk):
+        sl = slice(t0, t0 + chunk)
+        pre, hidden, logits = _chunk_logits(enc_j[:, sl], pred_j, w, b,
+                                            activation)
+        gbc, gec = gb[:, sl].to(af), ge[:, sl].to(af)
+        dl = (gbc + gec)[..., None] * torch.exp(logits
+                                                 - lse[:, sl, :, None])
+        dl[..., blank] -= gbc
+        idx = lab[:, None, :, None].expand(-1, dl.shape[1], -1, 1)
+        dl.scatter_add_(-1, idx, -ge_lab[:, sl].to(af)[..., None])
+        dlc = dl.to(cdt)
+        dpre = (dlc.to(af) @ w.to(af)) * _act_grad(activation, pre,
+                                                   hidden).to(af)
+        denc.append(dpre.sum(2))
+        dpred += dpre.sum(1)
+        dw += torch.einsum("btuv,btuh->vh", dlc.to(af), hidden.to(af))
+        db += dl.sum((0, 1, 2))
+    return torch.cat(denc, 1).float(), dpred.float(), dw.float(), db.float()
+
+
+def _check(enc_j, pred_j, w, b, labels, activation):
+    if enc_j.dim() != 3 or pred_j.dim() != 3 or w.dim() != 2:
+        raise ValueError("enc_j [B, T, H], pred_j [B, U1, H], w [V, H]")
+    bsz, _, h = enc_j.shape
+    u1 = pred_j.shape[1]
+    if enc_j.dtype not in _DTYPES:
+        raise TypeError(f"dtype {enc_j.dtype} not supported")
+    if activation not in ACTS:
+        raise ValueError(f"unsupported joint activation: {activation}")
+    if h % 16:
+        raise ValueError(f"H={h} must be a multiple of 16")
+    shapes = {"pred_j": (pred_j, (bsz, u1, h)), "w": (w, (w.shape[0], h)),
+              "b": (b, (w.shape[0],)), "labels": (labels, (bsz, u1 - 1))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+    for name, t in (("pred_j", pred_j), ("w", w)):
+        if t.dtype != enc_j.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != {enc_j.dtype}")
+    if b.dtype != torch.float32:
+        raise TypeError("b must be float32")
+    for name, t in (("enc_j", enc_j), ("pred_j", pred_j), ("w", w), ("b", b),
+                    ("labels", labels)):
+        if t.device != enc_j.device:
+            raise ValueError(f"{name} is on {t.device}, enc_j on "
+                             f"{enc_j.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             f"aligned")
+    if enc_j.device.type != "cuda":
+        raise ValueError("the kernels take CUDA tensors")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def joint_planes_kernel(enc_j, pred_j, w, b, labels, blank: int,
+                        activation: str):
+    """Launch K2 on CUDA tensors → (blank_lp, emit_lp, lse) [B, T, U1]."""
+    labels = labels.to(torch.int32).contiguous()
+    _check(enc_j, pred_j, w, b, labels, activation)
+    bsz, t_max, h = enc_j.shape
+    u1, v = pred_j.shape[1], w.shape[0]
+    planes = torch.empty(3, bsz, t_max, u1, dtype=torch.float32,
+                         device=enc_j.device)
+    if planes.numel():
+        rc = _lib().rnnt_joint_fwd(
+            _DTYPES[enc_j.dtype], ACTS[activation], enc_j.data_ptr(),
+            pred_j.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+            planes[0].data_ptr(), planes[1].data_ptr(), planes[2].data_ptr(),
+            bsz, t_max, u1, h, v, blank, _stream(enc_j))
+        if rc != 0:
+            raise RuntimeError(f"rnnt_joint kernel launch failed: "
+                               f"cudaError {rc}")
+        joint_planes.launches += 1
+    return planes[0], planes[1], planes[2]
+
+
+def joint_planes_bwd_kernel(enc_j, pred_j, w, b, labels, gb, ge, lse,
+                            blank: int, activation: str):
+    """Launch K3 on CUDA tensors → (denc, dpred, dw, db) fp32."""
+    labels = labels.to(torch.int32).contiguous()
+    _check(enc_j, pred_j, w, b, labels, activation)
+    bsz, t_max, h = enc_j.shape
+    u1, v = pred_j.shape[1], w.shape[0]
+    for name, t in (("gb", gb), ("ge", ge), ("lse", lse)):
+        if tuple(t.shape) != (bsz, t_max, u1) or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != enc_j.device:
+            raise ValueError(f"{name} must be a contiguous fp32 "
+                             f"[B, T, U1] tensor on {enc_j.device}")
+    f32 = dict(dtype=torch.float32, device=enc_j.device)
+    denc = torch.zeros(bsz, t_max, h, **f32)
+    dpred = torch.zeros(bsz, u1, h, **f32)
+    dw, db = torch.zeros(v, h, **f32), torch.zeros(v, **f32)
+    if gb.numel():
+        lib = _lib()
+        words = lib.rnnt_joint_bwd_workspace(_DTYPES[enc_j.dtype], bsz,
+                                             t_max, u1, h, v)
+        if words == 0:
+            raise ValueError(f"H={h} is not taken by the backward kernel "
+                             f"(its tiles must fit shared memory and, in "
+                             f"bf16, H <= 512)")
+        if words < 0:
+            raise RuntimeError("rnnt_joint backward: a CUDA query failed "
+                               "while sizing its workspace")
+        ws = torch.empty(words, **f32)
+        rc = lib.rnnt_joint_bwd(
+            _DTYPES[enc_j.dtype], ACTS[activation], enc_j.data_ptr(),
+            pred_j.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+            gb.data_ptr(), ge.data_ptr(), lse.data_ptr(), denc.data_ptr(),
+            dpred.data_ptr(), dw.data_ptr(), db.data_ptr(), ws.data_ptr(),
+            bsz, t_max, u1, h, v, blank, _stream(enc_j))
+        if rc != 0:
+            raise RuntimeError(f"rnnt_joint backward kernel launch failed: "
+                               f"cudaError {rc}")
+        joint_planes_bwd.launches += 1
+    return denc, dpred, dw, db
+
+
+def joint_planes(enc_j, pred_j, w, b, labels, blank: int, activation: str,
+                 chunk: int = 16):
+    """K2: the kernel for a CUDA tensor, the plain version for a CPU one."""
+    if enc_j.device.type == "cpu":
+        return joint_planes_ref(enc_j, pred_j, w, b, labels, blank,
+                                activation, chunk)
+    return joint_planes_kernel(enc_j, pred_j, w, b, labels, blank,
+                               activation)
+
+
+def joint_planes_bwd(enc_j, pred_j, w, b, labels, gb, ge, lse, blank: int,
+                     activation: str, chunk: int = 16):
+    """K3: the kernel for a CUDA tensor, the plain version for a CPU one."""
+    if enc_j.device.type == "cpu":
+        return joint_planes_bwd_ref(enc_j, pred_j, w, b, labels, gb, ge,
+                                    lse, blank, activation, chunk)
+    return joint_planes_bwd_kernel(enc_j, pred_j, w, b, labels, gb, ge, lse,
+                                   blank, activation)
+
+
+joint_planes.launches = 0
+joint_planes_bwd.launches = 0
+
+
+# ------------------------------------------------------------- lattice ---
+
+def _diag_index(t_max: int, u1: int, device, shift: int):
+    """For diagonal d and column u: t = d - u + shift, clamped, and
+    whether d - u lies in [0, T)."""
+    d = torch.arange(t_max + u1 - 1, device=device)[:, None]
+    u = torch.arange(u1, device=device)[None, :]
+    t_of = d - u
+    return (t_of + shift).clamp(0, t_max - 1), (t_of >= 0) & (t_of < t_max)
+
+
+def alpha_scan(blank_lp, emit_lp):
+    """Forward wavefront over the T + U anti-diagonals: alpha [B, T, U1],
+    alpha[t, u] = logaddexp(alpha[t-1, u] + blank[t-1, u],
+    alpha[t, u-1] + emit[t, u-1]); invalid cells LOG_ZERO."""
+    b, t_max, u1 = blank_lp.shape
+    dev = blank_lp.device
+    t_prev, valid = _diag_index(t_max, u1, dev, -1)
+    t_here, _ = _diag_index(t_max, u1, dev, 0)
+    uu = torch.arange(u1, device=dev)
+    blank_d = blank_lp[:, t_prev, uu]                    # [B, D, U1]
+    emit_d = torch.full_like(blank_d, LOG_ZERO)
+    if u1 > 1:
+        emit_d[:, :, 1:] = emit_lp[:, t_here[:, 1:], uu[:-1]]
+    zero_col = torch.full((b, 1), LOG_ZERO, device=dev)
+    prev = torch.full((b, u1), LOG_ZERO, device=dev)
+    prev[:, 0] = 0.0
+    diags = [prev]
+    for d in range(1, t_max + u1 - 1):
+        new = torch.logaddexp(prev + blank_d[:, d],
+                              torch.cat([zero_col, prev[:, :-1]], 1)
+                              + emit_d[:, d])
+        prev = torch.where(valid[d], new, LOG_ZERO)
+        diags.append(prev)
+    diags = torch.stack(diags, 1)                        # [B, D, U1]
+    tt = torch.arange(t_max, device=dev)[:, None] + uu[None, :]
+    return diags[:, tt, uu]
+
+
+def beta_scan(blank_lp, emit_lp, input_lengths, label_lengths):
+    """Reverse wavefront: beta[t, u] = log P(reach the final blank | t, u);
+    beta(T_b-1, U_b) = blank(T_b-1, U_b); invalid cells LOG_ZERO."""
+    b, t_max, u1 = blank_lp.shape
+    dev = blank_lp.device
+    t_here, _ = _diag_index(t_max, u1, dev, 0)
+    uu = torch.arange(u1, device=dev)
+    d_all = torch.arange(t_max + u1 - 1, device=dev)
+    blank_d = blank_lp[:, t_here, uu]                    # [B, D, U1]
+    emit_d = emit_lp[:, t_here, uu]
+    t_last = (input_lengths - 1)[:, None]
+    u_last = label_lengths[:, None]
+    last_col = torch.full((b, 1), LOG_ZERO, device=dev)
+    prev = torch.full((b, u1), LOG_ZERO, device=dev)
+    diags = [None] * (t_max + u1 - 1)
+    for d in range(t_max + u1 - 2, -1, -1):
+        t_of = d_all[d] - uu[None, :]
+        blank_here = blank_d[:, d]
+        blank_term = blank_here + torch.where(t_of + 1 <= t_last, prev,
+                                              LOG_ZERO)
+        is_term = (t_of == t_last) & (uu[None, :] == u_last)
+        blank_term = torch.where(is_term, blank_here, blank_term)
+        prev_up = torch.cat([prev[:, 1:], last_col], 1)
+        emit_term = emit_d[:, d] + torch.where(uu[None, :] + 1 <= u_last,
+                                               prev_up, LOG_ZERO)
+        new = torch.logaddexp(blank_term, emit_term)
+        valid = (t_of >= 0) & (t_of <= t_last) & (uu[None, :] <= u_last)
+        prev = torch.where(valid, new, LOG_ZERO)
+        diags[d] = prev
+    diags = torch.stack(diags, 1)
+    tt = torch.arange(t_max, device=dev)[:, None] + uu[None, :]
+    return diags[:, tt, uu]
+
+
+def occupancies(blank_lp, emit_lp, alpha, input_lengths, label_lengths):
+    """Blank and emit transition occupancies [B, T, U1] (posterior
+    expected counts of each lattice edge)."""
+    b, t_max, u1 = blank_lp.shape
+    dev = blank_lp.device
+    beta = beta_scan(blank_lp, emit_lp, input_lengths, label_lengths)
+    log_z = beta[:, 0, 0][:, None, None]
+    t_idx = torch.arange(t_max, device=dev)[None, :, None]
+    u_idx = torch.arange(u1, device=dev)[None, None, :]
+    t_last = (input_lengths - 1)[:, None, None]
+    u_last = label_lengths[:, None, None]
+    in_lattice = (t_idx <= t_last) & (u_idx <= u_last)
+    beta_down = torch.cat([beta[:, 1:], torch.full((b, 1, u1), LOG_ZERO,
+                                                   device=dev)], 1)
+    beta_down = torch.where((t_idx == t_last) & (u_idx == u_last), 0.0,
+                            torch.where(t_idx < t_last, beta_down, LOG_ZERO))
+    occ_b = torch.exp(torch.where(in_lattice,
+                                  alpha + blank_lp + beta_down - log_z,
+                                  LOG_ZERO))
+    beta_right = torch.cat([beta[:, :, 1:], torch.full(
+        (b, t_max, 1), LOG_ZERO, device=dev)], 2)
+    occ_e = torch.exp(torch.where(in_lattice & (u_idx < u_last),
+                                  alpha + emit_lp + beta_right - log_z,
+                                  LOG_ZERO))
+    return occ_b, occ_e
+
+
+def _final(plane, input_lengths, label_lengths):
+    b = plane.shape[0]
+    t_last = (input_lengths - 1).clamp_min(0)
+    return plane[torch.arange(b, device=plane.device), t_last, label_lengths]
+
+
+class _RnntLossStreaming(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, enc_j, pred_j, w, b, labels, input_lengths,
+                label_lengths, blank, activation, chunk):
+        cdt = enc_j.dtype
+        pred_c = pred_j.to(cdt).contiguous()
+        w_c = w.to(cdt).contiguous()
+        b_f = b.float().contiguous()
+        u1 = pred_j.shape[1]
+        labels = labels[:, :u1 - 1]
+        blank_lp, emit_lp, lse = joint_planes(enc_j, pred_c, w_c, b_f,
+                                              labels, blank, activation,
+                                              chunk)
+        emit_lp[..., u1 - 1] = LOG_ZERO
+        alpha = alpha_scan(blank_lp, emit_lp)
+        loss = -(_final(alpha, input_lengths, label_lengths)
+                 + _final(blank_lp, input_lengths, label_lengths))
+        ctx.cfg = (blank, activation, chunk, pred_j.dtype, w.dtype, b.dtype)
+        ctx.save_for_backward(enc_j, pred_c, w_c, b_f, labels, input_lengths,
+                              label_lengths, blank_lp, emit_lp, lse, alpha)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        (enc_j, pred_c, w_c, b_f, labels, input_lengths, label_lengths,
+         blank_lp, emit_lp, lse, alpha) = ctx.saved_tensors
+        blank, activation, chunk, pred_dt, w_dt, b_dt = ctx.cfg
+        occ_b, occ_e = occupancies(blank_lp, emit_lp, alpha, input_lengths,
+                                   label_lengths)
+        # dL/dlogits = (gb + ge) p - gb 1[blank] - ge 1[label] with
+        # gb = occ_b g, ge = occ_e g (L is a negative log-likelihood).
+        gc = g.float()[:, None, None]
+        denc, dpred, dw, db = joint_planes_bwd(
+            enc_j, pred_c, w_c, b_f, labels, (occ_b * gc).contiguous(),
+            (occ_e * gc).contiguous(), lse, blank, activation, chunk)
+        return (denc.to(enc_j.dtype), dpred.to(pred_dt), dw.to(w_dt),
+                db.to(b_dt), None, None, None, None, None, None)
+
+
+def rnnt_loss_streaming(enc_j, pred_j, w, b, labels, input_lengths,
+                        label_lengths, blank: int = 0,
+                        activation: str = "tanh", chunk: int = 16):
+    """Per-utterance transducer loss [B] from the projected streams.
+
+    enc_j [B, T, H] in the compute dtype; pred_j [B, U+1, H]; w [V, H],
+    b [V] (the joint's output layer; fp32 parameters are cast to the
+    compute dtype inside, and their gradients come back in fp32); labels
+    [B, >= U] (0 where padded); lengths [B]. ``chunk`` is the T-chunk of
+    the CPU's plain versions (memory only; the kernels do not chunk)."""
+    if activation not in ACTS:
+        raise ValueError(f"unsupported joint activation: {activation}")
+    return _RnntLossStreaming.apply(enc_j.contiguous(), pred_j, w, b,
+                                    labels, input_lengths, label_lengths,
+                                    int(blank), activation, int(chunk))
+
+
+def _lib() -> ctypes.CDLL:
+    lib = load_library("rnnt_joint")
+    if lib.rnnt_joint_fwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rnnt_joint_fwd.argtypes = [i, i] + [p] * 8 + [i] * 6 + [p]
+        lib.rnnt_joint_fwd.restype = i
+        lib.rnnt_joint_bwd_workspace.argtypes = [i] * 6
+        lib.rnnt_joint_bwd_workspace.restype = ctypes.c_longlong
+        lib.rnnt_joint_bwd.argtypes = [i, i] + [p] * 13 + [i] * 6 + [p]
+        lib.rnnt_joint_bwd.restype = i
+    return lib

@@ -111,8 +111,12 @@ def create_train_state(model: nn.Module, tx: ClippedAdam) -> TrainState:
 
 def _forward(model: nn.Module, batch: Batch,
              gen: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-    return model(batch["feats"], batch["feat_lengths"], batch["labels"],
-                 batch["label_lengths"], gen=gen)
+    args = (batch["feats"], batch["feat_lengths"], batch["labels"],
+            batch["label_lengths"])
+    if "context_list" in batch:
+        args += (batch["context_list"], batch["context_lengths"],
+                 batch.get("hw_labels"), batch.get("context_n_valid"))
+    return model(*args, gen=gen)
 
 
 def make_grad_fn(model: nn.Module, accum_grad: int = 1):
@@ -120,7 +124,9 @@ def make_grad_fn(model: nn.Module, accum_grad: int = 1):
     ``loss / accum_grad`` in parameter order (zeros for a parameter the
     loss does not reach, as JAX gives), and the detached loss dict. The
     batch holds feats, feat_lengths, labels, label_lengths on the model's
-    device; ``gen`` is the dropout generator."""
+    device and, for a transducer with hotwords, context_list,
+    context_lengths and optionally hw_labels and context_n_valid;
+    ``gen`` is the dropout generator."""
 
     def grad_fn(state: TrainState, batch: Batch,
                 gen: Optional[torch.Generator]):

@@ -77,7 +77,7 @@ _RULES = [
      r"context_bias.extractor.\1.cells.\2", "lstm"),
     (r"context_bias/(context_proj|encoder_bias_combine|"
      r"predictor_bias_combine|hw_output_layer|hw_output_layer_enc|"
-     r"hw_output_layer_dec)", r"context_bias.\1", "dense"),
+     r"hw_output_layer_dec|hw_pred_proj)", r"context_bias.\1", "dense"),
     (r"context_bias/(context_norm|encoder_bias_bias_norm|"
      r"encoder_bias_out_norm|predictor_bias_bias_norm|"
      r"predictor_bias_out_norm|hw_bias_norm)", r"context_bias.\1", "norm"),
