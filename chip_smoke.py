@@ -3,51 +3,54 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
-  1. env    torch and CUDA versions, the card's name and power limit;
-  2. build  every hand-written kernel, one nvcc per source, all at once;
-  3. k1     ln_ffn_residual against its plain PyTorch version on the card
-            (fp32 and bf16, main-path and ragged shapes), with its time,
-            the plain version's, two torch.addmm GEMMs as a yardstick and
-            the card's bound for the same work;
-  4. k1_bwd its forward and backward kernels with dropout against autograd
-            through the plain version with the same seed (N = 256*127
-            swish/0.5, 256*33 relu/1.0 and a ragged 1000; fp32 and bf16;
-            rates 0 and 0.1), the weight-gradient pass on ragged N with
-            short row splits (same bits on every call), the keep rate of
-            both masks as the kernel draws them, and at the training
-            shapes in bf16 the times of both directions, the plain
-            versions', five torch.mm GEMMs of the same backward as a
-            yardstick, and the bounds;
-  5. slice  the flagship (conformer_rnnt_bias, full width, seeded random
-            weights) decodes the 16 committed test-clean WAVs through
-            init_model → Decoder.rnnt_greedy_search: no context, and 8
-            hotwords with the gate "on" and "off". The same model in fp32
-            on the CPU (plain versions) must give identical tokens and
-            gates, except where the CPU run's top-2 logit gap at that step
-            is under 1e-3; the kernel's launch count must be 24 per
-            encoder pass;
-  6. bench  bf16 decode at the bench shape (B=64, T=512): audio-s/s of the
-            plain and gated greedy decode, encoder ms, peak memory, at two
-            blank biases (see SLICE_BLANK_BIAS);
-  7. train_check  one training step of conformer_ctc_aed at full width in
-            fp32, every dropout rate 0, on the card and on the CPU with the
-            same weights and batch (16 committed train-clean-100 WAVs with
-            character tokens): loss terms, pre-clip gradient norm and every
-            parameter's gradient, and 30 + 30 K1 launches;
-  8. train  the training path init_model → make_optimizer →
-            create_train_state → make_train_step in bf16 with dropout 0.1
-            at bench.py's training shape (B=256, T=512, U=32; vocab 5002 as
-            configs.py has it, where bench.py uses 1024): ms per step,
-            audio-s/s, peak memory, K1 launches per step; then 24 steps on
-            the committed train-clean-100 WAVs (warmup cut to 4 steps) whose
-            loss must fall;
-  9. profile  each decode and one training step under torch.profiler, last:
-            the card's busy time, idle share and top kernels.
+Phases, in the order they run, each printing JSON lines:
+  env       torch and CUDA versions, the card's name and power limit;
+  build     every hand-written kernel, one nvcc per source, all at once;
+  k1, k1_bwd  ln_ffn_residual forward and backward with dropout against
+            its plain version (fp32, bf16, main-path and ragged shapes),
+            the weight pass on ragged splits (same bits every call), both
+            masks' keep rates, times, yardsticks and bounds;
+  k2_k3, k4 the streaming joint's and the 2-layer LSTM's kernels the same
+            way (same bits over repeated backwards);
+  k9        the RNN-T lattice against alpha_scan/beta_scan (B=256 T'=127
+            U1=33 full and ragged, the pallas path's B=64, a wide U1=90):
+            valid cells, invalid cells exactly LOG_ZERO, beta[0,0] against
+            the terminal alpha; its time and bound;
+  k8        the fused conv block, forward (N=64*127) and backward
+            (N=256*127), D=256 K=15, fp32/bf16, causal or not, dropout 0
+            and 0.1, against the plain version; the mask's bits and keep
+            rate; times beside the port's unfused block;
+  slice     S1: the flagship (full width, seeded random weights) decodes
+            the 16 committed test-clean WAVs through init_model →
+            Decoder.rnnt_greedy_search, no context and 8 hotwords gated
+            "on" and "off"; tokens and gates identical to the CPU fp32 run
+            except where its top-2 logit gap is under 1e-3; 24 K1 launches
+            an encoder pass;
+  conv_decode  S1 with CONV_PALLAS=1 against the same CPU run, 12 K8
+            launches an encoder pass;
+  bench     B1/B2: bf16 decode at B=64, T=512, two blank biases;
+  train_check, train, train_wavs  T0-T2: conformer_ctc_aed, one fp32 step
+            card against CPU, bf16 steps at B=256 T=512 U=32 timed, 24
+            steps on the committed train-clean-100 WAVs (the loss falls);
+  rnnt_train_check, rnnt_pallas_train_check, conv_train_check  one fp32
+            step of the flagship with hotwords, card against CPU: the
+            streaming loss (K2, K9, K3), rnnt_impl pallas (character
+            vocabulary), CONV_PALLAS=1;
+  rnnt_train, conv_train, rnnt_pallas_train  T4, T7, T6: the flagship in
+            bf16 with dropout 0.1 timed (B=256; B=64 for pallas, whose
+            [B, T', U+1, V] logits materialise), launches per step;
+  rnnt_train_wavs  T5: 24 flagship steps on the WAVs (the loss falls);
+  profile   each decode and training step under torch.profiler, last: the
+            card's busy time, idle share and each kernel's time;
+  k8_device K8 against the port's unfused block in the card's busy time
+            (the kernels line's library_ms for K8).
+
+Then the card's name and power limit, the kernels line, and the ok line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -71,6 +74,7 @@ SLICE_BLANK_BIAS = 3.0
 BENCH_BLANK_BIASES = (4.0, 3.0)
 NEAR_TIE = 1e-3
 K1_PER_ENCODER_PASS = 24  # 12 blocks x 2 macaron FFN halves
+K8_PER_ENCODER_PASS = 12  # one conv block a layer under CONV_PALLAS=1
 K1_PER_TRAIN_STEP = 30    # ... + 6 decoder blocks (conformer_ctc_aed)
 K1_GRADS = ("y", "dx", "dg", "dbl", "dw1", "db1", "dw2", "db2")
 
@@ -644,6 +648,262 @@ def lstm_times(lstm, bounds, args, dy) -> dict:
     return out
 
 
+LATTICE_CASES = (  # (name, B, T', U1, ragged lengths)
+    ("train", 256, 127, 33, False),
+    ("train_ragged", 256, 127, 33, True),
+    ("pallas_b64", 64, 127, 33, False),
+    ("wide_ragged", 64, 200, 90, True),
+)
+
+
+def lattice_inputs(b, t, u1, ragged, seed, log_zero):
+    """Blank and label log-prob planes [B, T', U1] (a 3-way log-softmax,
+    row U of emit at LOG_ZERO) and the lengths, full or ragged."""
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.log_softmax(2.0 * torch.randn(b, t, u1, 3, generator=g), -1)
+    blank, emit = lp[..., 0].contiguous(), lp[..., 1].contiguous()
+    emit[..., -1] = log_zero
+    il, ll = torch.full((b,), t), torch.full((b,), u1 - 1)
+    if ragged:
+        il = torch.randint(1, t, (b,), generator=g)
+        ll = torch.randint(0, u1 - 1, (b,), generator=g)
+    return blank.cuda(), emit.cuda(), il.cuda(), ll.cuda()
+
+
+def phase_k9(rnnt, bounds) -> dict:
+    """K9 against alpha_scan/beta_scan on the card: valid cells within
+    1e-4 + 1e-5*|ref|, invalid cells exactly LOG_ZERO, beta[0, 0] equal to
+    the terminal alpha + blank within 1e-5 relative; at the training shape
+    the kernel's time, the plain loops' and the bound. Returns that
+    record."""
+    record = {}
+    for name, b, t, u1, ragged in LATTICE_CASES:
+        blank, emit_lp, il, ll = lattice_inputs(b, t, u1, ragged, t + u1,
+                                                rnnt.LOG_ZERO)
+        got = rnnt.alpha_beta_kernel(blank, emit_lp, il, ll)
+        torch.cuda.synchronize()
+        want = rnnt.alpha_beta_ref(blank, emit_lp, il, ll)
+        errs = {}
+        for pname, a, r in zip(("alpha", "beta"), got, want):
+            off = r == rnnt.LOG_ZERO
+            err = (a - r)[~off].abs()
+            exact = bool((a[off] == rnnt.LOG_ZERO).all())
+            within = bool((err <= 1e-4 + 1e-5 * r[~off].abs()).all())
+            errs[pname] = {"max_abs": float(err.max()),
+                           "invalid_cells": int(off.sum()),
+                           "invalid_exact": exact, "ok": exact and within}
+        alpha, beta = got
+        rows = torch.arange(b, device="cuda")
+        term = alpha[rows, il - 1, ll] + blank[rows, il - 1, ll]
+        rel = float(((beta[:, 0, 0] - term).abs() / term.abs()).max())
+        ok = all(e["ok"] for e in errs.values()) and rel <= 1e-5
+        check(ok, f"k9 {name}: {errs}, beta[0,0] vs terminal rel {rel}")
+        line = {"case": name, "B": b, "T": t, "U1": u1, "ragged": ragged,
+                "ok": ok, "errors": errs, "beta00_vs_terminal_rel": rel,
+                "tolerance": "valid cells max abs <= 1e-4 + 1e-5*|ref| "
+                             "(fp32 logaddexp chains of up to T'+U1 steps "
+                             "in another order of operations); invalid "
+                             "cells exactly LOG_ZERO; beta[0,0] vs terminal "
+                             "alpha + blank <= 1e-5 relative"}
+        if not ragged:
+            ms = cuda_ms(lambda: rnnt.alpha_beta_kernel(blank, emit_lp, il,
+                                                        ll), iters=20)
+            plain_ms = cuda_ms(lambda: rnnt.alpha_beta_ref(blank, emit_lp,
+                                                           il, ll),
+                               iters=3, warmup=1)
+            flops, nbytes = bounds.alpha_beta(b, t, u1)
+            bound, by = bounds.bound_ms(flops, nbytes, "fp32")
+            line.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=by, flops=flops, bytes=nbytes,
+                        share_of_bound=bound / ms,
+                        library="none: no single PyTorch call computes the "
+                                "lattice")
+            if name == "train":
+                record = {"max_abs_err": max(e["max_abs"]
+                                             for e in errs.values()),
+                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                          "bound_by": by, "library_ms": None}
+        emit("k9", **line)
+    return record
+
+
+K8_OUTS = ("y", "dx", "dg1", "db1", "dw1", "dbw1", "dw_dw", "db_dw", "dg2",
+           "db2", "dw2", "dbw2")
+
+
+def conv_inputs(b, t, d, k, dtype, seed):
+    """K8's arguments (x, mask, the ten parameters) on a padded batch and
+    an upstream dy."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (mean + torch.randn(*shape, generator=g) * std).cuda()
+    lens = torch.randint(t // 2, t + 1, (b,), generator=g)
+    lens[0] = t
+    mask = (torch.arange(t)[None, :] < lens[:, None]).float().cuda()
+    params = (rnd(d, std=0.1, mean=1.0), rnd(d, std=0.1),
+              rnd(d, 2 * d, std=d ** -0.5).to(dtype), rnd(2 * d, std=0.1),
+              rnd(k, d, std=k ** -0.5), rnd(d, std=0.1),
+              rnd(d, std=0.1, mean=1.0), rnd(d, std=0.1),
+              rnd(d, d, std=d ** -0.5).to(dtype), rnd(d, std=0.1))
+    return rnd(b, t, d).to(dtype), mask, params, rnd(b, t, d).to(dtype)
+
+
+def conv_keep_rate(conv, dropout, rate=0.1, seed=77, b=256, t=127, d=256,
+                   k=15) -> dict:
+    """The keep rate of K8's output mask as the forward kernel draws it
+    and whether it equals the plain mask function bit for bit: with
+    W2 = 0 and bw2 = 1 the block adds drop(1) * mask, so y != x exactly
+    where the mask kept a valid frame's channel."""
+    x, mask, params, _ = conv_inputs(b, t, d, k, torch.float32, seed=5)
+    params = list(params)
+    params[8] = torch.zeros_like(params[8])
+    params[9] = torch.ones_like(params[9])
+    y = conv.forward_kernel(x, mask, *params, seed, False, rate, 1e-5)
+    valid = mask.bool()[..., None].expand(b, t, d)
+    kept = (y != x)[valid]
+    index = torch.arange(b * t * d, device="cuda").reshape(b, t, d)
+    plain = dropout.keep_mask(seed, dropout.STREAM_CONV_OUT, index,
+                              dropout.threshold(rate)[0])[valid]
+    return {"keep_rate": float(kept.double().mean()), "draws": kept.numel(),
+            "equals_plain_mask": bool(torch.equal(kept, plain))}
+
+
+def phase_k8(conv, bounds, dropout) -> tuple:
+    """K8 forward (N = 64*127) and backward (N = 256*127) against the
+    plain version and autograd through it on the card, D = 256, K = 15,
+    fp32 and bf16, causal and not, rates 0 and 0.1, on padded batches; the
+    same bits over repeated backward calls; the output mask's keep rate and
+    bits; at the route's operating point (bf16, non-causal) the times, the
+    plain versions', the port's unfused block as the yardstick, and the
+    bounds. Returns the (forward, backward) records."""
+    d, k, t = 256, 15, 127
+    rec_f, rec_b = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        limit = 1e-4 if dtype == torch.float32 else 2e-2
+        for causal in (False, True):
+            for rate in (0.0, 0.1):
+                cfg = (4242, causal, rate, 1e-5)
+                x, mask, params, _ = conv_inputs(64, t, d, k, dtype, seed=1)
+                y = conv.forward_kernel(x, mask, *params, *cfg)
+                torch.cuda.synchronize()
+                want_y = conv.conv_block_residual_ref(x, mask, *params, *cfg)
+                xb, mb, pb, dy = conv_inputs(256, t, d, k, dtype, seed=2)
+                got = [conv.backward_kernel(xb, mb, *pb, dy, *cfg)
+                       for _ in range(3)]
+                torch.cuda.synchronize()
+                same = all(torch.equal(p, q) for again in got[1:]
+                           for p, q in zip(got[0], again))
+                want = conv.backward_ref(xb, mb, *pb, dy, *cfg)
+                errs = {}
+                for oname, a, r in zip(K8_OUTS, (y, *got[0]),
+                                       (want_y, *want)):
+                    rel = rel_fro(a, r)
+                    errs[oname] = {"max_abs": float((a.float() - r.float())
+                                                    .abs().max()),
+                                   "rel_fro": rel, "ok": rel <= limit}
+                ok = same and all(e["ok"] for e in errs.values())
+                check(ok, f"k8 {dtype} causal={causal} rate={rate}: {errs},"
+                          f" same bits {same}")
+                line = {"dtype": str(dtype).split(".")[-1], "causal": causal,
+                        "rate": rate, "fwd_n": 64 * t, "bwd_n": 256 * t,
+                        "D": d, "K": k, "ok": ok,
+                        "bwd_same_bits_over_3_calls": same, "errors": errs,
+                        "tolerance": f"relative Frobenius <= {limit} against "
+                                     "the plain version and autograd "
+                                     "through it (fp32 sums in another "
+                                     "order; bf16 rounding of LN1's output, "
+                                     "silu's output, dv and du at the same "
+                                     "points)"}
+                if dtype == torch.bfloat16 and not causal and rate > 0:
+                    line.update(conv_times(conv, bounds, (x, mask, params),
+                                           (xb, mb, pb, dy), cfg))
+                    rec_f = {"max_abs_err": errs["y"]["max_abs"],
+                             **{key: line["fwd"][key] for key in (
+                                 "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}}
+                    rec_b = {"max_abs_err": errs["dx"]["max_abs"],
+                             **{key: line["bwd"][key] for key in (
+                                 "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}}
+                emit("k8", **line)
+    keep = conv_keep_rate(conv, dropout)
+    check(keep["equals_plain_mask"] and abs(keep["keep_rate"] - 0.9)
+          <= 0.003 * 0.9, f"k8 mask: {keep}")
+    emit("k8_mask", rate=0.1, expected_keep=0.9, **keep,
+         tolerance="bit-equal to the plain mask; keep rate within 0.3 % of "
+                   "0.9")
+    return rec_f, rec_b
+
+
+def unfused_block(args, dtype):
+    """The port's unfused conv block, LayerNorm → ConvolutionModule →
+    residual, with K8's weights: a yardstick the port does not call."""
+    from wenet_celoss_tpu_torch.models.convolution import ConvolutionModule
+    from wenet_celoss_tpu_torch.models.layers import LayerNorm
+    x, mask, (g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2) = args
+    d, k = x.shape[2], w_dw.shape[0]
+    ln = LayerNorm(d, dtype=dtype).cuda()
+    cm = ConvolutionModule(d, k, "layer_norm", dtype=dtype).cuda()
+    with torch.no_grad():
+        for p, v in ((ln.weight, g1), (ln.bias, b1),
+                     (cm.pointwise_conv1.weight, w1.t()),
+                     (cm.pointwise_conv1.bias, bw1),
+                     (cm.depthwise_conv.weight, w_dw.t()[:, None, :]),
+                     (cm.depthwise_conv.bias, b_dw),
+                     (cm.norm_layer.weight, g2), (cm.norm_layer.bias, b2),
+                     (cm.pointwise_conv2.weight, w2.t()),
+                     (cm.pointwise_conv2.bias, bw2)):
+            p.copy_(v.float())
+    pad = mask.bool()
+    return lambda xin: xin + cm(ln(xin), pad), [*ln.parameters(),
+                                                  *cm.parameters()]
+
+
+def conv_times(conv, bounds, fwd_args, bwd_args, cfg) -> dict:
+    """K8's forward (rate 0, the decode route) and backward times at the
+    main path's shapes, the plain versions', the unfused block's (forward;
+    forward + backward less forward) and the bounds; bf16 inputs."""
+    x, mask, params = fwd_args
+    xb, mb, pb, dy = bwd_args
+    fcfg = (cfg[0], cfg[1], 0.0, cfg[3])
+    fwd = cuda_ms(lambda: conv.forward_kernel(x, mask, *params, *fcfg),
+                  iters=20)
+    bwd = cuda_ms(lambda: conv.backward_kernel(xb, mb, *pb, dy, *cfg),
+                  iters=10)
+    p_fwd = cuda_ms(lambda: conv.conv_block_residual_ref(x, mask, *params,
+                                                         *fcfg), iters=5)
+    p_bwd = cuda_ms(lambda: conv.backward_ref(xb, mb, *pb, dy, *cfg),
+                    iters=3, warmup=1)
+    block, _ = unfused_block((x, mask, params), x.dtype)
+    with torch.no_grad():
+        lib_fwd = cuda_ms(lambda: block(x), iters=20)
+    block_b, weights = unfused_block((xb, mb, pb), xb.dtype)
+    xg = xb.detach().requires_grad_(True)
+    with torch.no_grad():
+        lib_fwd_b = cuda_ms(lambda: block_b(xb), iters=10)
+
+    def both():
+        torch.autograd.grad(block_b(xg), [xg] + weights, dy)
+    lib_both = cuda_ms(both, iters=10)
+    d, k = x.shape[2], params[4].shape[0]
+    out = {"library": "the port's unfused block (LayerNorm, "
+                      "ConvolutionModule with cuDNN's depthwise conv1d, "
+                      "residual; no dropout); backward = forward + backward "
+                      "less forward"}
+    for key, ms, plain, lib, n, fn in (
+            ("fwd", fwd, p_fwd, lib_fwd, x.shape[0] * x.shape[1],
+             bounds.conv_block_residual),
+            ("bwd", bwd, p_bwd, lib_both - lib_fwd_b,
+             xb.shape[0] * xb.shape[1], bounds.conv_block_residual_bwd)):
+        flops, nbytes = fn(n, d, k, "bf16")
+        bound, by = bounds.bound_ms(flops, nbytes, "bf16")
+        out[key] = {"n": n, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                    "bound_ms": bound, "bound_by": by, "flops": flops,
+                    "bytes": nbytes, "share_of_bound": bound / ms}
+    return out
+
+
 def load_wavs():
     from wenet_celoss_tpu_torch.data.wav import read_wav
     from wenet_celoss_tpu_torch.ops.fbank import compute_fbank_np
@@ -771,10 +1031,11 @@ def compare(card, cpu, trace):
     return same, ties, bad
 
 
-def phase_slice(init_model, Decoder, conformer_rnnt_bias, ffn) -> int:
+def phase_slice(init_model, Decoder, conformer_rnnt_bias, ffn):
     """Full-width fp32 decode of the committed WAVs on the card, held
     against the same model on the CPU. Returns the kernel launches of the
-    main path."""
+    main path and what conv_decode needs to decode the same WAVs with the
+    same model and compare with the same CPU run."""
     cfg = conformer_rnnt_bias()
     names, feats, lens = load_wavs()
     check(len(names) == 16, f"slice: {len(names)} WAVs in {WAV_DIR}, want 16")
@@ -811,9 +1072,11 @@ def phase_slice(init_model, Decoder, conformer_rnnt_bias, ffn) -> int:
     mask = mask.cpu()
     enc_err = float((enc_card.cpu() - enc_cpu)[mask].abs().max())
     check(enc_err <= 1e-3, f"slice encoder card vs CPU max abs {enc_err}")
+    cpu_runs = {}
     for mode in MODES:
         trace: list = []
         cpu = decode(cpu_dec, feats, lens, ctx, ctx_lens, mode, trace)
+        cpu_runs[mode] = (cpu, trace)
         same, ties, bad = compare(card[mode], cpu, trace)
         check(not bad, f"slice {mode}: card and CPU differ away from a "
                        f"near tie: {bad}")
@@ -830,6 +1093,55 @@ def phase_slice(init_model, Decoder, conformer_rnnt_bias, ffn) -> int:
          blank_bias=SLICE_BLANK_BIAS, audio_s=float(lens.sum() * 0.01),
          card_decode_s=seconds,
          k1_launches=total, first_hyp=card["gated_on"][0][0][:12])
+    return total, (dec, feats, lens, ctx, ctx_lens, cpu_runs)
+
+
+@contextlib.contextmanager
+def conv_route():
+    """CONV_PALLAS=1 for the block: every layer_norm conv block of the
+    encoder goes through K8 (the switch is read at each forward)."""
+    before = os.environ.get("CONV_PALLAS")
+    os.environ["CONV_PALLAS"] = "1"
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("CONV_PALLAS")
+        else:
+            os.environ["CONV_PALLAS"] = before
+
+
+def phase_conv_decode(slice_run, conv) -> int:
+    """S1 with CONV_PALLAS=1: the same model and WAVs decoded on the card
+    with every conv block through K8, held against S1's CPU run (unfused
+    conv module) by the same flip rule; 12 K8 launches per encoder pass.
+    Returns K8's launches on this path."""
+    dec, feats, lens, ctx, ctx_lens, cpu_runs = slice_run
+    conv.conv_block_residual.launches = 0     # the path starts here
+    conv.conv_block_residual.bwd_launches = 0
+    launches = {}
+    with conv_route():
+        for mode in MODES:
+            before = conv.conv_block_residual.launches
+            card = decode(dec, feats, lens, ctx, ctx_lens, mode)
+            torch.cuda.synchronize()
+            launches[mode] = conv.conv_block_residual.launches - before
+            cpu, trace = cpu_runs[mode]
+            same, ties, bad = compare(card, cpu, trace)
+            passes = 1 if mode == "plain" else 2
+            check(not bad, f"conv_decode {mode}: card and CPU differ away "
+                           f"from a near tie: {bad}")
+            check(launches[mode] == passes * K8_PER_ENCODER_PASS,
+                  f"conv_decode {mode}: {launches[mode]} K8 launches, want "
+                  f"{passes * K8_PER_ENCODER_PASS}")
+            emit("conv_decode", mode=mode, utterances=len(lens),
+                 tokens=sum(map(len, card[0])), identical_to_cpu=same,
+                 near_tie_flips=ties, other_diffs=bad,
+                 k8_launches=launches[mode],
+                 k8_bwd_launches=conv.conv_block_residual.bwd_launches)
+    total = conv.conv_block_residual.launches  # ... and ends here
+    check(conv.conv_block_residual.bwd_launches == 0,
+          "conv_decode launched K8's backward")
     return total
 
 
@@ -849,6 +1161,62 @@ def device_busy(prof):
             busy += stop - max(start, end)
             end = stop
     return busy / 1e3, by_name
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """The card's busy ms per call of ``fn`` under torch.profiler: its
+    kernel and copy intervals only, so the host's launch gaps between
+    small kernels are left out."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return device_busy(prof)[0] / iters
+
+
+def phase_k8_device(conv, fwd_rec: dict, bwd_rec: dict) -> None:
+    """K8 against the port's unfused block in the card's busy time (bf16,
+    non-causal, D=256, K=15): forwards at N = 64*127 and 256*127, and the
+    backward at 256*127 (the unfused block's: forward + backward less
+    forward). Event times of the unfused block at N = 64*127 carry about
+    ten host launches, so the kernels line's ``library_ms`` takes these
+    busy times and keeps the event times as ``library_event_ms``. Run
+    after the timings: the profiler slows what follows it."""
+    d, k, t = 256, 15, 127
+    cfg = (4242, False, 0.1, 1e-5)
+    fcfg = (cfg[0], cfg[1], 0.0, cfg[3])
+    line = {}
+    for b, seed in ((64, 1), (256, 2)):
+        x, mask, params, dy = conv_inputs(b, t, d, k, torch.bfloat16, seed)
+        block, weights = unfused_block((x, mask, params), x.dtype)
+        with torch.no_grad():
+            line[f"fwd_n{b * t}"] = {
+                "k8_ms": device_ms(lambda: conv.forward_kernel(
+                    x, mask, *params, *fcfg), iters=20),
+                "unfused_ms": device_ms(lambda: block(x), iters=20)}
+    xg = x.detach().requires_grad_(True)
+
+    def both():
+        torch.autograd.grad(block(xg), [xg] + weights, dy)
+    unfused_both = device_ms(both)
+    line[f"bwd_n{256 * t}"] = {
+        "k8_ms": device_ms(lambda: conv.backward_kernel(x, mask, *params, dy,
+                                                        *cfg)),
+        "unfused_ms": unfused_both - line[f"fwd_n{256 * t}"]["unfused_ms"],
+        "unfused_fwd_and_bwd_ms": unfused_both}
+    for rec, key in ((fwd_rec, f"fwd_n{64 * t}"),
+                     (bwd_rec, f"bwd_n{256 * t}")):
+        rec.update(device_ms=line[key]["k8_ms"],
+                   library_event_ms=rec["library_ms"],
+                   library_ms=line[key]["unfused_ms"])
+    emit("k8_device", **line,
+         how="torch.profiler busy ms per call (kernel and copy intervals); "
+             "backward at dropout 0.1, the unfused block without dropout")
 
 
 def phase_profile(dec, feats, lens, ctx, ctx_lens, mode: str,
@@ -940,11 +1308,13 @@ def no_dropout(cfg):
     return cfg
 
 
-def card_vs_cpu(what, init_model, cfg, train, model, batch, card) -> dict:
+def card_vs_cpu(what, init_model, cfg, train, model, batch, card,
+                loss_rtol: float = 1e-4) -> dict:
     """The CPU's run of one gradient step of ``model`` (same weights, same
     batch) against the card's ``card`` = (grads, metrics): every loss term
-    and the gradient norm to 1e-4 relative, each parameter's gradient to
-    1e-3 relative Frobenius. Returns the fields of the phase's line."""
+    to ``loss_rtol`` relative, the gradient norm to 1e-4 relative, each
+    parameter's gradient to 1e-3 relative Frobenius. Returns the fields of
+    the phase's line."""
     card_g, card_m = card
     torch.set_num_threads(os.cpu_count() or 1)
     cpu = init_model(cfg, device="cpu", seed=0)
@@ -953,7 +1323,8 @@ def card_vs_cpu(what, init_model, cfg, train, model, batch, card) -> dict:
         train.TrainState(0, cpu, None), on(batch, "cpu"), torch.Generator())
     losses = {k: (float(card_m[k]), float(cpu_m[k])) for k in card_m}
     for k, (a, b) in losses.items():
-        check(abs(a - b) <= 1e-4 * abs(b), f"{what} {k}: card {a} cpu {b}")
+        check(abs(a - b) <= loss_rtol * abs(b),
+              f"{what} {k}: card {a} cpu {b}")
     gn_card = float(train.global_norm(card_g))
     gn_cpu = float(train.global_norm(cpu_g))
     check(abs(gn_card - gn_cpu) <= 1e-4 * gn_cpu,
@@ -1134,9 +1505,13 @@ def phase_train_profile(state, step, batch, gen, timed_ms) -> None:
 COUNTERS: dict = {}
 # Per flagship training step: 24 encoder + 3 + 3 decoder FFN blocks (K1
 # forward and backward), one joint forward and backward (K2, K3), one
-# predictor forward and backward (K4).
+# predictor forward and backward (K4), one lattice (K9).
 RNNT_PER_STEP = {"k1": 30, "k1_bwd": 30, "k2": 1, "k3": 1, "k4": 1,
-                 "k4_bwd": 1}
+                 "k4_bwd": 1, "k8": 0, "k8_bwd": 0, "k9": 1}
+# rnnt_impl "pallas": the materialised joint, K9, no K2/K3.
+PALLAS_PER_STEP = {**RNNT_PER_STEP, "k2": 0, "k3": 0}
+# CONV_PALLAS=1: each of the 12 conv blocks is one K8 each way.
+CONV_PER_STEP = {**RNNT_PER_STEP, "k8": 12, "k8_bwd": 12}
 
 
 def reset_counts() -> None:
@@ -1150,6 +1525,9 @@ def read_counts() -> dict:
 
 
 SPACE_ID = 1   # " " sorts first among the characters of the text
+# Output size of the materialised-joint check: the characters of the
+# committed transcripts (ids 1..27) and blank, rounded up.
+CHAR_VOCAB = 32
 
 
 def with_hotwords(batch, seed: int = 0, extra_slots: int = 2):
@@ -1175,27 +1553,35 @@ def no_dropout_rnnt(cfg):
     return cfg
 
 
-def phase_rnnt_train_check(init_model, conformer_rnnt_bias, train,
-                           wavs) -> dict:
+def phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs,
+                           what="rnnt_train_check", impl="streaming",
+                           conv=False, want=RNNT_PER_STEP,
+                           vocab=None) -> dict:
     """One fp32 step of the full-width flagship, dropout 0, on the card
     and on the CPU with the same weights and batch (16 committed WAVs,
     hotwords and hw labels from their transcripts): every loss term, the
     gradient norm, every parameter's gradient and the launches of every
-    kernel. Returns the launch counts."""
+    kernel. ``impl`` is the rnnt_impl, ``conv`` routes the card's conv
+    blocks through K8 (the CPU runs the unfused module), ``vocab``
+    overrides the output size. Returns the launch counts."""
     cfg = no_dropout_rnnt(conformer_rnnt_bias())
+    cfg["model_conf"]["rnnt_impl"] = impl
+    if vocab:
+        cfg["output_dim"] = vocab
     batch = with_hotwords(head(wavs, 16))
     model = init_model(cfg, seed=0)
     reset_counts()
-    card_g, card_m = train.make_grad_fn(model)(
-        train.TrainState(0, model, None), on(batch, "cuda"),
-        torch.Generator())
-    torch.cuda.synchronize()
+    with conv_route() if conv else contextlib.nullcontext():
+        card_g, card_m = train.make_grad_fn(model)(
+            train.TrainState(0, model, None), on(batch, "cuda"),
+            torch.Generator())
+        torch.cuda.synchronize()
     launches = read_counts()
-    check(launches == RNNT_PER_STEP,
-          f"rnnt_train_check: launches {launches}, want {RNNT_PER_STEP}")
-    fields = card_vs_cpu("rnnt_train_check", init_model, cfg, train, model,
-                         batch, (card_g, card_m))
-    emit("rnnt_train_check", model="conformer_rnnt_bias", dtype="float32",
+    check(launches == want, f"{what}: launches {launches}, want {want}")
+    fields = card_vs_cpu(what, init_model, cfg, train, model,
+                         batch, (card_g, card_m), loss_rtol=1e-5)
+    emit(what, model="conformer_rnnt_bias", dtype="float32",
+         rnnt_impl=impl, conv_pallas=conv, vocab=cfg["output_dim"],
          dropout=0.0, utterances=len(batch["feat_lengths"]),
          frames_max=int(batch["feat_lengths"].max()),
          labels_max=int(batch["label_lengths"].max()),
@@ -1204,22 +1590,27 @@ def phase_rnnt_train_check(init_model, conformer_rnnt_bias, train,
          hw_label_share=float((batch["hw_labels"] == 1).sum()
                               / batch["label_lengths"].sum()),
          **fields, launches=launches,
-         tolerance="losses and gnorm 1e-4 relative; each gradient 1e-3 "
+         tolerance="losses 1e-5 relative, gnorm 1e-4; each gradient 1e-3 "
                    "relative Frobenius (floor 1e-6 * gnorm for the key "
                    "biases, whose exact gradient is 0)")
     return launches
 
 
 def phase_rnnt_train(init_model, conformer_rnnt_bias, train, b: int = 256,
-                     t: int = 512, u: int = 32):
+                     t: int = 512, u: int = 32, what="rnnt_train",
+                     impl="streaming", conv=False, want=RNNT_PER_STEP,
+                     **extra):
     """The flagship's training path in bf16 with dropout 0.1 at bench.py's
-    training shape with 8 hotwords of 4 tokens and random hw labels. This
-    is the flagship training path's run: every kernel count is set to 0
-    just before it and read just after. Returns (what the profile needs,
-    launches)."""
+    training shape (B cut for the materialised joint of ``impl`` pallas)
+    with 8 hotwords of 4 tokens and random hw labels; ``conv`` routes the
+    conv blocks through K8. This is that path's run: every kernel count is
+    set to 0 just before it and read just after. Returns (what the profile
+    needs, launches)."""
     warm, iters = 2, 5
+    held = torch.cuda.memory_allocated()   # earlier phases' live tensors
     cfg = conformer_rnnt_bias()
     cfg["dtype"] = "bfloat16"
+    cfg["model_conf"]["rnnt_impl"] = impl
     v = cfg["output_dim"]
     model = init_model(cfg, seed=0)
     tx, _ = train.make_optimizer(cfg)
@@ -1235,21 +1626,24 @@ def phase_rnnt_train(init_model, conformer_rnnt_bias, train, b: int = 256,
                 "hw_labels": rng.integers(0, 2, (b, u))}, "cuda")
     gen = torch.Generator().manual_seed(0)
     reset_counts()
-    state, losses, times, m, gnorm = timed_steps(step, state, batch, gen,
-                                                 warm, iters)
+    with conv_route() if conv else contextlib.nullcontext():
+        state, losses, times, m, gnorm = timed_steps(step, state, batch,
+                                                     gen, warm, iters)
     launches = read_counts()
     steps = warm + iters
-    want = {k: n * steps for k, n in RNNT_PER_STEP.items()}
-    check(launches == want, f"rnnt_train: launches {launches} over {steps} "
+    want = {k: n * steps for k, n in want.items()}
+    check(launches == want, f"{what}: launches {launches} over {steps} "
                             f"steps, want {want}")
-    check(all(np.isfinite(losses)), f"rnnt_train: losses {losses}")
+    check(all(np.isfinite(losses)), f"{what}: losses {losses}")
     med = sorted(times)[iters // 2]
-    emit("rnnt_train", model="conformer_rnnt_bias", dtype="bfloat16",
+    emit(what, model="conformer_rnnt_bias", dtype="bfloat16",
+         rnnt_impl=impl, conv_pallas=conv, **extra,
          dropout=0.1, batch=b, frames=t, labels=u, vocab=v, hotwords=8,
          steps_timed=iters, warmup_steps_run=warm, ms_per_step=med,
          ms_min_max=[min(times), max(times)],
          audio_s_per_s=b * t * 0.01 / (med / 1e3),
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+         held_before_gib=held / 2**30,
          launches_per_step={k: n / steps for k, n in launches.items()},
          losses=losses, last_gnorm=float(gnorm),
          last_terms={k: float(x) for k, x in m.items()},
@@ -1271,40 +1665,17 @@ def phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train,
          first_loss=first, median_last5=last5, curve=curve)
 
 
-def lattice_ms(batch, model) -> float:
-    """Wall ms (synchronised) of the plain-torch lattice of one step at
-    this batch's shape: alpha, then beta and the occupancies, on random
-    log-prob planes [B, T', U+1] (a loop over T' + U diagonals each way)."""
-    from wenet_celoss_tpu_torch.ops import rnnt_loss
-    b, t = batch["feats"].shape[:2]
-    t = ((t - 3) // 2 + 1 - 3) // 2 + 1
-    u1 = batch["labels"].shape[1] + 1
-    lp = torch.log_softmax(torch.randn(b, t, u1, 3, device="cuda"), -1)
-    il = torch.full((b,), t, device="cuda")
-    ll = torch.full((b,), u1 - 1, device="cuda")
-
-    def run():
-        alpha = rnnt_loss.alpha_scan(lp[..., 0], lp[..., 1])
-        rnnt_loss.occupancies(lp[..., 0], lp[..., 1], alpha, il, ll)
-    run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
-
-
-def phase_rnnt_profile(state, step, batch, gen, timed_ms) -> None:
+def phase_rnnt_profile(state, step, batch, gen, timed_ms,
+                       mode="rnnt_train", conv=False) -> None:
     """One flagship training step under torch.profiler, run after every
-    timing: busy time, idle share, each kernel's time, and the lattice
-    loops' wall time at this shape, timed alone (their small kernels
-    carry no name of their own in the profile)."""
-    wall_ms, busy_ms, by_name = profile_step(state, step, batch, gen)
+    timing: busy time, idle share, each kernel's time (K9 included)."""
+    with conv_route() if conv else contextlib.nullcontext():
+        wall_ms, busy_ms, by_name = profile_step(state, step, batch, gen)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
 
     def ms(*keys):
         return sum(v for k, v in by_name.items() if any(s in k for s in keys))
-    emit("profile", mode="rnnt_train", timed_ms=timed_ms,
+    emit("profile", mode=mode, timed_ms=timed_ms,
          profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / timed_ms,
          idle_share_profiled=1.0 - busy_ms / wall_ms,
@@ -1313,8 +1684,9 @@ def phase_rnnt_profile(state, step, batch, gen, timed_ms) -> None:
          k2_ms=ms("joint_fwd"), k3_ms=ms("joint_bwd_rows",
                                          "joint_bwd_weights"),
          k4_ms=ms("lstm2_fwd"), k4_bwd_ms=ms("lstm2_bwd"),
-         k2_k3_k4_partial_sums_ms=ms("tile::sum_partials"),
-         lattice_ms=lattice_ms(batch, state.model),
+         tile_partial_sums_ms=ms("tile::sum_partials"),
+         k9_ms=ms("lattice<"), k8_fwd_ms=ms("conv_fwd<"),
+         k8_bwd_ms=ms("conv_bwd_a<", "conv_bwd_b<", "namespace)::wgrad_"),
          kernels=len(by_name),
          top=[{"kernel": k[:90], "ms": v} for k, v in top])
 
@@ -1334,8 +1706,8 @@ def main() -> int:
                                                 conformer_rnnt_bias)
     from wenet_celoss_tpu_torch.decode.api import Decoder
     from wenet_celoss_tpu_torch.models.factory import init_model
-    from wenet_celoss_tpu_torch.ops import (_build, bounds, dropout, ffn,
-                                            lstm, rnnt_loss)
+    from wenet_celoss_tpu_torch.ops import (_build, bounds, conv, dropout,
+                                            ffn, lstm, rnnt_loss)
     from wenet_celoss_tpu_torch.parallel import train
 
     COUNTERS.update(
@@ -1344,7 +1716,10 @@ def main() -> int:
         k2=(rnnt_loss.joint_planes, "launches"),
         k3=(rnnt_loss.joint_planes_bwd, "launches"),
         k4=(lstm.lstm2_seq, "launches"),
-        k4_bwd=(lstm.lstm2_seq, "bwd_launches"))
+        k4_bwd=(lstm.lstm2_seq, "bwd_launches"),
+        k8=(conv.conv_block_residual, "launches"),
+        k8_bwd=(conv.conv_block_residual, "bwd_launches"),
+        k9=(rnnt_loss.alpha_beta, "launches"))
     name = torch.cuda.get_device_name(0)
     card = smi()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
@@ -1352,7 +1727,8 @@ def main() -> int:
          peaks="H100 SXM data sheet at 700 W; this card: " + card)
 
     t0 = time.perf_counter()
-    _build.build_all(["ln_ffn_residual", "rnnt_joint", "lstm2_seq"])
+    _build.build_all(["ln_ffn_residual", "rnnt_joint", "lstm2_seq",
+                      "rnnt_lattice", "conv_block"])
     emit("build", seconds=time.perf_counter() - t0,
          per_source=_build.build_seconds)
 
@@ -1360,8 +1736,11 @@ def main() -> int:
     k1_bwd = phase_k1_bwd(ffn, bounds, dropout)
     k2, k3 = phase_k2_k3(rnnt_loss, bounds)
     k4, k4_bwd = phase_k4(lstm, bounds, dropout)
-    decode_launches = phase_slice(init_model, Decoder, conformer_rnnt_bias,
-                                  ffn)
+    k9 = phase_k9(rnnt_loss, bounds)
+    k8, k8_bwd = phase_k8(conv, bounds, dropout)
+    decode_launches, slice_run = phase_slice(init_model, Decoder,
+                                             conformer_rnnt_bias, ffn)
+    conv_decode = phase_conv_decode(slice_run, conv)
     to_profile = []
     for bias in BENCH_BLANK_BIASES:
         to_profile += phase_bench(init_model, Decoder, conformer_rnnt_bias,
@@ -1374,18 +1753,39 @@ def main() -> int:
         init_model, conformer_ctc_aed, train, ffn)
     phase_train_wavs(init_model, conformer_ctc_aed, train, wavs)
     phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs)
+    phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs,
+                           what="rnnt_pallas_train_check", impl="pallas",
+                           want=PALLAS_PER_STEP, vocab=CHAR_VOCAB)
+    phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs,
+                           what="conv_train_check", conv=True,
+                           want=CONV_PER_STEP)
     rnnt_profile, rnnt = phase_rnnt_train(init_model, conformer_rnnt_bias,
                                           train)
+    conv_profile, conv_run = phase_rnnt_train(
+        init_model, conformer_rnnt_bias, train, what="conv_train",
+        conv=True, want=CONV_PER_STEP, t4_ms_per_step=rnnt_profile[-1])
+    pallas_profile, pallas = phase_rnnt_train(
+        init_model, conformer_rnnt_bias, train, b=64,
+        what="rnnt_pallas_train", impl="pallas", want=PALLAS_PER_STEP)
     phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train, wavs)
     for args in to_profile:
         phase_profile(*args)
     phase_train_profile(*train_profile)
     phase_rnnt_profile(*rnnt_profile)
-    check(decode_launches > 0 and train_fwd > 0 and train_bwd > 0
-          and all(n > 0 for n in rnnt.values()),
+    phase_rnnt_profile(*conv_profile, mode="conv_train", conv=True)
+    phase_rnnt_profile(*pallas_profile, mode="rnnt_pallas_train")
+    phase_k8_device(conv, k8, k8_bwd)
+    paths = {"train_rnnt": (rnnt, RNNT_PER_STEP),
+             "conv_train": (conv_run, CONV_PER_STEP),
+             "train_rnnt_pallas": (pallas, PALLAS_PER_STEP)}
+    idle = {path: sorted(k for k, n in want.items()
+                         if n > 0 and launches[k] == 0)
+            for path, (launches, want) in paths.items()}
+    check(decode_launches > 0 and conv_decode > 0 and train_fwd > 0
+          and train_bwd > 0 and not any(idle.values()),
           f"a kernel of a main path was not launched: decode "
-          f"{decode_launches}, train {train_fwd} + {train_bwd}, flagship "
-          f"train {rnnt}")
+          f"{decode_launches}, conv_decode {conv_decode}, train {train_fwd} "
+          f"+ {train_bwd}, flagship paths {idle}")
 
     if failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(failures),
@@ -1393,28 +1793,34 @@ def main() -> int:
         return 1
     csrc = "wenet_celoss_tpu_torch/csrc/"
     tpu = "wenet_celoss_tpu/ops/"
+
+    def by_path(key, **more):
+        return {**more, **{path: launches[key] for path, (launches, want)
+                           in paths.items() if want[key] > 0}}
     print(card)
     print(json.dumps({"kernels": [
         kernel_line("ln_ffn_residual", csrc + "ln_ffn_residual.cu",
                     tpu + "ffn_pallas.py:384",
-                    {"decode": decode_launches, "train": train_fwd,
-                     "train_rnnt": rnnt["k1"]}, k1),
+                    by_path("k1", decode=decode_launches, train=train_fwd),
+                    k1),
         kernel_line("ln_ffn_residual_bwd", csrc + "ln_ffn_residual.cu",
                     tpu + "ffn_pallas.py:422",
-                    {"train": train_bwd, "train_rnnt": rnnt["k1_bwd"]},
-                    k1_bwd),
+                    by_path("k1_bwd", train=train_bwd), k1_bwd),
         kernel_line("streaming_joint_planes_fwd", csrc + "rnnt_joint.cu",
-                    tpu + "rnnt_pallas.py:369",
-                    {"train_rnnt": rnnt["k2"]}, k2),
+                    tpu + "rnnt_pallas.py:369", by_path("k2"), k2),
         kernel_line("streaming_joint_planes_bwd", csrc + "rnnt_joint.cu",
-                    tpu + "rnnt_pallas.py:429",
-                    {"train_rnnt": rnnt["k3"]}, k3),
+                    tpu + "rnnt_pallas.py:429", by_path("k3"), k3),
         kernel_line("lstm2_seq", csrc + "lstm2_seq.cu",
-                    tpu + "lstm_pallas.py:289",
-                    {"train_rnnt": rnnt["k4"]}, k4),
+                    tpu + "lstm_pallas.py:289", by_path("k4"), k4),
         kernel_line("lstm2_seq_bwd", csrc + "lstm2_seq.cu",
-                    tpu + "lstm_pallas.py:327",
-                    {"train_rnnt": rnnt["k4_bwd"]}, k4_bwd)]}))
+                    tpu + "lstm_pallas.py:327", by_path("k4_bwd"), k4_bwd),
+        kernel_line("conv_block_residual", csrc + "conv_block.cu",
+                    tpu + "conv_pallas.py:285",
+                    by_path("k8", conv_decode=conv_decode), k8),
+        kernel_line("conv_block_residual_bwd", csrc + "conv_block.cu",
+                    tpu + "conv_pallas.py:318", by_path("k8_bwd"), k8_bwd),
+        kernel_line("alpha_beta", csrc + "rnnt_lattice.cu",
+                    tpu + "rnnt_pallas.py:148", by_path("k9"), k9)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -14,7 +14,8 @@ import torch
 from wenet_celoss_tpu_torch.configs import conformer_rnnt_bias
 from wenet_celoss_tpu_torch.decode.api import Decoder
 from wenet_celoss_tpu_torch.models.factory import init_model
-from wenet_celoss_tpu_torch.ops import ffn, lstm, rnnt_loss
+from wenet_celoss_tpu_torch.ops import conv, ffn, lstm, rnnt_loss
+from wenet_celoss_tpu_torch.utils.common import LOG_ZERO
 from wenet_celoss_tpu_torch.parallel import train
 
 pytestmark = pytest.mark.gpu
@@ -234,7 +235,7 @@ def test_lstm_kernels_match_plain_version_on_card(dtype, rate):
 def test_tiny_flagship_training_step_on_card_matches_cpu():
     """One fp32 gradient step of the tiny flagship with hotwords, dropout
     0: every loss term within 1e-4 and every gradient within 1e-3
-    relative Frobenius of the CPU run; one launch of K2, K3 and each
+    relative Frobenius of the CPU run; one launch of K2, K3, K9 and each
     direction of K4, 2 * blocks + 2 K1 launches each way."""
     cfg = conformer_rnnt_bias(tiny=True, vocab_size=30)
     for conf in (cfg["encoder_conf"], cfg["decoder_conf"]):
@@ -256,7 +257,8 @@ def test_tiny_flagship_training_step_on_card_matches_cpu():
               (ffn.ln_ffn_residual, "bwd_launches"),
               (rnnt_loss.joint_planes, "launches"),
               (rnnt_loss.joint_planes_bwd, "launches"),
-              (lstm.lstm2_seq, "launches"), (lstm.lstm2_seq, "bwd_launches")]
+              (lstm.lstm2_seq, "launches"), (lstm.lstm2_seq, "bwd_launches"),
+              (rnnt_loss.alpha_beta, "launches")]
     before = [getattr(o, a) for o, a in counts]
     results = []
     for model, dev in ((card, "cuda"), (cpu, "cpu")):
@@ -268,10 +270,80 @@ def test_tiny_flagship_training_step_on_card_matches_cpu():
             torch.cuda.synchronize()
             k1 = 2 * cfg["encoder_conf"]["num_blocks"] + 2
             assert [getattr(o, a) - n for (o, a), n in
-                    zip(counts, before)] == [k1, k1, 1, 1, 1, 1]
+                    zip(counts, before)] == [k1, k1, 1, 1, 1, 1, 1]
     (g_card, m_card), (g_cpu, m_cpu) = results
     for k in m_cpu:
         assert abs(float(m_card[k]) - float(m_cpu[k])) <= \
             1e-4 * abs(float(m_cpu[k])) + 1e-6, k
     for a, b in zip(g_card, g_cpu):
         assert float((a.cpu() - b).norm()) <= 1e-3 * float(b.norm()) + 1e-7
+
+
+@pytest.mark.parametrize("u1", [9, 40, 70])
+def test_lattice_kernel_matches_plain_version_on_card(u1):
+    """K9 against alpha_scan/beta_scan on a ragged batch (T' = 37, one to
+    three 32-column register groups a lane): valid cells within 1e-4 +
+    1e-5*|ref|, every cell off beta's lattice exactly LOG_ZERO, one launch."""
+    g = torch.Generator().manual_seed(u1)
+    b, t = 5, 37
+    lp = torch.log_softmax(torch.randn(b, t, u1, 3, generator=g), -1).cuda()
+    blank, emit = lp[..., 0].contiguous(), lp[..., 1].contiguous()
+    emit[..., -1] = LOG_ZERO
+    il = torch.tensor([37, 20, 1, 30, 37]).cuda()
+    ll = torch.tensor([u1 - 1, 3, 0, u1 // 2, 1]).cuda()
+    before = rnnt_loss.alpha_beta.launches
+    got = rnnt_loss.alpha_beta(blank, emit, il, ll)
+    torch.cuda.synchronize()
+    assert rnnt_loss.alpha_beta.launches == before + 1
+    want = rnnt_loss.alpha_beta_ref(blank, emit, il, ll)
+    for a, r in zip(got, want):
+        off = r == LOG_ZERO
+        assert bool((a[off] == LOG_ZERO).all())
+        err = (a - r)[~off].abs()
+        assert bool((err <= 1e-4 + 1e-5 * r[~off].abs()).all())
+
+
+def _conv_args(b, t, d, k, dt, seed):
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(1, t + 1, (b,), generator=g)
+    lens[0] = t
+    mask = (torch.arange(t)[None, :] < lens[:, None]).float().cuda()
+    args = (_rnd(g, b, t, d).to(dt), 1.0 + _rnd(g, d, std=0.1),
+            _rnd(g, d, std=0.1), _rnd(g, d, 2 * d, std=d ** -0.5).to(dt),
+            _rnd(g, 2 * d, std=0.1), _rnd(g, k, d, std=k ** -0.5),
+            _rnd(g, d, std=0.1), 1.0 + _rnd(g, d, std=0.1),
+            _rnd(g, d, std=0.1), _rnd(g, d, d, std=d ** -0.5).to(dt),
+            _rnd(g, d, std=0.1))
+    return args, mask, _rnd(g, b, t, d).to(dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,rate", [(False, 0.0), (False, 0.1),
+                                         (True, 0.1)])
+def test_conv_block_kernels_match_plain_version_on_card(dtype, causal, rate):
+    """K8's output and its eleven backward outputs against autograd
+    through the plain version with the same mask, relative Frobenius 1e-4
+    (fp32) or 2e-2 (bf16), on a padded batch whose T (45) is not a
+    multiple of the 32-frame tile; the same bits on a second backward."""
+    dt = getattr(torch, dtype)
+    args, mask, dy = _conv_args(3, 45, 128, 15 if causal else 7, dt, 6)
+    cfg = dict(seed=321, causal=causal, rate=rate)
+    ins = [a.detach().requires_grad_(True) for a in args]
+    before = (conv.conv_block_residual.launches,
+              conv.conv_block_residual.bwd_launches)
+    y = conv.conv_block_residual(ins[0], mask, *ins[1:], **cfg)
+    got = torch.autograd.grad(y, ins, dy)
+    torch.cuda.synchronize()
+    assert (conv.conv_block_residual.launches,
+            conv.conv_block_residual.bwd_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    flat = (cfg["seed"], causal, rate, 1e-5)
+    want_y = conv.conv_block_residual_ref(args[0], mask, *args[1:], *flat)
+    want = conv.backward_ref(args[0], mask, *args[1:], dy, *flat)
+    limit = 1e-4 if dt == torch.float32 else 2e-2
+    for a, r in zip((y.detach(), *got), (want_y, *want)):
+        assert float((a.float() - r.float()).norm()
+                     / r.float().norm()) <= limit
+    first = conv.backward_kernel(args[0], mask, *args[1:], dy, *flat)
+    again = conv.backward_kernel(args[0], mask, *args[1:], dy, *flat)
+    assert all(torch.equal(p, q) for p, q in zip(first, again))

@@ -118,8 +118,8 @@ def test_lattice_matches_jax():
     tb, te = torch.as_tensor(blank), torch.as_tensor(emit)
     il, ll = torch.as_tensor(ilens), torch.as_tensor(llens)
     alpha = rnnt_loss.alpha_scan(tb, te)
-    occ = rnnt_loss.occupancies(tb, te, alpha, il, ll)
     beta = rnnt_loss.beta_scan(tb, te, il, ll)
+    occ = rnnt_loss.occupancies(tb, te, alpha, beta, il, ll)
     for got, want in ((alpha, j_alpha), (beta, j_beta), *zip(occ, j_occ)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                    atol=1e-5)

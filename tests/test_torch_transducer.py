@@ -16,7 +16,11 @@ the JAX parameter tree, carried to the port by the weight bridge.
   helper of ``tests/test_torch_train.py``);
 - the loss terms in ``loss_mode`` ``pred`` and ``sep``, and with every
   phrase slot valid (no ``context_n_valid``);
-- the weight bridge maps each mode's tree whole.
+- the weight bridge maps each mode's tree whole;
+- the loss terms with ``rnnt_impl`` scan, fused and pallas (the
+  materialised joint; the JAX pallas loss in interpret mode) to 1e-5
+  relative, and every gradient through the pallas loss (K9's plain
+  version and the closed-form gradient) as above.
 """
 
 import copy
@@ -35,6 +39,7 @@ from wenet_celoss_tpu.configs import conformer_rnnt_bias
 from wenet_celoss_tpu.data import processor
 from wenet_celoss_tpu.models.factory import init_example
 from wenet_celoss_tpu.models.factory import init_model as jax_init_model
+from wenet_celoss_tpu.ops import rnnt_pallas as jax_rp
 from wenet_celoss_tpu.parallel import train as jax_train
 from wenet_celoss_tpu_torch.data.context import context_batch, \
     context_generate, hw_label_generate
@@ -54,7 +59,7 @@ def _few_threads():
     torch.set_num_threads(prev)
 
 
-def _cfg(loss_mode="both"):
+def _cfg(loss_mode="both", rnnt_impl="streaming"):
     """The tiny flagship with every dropout rate 0 and a 2-step warmup."""
     cfg = conformer_rnnt_bias(tiny=True, vocab_size=VOCAB)
     for conf in (cfg["encoder_conf"], cfg["decoder_conf"]):
@@ -63,21 +68,36 @@ def _cfg(loss_mode="both"):
                 conf[k] = 0.0
     cfg["predictor_conf"].update(embed_dropout=0.0, dropout=0.0)
     cfg["model_conf"]["loss_mode"] = loss_mode
+    cfg["model_conf"]["rnnt_impl"] = rnnt_impl
     cfg["scheduler_conf"]["warmup_steps"] = 2
     return cfg
 
 
 @functools.lru_cache(maxsize=None)
-def _pair(loss_mode="both"):
-    """(cfg, jax model, jax variables, torch model) sharing weights."""
-    cfg = _cfg(loss_mode)
+def _pair(loss_mode="both", rnnt_impl="streaming"):
+    """(cfg, jax model, jax variables, torch model) sharing weights (the
+    loss implementation changes no weight)."""
+    cfg = _cfg(loss_mode, rnnt_impl)
     jm = jax_init_model(cfg)
-    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
-                            *init_example(cfg, frames=16, labels=2))
-    variables = _fill(shapes, seed=0)
+    if rnnt_impl == "streaming":
+        shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                                *init_example(cfg, frames=16, labels=2))
+        variables = _fill(shapes, seed=0)
+    else:
+        variables = _pair(loss_mode)[2]
     tm = init_model(cfg, device="cpu")
     tm.load_state_dict(params_from_jax(variables), strict=True)
     return cfg, jm, variables, tm
+
+
+@pytest.fixture
+def _jax_pallas_interpret(monkeypatch):
+    """The JAX package's pallas loss in interpret mode (the CPU has no
+    TPU lowering); the transducer imports it at trace time."""
+    orig = jax_rp.rnnt_loss_pallas
+    monkeypatch.setattr(jax_rp, "rnnt_loss_pallas",
+                        lambda lg, lab, il, ll, blank=0: orig(lg, lab, il, ll,
+                                                              blank, True))
 
 
 def _batch(n_valid=True):
@@ -110,8 +130,8 @@ def _torch_batch(batch):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_fns(loss_mode="both"):
-    cfg, jm, _, _ = _pair(loss_mode)
+def _jax_fns(loss_mode="both", rnnt_impl="streaming"):
+    cfg, jm, _, _ = _pair(loss_mode, rnnt_impl)
     tx, _ = jax_train.make_optimizer(cfg)
     return (jax_train.make_grad_fn(jm), jax_train.make_apply_fn(tx), tx,
             jax_train.make_eval_fn(jm))
@@ -149,8 +169,18 @@ def test_losses_and_every_gradient_match_jax():
     The key projections' biases have a zero gradient in exact arithmetic
     (softmax ignores a shift shared by all keys), so their scale is
     floored at 1e-3."""
-    _, _, v, tm = _pair()
-    grad_fn = _jax_fns()[0]
+    check_grads_match_jax("streaming")
+
+
+def test_pallas_loss_every_gradient_matches_jax(_jax_pallas_interpret):
+    """As above with ``rnnt_impl: "pallas"``: K9's plain version and the
+    closed-form logits gradient through the materialised joint."""
+    check_grads_match_jax("pallas")
+
+
+def check_grads_match_jax(rnnt_impl):
+    _, _, v, tm = _pair("both", rnnt_impl)
+    grad_fn = _jax_fns("both", rnnt_impl)[0]
     batch = _batch()
     state = jax_train.TrainState(step=jnp.zeros((), jnp.int32),
                                  params=v["params"], opt_state=None)
@@ -185,15 +215,21 @@ def test_train_steps_match_jax():
                       apply_fn, tx, batch, _torch_batch(batch), LOSSES)
 
 
-@pytest.mark.parametrize("loss_mode,n_valid",
-                         [("pred", True), ("sep", True), ("both", False)])
-def test_loss_terms_match_jax(loss_mode, n_valid):
+@pytest.mark.parametrize("loss_mode,n_valid,rnnt_impl", [
+    pytest.param("pred", True, "streaming", id="pred-True"),
+    pytest.param("sep", True, "streaming", id="sep-True"),
+    pytest.param("both", False, "streaming", id="both-False"),
+    ("both", True, "scan"), ("both", True, "fused"),
+    ("both", True, "pallas")])
+def test_loss_terms_match_jax(loss_mode, n_valid, rnnt_impl,
+                              _jax_pallas_interpret):
     """The loss dict through make_eval_fn in the ``pred`` mode (the
     unbiased predictor stream attends over the phrases through
     hw_pred_proj) and the ``sep`` mode (the dec head, targets with a
-    prepended 0), and with every phrase slot valid."""
-    _, _, v, tm = _pair(loss_mode)
-    eval_fn = _jax_fns(loss_mode)[3]
+    prepended 0), with every phrase slot valid, and with the losses of
+    ``rnnt_impl`` scan, fused and pallas on the materialised joint."""
+    _, _, v, tm = _pair(loss_mode, rnnt_impl)
+    eval_fn = _jax_fns(loss_mode, rnnt_impl)[3]
     batch = _batch(n_valid)
     j_state = jax_train.TrainState(step=jnp.zeros((), jnp.int32),
                                    params=v["params"], opt_state=None)
@@ -218,12 +254,16 @@ def test_bridge_maps_every_loss_mode_tree(loss_mode):
 
 
 def test_other_rnnt_impls_are_not_ported():
-    cfg = _cfg()
-    cfg["model_conf"]["rnnt_impl"] = "scan"
-    tm = init_model(cfg, device="cpu")
+    """``pruned`` is the one ``rnnt_impl`` of the JAX package not ported:
+    the factory refuses it, naming the roadmap."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train.make_eval_fn(tm)(train.TrainState(0, tm, None),
-                               _torch_batch(_batch()))
-    cfg["model_conf"]["rnnt_impl"] = "pruned"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        init_model(cfg, device="cpu")
+        init_model(_cfg(rnnt_impl="pruned"), device="cpu")
+
+
+def test_fused_rnnt_loss_alias_selects_fused():
+    """``fused_rnnt_loss: true`` selects "fused" whatever ``rnnt_impl``
+    says, as in the JAX package's transducer."""
+    cfg = _cfg(rnnt_impl="streaming")
+    cfg["model_conf"]["fused_rnnt_loss"] = True
+    assert init_model(cfg, device="cpu").rnnt_impl == "fused"
+    assert init_model(_cfg(), device="cpu").rnnt_impl == "streaming"

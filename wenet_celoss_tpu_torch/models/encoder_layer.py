@@ -4,13 +4,17 @@
 ½-FFN → MHSA → conv → ½-FFN → final LN (macaron), all pre-norm with
 residuals. Each FFN block (pre-LN + FFN + dropout + scaled residual) is
 ONE launch of the hand-written ``ln_ffn_residual`` kernel on the card, and
-one launch of its backward kernel under autograd. Dropout runs when the
-caller passes a generator (training); without one every layer is
-deterministic.
+one launch of its backward kernel under autograd. With ``CONV_PALLAS=1`` in
+the environment (the JAX package's switch, read where it reads it; off by
+default) and a ``layer_norm`` conv module, the whole conv block (pre-LN,
+module, dropout, residual) is one launch of ``conv_block_residual`` (K8)
+and one of its backward. Dropout runs when the caller passes a generator
+(training); without one every layer is deterministic.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -20,8 +24,14 @@ from wenet_celoss_tpu_torch.models.attention import \
     RelPositionMultiHeadedAttention
 from wenet_celoss_tpu_torch.models.convolution import ConvolutionModule
 from wenet_celoss_tpu_torch.models.layers import Dense, LayerNorm
+from wenet_celoss_tpu_torch.ops.conv import conv_block_residual
 from wenet_celoss_tpu_torch.ops.dropout import draw_seed, dropout
 from wenet_celoss_tpu_torch.ops.ffn import ln_ffn_residual
+
+
+def use_conv_block() -> bool:
+    """The fused conv block's switch, ``CONV_PALLAS=1`` (default off)."""
+    return os.environ.get("CONV_PALLAS", "0") == "1"
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -103,10 +113,32 @@ class ConformerEncoderLayer(nn.Module):
         xn = self.norm_mha(x)
         x = x + drop(self.self_attn(xn, xn, xn, att_bias, pos_emb, gen))
         if self.conv_module is not None:
-            x = x + drop(self.conv_module(self.norm_conv(x), pad_mask,
-                                          train=gen is not None))
+            if self.conv_module.norm == "layer_norm" and use_conv_block():
+                x = self._fused_conv_block(x, pad_mask, gen)
+            else:
+                x = x + drop(self.conv_module(self.norm_conv(x), pad_mask,
+                                              train=gen is not None))
         x = self.feed_forward(x, ln=self.norm_ff, ff_scale=self.ff_scale,
                               gen=gen)
         if self.conv_module is not None:
             x = self.norm_final(x)
         return x
+
+    def _fused_conv_block(self, x, pad_mask, gen):
+        """x + drop(conv_module(norm_conv(x))) as one K8 call (weights in
+        the JAX layout: w1 [D, 2D], w2 [D, D], taps [K, D])."""
+        cm = self.conv_module
+        cdt = cm.compute_dtype or x.dtype
+        b, t, _ = x.shape
+        rate = self.dropout_rate if gen is not None else 0.0
+        seed = draw_seed(gen) if rate > 0.0 else 0
+        mask = (torch.ones(b, t, device=x.device) if pad_mask is None
+                else pad_mask.float())
+        p1, p2 = cm.pointwise_conv1, cm.pointwise_conv2
+        return conv_block_residual(
+            x.to(cdt).contiguous(), mask, self.norm_conv.weight,
+            self.norm_conv.bias, p1.weight.t().contiguous().to(cdt), p1.bias,
+            cm.depthwise_conv.weight[:, 0, :].t().contiguous(),
+            cm.depthwise_conv.bias, cm.norm_layer.weight, cm.norm_layer.bias,
+            p2.weight.t().contiguous().to(cdt), p2.bias, seed, False, rate,
+            self.norm_conv.eps)

@@ -84,10 +84,12 @@ def build_model(cfg: Dict[str, Any]) -> Model:
     if cfg.get("predictor", "rnn") != "rnn":
         raise NotImplementedError("only the RNN predictor is ported")
     model_conf = cfg.get("model_conf", {})
-    if model_conf.get("rnnt_impl") == "pruned" or \
-            model_conf.get("fused_rnnt_loss"):
-        raise NotImplementedError("rnnt_impl 'pruned' and the fused loss "
-                                  "are not ported (see ROADMAP.md)")
+    # fused_rnnt_loss is the JAX package's alias of rnnt_impl "fused".
+    rnnt_impl = ("fused" if model_conf.get("fused_rnnt_loss", False)
+                 else model_conf.get("rnnt_impl", "scan"))
+    if rnnt_impl == "pruned":
+        raise NotImplementedError("rnnt_impl 'pruned' is not ported (see "
+                                  "ROADMAP.md)")
     pred_conf = dict(cfg.get("predictor_conf", {}))
     predictor = RNNPredictor(voca_size=vocab, dtype=dtype, **pred_conf)
     joint = TransducerJoint(
@@ -112,7 +114,7 @@ def build_model(cfg: Dict[str, Any]) -> Model:
         decoder=decoder, ctc=ctc, transducer_weight=tw, ctc_weight=cw,
         hw_weight=model_conf.get("hw_weight", 0.4),
         loss_mode=model_conf.get("loss_mode", "both"),
-        rnnt_impl=model_conf.get("rnnt_impl", "scan"),
+        rnnt_impl=rnnt_impl,
         streaming_chunk=model_conf.get("streaming_chunk", 16),
         lsm_weight=model_conf.get("lsm_weight", 0.0),
         reverse_weight=model_conf.get("reverse_weight", 0.0),

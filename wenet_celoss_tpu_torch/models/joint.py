@@ -2,7 +2,7 @@
 ``project_enc``, ``frames`` and ``single`` for decoding; ``project`` and
 ``output_params`` for the streaming loss, which applies the output layer
 itself (``ops/rnnt_loss.py``); and the materialised ``forward``, which
-only the tests call)."""
+the losses of ``rnnt_impl`` scan, fused and pallas take)."""
 
 from __future__ import annotations
 
@@ -48,7 +48,8 @@ class TransducerJoint(nn.Module):
     def forward(self, enc_out: torch.Tensor,
                 pred_out: torch.Tensor) -> torch.Tensor:
         """enc_out [B, T, E], pred_out [B, U, P] → logits [B, T, U, V],
-        materialised (small inputs only)."""
+        materialised: B·T·U·V values (at B=64, T=127, U=33, V=5002 it
+        is 2.7 GB in bf16)."""
         if self.prejoin_linear:
             enc_out = self.enc_ffn(enc_out)
             pred_out = self.pred_ffn(pred_out)

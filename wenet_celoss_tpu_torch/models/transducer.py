@@ -8,9 +8,11 @@ loss = transducer_weight * RNN-T + ctc_weight * CTC
 
 When hotwords are given, the BIASED encoder output feeds the joint, the
 CTC head and the attention decoder; the ``pred`` mode's hotword head reads
-the UNBIASED predictor output. The RNN-T loss is the streaming one
-(``ops/rnnt_loss.py``, K2 and K3 on the card); the JAX package's other
-``rnnt_impl`` values are not ported (``ROADMAP.md``).
+the UNBIASED predictor output. The RNN-T loss (``ops/rnnt_loss.py``) is
+chosen by ``rnnt_impl`` as in the JAX package: "streaming" (K2, K9 and K3
+on the card), or "scan", "fused" and "pallas" (K9 on the card) on the
+materialised joint (the factory maps ``fused_rnnt_loss`` to "fused").
+"pruned" is not ported (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from wenet_celoss_tpu_torch.models.context_bias import ContextBias
 from wenet_celoss_tpu_torch.models.encoder import ConformerEncoder
 from wenet_celoss_tpu_torch.models.joint import TransducerJoint
 from wenet_celoss_tpu_torch.models.predictor import RNNPredictor
-from wenet_celoss_tpu_torch.ops.rnnt_loss import rnnt_loss_streaming
+from wenet_celoss_tpu_torch.ops.rnnt_loss import LOSSES, rnnt_loss_streaming
 from wenet_celoss_tpu_torch.utils.common import IGNORE_ID, add_blank
 
 
@@ -81,10 +83,10 @@ class Transducer(ASRModel):
                 ) -> Dict[str, torch.Tensor]:
         """Training forward → {'loss', 'loss_att', 'loss_ctc',
         'loss_rnnt', 'hw_loss'}; with ``gen`` every dropout runs."""
-        if self.rnnt_impl != "streaming":
+        if self.rnnt_impl not in ("streaming", *LOSSES):
             raise NotImplementedError(
-                f"rnnt_impl={self.rnnt_impl!r} is not ported; only "
-                f"'streaming' is (see ROADMAP.md)")
+                f"rnnt_impl={self.rnnt_impl!r} is not ported (see "
+                f"ROADMAP.md)")
         use_bias = self.context_bias is not None and context_list is not None
         bias_hidden = None
         if use_bias:
@@ -107,12 +109,17 @@ class Transducer(ASRModel):
 
         rnnt_text = torch.where(text == self.ignore_id,
                                 torch.zeros_like(text), text)
-        enc_j, pred_j = self.joint.project(encoder_out, predictor_out)
-        w_out, b_out = self.joint.output_params()
-        losses = rnnt_loss_streaming(
-            enc_j, pred_j, w_out, b_out, rnnt_text, encoder_lens,
-            text_lengths, self.blank, activation=self.joint.activation,
-            chunk=self.streaming_chunk)
+        if self.rnnt_impl == "streaming":
+            enc_j, pred_j = self.joint.project(encoder_out, predictor_out)
+            w_out, b_out = self.joint.output_params()
+            losses = rnnt_loss_streaming(
+                enc_j, pred_j, w_out, b_out, rnnt_text, encoder_lens,
+                text_lengths, self.blank, activation=self.joint.activation,
+                chunk=self.streaming_chunk)
+        else:
+            losses = LOSSES[self.rnnt_impl](
+                self.joint(encoder_out, predictor_out), rnnt_text,
+                encoder_lens, text_lengths, self.blank)
         loss_rnnt = losses.mean()
         loss = self.transducer_weight * loss_rnnt
 

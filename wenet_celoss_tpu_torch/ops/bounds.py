@@ -91,7 +91,7 @@ def conv_block_residual_bwd(n: int, d: int, kernel: int, dtype: str):
     """K8 backward: the forward recomputed from x, then the input and
     weight gradients of each of its products (twice the forward's
     operations): three times the forward; x, dy, the row mask and the
-    weights in, dx and the 11 weight gradients out."""
+    weights in, dx and the 10 parameter gradients out."""
     e = ELT[dtype]
     return (3 * 2 * n * d * (3 * d + kernel),
             3 * n * d * e + 4 * n + 2 * (3 * d * d * e + 4 * d * (kernel + 8)))
@@ -191,6 +191,8 @@ def flagship() -> List[Dict]:
          conv_block_residual_bwd(n_train, 256, 15, "bf16")),
         ("K9 alpha_beta_pallas", "ops/rnnt_pallas.py:148",
          "B=256 T=127 U1=33 fp32", alpha_beta(256, 127, 33)),
+        ("K9 alpha_beta_pallas (rnnt_impl pallas)", "ops/rnnt_pallas.py:148",
+         "B=64 T=127 U1=33 fp32", alpha_beta(64, 127, 33)),
     ]
     out = []
     for name, where, shape, (flops, nbytes) in rows:

@@ -6,10 +6,12 @@ A mask bit is a pure function of ``(seed, stream, index)``: the 32-bit
 integer mix ``hash32`` of ``index XOR key(seed, stream)``, kept iff its
 low 16 bits are below ``round(keep * 65536)`` (the JAX package's 1/2^16
 quantisation, ``ffn_pallas._thresh``), and a kept value is scaled by
-``1/keep``. Nothing depends on tiling or device, so the CUDA kernels
-(``csrc/ln_ffn_residual.cu`` and ``csrc/lstm2_seq.cu``, which repeat
-``hash32``), their backwards and the plain versions here draw identical
-masks, and the CPU and the card agree bit for bit. The TPU's own bits cannot be reproduced; tests compare
+``1/keep``. The key mixes the 29-bit seed and the 3-bit stream, so no two
+(seed, stream) pairs share a key. Nothing depends on tiling or device, so
+the CUDA kernels (``csrc/ln_ffn_residual.cu``, ``csrc/lstm2_seq.cu`` and
+``csrc/conv_block.cu``, which repeat ``hash32``), their backwards and the
+plain versions here draw identical masks, and the CPU and the card agree
+bit for bit. The TPU's own bits cannot be reproduced; tests compare
 against these plain versions and against the keep rate.
 
 ``hash32`` multiplies by two constants below 2^31, so on an int64 tensor
@@ -33,6 +35,9 @@ STREAM_PLAIN, STREAM_FFN_HIDDEN, STREAM_FFN_OUT = 0, 1, 2
 # K4's inter-layer mask, drawn at index (t * B + b) * H + j (step t, batch
 # row b, unit j), so that it does not depend on the kernel's batch blocks.
 STREAM_LSTM_INTER = 3
+# K8's output mask, drawn at index (b * T + t) * D + c (batch row b, frame
+# t, channel c), so that it does not depend on the kernel's frame tiles.
+STREAM_CONV_OUT = 4
 
 
 def hash32(x):
@@ -46,8 +51,9 @@ def hash32(x):
 
 
 def stream_key(seed: int, stream: int) -> int:
-    """The per-(seed, stream) key XORed into every index."""
-    return hash32(((int(seed) << 2) | stream) & M32)
+    """The per-(seed, stream) key XORed into every index (seed < 2^29,
+    stream < 8)."""
+    return hash32(((int(seed) << 3) | stream) & M32)
 
 
 def threshold(rate: float) -> Tuple[int, float]:
@@ -84,8 +90,8 @@ def apply_mask(x: torch.Tensor, seed: int, stream: int,
 
 
 def draw_seed(generator: torch.Generator) -> int:
-    """A 30-bit seed from the caller's (CPU) generator."""
-    return int(torch.randint(0, 1 << 30, (), generator=generator))
+    """A 29-bit seed from the caller's (CPU) generator."""
+    return int(torch.randint(0, 1 << 29, (), generator=generator))
 
 
 def dropout(x: torch.Tensor, rate: float,

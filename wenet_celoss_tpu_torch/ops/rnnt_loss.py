@@ -1,11 +1,11 @@
-"""Streaming RNN-T loss: the [B, T, U+1, V] joint never exists (port of
-``wenet_celoss_tpu/ops/rnnt_loss.py``: ``rnnt_loss_streaming`` with its
-custom VJP, ``_alpha_scan``, ``_beta_scan`` and ``_occupancies``).
+"""RNN-T losses (port of ``wenet_celoss_tpu/ops/rnnt_loss.py`` and of the
+lattice kernel of ``ops/rnnt_pallas.py``).
 
-The joint's output layer is applied to the projected streams ``enc_j``
-[B, T, H] and ``pred_j`` [B, U+1, H] and reduced at once to three
-[B, T, U+1] fp32 planes, the blank and label log-probs and the
-log-normaliser:
+The streaming loss (``rnnt_loss_streaming``, the flagship's): the
+[B, T, U+1, V] joint never exists. The joint's output layer is applied to
+the projected streams ``enc_j`` [B, T, H] and ``pred_j`` [B, U+1, H] and
+reduced at once to three [B, T, U+1] fp32 planes, the blank and label
+log-probs and the log-normaliser:
 
 - K2 (``joint_planes``, the port of ``ops/rnnt_pallas.py::
   streaming_joint_planes_fwd``): on CUDA tensors the kernel of
@@ -13,16 +13,28 @@ log-normaliser:
   plain version (the JAX package's ``_streaming_chunked_planes``);
 - K3 (``joint_planes_bwd``, the port of ``streaming_joint_planes_bwd``):
   the analytic backward from the transition occupancies, the kernel or
-  ``joint_planes_bwd_ref`` (the JAX package's chunked backward).
+  ``joint_planes_bwd_ref`` (the JAX package's chunked backward);
+- K9 (``alpha_beta``, the port of ``ops/rnnt_pallas.py::
+  alpha_beta_pallas``): alpha and beta over the lattice in one launch of
+  ``csrc/rnnt_lattice.cu``; on CPU tensors ``alpha_scan`` and
+  ``beta_scan``, the plain wavefronts over the T + U anti-diagonals.
 
-The lattice recursions run over the T + U anti-diagonals as plain torch
-(in the JAX package they are XLA on this path; their hand-written kernel
-is K9's, later). ``rnnt_loss_streaming`` is one ``torch.autograd.Function``:
-forward = K2, then alpha; backward = beta, the occupancies, then K3.
+``rnnt_loss_streaming`` is one ``torch.autograd.Function``: forward = K2,
+then K9; backward = the occupancies from the saved alpha and beta
+(elementwise), then K3.
+
+The losses on materialised logits [B, T, U+1, V] (``rnnt_impl`` scan,
+fused and pallas): ``rnnt_loss`` (gradient by autograd through the plain
+lattice) and ``rnnt_loss_pallas`` (K9, loss -beta[0, 0], the closed-form
+occupancy gradient), which serves both "fused" and "pallas".
+
+K9 takes U1 <= 256 columns (transcripts of at most 255 tokens); the JAX
+package's data filter (``token_max_length`` 200) keeps its pipeline inside
+that.
 
 The output layer's weight is in ``torch.nn.Linear`` layout [V, H] (the JAX
 package's kernel is [H, V]); labels are [B, U] ids (0 where padded), not
-the TPU kernel's one-hot. Activations: tanh, relu, swish.
+the TPU kernels' one-hot. Activations: tanh, relu, swish.
 """
 
 from __future__ import annotations
@@ -337,12 +349,13 @@ def beta_scan(blank_lp, emit_lp, input_lengths, label_lengths):
     return diags[:, tt, uu]
 
 
-def occupancies(blank_lp, emit_lp, alpha, input_lengths, label_lengths):
+def occupancies(blank_lp, emit_lp, alpha, beta, input_lengths,
+                label_lengths):
     """Blank and emit transition occupancies [B, T, U1] (posterior
-    expected counts of each lattice edge)."""
+    expected counts of each lattice edge) from the planes and the given
+    alpha and beta (elementwise)."""
     b, t_max, u1 = blank_lp.shape
     dev = blank_lp.device
-    beta = beta_scan(blank_lp, emit_lp, input_lengths, label_lengths)
     log_z = beta[:, 0, 0][:, None, None]
     t_idx = torch.arange(t_max, device=dev)[None, :, None]
     u_idx = torch.arange(u1, device=dev)[None, None, :]
@@ -362,6 +375,63 @@ def occupancies(blank_lp, emit_lp, alpha, input_lengths, label_lengths):
                                   alpha + emit_lp + beta_right - log_z,
                                   LOG_ZERO))
     return occ_b, occ_e
+
+
+# Columns the lattice kernel takes: a lane holds up to 8 of them.
+MAX_U1 = 256
+
+
+def alpha_beta_ref(blank_lp, emit_lp, input_lengths, label_lengths):
+    """K9's plain version: (alpha_scan, beta_scan)."""
+    return (alpha_scan(blank_lp, emit_lp),
+            beta_scan(blank_lp, emit_lp, input_lengths, label_lengths))
+
+
+def alpha_beta_kernel(blank_lp, emit_lp, input_lengths, label_lengths):
+    """Launch K9 on CUDA tensors → (alpha, beta) [B, T, U1] fp32."""
+    if blank_lp.dim() != 3 or emit_lp.shape != blank_lp.shape:
+        raise ValueError("blank_lp and emit_lp must be [B, T, U1] alike")
+    bsz, t_max, u1 = blank_lp.shape
+    if u1 > MAX_U1:
+        raise ValueError(f"U1={u1} is above the lattice kernel's {MAX_U1}")
+    lens = [input_lengths.to(torch.int32).contiguous(),
+            label_lengths.to(torch.int32).contiguous()]
+    for name, t in (("blank_lp", blank_lp), ("emit_lp", emit_lp)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous fp32 tensor")
+    for name, t in (("blank_lp", blank_lp), ("emit_lp", emit_lp),
+                    ("input_lengths", lens[0]), ("label_lengths", lens[1])):
+        if t.device.type != "cuda" or t.device != blank_lp.device:
+            raise ValueError(f"{name} must lie on {blank_lp.device} (CUDA)")
+    for name, t in zip(("input_lengths", "label_lengths"), lens):
+        if tuple(t.shape) != (bsz,):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != ({bsz},)")
+    alpha, beta = torch.empty_like(blank_lp), torch.empty_like(blank_lp)
+    if blank_lp.numel():
+        rc = _lattice_lib().rnnt_lattice(
+            blank_lp.data_ptr(), emit_lp.data_ptr(), lens[0].data_ptr(),
+            lens[1].data_ptr(), alpha.data_ptr(), beta.data_ptr(), bsz,
+            t_max, u1, _stream(blank_lp))
+        if rc != 0:
+            raise RuntimeError(f"rnnt_lattice kernel launch failed: "
+                               f"cudaError {rc}")
+        alpha_beta.launches += 1
+    return alpha, beta
+
+
+def alpha_beta(blank_lp, emit_lp, input_lengths, label_lengths):
+    """K9: alpha (masked by t < T only) and beta (masked by t < T_b and
+    u <= U_b, terminal cell the final blank) [B, T, U1] fp32 from the
+    planes and the lengths; invalid cells LOG_ZERO. The kernel for a CUDA
+    tensor, ``alpha_beta_ref`` for a CPU one."""
+    if blank_lp.device.type == "cpu":
+        return alpha_beta_ref(blank_lp, emit_lp, input_lengths,
+                              label_lengths)
+    return alpha_beta_kernel(blank_lp, emit_lp, input_lengths,
+                             label_lengths)
+
+
+alpha_beta.launches = 0
 
 
 def _final(plane, input_lengths, label_lengths):
@@ -385,21 +455,23 @@ class _RnntLossStreaming(torch.autograd.Function):
                                               labels, blank, activation,
                                               chunk)
         emit_lp[..., u1 - 1] = LOG_ZERO
-        alpha = alpha_scan(blank_lp, emit_lp)
+        alpha, beta = alpha_beta(blank_lp, emit_lp, input_lengths,
+                                 label_lengths)
         loss = -(_final(alpha, input_lengths, label_lengths)
                  + _final(blank_lp, input_lengths, label_lengths))
         ctx.cfg = (blank, activation, chunk, pred_j.dtype, w.dtype, b.dtype)
         ctx.save_for_backward(enc_j, pred_c, w_c, b_f, labels, input_lengths,
-                              label_lengths, blank_lp, emit_lp, lse, alpha)
+                              label_lengths, blank_lp, emit_lp, lse, alpha,
+                              beta)
         return loss
 
     @staticmethod
     def backward(ctx, g):
         (enc_j, pred_c, w_c, b_f, labels, input_lengths, label_lengths,
-         blank_lp, emit_lp, lse, alpha) = ctx.saved_tensors
+         blank_lp, emit_lp, lse, alpha, beta) = ctx.saved_tensors
         blank, activation, chunk, pred_dt, w_dt, b_dt = ctx.cfg
-        occ_b, occ_e = occupancies(blank_lp, emit_lp, alpha, input_lengths,
-                                   label_lengths)
+        occ_b, occ_e = occupancies(blank_lp, emit_lp, alpha, beta,
+                                   input_lengths, label_lengths)
         # dL/dlogits = (gb + ge) p - gb 1[blank] - ge 1[label] with
         # gb = occ_b g, ge = occ_e g (L is a negative log-likelihood).
         gc = g.float()[:, None, None]
@@ -425,6 +497,104 @@ def rnnt_loss_streaming(enc_j, pred_j, w, b, labels, input_lengths,
     return _RnntLossStreaming.apply(enc_j.contiguous(), pred_j, w, b,
                                     labels, input_lengths, label_lengths,
                                     int(blank), activation, int(chunk))
+
+
+# ---------------------------------------- losses on materialised logits ---
+
+def _label_index(labels, b: int, t: int, u1: int):
+    """[B, T, U1, 1] gather index of each row's label (row U takes 0)."""
+    lab = torch.cat([labels[:, :u1 - 1].long(),
+                     torch.zeros(b, 1, dtype=torch.long,
+                                 device=labels.device)], 1)
+    return lab[:, None, :, None].expand(b, t, u1, 1)
+
+
+def gather_planes(logits, labels, blank: int):
+    """logits [B, T, U1, V], labels [B, >= U1 - 1] → (blank_lp, emit_lp)
+    [B, T, U1] fp32 (port of ``_gather_planes``): the log-softmax over V,
+    taken in fp32, at the blank column and at each row's label; row U of
+    emit_lp is LOG_ZERO."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    b, t, u1, _ = lp.shape
+    blank_lp = lp[..., blank].contiguous()
+    last = torch.full((b, t, 1), LOG_ZERO, device=lp.device)
+    if u1 == 1:
+        return blank_lp, last
+    emit = torch.gather(lp, -1, _label_index(labels, b, t, u1))[..., 0]
+    return blank_lp, torch.cat([emit[..., :-1], last], -1)
+
+
+def rnnt_loss(logits, labels, input_lengths, label_lengths,
+              blank: int = 0):
+    """``rnnt_impl: "scan"``: per-utterance loss [B] from the plain
+    lattice; its gradient comes by autograd through it (as JAX's comes by
+    autodiff through the scan)."""
+    blank_lp, emit_lp = gather_planes(logits, labels, blank)
+    alpha = alpha_scan(blank_lp, emit_lp)
+    return -(_final(alpha, input_lengths, label_lengths)
+             + _final(blank_lp, input_lengths, label_lengths))
+
+
+def _logits_grad(logits, labels, occ_b, occ_e, blank: int, g):
+    """dL/dlogits = g·(softmax·(occ_b + occ_e) − occ_b·1[blank] −
+    occ_e·1[label]) in fp32, returned in the logits' dtype."""
+    b, t, u1, _ = logits.shape
+    grad = torch.softmax(logits.float(), dim=-1)
+    grad.mul_((occ_b + occ_e)[..., None])
+    grad[..., blank] -= occ_b
+    grad.scatter_add_(-1, _label_index(labels, b, t, u1), -occ_e[..., None])
+    grad.mul_(g.float()[:, None, None, None])
+    return grad.to(logits.dtype)
+
+
+class _RnntLossPallas(torch.autograd.Function):
+    """``rnnt_impl: "pallas"`` (port of ``rnnt_pallas.rnnt_loss_pallas``):
+    K9 in the forward, loss −beta[:, 0, 0], the closed-form occupancy
+    gradient from the saved alpha and beta."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, input_lengths, label_lengths, blank):
+        blank_lp, emit_lp = gather_planes(logits, labels, blank)
+        alpha, beta = alpha_beta(blank_lp, emit_lp, input_lengths,
+                                 label_lengths)
+        ctx.blank = blank
+        ctx.save_for_backward(logits, labels, input_lengths, label_lengths,
+                              blank_lp, emit_lp, alpha, beta)
+        return -beta[:, 0, 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        (logits, labels, input_lengths, label_lengths, blank_lp, emit_lp,
+         alpha, beta) = ctx.saved_tensors
+        occ_b, occ_e = occupancies(blank_lp, emit_lp, alpha, beta,
+                                   input_lengths, label_lengths)
+        return (_logits_grad(logits, labels, occ_b, occ_e, ctx.blank, g),
+                None, None, None, None)
+
+
+def rnnt_loss_pallas(logits, labels, input_lengths, label_lengths,
+                     blank: int = 0):
+    """Per-utterance loss [B] through K9 (the kernel on the card, the
+    plain lattice on the CPU) with the closed-form gradient."""
+    return _RnntLossPallas.apply(logits, labels, input_lengths,
+                                 label_lengths, int(blank))
+
+
+# rnnt_impl → loss on materialised logits. The JAX package's "fused" and
+# "pallas" differ only in how they run the lattice (XLA scans, the Pallas
+# kernel); both give the loss and the closed-form gradient, which
+# rnnt_loss_pallas computes through K9.
+LOSSES = {"scan": rnnt_loss, "fused": rnnt_loss_pallas,
+          "pallas": rnnt_loss_pallas}
+
+
+def _lattice_lib() -> ctypes.CDLL:
+    lib = load_library("rnnt_lattice")
+    if lib.rnnt_lattice.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rnnt_lattice.argtypes = [p] * 6 + [i] * 3 + [p]
+        lib.rnnt_lattice.restype = i
+    return lib
 
 
 def _lib() -> ctypes.CDLL:
