@@ -11,10 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from wenet_celoss_tpu_torch.configs import conformer_rnnt_bias
+from wenet_celoss_tpu_torch.configs import (conformer_ctc_aed,
+                                            conformer_rnnt_bias)
 from wenet_celoss_tpu_torch.decode.api import Decoder
 from wenet_celoss_tpu_torch.models.factory import init_model
-from wenet_celoss_tpu_torch.ops import conv, ffn, lstm, rnnt_loss
+from wenet_celoss_tpu_torch.ops import conv, ffn, ln_matmul, lstm, rnnt_loss
 from wenet_celoss_tpu_torch.utils.common import LOG_ZERO
 from wenet_celoss_tpu_torch.parallel import train
 
@@ -347,3 +348,147 @@ def test_conv_block_kernels_match_plain_version_on_card(dtype, causal, rate):
     first = conv.backward_kernel(args[0], mask, *args[1:], dy, *flat)
     again = conv.backward_kernel(args[0], mask, *args[1:], dy, *flat)
     assert all(torch.equal(p, q) for p, q in zip(first, again))
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,k,masked", [(1000, 768, False), (8448, 768, False),
+                                        (4064, 512, True), (77, 512, True)])
+def test_ln_matmul_kernels_match_plain_version_on_card(dtype, n, k, masked):
+    """K7's output and its five gradients against autograd through the
+    plain version: relative Frobenius 1e-5 (fp32) or 1e-2 (bf16), N ragged
+    against the 64-row blocks; masked rows come out as the bias; the same
+    bits on every backward call."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(n)
+    d = 256
+    args = [_rnd(g, n, d).to(dt), 1.0 + _rnd(g, d, std=0.1),
+            _rnd(g, d, std=0.1), _rnd(g, k, d, std=d ** -0.5).to(dt),
+            _rnd(g, k, std=0.1)]
+    mask = ((torch.rand(n, generator=g) > 0.3).float().cuda() if masked
+            else None)
+    dy = _rnd(g, n, k).to(dt)
+    ins = [a.detach().requires_grad_(True) for a in args]
+    lm = ln_matmul.ln_matmul
+    before = (lm.launches, lm.bwd_launches)
+    y = lm(*ins, mask)
+    got = torch.autograd.grad(y, ins, dy)
+    torch.cuda.synchronize()
+    assert (lm.launches, lm.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want_y = ln_matmul.ln_matmul_ref(*args, mask)
+    want = ln_matmul.backward_ref(*args, mask, dy, 1e-5)
+    limit = 1e-5 if dt == torch.float32 else 1e-2
+    for a, r in zip((y.detach(), *got), (want_y, *want)):
+        assert a.dtype == r.dtype and _rel(a, r) <= limit
+    if masked:
+        off = mask == 0
+        assert torch.equal(y.detach()[off],
+                           args[4].to(dt).expand(int(off.sum()), k))
+    first = ln_matmul.backward_kernel(*args, mask, dy, 1e-5)
+    again = ln_matmul.backward_kernel(*args, mask, dy, 1e-5)
+    assert all(torch.equal(p, q) for p, q in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation,rate", [("relu", 0.0), ("relu", 0.1),
+                                             ("swish", 0.1)])
+def test_ffn_fused_kernels_match_plain_version_on_card(dtype, activation,
+                                                       rate):
+    """K6's output and its five gradients against autograd through the
+    plain version with the same mask, N = 1000: fp32 y and dx to 1e-4 +
+    1e-4*|ref| (relu: over the rows with no |z1| < 1e-5), bf16 and the
+    weight gradients to relative Frobenius 1e-2; the same bits on every
+    backward call."""
+    dt = getattr(torch, dtype)
+    args, dy = _k1_args(1000, dt, seed=11)
+    x, _, _, w1, b1, w2, b2 = args
+    k6 = ffn.ffn_fused
+    before = (k6.launches, k6.bwd_launches)
+    ins = [a.detach().requires_grad_(True) for a in (x, w1, b1, w2, b2)]
+    y = k6(*ins, activation, rate, 99)
+    got = torch.autograd.grad(y, ins, dy)
+    torch.cuda.synchronize()
+    assert (k6.launches, k6.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want_y = ffn.ffn_fused_ref(x, w1, b1, w2, b2, activation, rate, 99)
+    want = ffn.ffn_backward_ref(x, dy, w1, b1, w2, b2, activation, rate, 99)
+    rows = (x.float() @ w1.float().t() + b1).abs().min(dim=1).values >= 1e-5
+    for name, a, r in zip(["y", "dx", "dw1", "db1", "dw2", "db2"],
+                          [y, *got], [want_y, *want]):
+        assert a.dtype == r.dtype, name
+        if dt == torch.float32 and name in ("y", "dx"):
+            ok = (a - r).abs() <= 1e-4 + 1e-4 * r.abs()
+            if name == "dx" and activation == "relu":
+                ok = ok[rows]
+            assert bool(ok.all()), name
+        else:
+            assert _rel(a, r) <= 1e-2, name
+    first = ffn.ffn_backward_kernel(x, dy, w1, b1, w2, b2, activation, rate,
+                                    99)
+    again = ffn.ffn_backward_kernel(x, dy, w1, b1, w2, b2, activation, rate,
+                                    99)
+    assert all(torch.equal(p, q) for p, q in zip(first, again))
+
+
+def _postnorm_tiny():
+    cfg = conformer_ctc_aed(tiny=True, vocab_size=30)
+    cfg["encoder"] = "transformer"
+    cfg["encoder_conf"].update(normalize_before=False,
+                               pos_enc_layer_type="abs_pos")
+    cfg["decoder_conf"]["normalize_before"] = False
+    return cfg
+
+
+@pytest.mark.parametrize("model", ["lnmm_flagship", "postnorm"])
+def test_tiny_k6_k7_paths_training_step_on_card_matches_cpu(model,
+                                                            monkeypatch):
+    """One fp32 gradient step, dropout 0, card against CPU: the tiny
+    flagship with LNMM_PALLAS=1 (K7 at 2 + 2 encoder sites and 1 + 1
+    decoder self-attentions, each way) and the tiny post-norm transformer
+    CTC/AED (K6 at 2 + 1 FFNs each way, K1 never): every loss term within
+    1e-4 and every gradient within 1e-3 relative Frobenius."""
+    if model == "postnorm":
+        cfg = _postnorm_tiny()
+        want = {"k6": (3, 3), "k7": (0, 0), "k1": (0, 0)}
+    else:
+        monkeypatch.setenv("LNMM_PALLAS", "1")
+        cfg = conformer_rnnt_bias(tiny=True, vocab_size=30)
+        cfg["predictor_conf"].update(embed_dropout=0.0, dropout=0.0)
+        want = {"k6": (0, 0), "k7": (6, 6), "k1": (6, 6)}
+    for conf in (cfg["encoder_conf"], cfg["decoder_conf"]):
+        for k in list(conf) + ["positional_dropout_rate"]:
+            if k.endswith("dropout_rate"):
+                conf[k] = 0.0
+    card, cpu = init_model(cfg, seed=5), init_model(cfg, device="cpu",
+                                                    seed=5)
+    rng = np.random.default_rng(2)
+    batch = {"feats": rng.standard_normal((4, 64, 80)).astype(np.float32),
+             "feat_lengths": np.array([64, 50, 33, 20]),
+             "labels": rng.integers(1, 28, (4, 6)),
+             "label_lengths": np.array([6, 3, 0, 5])}
+    if model != "postnorm":
+        batch.update(context_list=np.array([[0, -1], [3, 4], [7, -1]]),
+                     context_lengths=np.array([1, 2, 1]),
+                     hw_labels=rng.integers(0, 2, (4, 6)))
+    counters = {"k6": ffn.ffn_fused, "k7": ln_matmul.ln_matmul,
+                "k1": ffn.ln_ffn_residual}
+    before = {k: (c.launches, c.bwd_launches) for k, c in counters.items()}
+    results = []
+    for m, dev in ((card, "cuda"), (cpu, "cpu")):
+        results.append(train.make_grad_fn(m)(
+            train.TrainState(0, m, None),
+            {k: torch.as_tensor(v, device=dev) for k, v in batch.items()},
+            torch.Generator()))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert {k: (c.launches - before[k][0],
+                        c.bwd_launches - before[k][1])
+                    for k, c in counters.items()} == want
+    (g_card, m_card), (g_cpu, m_cpu) = results
+    for k in m_cpu:
+        assert abs(float(m_card[k]) - float(m_cpu[k])) <= \
+            1e-4 * abs(float(m_cpu[k])) + 1e-6, k
+    for a, b in zip(g_card, g_cpu):
+        assert float((a.cpu() - b).norm()) <= 1e-3 * float(b.norm()) + 1e-7

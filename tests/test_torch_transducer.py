@@ -178,9 +178,11 @@ def test_pallas_loss_every_gradient_matches_jax(_jax_pallas_interpret):
     check_grads_match_jax("pallas")
 
 
-def check_grads_match_jax(rnnt_impl):
+def check_grads_match_jax(rnnt_impl, grad_fn=None):
+    """``grad_fn``: a JAX grad function to use in place of the cached one
+    (a fresh trace, for a test that patches the JAX package's routes)."""
     _, _, v, tm = _pair("both", rnnt_impl)
-    grad_fn = _jax_fns("both", rnnt_impl)[0]
+    grad_fn = grad_fn or _jax_fns("both", rnnt_impl)[0]
     batch = _batch()
     state = jax_train.TrainState(step=jnp.zeros((), jnp.int32),
                                  params=v["params"], opt_state=None)

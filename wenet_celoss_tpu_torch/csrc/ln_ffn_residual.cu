@@ -5,7 +5,15 @@
 //
 // Replaces wenet_celoss_tpu/ops/ffn_pallas.py::_ln_ffn_fwd_kernel and
 // ::_ln_ffn_bwd_kernel (the Pallas forward and backward of
-// ln_ffn_residual). Rounding points are the Pallas kernels': LayerNorm in
+// ln_ffn_residual), and, with no LayerNorm given (g == nullptr),
+// ::_ffn_fwd_kernel and ::_ffn_bwd_kernel (ffn_fused, the post-norm FFN
+//
+//   y = drop1(act(x @ W1^T + b1)) @ W2^T + b2
+//
+// with no output mask and no residual): the same kernels, x staged where
+// LN(x) was, the residual, the LN VJP and the LN partials skipped, and pass
+// B reading x and dy directly (nothing to write for it). Rounding points
+// are the Pallas kernels': LayerNorm in
 // fp32, cast to the compute type; GEMMs with fp32 accumulation; the
 // activation, its derivative and the dropout scaling in fp32, cast to the
 // compute type before a GEMM; the LayerNorm VJP in fp32; the residual and
@@ -234,18 +242,31 @@ __device__ void store_rows(const T* src, int ld, T* __restrict__ dst,
   }
 }
 
+// y = x + ff_scale * drop2(acc + b2), or acc + b2 without the residual.
 template <typename T>
 __device__ void store_residual(const T* __restrict__ x,
                                const float* __restrict__ b2, const float* acc,
                                int lda, T* __restrict__ y, int row0, int rows,
-                               int n, int d, float ff_scale, const Drop& dp2) {
+                               int n, int d, float ff_scale, const Drop& dp2,
+                               bool residual) {
   for (int i = threadIdx.x; i < rows * d; i += kThreads) {
     const int r = i / d, c = i % d, gr = row0 + r;
     if (gr < n) {
       const size_t o = (size_t)gr * d + c;
       const float y2 = drop(dp2, (uint32_t)o, acc[r * lda + c] + b2[c]);
-      y[o] = from_f<T>(to_f(x[o]) + ff_scale * y2);
+      y[o] = from_f<T>(residual ? to_f(x[o]) + ff_scale * y2 : y2);
     }
+  }
+}
+
+// dx = cast(acc) for rows [row0, min(row0 + rows, n)): ffn_fused's pass A,
+// which has no LayerNorm to differentiate and no residual to add.
+template <typename T>
+__device__ void store_acc(const float* acc, int lda, T* __restrict__ dx,
+                          int row0, int rows, int n, int d) {
+  for (int i = threadIdx.x; i < rows * d; i += kThreads) {
+    const int r = i / d, c = i % d, gr = row0 + r;
+    if (gr < n) dx[(size_t)gr * d + c] = from_f<T>(acc[r * lda + c]);
   }
 }
 
@@ -374,7 +395,10 @@ ln_ffn_fwd(const bf* __restrict__ x, const float* __restrict__ g,
   const int tid = threadIdx.x, warp = tid / 32;
   const int row0 = blockIdx.x * ROWS;
 
-  layer_norm_rows<bf>(x, g, bl, xn, L.ldx, row0, ROWS, n, d, eps);
+  if (g != nullptr)
+    layer_norm_rows<bf>(x, g, bl, xn, L.ldx, row0, ROWS, n, d, eps);
+  else
+    stage_rows<bf>(x, xn, L.ldx, row0, ROWS, n, d);
   for (int i = tid; i < ROWS * L.lda; i += kThreads) acc[i] = 0.0f;
 
   constexpr int rt_n = ROWS / 16, ct_n = FT / 16;
@@ -419,7 +443,8 @@ ln_ffn_fwd(const bf* __restrict__ x, const float* __restrict__ g,
     }
     __syncthreads();
   }
-  store_residual<bf>(x, b2, acc, L.lda, y, row0, ROWS, n, d, ff_scale, dp2);
+  store_residual<bf>(x, b2, acc, L.lda, y, row0, ROWS, n, d, ff_scale, dp2,
+                     g != nullptr);
 }
 
 // Pass A: the forward's layout plus dy2 [ROWS][ldx], a second fp32 tile
@@ -472,12 +497,18 @@ ln_ffn_bwd_rows(const bf* __restrict__ x, const bf* __restrict__ dy,
   const int row0 = blockIdx.x * ROWS;
   const size_t part = (size_t)blockIdx.x * d;
 
-  layer_norm_rows<bf>(x, g, bl, xn, L.ldx, row0, ROWS, n, d, eps, mu, rstd);
+  if (g != nullptr)
+    layer_norm_rows<bf>(x, g, bl, xn, L.ldx, row0, ROWS, n, d, eps, mu,
+                        rstd);
+  else
+    stage_rows<bf>(x, xn, L.ldx, row0, ROWS, n, d);
   load_dy2<bf>(dy, dyc, L.ldx, row0, ROWS, n, d, ff_scale, dp2, db2p + part);
   for (int i = tid; i < ROWS * L.lda; i += kThreads) acc[i] = 0.0f;
   __syncthreads();
-  store_rows<bf>(xn, L.ldx, xn_out, row0, ROWS, n, d);
-  store_rows<bf>(dyc, L.ldx, dy2_out, row0, ROWS, n, d);
+  if (xn_out != nullptr) {
+    store_rows<bf>(xn, L.ldx, xn_out, row0, ROWS, n, d);
+    store_rows<bf>(dyc, L.ldx, dy2_out, row0, ROWS, n, d);
+  }
 
   constexpr int rt_n = ROWS / 16, ct_n = FT / 16;
   const int dt_n = d / 16;
@@ -530,8 +561,11 @@ ln_ffn_bwd_rows(const bf* __restrict__ x, const bf* __restrict__ dy,
     }
     __syncthreads();
   }
-  ln_vjp_rows<bf>(x, dy, g, acc, L.lda, mu, rstd, dx, dgp + part,
-                  dblp + part, row0, ROWS, n, d);
+  if (g != nullptr)
+    ln_vjp_rows<bf>(x, dy, g, acc, L.lda, mu, rstd, dx, dgp + part,
+                    dblp + part, row0, ROWS, n, d);
+  else
+    store_acc<bf>(acc, L.lda, dx, row0, ROWS, n, d);
 }
 
 // Pass B layout: the block's W1/W2 tiles, one row chunk of xn and dy2, the
@@ -783,7 +817,10 @@ ln_ffn_fwd(const float* __restrict__ x, const float* __restrict__ g,
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * ROWS;
 
-  layer_norm_rows<float>(x, g, bl, xn, L.ldx, row0, ROWS, n, d, eps);
+  if (g != nullptr)
+    layer_norm_rows<float>(x, g, bl, xn, L.ldx, row0, ROWS, n, d, eps);
+  else
+    load_rows<float>(x, xn, L.ldx, row0, ROWS, n, d);
   for (int i = tid; i < ROWS * L.lda; i += kThreads) acc[i] = 0.0f;
 
   for (int f0 = 0; f0 < f; f0 += FT) {
@@ -808,7 +845,7 @@ ln_ffn_fwd(const float* __restrict__ x, const float* __restrict__ g,
     __syncthreads();
   }
   store_residual<float>(x, b2, acc, L.lda, y, row0, ROWS, n, d, ff_scale,
-                        dp2);
+                        dp2, g != nullptr);
 }
 
 // Pass A: the forward's layout plus dy2 [ROWS][ldx] and row statistics;
@@ -857,14 +894,19 @@ ln_ffn_bwd_rows(const float* __restrict__ x, const float* __restrict__ dy,
   const int row0 = blockIdx.x * ROWS;
   const size_t part = (size_t)blockIdx.x * d;
 
-  layer_norm_rows<float>(x, g, bl, xn, L.ldx, row0, ROWS, n, d, eps, mu,
-                         rstd);
+  if (g != nullptr)
+    layer_norm_rows<float>(x, g, bl, xn, L.ldx, row0, ROWS, n, d, eps, mu,
+                           rstd);
+  else
+    load_rows<float>(x, xn, L.ldx, row0, ROWS, n, d);
   load_dy2<float>(dy, dyc, L.ldx, row0, ROWS, n, d, ff_scale, dp2,
                   db2p + part);
   for (int i = tid; i < ROWS * L.lda; i += kThreads) acc[i] = 0.0f;
   __syncthreads();
-  store_rows<float>(xn, L.ldx, xn_out, row0, ROWS, n, d);
-  store_rows<float>(dyc, L.ldx, dy2_out, row0, ROWS, n, d);
+  if (xn_out != nullptr) {
+    store_rows<float>(xn, L.ldx, xn_out, row0, ROWS, n, d);
+    store_rows<float>(dyc, L.ldx, dy2_out, row0, ROWS, n, d);
+  }
 
   for (int f0 = 0; f0 < f; f0 += FT) {
     stage_weights(w1, w2, w1s, L.ldw1, w2s, L.ldw2, f0, FT, d, f);
@@ -889,8 +931,11 @@ ln_ffn_bwd_rows(const float* __restrict__ x, const float* __restrict__ dy,
     }
     __syncthreads();
   }
-  ln_vjp_rows<float>(x, dy, g, acc, L.lda, mu, rstd, dx, dgp + part,
-                     dblp + part, row0, ROWS, n, d);
+  if (g != nullptr)
+    ln_vjp_rows<float>(x, dy, g, acc, L.lda, mu, rstd, dx, dgp + part,
+                       dblp + part, row0, ROWS, n, d);
+  else
+    store_acc<float>(acc, L.lda, dx, row0, ROWS, n, d);
 }
 
 struct LayoutB {
@@ -1088,13 +1133,7 @@ size_t bwd_b_bytes(int dtype, int d) {
   return dtype == 1 ? bf16k::layout_b(d).bytes : f32k::layout_b(d).bytes;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Rows a forward CTA takes for this dtype (0 = fp32, 1 = bf16) and width:
-// 32 when the shared-memory layout fits, else 16; 0 when neither fits.
-int ln_ffn_residual_rows(int dtype, int d) {
+int fwd_rows(int dtype, int d) {
   for (int rows = 32; rows >= 16; rows /= 2) {
     const size_t b = dtype == 1 ? bf16k::layout(rows, d).bytes
                                 : f32k::layout(rows, d).bytes;
@@ -1103,20 +1142,15 @@ int ln_ffn_residual_rows(int dtype, int d) {
   return 0;
 }
 
-// Shape and alignment checks are the caller's (ops/ffn.py). Returns a
-// cudaError_t code; 0 is success. thresh >= 65536 turns a mask off.
-int ln_ffn_residual_fwd(int dtype, const void* x, const void* g,
-                        const void* bl, const void* w1, const void* b1,
-                        const void* w2, const void* b2, void* y, int n, int d,
-                        int f, float ff_scale, float eps, int act,
-                        unsigned key1, int thresh1, float scale1,
-                        unsigned key2, int thresh2, float scale2,
-                        void* stream) {
-  const int rows = ln_ffn_residual_rows(dtype, d);
+// The forward of both functions; g == nullptr selects ffn_fused (bl and
+// ff_scale unused, dp2 keeps everything).
+int launch_fwd(int dtype, const void* x, const void* g, const void* bl,
+               const void* w1, const void* b1, const void* w2,
+               const void* b2, void* y, int n, int d, int f, float ff_scale,
+               float eps, int act, Drop dp1, Drop dp2, void* stream) {
+  const int rows = fwd_rows(dtype, d);
   if (rows == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Drop dp1 = make_drop(key1, thresh1, scale1);
-  const Drop dp2 = make_drop(key2, thresh2, scale2);
   const int grid = (n + rows - 1) / rows;
   cudaError_t e;
   if (dtype == 1) {
@@ -1144,14 +1178,133 @@ int ln_ffn_residual_fwd(int dtype, const void* x, const void* g,
   return (int)cudaGetLastError();
 }
 
-// fp32 workspace the backward needs (floats), or 0 when its layouts do not
-// fit this width in shared memory.
-long long ln_ffn_residual_bwd_workspace(int dtype, int n, int d, int f) {
+// fp32 workspace of the backward (floats): per pass-A block the db2
+// partials (and with the LayerNorm the dgamma and dbeta ones), per pass-B
+// split dW1, dW2 and db1; 0 when the layouts do not fit this width.
+long long bwd_workspace(int dtype, int n, int d, int f, bool ln) {
   if (bwd_a_bytes(dtype, d) > kMaxSmem || bwd_b_bytes(dtype, d) > kMaxSmem)
     return 0;
   const long long blocks = (n + kBwdRows - 1) / kBwdRows;
   const long long splits = bwd_splits(n, f);
-  return 3 * blocks * d + splits * (2LL * f * d + f);
+  return (ln ? 3 : 1) * blocks * d + splits * (2LL * f * d + f);
+}
+
+// The backward of both functions; g == nullptr selects ffn_fused (bl, dg,
+// dbl, rows_buf and ff_scale unused, dp2 keeps everything): pass B then
+// reads x and dy, which are its LN(x) and dy2.
+template <typename T, typename KA, typename KB>
+int launch_bwd(KA ka, KB kb, const T* x, const T* dy, const float* g,
+               const float* bl, const T* w1, const float* b1, const T* w2,
+               T* dx, float* dg, float* dbl, float* dw1, float* db1,
+               float* dw2, float* db2, float* ws, T* rows_buf, int n, int d,
+               int f, float ff_scale, float eps, int act, Drop dp1, Drop dp2,
+               cudaStream_t s) {
+  const bool ln = g != nullptr;
+  const int dtype = sizeof(T) == 2 ? 1 : 0;
+  if (bwd_workspace(dtype, n, d, f, ln) == 0)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kBwdRows - 1) / kBwdRows;
+  const int splits = bwd_splits(n, f);
+  const int rows_per_split = bwd_rows_per_split(n, f);
+  float* db2p = ws;
+  float* dgp = ln ? db2p + (size_t)blocks * d : nullptr;
+  float* dblp = ln ? dgp + (size_t)blocks * d : nullptr;
+  float* dw1p = db2p + (size_t)(ln ? 3 : 1) * blocks * d;
+  float* dw2p = dw1p + (size_t)splits * f * d;
+  float* db1p = dw2p + (size_t)splits * f * d;
+  T* xn_out = ln ? rows_buf : nullptr;
+  T* dy2_out = ln ? rows_buf + (size_t)n * d : nullptr;
+  const size_t a_bytes = bwd_a_bytes(dtype, d), b_bytes = bwd_b_bytes(dtype, d);
+  cudaError_t e;
+  if ((e = set_smem(ka, a_bytes)) != cudaSuccess) return (int)e;
+  if ((e = set_smem(kb, b_bytes)) != cudaSuccess) return (int)e;
+  ka<<<blocks, kThreads, a_bytes, s>>>(x, dy, g, bl, w1, b1, w2, dx, xn_out,
+                                       dy2_out, dgp, dblp, db2p, n, d, f,
+                                       ff_scale, eps, act, dp1, dp2);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  kb<<<dim3(f / kBwdFtB, splits), kThreads, b_bytes, s>>>(
+      ln ? xn_out : x, ln ? dy2_out : dy, w1, b1, w2, dw1p, dw2p, db1p, n, d,
+      f, rows_per_split, act, dp1);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (ln) {
+    if ((e = sum_into(dgp, dg, blocks, d, s)) != cudaSuccess) return (int)e;
+    if ((e = sum_into(dblp, dbl, blocks, d, s)) != cudaSuccess) return (int)e;
+  }
+  if ((e = sum_into(db2p, db2, blocks, d, s)) != cudaSuccess) return (int)e;
+  if ((e = sum_into(dw1p, dw1, splits, f * d, s)) != cudaSuccess)
+    return (int)e;
+  if ((e = sum_into(dw2p, dw2, splits, f * d, s)) != cudaSuccess)
+    return (int)e;
+  return (int)sum_into(db1p, db1, splits, f, s);
+}
+
+int launch_bwd_any(int dtype, const void* x, const void* dy, const void* g,
+                   const void* bl, const void* w1, const void* b1,
+                   const void* w2, void* dx, float* dg, float* dbl,
+                   float* dw1, float* db1, float* dw2, float* db2, float* ws,
+                   void* rows_buf, int n, int d, int f, float ff_scale,
+                   float eps, int act, Drop dp1, Drop dp2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* gf = static_cast<const float*>(g);
+  const float* blf = static_cast<const float*>(bl);
+  const float* b1f = static_cast<const float*>(b1);
+  if (dtype == 1) {
+    using bf = __nv_bfloat16;
+    return launch_bwd<bf>(
+        bf16k::ln_ffn_bwd_rows<kBwdRows>, bf16k::ln_ffn_bwd_weights,
+        static_cast<const bf*>(x), static_cast<const bf*>(dy), gf, blf,
+        static_cast<const bf*>(w1), b1f, static_cast<const bf*>(w2),
+        static_cast<bf*>(dx), dg, dbl, dw1, db1, dw2, db2, ws,
+        static_cast<bf*>(rows_buf), n, d, f, ff_scale, eps, act, dp1, dp2, s);
+  }
+  return launch_bwd<float>(
+      f32k::ln_ffn_bwd_rows<kBwdRows>, f32k::ln_ffn_bwd_weights,
+      static_cast<const float*>(x), static_cast<const float*>(dy), gf, blf,
+      static_cast<const float*>(w1), b1f, static_cast<const float*>(w2),
+      static_cast<float*>(dx), dg, dbl, dw1, db1, dw2, db2, ws,
+      static_cast<float*>(rows_buf), n, d, f, ff_scale, eps, act, dp1, dp2, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Rows a forward CTA takes for this dtype (0 = fp32, 1 = bf16) and width:
+// 32 when the shared-memory layout fits, else 16; 0 when neither fits.
+int ln_ffn_residual_rows(int dtype, int d) { return fwd_rows(dtype, d); }
+
+// Shape and alignment checks are the caller's (ops/ffn.py). Returns a
+// cudaError_t code; 0 is success. thresh >= 65536 turns a mask off.
+int ln_ffn_residual_fwd(int dtype, const void* x, const void* g,
+                        const void* bl, const void* w1, const void* b1,
+                        const void* w2, const void* b2, void* y, int n, int d,
+                        int f, float ff_scale, float eps, int act,
+                        unsigned key1, int thresh1, float scale1,
+                        unsigned key2, int thresh2, float scale2,
+                        void* stream) {
+  return launch_fwd(dtype, x, g, bl, w1, b1, w2, b2, y, n, d, f, ff_scale,
+                    eps, act, make_drop(key1, thresh1, scale1),
+                    make_drop(key2, thresh2, scale2), stream);
+}
+
+// ffn_fused's forward: drop1(act(x W1^T + b1)) W2^T + b2.
+int ffn_fused_fwd(int dtype, const void* x, const void* w1, const void* b1,
+                  const void* w2, const void* b2, void* y, int n, int d,
+                  int f, int act, unsigned key1, int thresh1, float scale1,
+                  void* stream) {
+  return launch_fwd(dtype, x, nullptr, nullptr, w1, b1, w2, b2, y, n, d, f,
+                    1.0f, 0.0f, act, make_drop(key1, thresh1, scale1),
+                    make_drop(0u, kKeepAll, 1.0f), stream);
+}
+
+// fp32 workspace the backward needs (floats), or 0 when its layouts do not
+// fit this width in shared memory.
+long long ln_ffn_residual_bwd_workspace(int dtype, int n, int d, int f) {
+  return bwd_workspace(dtype, n, d, f, true);
+}
+
+long long ffn_fused_bwd_workspace(int dtype, int n, int d, int f) {
+  return bwd_workspace(dtype, n, d, f, false);
 }
 
 // dx in the compute dtype; dg, dbl, dw1 [F, D], db1, dw2 [D, F], db2 in
@@ -1167,70 +1320,24 @@ int ln_ffn_residual_bwd(int dtype, const void* x, const void* dy,
                         float ff_scale, float eps, int act, unsigned key1,
                         int thresh1, float scale1, unsigned key2,
                         int thresh2, float scale2, void* stream) {
-  if (ln_ffn_residual_bwd_workspace(dtype, n, d, f) == 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Drop dp1 = make_drop(key1, thresh1, scale1);
-  const Drop dp2 = make_drop(key2, thresh2, scale2);
-  const int blocks = (n + kBwdRows - 1) / kBwdRows;
-  const int splits = bwd_splits(n, f);
-  const int rows_per_split = bwd_rows_per_split(n, f);
-  float* dgp = ws;
-  float* dblp = dgp + (size_t)blocks * d;
-  float* db2p = dblp + (size_t)blocks * d;
-  float* dw1p = db2p + (size_t)blocks * d;
-  float* dw2p = dw1p + (size_t)splits * f * d;
-  float* db1p = dw2p + (size_t)splits * f * d;
-  const size_t a_bytes = bwd_a_bytes(dtype, d), b_bytes = bwd_b_bytes(dtype, d);
-  const dim3 grid_b(f / kBwdFtB, splits);
-  cudaError_t e;
-  if (dtype == 1) {
-    using bf = __nv_bfloat16;
-    auto ka = bf16k::ln_ffn_bwd_rows<kBwdRows>;
-    auto kb = bf16k::ln_ffn_bwd_weights;
-    if ((e = set_smem(ka, a_bytes)) != cudaSuccess) return (int)e;
-    if ((e = set_smem(kb, b_bytes)) != cudaSuccess) return (int)e;
-    bf* xn_g = static_cast<bf*>(rows_buf);
-    bf* dy2_g = xn_g + (size_t)n * d;
-    ka<<<blocks, kThreads, a_bytes, s>>>(
-        static_cast<const bf*>(x), static_cast<const bf*>(dy),
-        static_cast<const float*>(g), static_cast<const float*>(bl),
-        static_cast<const bf*>(w1), static_cast<const float*>(b1),
-        static_cast<const bf*>(w2), static_cast<bf*>(dx), xn_g, dy2_g, dgp,
-        dblp, db2p, n, d, f, ff_scale, eps, act, dp1, dp2);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    kb<<<grid_b, kThreads, b_bytes, s>>>(
-        xn_g, dy2_g, static_cast<const bf*>(w1),
-        static_cast<const float*>(b1), static_cast<const bf*>(w2), dw1p,
-        dw2p, db1p, n, d, f, rows_per_split, act, dp1);
-  } else {
-    auto ka = f32k::ln_ffn_bwd_rows<kBwdRows>;
-    auto kb = f32k::ln_ffn_bwd_weights;
-    if ((e = set_smem(ka, a_bytes)) != cudaSuccess) return (int)e;
-    if ((e = set_smem(kb, b_bytes)) != cudaSuccess) return (int)e;
-    float* xn_g = static_cast<float*>(rows_buf);
-    float* dy2_g = xn_g + (size_t)n * d;
-    ka<<<blocks, kThreads, a_bytes, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy),
-        static_cast<const float*>(g), static_cast<const float*>(bl),
-        static_cast<const float*>(w1), static_cast<const float*>(b1),
-        static_cast<const float*>(w2), static_cast<float*>(dx), xn_g, dy2_g,
-        dgp, dblp, db2p, n, d, f, ff_scale, eps, act, dp1, dp2);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    kb<<<grid_b, kThreads, b_bytes, s>>>(
-        xn_g, dy2_g, static_cast<const float*>(w1),
-        static_cast<const float*>(b1), static_cast<const float*>(w2), dw1p,
-        dw2p, db1p, n, d, f, rows_per_split, act, dp1);
-  }
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if ((e = sum_into(dgp, dg, blocks, d, s)) != cudaSuccess) return (int)e;
-  if ((e = sum_into(dblp, dbl, blocks, d, s)) != cudaSuccess) return (int)e;
-  if ((e = sum_into(db2p, db2, blocks, d, s)) != cudaSuccess) return (int)e;
-  if ((e = sum_into(dw1p, dw1, splits, f * d, s)) != cudaSuccess)
-    return (int)e;
-  if ((e = sum_into(dw2p, dw2, splits, f * d, s)) != cudaSuccess)
-    return (int)e;
-  return (int)sum_into(db1p, db1, splits, f, s);
+  return launch_bwd_any(dtype, x, dy, g, bl, w1, b1, w2, dx, dg, dbl, dw1,
+                        db1, dw2, db2, ws, rows_buf, n, d, f, ff_scale, eps,
+                        act, make_drop(key1, thresh1, scale1),
+                        make_drop(key2, thresh2, scale2), stream);
+}
+
+// ffn_fused's backward: dx in the compute dtype; dw1 [F, D], db1, dw2
+// [D, F], db2 in fp32; ws holds ffn_fused_bwd_workspace() floats.
+int ffn_fused_bwd(int dtype, const void* x, const void* dy, const void* w1,
+                  const void* b1, const void* w2, void* dx, float* dw1,
+                  float* db1, float* dw2, float* db2, float* ws, int n, int d,
+                  int f, int act, unsigned key1, int thresh1, float scale1,
+                  void* stream) {
+  return launch_bwd_any(dtype, x, dy, nullptr, nullptr, w1, b1, w2, dx,
+                        nullptr, nullptr, dw1, db1, dw2, db2, ws, nullptr, n,
+                        d, f, 1.0f, 0.0f, act,
+                        make_drop(key1, thresh1, scale1),
+                        make_drop(0u, kKeepAll, 1.0f), stream);
 }
 
 }  // extern "C"

@@ -17,7 +17,7 @@ import torch.nn as nn
 
 from wenet_celoss_tpu_torch.models.ctc_head import CTC
 from wenet_celoss_tpu_torch.models.decoder import BiTransformerDecoder
-from wenet_celoss_tpu_torch.models.encoder import ConformerEncoder
+from wenet_celoss_tpu_torch.models.encoder import TransformerEncoder
 from wenet_celoss_tpu_torch.models.label_smoothing import \
     label_smoothing_loss
 from wenet_celoss_tpu_torch.utils.common import (IGNORE_ID, accuracy,
@@ -27,7 +27,7 @@ from wenet_celoss_tpu_torch.utils.common import (IGNORE_ID, accuracy,
 
 class ASRModel(nn.Module):
 
-    def __init__(self, vocab_size: int, encoder: ConformerEncoder,
+    def __init__(self, vocab_size: int, encoder: TransformerEncoder,
                  decoder: BiTransformerDecoder, ctc: CTC,
                  ctc_weight: float = 0.5, ignore_id: int = IGNORE_ID,
                  reverse_weight: float = 0.0, lsm_weight: float = 0.1,

@@ -1,7 +1,10 @@
 """Multi-head attention, full context (port of
 ``wenet_celoss_tpu/models/attention.py``; the streaming KV cache comes
 with the streaming slice). Dropout on the attention probabilities runs
-when the caller passes a generator (training).
+when the caller passes a generator (training). A pre-norm caller passes
+its LayerNorm as ``ln``: with ``LNMM_PALLAS`` at "1" or "attn" a
+self-attention's LayerNorm and merged QKV projection are one K7 launch
+(``ops/ln_matmul.py``), else the LayerNorm runs alone first.
 
 The rel-pos variant follows the reference's simplification: matrix_bd is
 computed from the sinusoid pos_emb WITHOUT rel_shift. That is deliberate
@@ -17,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from wenet_celoss_tpu_torch.models.layers import Dense
+from wenet_celoss_tpu_torch.ops import ln_matmul as lnmm
 from wenet_celoss_tpu_torch.ops.dropout import dropout
 
 # Additive mask value (an attention bias of 0 keeps a key, NEG_INF drops
@@ -44,23 +48,39 @@ class MultiHeadedAttention(nn.Module):
         b, t, _ = x.shape
         return x.reshape(b, t, self.n_head, self.d_k).transpose(1, 2)
 
-    def _merged(self, x: torch.Tensor, layers) -> torch.Tensor:
-        """One matmul against the concatenated weights of ``layers``."""
+    def _merged(self, x: torch.Tensor, layers, ln=None) -> torch.Tensor:
+        """One matmul against the concatenated weights of ``layers``; with
+        ``ln``, K7 computes ln(x) and the matmul in one launch (the bias
+        cast to the compute dtype first, as the JAX package does)."""
         cdt = self.compute_dtype or torch.promote_types(x.dtype,
                                                         torch.float32)
         w = torch.cat([lin.weight for lin in layers]).to(cdt)
         b = torch.cat([lin.bias for lin in layers]).to(cdt)
-        return F.linear(x.to(cdt), w, b)
+        if ln is None:
+            return F.linear(x.to(cdt), w, b)
+        bsz, t, d = x.shape
+        y = lnmm.ln_matmul(x.reshape(bsz * t, d).to(cdt).contiguous(),
+                           ln.weight, ln.bias, w, b.float(), None, ln.eps)
+        return y.reshape(bsz, t, -1)
 
-    def qkv(self, query, key, value):
+    def qkv(self, query, key, value, ln=None):
         """Merged projections: q=k=v for self-attention (one matmul),
         k=v for cross-attention (q alone, then one k|v matmul); every
-        caller in this port is one of the two."""
+        caller in this port is one of the two. ``ln`` is the caller's
+        pre-norm: fused into the self-attention projection by K7 when
+        ``LNMM_PALLAS`` routes "attn", else applied to the query and its
+        aliases first."""
         if key is not value:
             raise ValueError("key and value must be the same tensor")
+        fused = ln is not None and query is key and lnmm.enabled("attn")
+        if ln is not None and not fused:
+            qn = ln(query)
+            if key is query:
+                key = value = qn
+            query = qn
         if query is key:
             y = self._merged(query, (self.linear_q, self.linear_k,
-                                     self.linear_v))
+                                     self.linear_v), ln if fused else None)
             q, k, v = torch.chunk(y, 3, dim=-1)
             return self._split(q), self._split(k), self._split(v)
         k, v = torch.chunk(self._merged(key, (self.linear_k,
@@ -89,8 +109,9 @@ class MultiHeadedAttention(nn.Module):
         b = x.shape[0]
         return self.linear_out(x.transpose(1, 2).reshape(b, -1, self.n_feat))
 
-    def forward(self, query, key, value, mask=None, pos_emb=None, gen=None):
-        q, k, v = self.qkv(query, key, value)
+    def forward(self, query, key, value, mask=None, pos_emb=None, gen=None,
+                ln=None):
+        q, k, v = self.qkv(query, key, value, ln)
         scores = torch.matmul(q, k.transpose(-2, -1)) / torch.sqrt(
             torch.tensor(float(self.d_k), dtype=q.dtype))
         return self._softmax_out(scores, mask, v, q.dtype, gen)
@@ -106,9 +127,10 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         self.pos_bias_u = nn.Parameter(torch.zeros(n_head, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.zeros(n_head, self.d_k))
 
-    def forward(self, query, key, value, mask=None, pos_emb=None, gen=None):
+    def forward(self, query, key, value, mask=None, pos_emb=None, gen=None,
+                ln=None):
         """pos_emb [1|B, Tk, n_feat] (a batch-1 table broadcasts)."""
-        q, k, v = self.qkv(query, key, value)
+        q, k, v = self.qkv(query, key, value, ln)
         p = self.linear_pos(pos_emb)
         pb, pt = p.shape[0], p.shape[1]
         p = p.reshape(pb, pt, self.n_head, self.d_k).transpose(1, 2)

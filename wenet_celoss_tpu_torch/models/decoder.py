@@ -1,9 +1,12 @@
 """Attention decoders, teacher-forced (port of
 ``wenet_celoss_tpu/models/decoder.py``): the left-to-right transformer
 decoder and the bidirectional (U2++) wrapper with its right-to-left
-decoder. Pre-norm layers only; each FFN block is one launch of the K1
-kernel (relu, ff_scale 1). ``forward_one_step`` comes with the decode
-slice. Dropout runs when the caller passes a generator (training).
+decoder. Pre-norm layers (``normalize_before``): each FFN block is one
+launch of the K1 kernel (relu, ff_scale 1), and the self-attention's
+pre-norm and QKV projection one launch of K7 when ``LNMM_PALLAS`` routes
+"attn". Post-norm layers: each FFN is one launch of K6, and no
+``after_norm`` exists. ``forward_one_step`` comes with the decode slice.
+Dropout runs when the caller passes a generator (training).
 """
 
 from __future__ import annotations
@@ -24,16 +27,18 @@ from wenet_celoss_tpu_torch.utils.mask import (make_non_pad_mask,
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm self-attention → cross-attention → FFN block, each with a
-    residual."""
+    """Self-attention → cross-attention → FFN, each with a residual, pre-norm
+    or post-norm (``normalize_before``)."""
 
     def __init__(self, size: int, attention_heads: int, linear_units: int,
                  dropout_rate: float = 0.1,
                  self_attention_dropout_rate: float = 0.0,
                  src_attention_dropout_rate: float = 0.0,
+                 normalize_before: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.normalize_before = normalize_before
         self.self_attn = MultiHeadedAttention(
             attention_heads, size, self_attention_dropout_rate, dtype=dtype)
         self.src_attn = MultiHeadedAttention(
@@ -47,13 +52,20 @@ class DecoderLayer(nn.Module):
     def forward(self, tgt, tgt_mask, memory, memory_mask, gen=None):
         """tgt [B, U, D]; tgt_mask [B, U, U] bool; memory [B, T, D];
         memory_mask [B, 1, T] bool."""
-        xn = self.norm1(tgt)
-        x = tgt + dropout(self.self_attn(xn, xn, xn, tgt_mask, gen=gen),
-                          self.dropout_rate, gen)
-        xn = self.norm2(x)
-        x = x + dropout(self.src_attn(xn, memory, memory, memory_mask,
-                                      gen=gen), self.dropout_rate, gen)
-        return self.feed_forward(x, ln=self.norm3, ff_scale=1.0, gen=gen)
+        def drop(h):
+            return dropout(h, self.dropout_rate, gen)
+        if self.normalize_before:
+            x = tgt + drop(self.self_attn(tgt, tgt, tgt, tgt_mask, gen=gen,
+                                          ln=self.norm1))
+            xn = self.norm2(x)
+            x = x + drop(self.src_attn(xn, memory, memory, memory_mask,
+                                       gen=gen))
+            return self.feed_forward(x, ln=self.norm3, ff_scale=1.0, gen=gen)
+        x = self.norm1(tgt + drop(self.self_attn(tgt, tgt, tgt, tgt_mask,
+                                                 gen=gen)))
+        x = self.norm2(x + drop(self.src_attn(x, memory, memory, memory_mask,
+                                              gen=gen)))
+        return self.norm3(x + drop(self.feed_forward(x, gen=gen)))
 
 
 class TransformerDecoder(nn.Module):
@@ -64,6 +76,7 @@ class TransformerDecoder(nn.Module):
                  positional_dropout_rate: float = 0.1,
                  self_attention_dropout_rate: float = 0.0,
                  src_attention_dropout_rate: float = 0.0,
+                 normalize_before: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         d = encoder_output_size
@@ -72,8 +85,9 @@ class TransformerDecoder(nn.Module):
         self.decoders = nn.ModuleList([DecoderLayer(
             d, attention_heads, linear_units, dropout_rate,
             self_attention_dropout_rate, src_attention_dropout_rate,
-            dtype=dtype) for _ in range(num_blocks)])
-        self.after_norm = LayerNorm(d, dtype=dtype)
+            normalize_before, dtype=dtype) for _ in range(num_blocks)])
+        self.after_norm = (LayerNorm(d, dtype=dtype) if normalize_before
+                           else None)
         self.output_layer = Dense(d, vocab_size, dtype=dtype)
 
     def forward(self, memory, memory_pad_mask, ys_in_pad, ys_in_lens,
@@ -88,7 +102,9 @@ class TransformerDecoder(nn.Module):
         mem_mask = memory_pad_mask[:, None, :]
         for layer in self.decoders:
             x = layer(x, tgt_mask, memory, mem_mask, gen)
-        return self.output_layer(self.after_norm(x))
+        if self.after_norm is not None:
+            x = self.after_norm(x)
+        return self.output_layer(x)
 
 
 class BiTransformerDecoder(nn.Module):
@@ -102,6 +118,7 @@ class BiTransformerDecoder(nn.Module):
                  positional_dropout_rate: float = 0.1,
                  self_attention_dropout_rate: float = 0.0,
                  src_attention_dropout_rate: float = 0.0,
+                 normalize_before: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         kw = dict(vocab_size=vocab_size,
@@ -111,7 +128,7 @@ class BiTransformerDecoder(nn.Module):
                   positional_dropout_rate=positional_dropout_rate,
                   self_attention_dropout_rate=self_attention_dropout_rate,
                   src_attention_dropout_rate=src_attention_dropout_rate,
-                  dtype=dtype)
+                  normalize_before=normalize_before, dtype=dtype)
         self.left_decoder = TransformerDecoder(num_blocks=num_blocks, **kw)
         self.right_decoder = (TransformerDecoder(num_blocks=r_num_blocks,
                                                  **kw)

@@ -1,15 +1,21 @@
-"""Conformer encoder layer (port of
+"""Transformer and conformer encoder layers (port of
 ``wenet_celoss_tpu/models/encoder_layer.py``, full context).
 
-½-FFN → MHSA → conv → ½-FFN → final LN (macaron), all pre-norm with
-residuals. Each FFN block (pre-LN + FFN + dropout + scaled residual) is
-ONE launch of the hand-written ``ln_ffn_residual`` kernel on the card, and
-one launch of its backward kernel under autograd. With ``CONV_PALLAS=1`` in
-the environment (the JAX package's switch, read where it reads it; off by
-default) and a ``layer_norm`` conv module, the whole conv block (pre-LN,
-module, dropout, residual) is one launch of ``conv_block_residual`` (K8)
-and one of its backward. Dropout runs when the caller passes a generator
-(training); without one every layer is deterministic.
+Conformer: ½-FFN → MHSA → conv → ½-FFN → final LN (macaron), all
+pre-norm with residuals (the layer has no post-norm form). Transformer:
+self-attention → FFN, pre-norm or post-norm (``normalize_before``). Each
+pre-norm FFN block (pre-LN + FFN + dropout + scaled residual) is ONE launch
+of the hand-written ``ln_ffn_residual`` kernel (K1) on the card, each
+post-norm FFN one launch of ``ffn_fused`` (K6), and one launch of the
+backward kernel under autograd. With ``CONV_PALLAS=1`` in the environment
+(the JAX package's switch, read where it reads it; off by default) and a
+``layer_norm`` conv module, the whole conv block (pre-LN, module, dropout,
+residual) is one launch of ``conv_block_residual`` (K8) and one of its
+backward; else, with ``LNMM_PALLAS`` at "1" or "conv", its pre-LN and
+pointwise conv1 are one launch of ``ln_matmul`` (K7), as are the
+self-attention's pre-LN and QKV projection with "1" or "attn". Dropout
+runs when the caller passes a generator (training); without one every
+layer is deterministic.
 """
 
 from __future__ import annotations
@@ -20,13 +26,13 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from wenet_celoss_tpu_torch.models.attention import \
-    RelPositionMultiHeadedAttention
+from wenet_celoss_tpu_torch.models.attention import (
+    MultiHeadedAttention, RelPositionMultiHeadedAttention)
 from wenet_celoss_tpu_torch.models.convolution import ConvolutionModule
 from wenet_celoss_tpu_torch.models.layers import Dense, LayerNorm
 from wenet_celoss_tpu_torch.ops.conv import conv_block_residual
 from wenet_celoss_tpu_torch.ops.dropout import draw_seed, dropout
-from wenet_celoss_tpu_torch.ops.ffn import ln_ffn_residual
+from wenet_celoss_tpu_torch.ops.ffn import ffn_fused, ln_ffn_residual
 
 
 def use_conv_block() -> bool:
@@ -35,12 +41,12 @@ def use_conv_block() -> bool:
 
 
 class PositionwiseFeedForward(nn.Module):
-    """The whole pre-norm FFN block
-    ``x + ff_scale * drop(w_2(drop(act(w_1(ln(x))))))`` with the LayerNorm
-    ``ln`` passed in, dispatched to ``ops.ffn.ln_ffn_residual`` (the kernel
-    on the card). Both dropout rates (hidden and output) are
-    ``dropout_rate``, and 0 without a generator. The post-norm FFN without
-    ``ln`` is not ported."""
+    """With the LayerNorm ``ln`` passed in, the whole pre-norm FFN block
+    ``x + ff_scale * drop(w_2(drop(act(w_1(ln(x))))))``, dispatched to
+    ``ops.ffn.ln_ffn_residual`` (K1 on the card), both dropout rates
+    (hidden and output) ``dropout_rate``. Without ``ln``, the bare FFN
+    ``w_2(drop(act(w_1(x))))`` of a post-norm layer, dispatched to
+    ``ops.ffn.ffn_fused`` (K6). Every rate is 0 without a generator."""
 
     def __init__(self, idim: int, hidden_units: int,
                  activation: str = "relu", dropout_rate: float = 0.0,
@@ -52,19 +58,63 @@ class PositionwiseFeedForward(nn.Module):
         self.w_1 = Dense(idim, hidden_units, dtype=dtype)
         self.w_2 = Dense(hidden_units, idim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, ln: LayerNorm,
+    def forward(self, x: torch.Tensor, ln: Optional[LayerNorm] = None,
                 ff_scale: float = 1.0,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
         b, t, d = x.shape
         cdt = self.compute_dtype or x.dtype
         rate = self.dropout_rate if gen is not None else 0.0
         seed = draw_seed(gen) if rate > 0.0 else 0
+        if ln is None:
+            y = ffn_fused(x.reshape(b * t, d).to(cdt).contiguous(),
+                          self.w_1.weight.to(cdt), self.w_1.bias,
+                          self.w_2.weight.to(cdt), self.w_2.bias,
+                          self.activation, rate, seed)
+            return y.reshape(b, t, d)
         y = ln_ffn_residual(
             x.reshape(b * t, d).to(cdt).contiguous(), ln.weight, ln.bias,
             self.w_1.weight.to(cdt), self.w_1.bias, self.w_2.weight.to(cdt),
             self.w_2.bias, self.activation, ff_scale, ln.eps, rate, rate,
             seed)
         return y.reshape(b, t, d)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Self-attention → FFN (relu) with residuals. Pre-norm
+    (``normalize_before``): LN → attention, and the FFN block as one K1
+    call. Post-norm: the residual sums are normalised after each sublayer,
+    and the FFN is one K6 call with the outer dropout (stream 0) after
+    it."""
+
+    def __init__(self, size: int, attention_heads: int, linear_units: int,
+                 dropout_rate: float = 0.0,
+                 attention_dropout_rate: float = 0.0,
+                 normalize_before: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadedAttention(
+            attention_heads, size, attention_dropout_rate, dtype=dtype)
+        self.feed_forward = PositionwiseFeedForward(
+            size, linear_units, "relu", dropout_rate, dtype=dtype)
+        self.norm1 = LayerNorm(size, dtype=dtype)
+        self.norm2 = LayerNorm(size, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, att_bias: torch.Tensor,
+                pos_emb: torch.Tensor,
+                pad_mask: Optional[torch.Tensor] = None,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """As ConformerEncoderLayer.forward; pos_emb and pad_mask are not
+        read (the absolute encoding is added before the first layer)."""
+        def drop(h):
+            return dropout(h, self.dropout_rate, gen)
+        if self.normalize_before:
+            xn = self.norm1(x)
+            x = x + drop(self.self_attn(xn, xn, xn, att_bias, gen=gen))
+            return self.feed_forward(x, ln=self.norm2, gen=gen)
+        x = self.norm1(x + drop(self.self_attn(x, x, x, att_bias, gen=gen)))
+        return self.norm2(x + drop(self.feed_forward(x, gen=gen)))
 
 
 class ConformerEncoderLayer(nn.Module):
@@ -110,14 +160,17 @@ class ConformerEncoderLayer(nn.Module):
         if self.feed_forward_macaron is not None:
             x = self.feed_forward_macaron(x, ln=self.norm_ff_macaron,
                                           ff_scale=self.ff_scale, gen=gen)
-        xn = self.norm_mha(x)
-        x = x + drop(self.self_attn(xn, xn, xn, att_bias, pos_emb, gen))
+        x = x + drop(self.self_attn(x, x, x, att_bias, pos_emb, gen,
+                                    ln=self.norm_mha))
         if self.conv_module is not None:
+            # K8 takes the whole block first; else the module fuses its
+            # pre-norm into pointwise conv1 when LNMM_PALLAS routes "conv".
             if self.conv_module.norm == "layer_norm" and use_conv_block():
                 x = self._fused_conv_block(x, pad_mask, gen)
             else:
-                x = x + drop(self.conv_module(self.norm_conv(x), pad_mask,
-                                              train=gen is not None))
+                x = x + drop(self.conv_module(x, pad_mask,
+                                              train=gen is not None,
+                                              ln=self.norm_conv))
         x = self.feed_forward(x, ln=self.norm_ff, ff_scale=self.ff_scale,
                               gen=gen)
         if self.conv_module is not None:

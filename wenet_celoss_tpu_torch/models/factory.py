@@ -2,9 +2,9 @@
 
 ``init_model(cfg)`` builds, from the same config dicts as the JAX package,
 the hybrid CTC/attention ``ASRModel`` (no ``predictor`` in the config) or
-the RNN-T ``Transducer`` with context bias; both carry the conformer
-encoder, the bidirectional attention decoder and the CTC head, so a JAX
-weight tree maps onto either whole. It initialises the weights from a
+the RNN-T ``Transducer`` with context bias; both carry the encoder
+(conformer, or transformer pre- or post-norm), the bidirectional attention
+decoder and the CTC head, so a JAX weight tree maps onto either whole. It initialises the weights from a
 seeded ``torch.Generator`` and puts the model on the card.
 """
 
@@ -22,13 +22,20 @@ from wenet_celoss_tpu_torch.models.context_bias import ContextBias
 from wenet_celoss_tpu_torch.models.convolution import BatchNormEval
 from wenet_celoss_tpu_torch.models.ctc_head import CTC
 from wenet_celoss_tpu_torch.models.decoder import BiTransformerDecoder
-from wenet_celoss_tpu_torch.models.encoder import ConformerEncoder
+from wenet_celoss_tpu_torch.models.encoder import (ConformerEncoder,
+                                                   TransformerEncoder)
 from wenet_celoss_tpu_torch.models.joint import TransducerJoint
 from wenet_celoss_tpu_torch.models.layers import LayerNorm, LSTMCellParams
 from wenet_celoss_tpu_torch.models.predictor import RNNPredictor
 from wenet_celoss_tpu_torch.models.transducer import Transducer
 
 _DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+# Conformer-only keys that shared configs may carry; the transformer
+# encoder drops them, as the JAX factory does.
+_CONFORMER_ONLY = ("positionwise_conv_kernel_size", "macaron_style",
+                   "selfattention_layer_type", "activation_type",
+                   "use_cnn_module", "cnn_module_kernel", "causal",
+                   "cnn_module_norm")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -56,8 +63,9 @@ Model = Union[ASRModel, Transducer]
 def build_model(cfg: Dict[str, Any]) -> Model:
     """The module tree for ``cfg`` (weights as the modules' defaults;
     :func:`init_params` replaces them)."""
-    if cfg.get("encoder", "conformer") != "conformer":
-        raise NotImplementedError("only the conformer encoder is ported")
+    enc_type = cfg.get("encoder", "conformer")
+    if enc_type not in ("conformer", "transformer"):
+        raise NotImplementedError(f"encoder {enc_type!r} is not ported")
     if cfg.get("decoder", "bitransformer") != "bitransformer":
         raise NotImplementedError(f"decoder {cfg['decoder']!r}")
     dtype = compute_dtype(cfg)
@@ -66,8 +74,12 @@ def build_model(cfg: Dict[str, Any]) -> Model:
     if cfg.get("cmvn_file"):
         cmvn = load_cmvn(cfg["cmvn_file"], cfg.get("is_json_cmvn", True))
     enc_conf = dict(cfg.get("encoder_conf", {}))
-    encoder = ConformerEncoder(cfg["input_dim"], cmvn=cmvn, dtype=dtype,
-                               **enc_conf)
+    enc_cls = ConformerEncoder
+    if enc_type == "transformer":
+        enc_cls = TransformerEncoder
+        for k in _CONFORMER_ONLY:
+            enc_conf.pop(k, None)
+    encoder = enc_cls(cfg["input_dim"], cmvn=cmvn, dtype=dtype, **enc_conf)
     enc_out = enc_conf.get("output_size", 256)
     decoder = BiTransformerDecoder(vocab, enc_out, dtype=dtype,
                                    **cfg.get("decoder_conf", {}))

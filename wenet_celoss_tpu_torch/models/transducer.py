@@ -24,7 +24,7 @@ import torch.nn as nn
 
 from wenet_celoss_tpu_torch.models.asr_model import ASRModel
 from wenet_celoss_tpu_torch.models.context_bias import ContextBias
-from wenet_celoss_tpu_torch.models.encoder import ConformerEncoder
+from wenet_celoss_tpu_torch.models.encoder import TransformerEncoder
 from wenet_celoss_tpu_torch.models.joint import TransducerJoint
 from wenet_celoss_tpu_torch.models.predictor import RNNPredictor
 from wenet_celoss_tpu_torch.ops.rnnt_loss import LOSSES, rnnt_loss_streaming
@@ -41,7 +41,7 @@ def cross_entropy_mean(logits: torch.Tensor,
 
 class Transducer(ASRModel):
 
-    def __init__(self, vocab_size: int, encoder: ConformerEncoder,
+    def __init__(self, vocab_size: int, encoder: TransformerEncoder,
                  predictor: RNNPredictor, joint: TransducerJoint,
                  context_bias: Optional[ContextBias] = None,
                  blank: int = 0, decoder: Optional[nn.Module] = None,

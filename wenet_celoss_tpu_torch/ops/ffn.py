@@ -1,14 +1,20 @@
-"""Fused conformer FFN block: LayerNorm -> FFN -> dropout -> scaled residual.
+"""Fused FFN kernels: the conformer FFN block (K1, LayerNorm -> FFN ->
+dropout -> scaled residual) and the bare post-norm FFN (K6).
 
 ``ln_ffn_residual`` is the port of ``wenet_celoss_tpu/ops/ffn_pallas.py::
 ln_ffn_residual``, forward and backward, with both dropout masks (rate1 on
-the hidden, rate2 on the FFN output; masks from ``ops/dropout.py``). It is
-a ``torch.autograd.Function`` that saves only ``x2``, the parameters and
-the seed, as the Pallas VJP does. On CUDA tensors its forward and backward
-launch the hand-written kernels in ``csrc/ln_ffn_residual.cu``; on CPU
-tensors they run ``ln_ffn_residual_ref``, the plain PyTorch version with
-the same rounding points and masks (the backward by autograd through it).
-Weights are in ``torch.nn.Linear`` layout: w1 [F, D], w2 [D, F].
+the hidden, rate2 on the FFN output; masks from ``ops/dropout.py``).
+``ffn_fused`` is the port of ``ffn_pallas.py::ffn_fused``,
+``drop(act(x @ w1^T + b1)) @ w2^T + b2`` with the hidden mask only (the
+same stream and index as K1's), which every post-norm FFN runs. Each is a
+``torch.autograd.Function`` that saves only its input, the parameters and
+the seed, as the Pallas VJPs do. On CUDA tensors their forwards and
+backwards launch the hand-written kernels in ``csrc/ln_ffn_residual.cu``
+(K6 is those kernels with no LayerNorm and no residual); on CPU tensors
+they run ``ln_ffn_residual_ref`` and ``ffn_fused_ref``, the plain PyTorch
+versions with the same rounding points and masks (the backwards by
+autograd through them). Weights are in ``torch.nn.Linear`` layout: w1
+[F, D], w2 [D, F].
 """
 
 from __future__ import annotations
@@ -62,9 +68,26 @@ def ln_ffn_residual_ref(x2, g, bl, w1, b1, w2, b2, activation: str,
     return (xf + ff_scale * y2).to(cdt)
 
 
+def ffn_fused_ref(x2, w1, b1, w2, b2, activation: str, rate: float = 0.0,
+                  seed: int = 0):
+    """Plain version: drop(act(x2 @ w1^T + b1)) @ w2^T + b2.
+
+    Each matmul takes operands in x2's dtype and accumulates in fp32; the
+    activation and the dropout run in fp32 and the hidden is cast to x2's
+    dtype before the second matmul, as the Pallas kernel does; the output
+    is cast once. The mask is stream ``STREAM_FFN_HIDDEN`` at index
+    ``row * F + col``, K1's hidden mask."""
+    cdt = x2.dtype
+    af = torch.promote_types(cdt, torch.float32)   # fp64 stays fp64
+    z1 = x2.to(af) @ w1.to(cdt).to(af).t() + b1
+    h = drop.apply_mask(_act(activation, z1), seed,
+                        drop.STREAM_FFN_HIDDEN, rate).to(cdt)
+    return (h.to(af) @ w2.to(cdt).to(af).t() + b2).to(cdt)
+
+
 def check_args(x2, g, bl, w1, b1, w2, b2, activation):
     """Raise on what the kernel does not take: device, dtype, layout,
-    alignment and shapes."""
+    alignment and shapes. ``g`` and ``bl`` are None for ffn_fused."""
     if x2.dim() != 2:
         raise ValueError(f"x2 must be [N, D], got {tuple(x2.shape)}")
     n, d = x2.shape
@@ -81,11 +104,14 @@ def check_args(x2, g, bl, w1, b1, w2, b2, activation):
                          f"for {cdt}")
     shapes = {"w1": (w1, (f, d)), "w2": (w2, (d, f)), "g": (g, (d,)),
               "bl": (bl, (d,)), "b1": (b1, (f,)), "b2": (b2, (d,))}
+    shapes = {k: v for k, v in shapes.items() if v[0] is not None}
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
     for name, t in (("x2", x2), ("w1", w1), ("w2", w2), ("g", g),
                     ("bl", bl), ("b1", b1), ("b2", b2)):
+        if t is None:
+            continue
         if t.device != x2.device:
             raise ValueError(f"{name} is on {t.device}, x2 on {x2.device}")
         if not t.is_contiguous():
@@ -96,7 +122,7 @@ def check_args(x2, g, bl, w1, b1, w2, b2, activation):
         if t.dtype != cdt:
             raise TypeError(f"{name} dtype {t.dtype} != x2 dtype {cdt}")
     for name, t in (("g", g), ("bl", bl), ("b1", b1), ("b2", b2)):
-        if t.dtype != torch.float32:
+        if t is not None and t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
 
 
@@ -239,6 +265,111 @@ ln_ffn_residual.launches = 0
 ln_ffn_residual.bwd_launches = 0
 
 
+def ffn_forward_kernel(x2, w1, b1, w2, b2, activation, rate, seed):
+    """Launch ffn_fused's forward kernel on CUDA tensors (no autograd)."""
+    check_args(x2, None, None, w1, b1, w2, b2, activation)
+    y = torch.empty_like(x2)
+    n, d = x2.shape
+    if n == 0:
+        return y
+    rc = _lib().ffn_fused_fwd(
+        1 if x2.dtype == torch.bfloat16 else 0, x2.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        y.data_ptr(), n, d, w1.shape[0], _ACTS[activation],
+        *_masks(seed, rate, 0.0)[:3], _stream(x2))
+    if rc != 0:
+        raise RuntimeError(f"ffn_fused kernel launch failed: cudaError {rc}")
+    ffn_fused.launches += 1
+    return y
+
+
+def ffn_backward_kernel(x2, dy, w1, b1, w2, b2, activation, rate, seed):
+    """Launch ffn_fused's backward kernels on CUDA tensors → (dx, dw1,
+    db1, dw2, db2): dx in x2's dtype, the weight gradients in fp32 (b2 is
+    checked, not read)."""
+    check_args(x2, None, None, w1, b1, w2, b2, activation)
+    if dy.shape != x2.shape or dy.dtype != x2.dtype or \
+            not dy.is_contiguous() or dy.device != x2.device:
+        raise ValueError("dy must be a contiguous tensor like x2")
+    n, d = x2.shape
+    f = w1.shape[0]
+    dtype = 1 if x2.dtype == torch.bfloat16 else 0
+    f32 = dict(dtype=torch.float32, device=x2.device)
+    new = torch.zeros if n == 0 else torch.empty   # the kernels write all
+    dx = torch.empty_like(x2)
+    dw1, dw2 = new(f, d, **f32), new(d, f, **f32)
+    db1, db2 = new(f, **f32), new(d, **f32)
+    if n == 0:
+        return dx, dw1, db1, dw2, db2
+    lib = _lib()
+    words = lib.ffn_fused_bwd_workspace(dtype, n, d, f)
+    if words == 0:
+        raise ValueError(f"D={d} does not fit the backward kernel's "
+                         f"shared memory")
+    ws = torch.empty(words, **f32)
+    rc = lib.ffn_fused_bwd(
+        dtype, x2.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+        dw2.data_ptr(), db2.data_ptr(), ws.data_ptr(), n, d, f,
+        _ACTS[activation], *_masks(seed, rate, 0.0)[:3], _stream(x2))
+    if rc != 0:
+        raise RuntimeError(f"ffn_fused backward kernel launch failed: "
+                           f"cudaError {rc}")
+    ffn_fused.bwd_launches += 1
+    return dx, dw1, db1, dw2, db2
+
+
+def ffn_backward_ref(x2, dy, w1, b1, w2, b2, activation, rate, seed):
+    """ffn_fused's plain backward: the plain forward's vector-Jacobian
+    product by autograd (what the CPU path runs)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (x2, w1, b1, w2, b2)]
+        y = ffn_fused_ref(*ins, activation, rate, seed)
+        return torch.autograd.grad(y, ins, dy)
+
+
+class _FfnFused(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, activation, rate, seed):
+        ctx.cfg = (activation, rate, seed)
+        ctx.save_for_backward(x2, w1, b1, w2, b2)
+        if x2.device.type == "cpu":
+            return ffn_fused_ref(x2, w1, b1, w2, b2, *ctx.cfg)
+        return ffn_forward_kernel(x2, w1, b1, w2, b2, *ctx.cfg)
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        dy = dy.to(saved[0].dtype).contiguous()
+        if saved[0].device.type == "cpu":
+            grads = ffn_backward_ref(saved[0], dy, *saved[1:], *ctx.cfg)
+        else:
+            grads = ffn_backward_kernel(saved[0], dy, *saved[1:], *ctx.cfg)
+            grads = [gr.to(t.dtype) for gr, t in zip(grads, saved)]
+        return (*grads, None, None, None)
+
+
+def ffn_fused(x2, w1, b1, w2, b2, activation: str, rate: float = 0.0,
+              seed: int = 0):
+    """drop(act(x2 @ w1^T + b1)) @ w2^T + b2.
+
+    x2 [N, D] float32 or bfloat16; w1 [F, D] and w2 [D, F] in x2's dtype;
+    b1, b2 float32; ``rate`` in [0, 1) on the hidden, its mask drawn from
+    ``seed``. A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel (and, under autograd, the backward kernels) or raises."""
+    drop.threshold(rate)
+    if x2.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x2.device}")
+    return _FfnFused.apply(x2, w1, b1, w2, b2, activation, float(rate),
+                           int(seed))
+
+
+ffn_fused.launches = 0
+ffn_fused.bwd_launches = 0
+
+
 def _lib() -> ctypes.CDLL:
     lib = load_library("ln_ffn_residual")
     if lib.ln_ffn_residual_fwd.argtypes is None:
@@ -253,4 +384,11 @@ def _lib() -> ctypes.CDLL:
         lib.ln_ffn_residual_bwd.argtypes = (
             [i] + [p] * 16 + [i] * 3 + [fl] * 2 + [i] + masks + [p])
         lib.ln_ffn_residual_bwd.restype = i
+        lib.ffn_fused_fwd.argtypes = [i] + [p] * 6 + [i] * 4 + masks[:3] + [p]
+        lib.ffn_fused_fwd.restype = i
+        lib.ffn_fused_bwd_workspace.argtypes = [i] * 4
+        lib.ffn_fused_bwd_workspace.restype = ctypes.c_longlong
+        lib.ffn_fused_bwd.argtypes = (
+            [i] + [p] * 11 + [i] * 4 + masks[:3] + [p])
+        lib.ffn_fused_bwd.restype = i
     return lib

@@ -42,7 +42,7 @@ _RULES = [
     (rf"encoder/layer_{_I}/self_attn", r"encoder.layers.\1.self_attn",
      "pos_bias"),
     (rf"encoder/layer_{_I}/"
-     r"(norm_ff_macaron|norm_mha|norm_conv|norm_ff|norm_final)",
+     r"(norm_ff_macaron|norm_mha|norm_conv|norm_ff|norm_final|norm1|norm2)",
      r"encoder.layers.\1.\2", "norm"),
     (rf"encoder/layer_{_I}/conv_module/(pointwise_conv1|pointwise_conv2)",
      r"encoder.layers.\1.conv_module.\2", "dense"),
