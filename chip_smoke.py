@@ -9,11 +9,15 @@ Phases, in the order they run, each printing JSON lines:
   k1, k1_bwd  ln_ffn_residual forward and backward with dropout against
             its plain version (fp32, bf16, main-path and ragged shapes),
             the weight pass on ragged splits (same bits every call), both
-            masks' keep rates, times, yardsticks and bounds;
+            masks' keep rates, times, yardsticks and bounds; the bf16
+            backward and its five-mm yardstick also in card time with the
+            calls back to back, the backward split into pass A, pass B and
+            the partial sums under torch.profiler;
   k2_k3, k4 the streaming joint's and the 2-layer LSTM's kernels the same
             way (same bits over repeated backwards);
   k9        the RNN-T lattice against alpha_scan/beta_scan (B=256 T'=127
-            U1=33 full and ragged, the pallas path's B=64, a wide U1=90):
+            U1=33 full and ragged, the pallas path's B=64, a wide U1=90,
+            U1=600 full and ragged on three warps a row):
             valid cells, invalid cells exactly LOG_ZERO, beta[0,0] against
             the terminal alpha; its time and bound;
   k8        the fused conv block, forward (N=64*127) and backward
@@ -26,7 +30,7 @@ Phases, in the order they run, each printing JSON lines:
             bf16: masked rows the bias, the same bits over 3 backwards;
   k6        ffn_fused (the post-norm FFN, K1's kernels without LN and
             residual) the same way, relu and swish, dropout 0 and 0.1; the
-            mask's bits and keep rate;
+            mask's bits and keep rate; the bf16 backward split by pass;
   slice     S1: the flagship (full width, seeded random weights) decodes
             the 16 committed test-clean WAVs through init_model →
             Decoder.rnnt_greedy_search, no context and 8 hotwords gated
@@ -45,7 +49,9 @@ Phases, in the order they run, each printing JSON lines:
             steps on the committed train-clean-100 WAVs (the loss falls);
   postnorm_train_check  T9-check: T0 for the post-norm transformer
             CTC/AED (18 + 18 K6 launches, no K1), each limit at least
-            twice the CPU's own difference between 8 and 3 threads;
+            twice the CPU's own difference between 8 and 3 threads, and
+            every gradient's error on the card against the port's CPU step
+            in float64 at most twice the CPU's fp32 error plus 1e-6;
   rnnt_train_check, rnnt_pallas_train_check, conv_train_check,
   lnmm_train_check  one fp32 step of the flagship with hotwords, card
             against CPU: the streaming loss (K2, K9, K3), rnnt_impl pallas
@@ -58,8 +64,9 @@ Phases, in the order they run, each printing JSON lines:
   rnnt_train_wavs  T5: 24 flagship steps on the WAVs (the loss falls);
   profile   each decode and training step under torch.profiler, last: the
             card's busy time, idle share and each kernel's time;
-  k8_device K8 against the port's unfused block in the card's busy time
-            (the kernels line's library_ms for K8);
+  k8_device K8 against the port's unfused block in card time, calls
+            back to back (CUDA events behind a spin kernel; the kernels
+            line's library_ms for K8);
   k6_k7_device  K6 and K7 against the port's unfused compositions the
             same way (their library_ms).
 
@@ -69,6 +76,7 @@ Then the card's name and power limit, the kernels line, and the ok line.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -168,15 +176,23 @@ def phase_k1(ffn, bounds) -> dict:
                 ms = cuda_ms(lambda: ffn.ln_ffn_residual(*args))
                 plain_ms = cuda_ms(lambda: ffn.ln_ffn_residual_ref(*args))
                 b1c, b2c = b1.to(dtype), b2.to(dtype)
-                library_ms = cuda_ms(lambda: torch.addmm(
+                library_event_ms = cuda_ms(lambda: torch.addmm(
                     b2c, torch.addmm(b1c, x, w1.t()), w2.t()))
                 # The least time for this work on an H100 SXM at 700 W
                 # (data-sheet peaks; ops/bounds.py).
                 dt = "bf16" if dtype == torch.bfloat16 else "fp32"
                 flops, nbytes = bounds.ln_ffn_residual(n, d, f, dt)
                 bound_ms, bound_by = bounds.bound_ms(flops, nbytes, dt)
+                library_ms = library_event_ms
+                if dtype == torch.bfloat16:   # device time, as K6-K8's
+                    line["device_ms"] = device_ms(
+                        lambda: ffn.ln_ffn_residual(*args), iters=20)
+                    library_ms = device_ms(lambda: torch.addmm(
+                        b2c, torch.addmm(b1c, x, w1.t()), w2.t()), iters=20)
                 line.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                            library="two torch.addmm GEMMs, no LN/act",
+                            library_event_ms=library_event_ms,
+                            library="two torch.addmm GEMMs, no LN/act "
+                                    "(bf16: library_ms in device time)",
                             bound_ms=bound_ms, bound_by=bound_by,
                             flops=flops, bytes=nbytes,
                             share_of_bound=bound_ms / ms)
@@ -184,7 +200,9 @@ def phase_k1(ffn, bounds) -> dict:
                     record = {"max_abs_err": max_abs, "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": bound_ms,
                               "bound_by": bound_by,
-                              "library_ms": library_ms}
+                              "library_ms": library_ms,
+                              "library_event_ms": library_event_ms,
+                              "device_ms": line["device_ms"]}
             emit("k1", **line)
     return record
 
@@ -299,7 +317,10 @@ def phase_k1_bwd(ffn, bounds, dropout) -> dict:
                         record = {"max_abs_err": errs["dx"]["max_abs"],
                                   **{k: line[k] for k in (
                                       "ms", "plain_ms", "bound_ms",
-                                      "bound_by", "library_ms")}}
+                                      "bound_by", "library_ms",
+                                      "library_event_ms", "device_ms",
+                                      "pass_a_ms", "pass_b_ms",
+                                      "partial_sums_ms")}}
                 emit("k1_bwd", **line)
     emit("k1_bwd_splits", **bwd_split_check(ffn))
     keep = kernel_keep_rates(ffn, dropout)
@@ -378,13 +399,18 @@ def k1_times(ffn, bounds, args, dy, cfg) -> dict:
         torch.mm(dz, w1)             # dxn = dz1 W1
         torch.mm(dz.t(), x)          # dW1 = dz1^T xn
         torch.mm(dy.t(), h)          # dW2 = dy2^T h
-    library_ms = cuda_ms(gemms, iters=20)
+    library_event_ms = cuda_ms(gemms, iters=20)
+    passes = device_passes(lambda: ffn.backward_kernel(x, dy, *args[1:],
+                                                       *cfg), launches=8)
+    library_ms = device_ms(gemms)
     flops, nbytes = bounds.ln_ffn_residual_bwd(n, d, f, "bf16")
     bound, by = bounds.bound_ms(flops, nbytes, "bf16")
     fwd_flops, fwd_bytes = bounds.ln_ffn_residual(n, d, f, "bf16")
     fwd_bound, fwd_by = bounds.bound_ms(fwd_flops, fwd_bytes, "bf16")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "five torch.mm bf16 GEMMs of the backward",
+            "library_event_ms": library_event_ms, **passes,
+            "library": "five torch.mm bf16 GEMMs of the backward "
+                       "(library_ms device time, library_event_ms events)",
             "bound_ms": bound, "bound_by": by, "flops": flops,
             "bytes": nbytes, "share_of_bound": bound / ms,
             "fwd_ms": fwd_ms, "fwd_plain_ms": plain_fwd_ms,
@@ -671,6 +697,8 @@ LATTICE_CASES = (  # (name, B, T', U1, ragged lengths)
     ("train_ragged", 256, 127, 33, True),
     ("pallas_b64", 64, 127, 33, False),
     ("wide_ragged", 64, 200, 90, True),
+    ("wide_600", 16, 127, 600, False),          # 3 warps a row
+    ("wide_600_ragged", 16, 127, 600, True),
 )
 
 
@@ -1082,7 +1110,8 @@ def phase_k6(ffn, bounds, dropout) -> tuple:
     0.1, at the post-norm path's shapes (K6_CASES); the same bits over 3
     backward calls; the mask's bits and keep rate; in bf16 the times at
     N = 8128 (forward, rate 0) and 32512 (backward, rate 0.1), the plain
-    versions' and the bounds. Returns the (forward, backward) records."""
+    versions' and the bounds, and the backward split into its passes.
+    Returns the (forward, backward) records."""
     rec_f, rec_b = {}, {}
     for n, act in K6_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1132,11 +1161,20 @@ def phase_k6(ffn, bounds, dropout) -> tuple:
                     flops, nbytes = bounds.ffn_fused_bwd(n, 256, 2048,
                                                          "bf16")
                     bound, by = bounds.bound_ms(flops, nbytes, "bf16")
+                    passes = device_passes(lambda: ffn.ffn_backward_kernel(
+                        args[0], dy, *args[1:], *cfg), launches=6)
+                    split = {k: v for k, v in passes.items()
+                             if k.startswith(("pass_", "partial_"))}
                     line.update(bwd_ms=ms, bwd_plain_ms=plain,
-                                bwd_bound_ms=bound, bwd_bound_by=by)
+                                bwd_bound_ms=bound, bwd_bound_by=by,
+                                bwd_device_ms=passes["device_ms"],
+                                bwd_profile_complete=passes[
+                                    "profile_complete"],
+                                bwd_profile_intervals=passes["intervals"],
+                                **split)
                     rec_b = {"max_abs_err": errs["dx"]["max_abs"], "ms": ms,
                              "plain_ms": plain, "bound_ms": bound,
-                             "bound_by": by}
+                             "bound_by": by, **split}
                 emit("k6", **line)
     keep = k6_keep_rate(ffn, dropout)
     sigma = (0.9 * 0.1 / keep["draws"]) ** 0.5
@@ -1453,6 +1491,12 @@ def phase_lnmm_decode(slice_run, lnmm, conv) -> int:
     return total
 
 
+def device_events(prof) -> int:
+    """How many card intervals (kernels and copies) a profile recorded."""
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def device_busy(prof):
     """The card's busy time (union of its kernel and copy intervals, ms)
     and the ms per kernel name, from a profiler run."""
@@ -1471,35 +1515,124 @@ def device_busy(prof):
     return busy / 1e3, by_name
 
 
-def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """The card's busy ms per call of ``fn`` under torch.profiler: its
-    kernel and copy intervals only, so the host's launch gaps between
-    small kernels are left out."""
+def device_profile(fn, iters: int, want: int):
+    """torch.profiler over ``iters`` calls of ``fn`` → (the profile, whether
+    it holds all ``want`` card intervals the calls make). The profiler now
+    and then drops card intervals, some or all of them: it profiles again
+    until it has them all, else it keeps, of four profiles, the one with
+    the most."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    for _ in range(2):   # a profile that recorded no card activity: again
+    best, best_n = None, -1
+    for _ in range(4):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        busy = device_busy(prof)[0]
-        if busy > 0:
+        n = device_events(prof)
+        if n > best_n:
+            best, best_n = prof, n
+        if n >= want:
             break
-    check(busy > 0, "device_ms: the profiler recorded no card activity")
-    return busy / iters
+    return best, best_n >= want
+
+
+_SLEEP_CYCLES_PER_MS: list = []
+
+
+def sleep_cycles_per_ms() -> float:
+    """How many cycles of ``torch.cuda._sleep`` take a millisecond on this
+    card (measured once with CUDA events)."""
+    if not _SLEEP_CYCLES_PER_MS:
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles // 10)           # warm the spin kernel
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """The card's ms per call of ``fn`` with its calls run back to back:
+    CUDA events around ``iters`` calls that the host queues behind a spin
+    kernel (``torch.cuda._sleep``) lasting longer than the host takes to
+    launch them, so the host's launch gaps between small kernels are left
+    out. The start event must still be pending once every call is queued;
+    if it is not, the spin was too short and the run is made again with a
+    spin four times as long. It does not rest on torch.profiler, which
+    now and then drops some or all card intervals."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin_ms = 2.0 * host_ms + 1.0
+    for _ in range(4):
+        torch.cuda._sleep(int(spin_ms * sleep_cycles_per_ms()))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_ahead = not start.query()
+        torch.cuda.synchronize()
+        if queued_ahead:
+            return start.elapsed_time(end) / iters
+        spin_ms *= 4.0
+    check(False, f"device_ms: the host did not queue {iters} calls within a "
+                 f"{spin_ms / 4.0:.1f} ms spin")
+    return start.elapsed_time(end) / iters
+
+
+PASS_NAMES = (("bwd_rows", "pass_a"), ("bwd_weights", "pass_b"),
+              ("sum_partials", "partial_sums"))
+
+
+def device_passes(fn, launches: int, iters: int = 10) -> dict:
+    """K1's or K6's bf16 backward (``launches`` kernels a call: pass A,
+    pass B and the fixed-order partial sums): its card ms per call from
+    ``device_ms``, and under torch.profiler the ms per call of pass A
+    (bwd_rows), pass B (bwd_weights) and the partial sums. Each is the
+    mean of the recorded intervals of its kernels times its launches a
+    call, so a profile that dropped some intervals (the profiler does now
+    and then) still gives it; a pass with no recorded interval in four
+    profiles is not measured (null)."""
+    out = {"device_ms": device_ms(fn, iters=iters)}
+    prof, complete = device_profile(fn, iters, want=launches * iters)
+    per_call = {"pass_a": 1, "pass_b": 1, "partial_sums": launches - 2}
+    spans = {name: [] for name in per_call}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for key, name in PASS_NAMES:
+            if key in e.name:
+                spans[name].append(e.time_range.elapsed_us() / 1e3)
+    out.update(profile_complete=complete,
+               intervals=f"{device_events(prof)} of {launches * iters}")
+    for name, ms in spans.items():
+        out[name + "_ms"] = (sum(ms) / len(ms) * per_call[name]
+                             if ms else None)
+    return out
 
 
 def phase_k8_device(conv, fwd_rec: dict, bwd_rec: dict) -> None:
-    """K8 against the port's unfused block in the card's busy time (bf16,
+    """K8 against the port's unfused block in card time (bf16,
     non-causal, D=256, K=15): forwards at N = 64*127 and 256*127, and the
     backward at 256*127 (the unfused block's: forward + backward less
     forward). Event times of the unfused block at N = 64*127 carry about
     ten host launches, so the kernels line's ``library_ms`` takes these
-    busy times and keeps the event times as ``library_event_ms``. Run
-    after the timings: the profiler slows what follows it."""
+    card times (``device_ms``) and keeps the event times as
+    ``library_event_ms``."""
     d, k, t = 256, 15, 127
     cfg = (4242, False, 0.1, 1e-5)
     fcfg = (cfg[0], cfg[1], 0.0, cfg[3])
@@ -1528,20 +1661,20 @@ def phase_k8_device(conv, fwd_rec: dict, bwd_rec: dict) -> None:
                    library_event_ms=rec["library_ms"],
                    library_ms=line[key]["unfused_ms"])
     emit("k8_device", **line,
-         how="torch.profiler busy ms per call (kernel and copy intervals); "
-             "backward at dropout 0.1, the unfused block without dropout")
+         how="card ms per call, calls back to back (device_ms: CUDA "
+             "events behind a spin kernel); backward at dropout 0.1, the "
+             "unfused block without dropout")
 
 
 def phase_k6_k7_device(ffn, lnmm, k6_recs, k7_recs) -> None:
-    """K6 and K7 against the port's own unfused compositions in the card's
-    busy time, bf16, the phases' timed shapes: K7 at N = 8128, K = 768
+    """K6 and K7 against the port's own unfused compositions in card time
+    (``device_ms``), bf16, the phases' timed shapes: K7 at N = 8128, K = 768
     forward (the port's LayerNorm, F.layer_norm in fp32 cast to bf16, then
     F.linear) and N = 32512 backward; K6 at N = 8128 forward (two
     F.linear and relu) and N = 32512 backward at rate 0.1 (the
     composition without dropout). A backward's yardstick is forward +
-    backward less forward. These busy times are the kernels line's
-    ``library_ms``. Run after the timings: the profiler slows what follows
-    it."""
+    backward less forward. These card times are the kernels line's
+    ``library_ms``."""
     import torch.nn.functional as F
     line = {}
 
@@ -1581,18 +1714,18 @@ def phase_k6_k7_device(ffn, lnmm, k6_recs, k7_recs) -> None:
         def both():
             torch.autograd.grad(unfused(*ins), ins, dy)
         unfused_both = device_ms(both)
-        bwd = {"kernel_ms": device_ms(lambda: bwd_kernel(args, dy)),
-               "unfused_ms": unfused_both - unfused_fwd,
-               "unfused_fwd_and_bwd_ms": unfused_both}
+        bwd = {"kernel_ms": device_ms(lambda: bwd_kernel(args, dy))}
+        bwd.update(unfused_ms=unfused_both - unfused_fwd,
+                   unfused_fwd_and_bwd_ms=unfused_both)
         line[name] = {"fwd_n8128": fwd, "bwd_n32512": bwd}
         for rec, part in zip(k6_recs if name == "k6" else k7_recs,
                              (fwd, bwd)):
             rec.update(device_ms=part["kernel_ms"],
                        library_ms=part["unfused_ms"])
     emit("k6_k7_device", **line,
-         how="torch.profiler busy ms per call (kernel and copy intervals); "
-             "K6's backward at dropout 0.1, the unfused composition without "
-             "dropout")
+         how="card ms per call, calls back to back (device_ms: CUDA "
+             "events behind a spin kernel); K6's backward at dropout 0.1, "
+             "the unfused composition without dropout")
 
 
 def phase_profile(dec, feats, lens, ctx, ctx_lens, mode: str,
@@ -1744,6 +1877,54 @@ def no_dropout(cfg):
     return cfg
 
 
+def float64_check(what, cpu, batch, train, names, card_g, cpu_g,
+                  card_m, cpu_m) -> dict:
+    """The port's CPU path in float64 (a float64 copy of ``cpu``, the same
+    batch) as the reference of one step. Per gradient, the fp32 error of
+    the card and of the CPU against it (relative Frobenius, the scale
+    floored at 1e-6 of the reference's global norm); the card passes where
+    its error is at most twice the CPU's plus 1e-6. The key projections'
+    biases, whose exact gradient is 0 (softmax ignores a shift shared by
+    all keys), are held to 1e-6 of the global norm on both instead. A
+    gradient that fails is a fault of the port."""
+    m64 = copy.deepcopy(cpu).double()
+    b64 = on(batch, "cpu")
+    b64["feats"] = b64["feats"].double()
+    t0 = time.perf_counter()
+    ref, ref_m = train.make_grad_fn(m64)(train.TrainState(0, m64, None),
+                                         b64, torch.Generator())
+    seconds = time.perf_counter() - t0
+    gnorm = float(torch.sqrt(sum((r ** 2).sum() for r in ref)))
+    rows = {}
+    for name, a, b, r in zip(names, card_g, cpu_g, ref):
+        scale = max(float(r.norm()), 1e-6 * gnorm)
+        e_card = float((a.cpu().double() - r).norm()) / scale
+        e_cpu = float((b.double() - r).norm()) / scale
+        zero = name.endswith("linear_k.bias")
+        rows[name] = {"card": e_card, "cpu": e_cpu, "exact_zero": zero,
+                      "over_limit": (max(e_card, e_cpu) if zero
+                                     else e_card / (2 * e_cpu + 1e-6))}
+    worst = max(rows, key=lambda k: rows[k]["over_limit"])
+    failed = sorted(k for k, v in rows.items() if v["over_limit"] > 1.0)
+    check(not failed, f"{what} float64 reference: gradients over the limit "
+                      f"{ {k: rows[k] for k in failed} }")
+    noisiest = sorted(rows, key=lambda k: -rows[k]["cpu"])[:12]
+    losses = {k: {"card": abs(float(card_m[k]) - float(ref_m[k])),
+                  "cpu": abs(float(cpu_m[k]) - float(ref_m[k])),
+                  "float64": float(ref_m[k])} for k in ref_m}
+    return {"gradients": len(rows), "failed": failed, "worst": worst,
+            "worst_errors": rows[worst], "noisiest_on_cpu":
+            {k: rows[k] for k in noisiest},
+            "median_card_over_cpu": float(np.median(
+                [v["card"] / max(v["cpu"], 1e-30) for v in rows.values()
+                 if not v["exact_zero"]])),
+            "loss_abs_errors": losses, "float64_cpu_seconds": seconds,
+            "rule": "card error <= 2 * CPU error + 1e-6 per gradient "
+                    "(relative Frobenius against the float64 CPU step, "
+                    "scale floored at 1e-6 of its global norm); key "
+                    "biases <= 1e-6 of the global norm"}
+
+
 def card_vs_cpu(what, init_model, cfg, train, model, batch, card,
                 loss_rtol: float = 1e-4, spread: bool = False) -> dict:
     """The CPU's run of one gradient step of ``model`` (same weights, same
@@ -1755,8 +1936,9 @@ def card_vs_cpu(what, init_model, cfg, train, model, batch, card,
     (another summation order), and the limits become the larger of those
     and twice the CPU's own difference between its two runs: a model whose
     fp32 gradients move by more than the limits under another summation
-    order on the same CPU cannot be held tighter than that. Returns the
-    fields of the phase's line."""
+    order on the same CPU cannot be held tighter than that; and the card's
+    and the CPU's gradients are both held to the port's CPU path in
+    float64 (float64_check). Returns the fields of the phase's line."""
     card_g, card_m = card
     torch.set_num_threads(os.cpu_count() or 1)
     cpu = init_model(cfg, device="cpu", seed=0)
@@ -1805,6 +1987,9 @@ def card_vs_cpu(what, init_model, cfg, train, model, batch, card,
                         f"{worst}")
     if spread:
         fields["limits_raised_by_cpu_spread"] = raised
+        fields["float64_reference"] = float64_check(
+            what, cpu, batch, train, [n for n, _ in model.named_parameters()],
+            card_g, cpu_g, card_m, cpu_m)
     return dict(losses_card_cpu=losses, gnorm_card=gn_card,
                 gnorm_cpu=gn_cpu, worst_grad_rel_fro=worst_rel,
                 worst_grad_over_limit=worst, worst_grad=worst_name,
@@ -1983,7 +2168,7 @@ def phase_train_profile(state, step, batch, gen, timed_ms, mode="train",
          **{f"{kernel}_fwd_ms": sum(v for k, v in by_name.items()
                                     if "ln_ffn_fwd" in k),
             f"{kernel}_bwd_ms": sum(v for k, v in by_name.items()
-                                    if "ln_ffn_bwd" in k
+                                    if "ln_ffn_bwd" in k or "bwd16::" in k
                                     or "sum_partials" in k)},
          kernels=len(by_name),
          top=[{"kernel": k[:90], "ms": v} for k, v in top])
@@ -2183,7 +2368,7 @@ def phase_rnnt_profile(state, step, batch, gen, timed_ms,
          idle_share=1.0 - busy_ms / timed_ms,
          idle_share_profiled=1.0 - busy_ms / wall_ms,
          k1_fwd_ms=ms("ln_ffn_fwd"),
-         k1_bwd_ms=ms("ln_ffn_bwd", "namespace)::sum_partials"),
+         k1_bwd_ms=ms("ln_ffn_bwd", "bwd16::", "namespace)::sum_partials"),
          k2_ms=ms("joint_fwd"), k3_ms=ms("joint_bwd_rows",
                                          "joint_bwd_weights"),
          k4_ms=ms("lstm2_fwd"), k4_bwd_ms=ms("lstm2_bwd"),

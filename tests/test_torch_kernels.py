@@ -7,6 +7,8 @@ it also runs on the machine with the card, where jax is absent:
         tests/test_torch_kernels.py -q
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -113,14 +115,52 @@ def test_backward_kernel_matches_plain_version_on_card(dtype, rate, n,
             assert rel <= 1e-2, (name, rel)
 
 
+@pytest.mark.parametrize("kernel", ["ln_ffn_residual", "ffn_fused"])
+@pytest.mark.parametrize("d,f", [(64, 512), (256, 2048)])
+@pytest.mark.parametrize("n", [1, 1000, 4064, 8448])
+@pytest.mark.parametrize("activation", ["relu", "swish"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_backward_matches_plain_version_on_card(kernel, d, f, n,
+                                                     activation, rate):
+    """The bf16 backward (wgmma and TMA, both passes) of K1 and K6 at the
+    tiny and full widths, N from one row to the decoder's 8448 (one and
+    two warpgroups a pass-A block), every gradient against autograd
+    through the plain version with the same masks: relative Frobenius
+    <= 1e-2 (bf16 rounding of dh, dz1 and the hidden at the Pallas
+    kernel's points, N-row sums in another order); one launch."""
+    args, dy = _k1_args(n, torch.bfloat16, seed=n + d, d=d, f=f)
+    x, g, bl, w1, b1, w2, b2 = args
+    if kernel == "ln_ffn_residual":
+        cfg = (activation, 0.5, 1e-5, rate, rate, 2024)
+        counter = ffn.ln_ffn_residual
+        before = counter.bwd_launches
+        got = ffn.backward_kernel(x, dy, *args[1:], *cfg)
+        want = ffn.backward_ref(x, dy, *args[1:], *cfg)
+    else:
+        cfg = (activation, rate, 2024)
+        counter = ffn.ffn_fused
+        before = counter.bwd_launches
+        got = ffn.ffn_backward_kernel(x, dy, w1, b1, w2, b2, *cfg)
+        want = ffn.ffn_backward_ref(x, dy, w1, b1, w2, b2, *cfg)
+    torch.cuda.synchronize()
+    assert counter.bwd_launches == before + 1
+    for i, (a, r) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(a).all()), i
+        if float(r.float().norm()) == 0.0:
+            assert float(a.float().norm()) == 0.0, i
+        else:
+            assert _rel(a, r) <= 1e-2, (i, _rel(a, r))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n", [132, 330, 700, 1000, 1281])
 def test_backward_weight_pass_is_deterministic_on_ragged_splits(dtype, n):
     """The weight-gradient pass splits N into whole 64-row chunks; at
-    these N the last split is short (or, counted before the rounding,
-    would be empty). dW1, db1 and dW2 must be the same bits on every call,
-    with a larger backward launched in between so that shared memory
-    holds other sums when the small one starts."""
+    these N the last split is short (bf16: 4, 74, 124, 232 and 129 rows
+    of 64, 128, 192, 256 and 384 at F = 2048; fp32: or, counted before the
+    rounding, would be empty). dW1, db1 and dW2 must be the same bits on
+    every call, with a larger backward launched in between so that shared
+    memory holds other sums when the small one starts."""
     dt = getattr(torch, dtype)
     cfg = ("relu", 1.0, 1e-5, 0.1, 0.1, 77)
     args, dy = _k1_args(n, dt, seed=n)
@@ -292,6 +332,31 @@ def test_lattice_kernel_matches_plain_version_on_card(u1):
     emit[..., -1] = LOG_ZERO
     il = torch.tensor([37, 20, 1, 30, 37]).cuda()
     ll = torch.tensor([u1 - 1, 3, 0, u1 // 2, 1]).cuda()
+    before = rnnt_loss.alpha_beta.launches
+    got = rnnt_loss.alpha_beta(blank, emit, il, ll)
+    torch.cuda.synchronize()
+    assert rnnt_loss.alpha_beta.launches == before + 1
+    want = rnnt_loss.alpha_beta_ref(blank, emit, il, ll)
+    for a, r in zip(got, want):
+        off = r == LOG_ZERO
+        assert bool((a[off] == LOG_ZERO).all())
+        err = (a - r)[~off].abs()
+        assert bool((err <= 1e-4 + 1e-5 * r[~off].abs()).all())
+
+
+@pytest.mark.parametrize("u1", [257, 600, 1030])
+def test_lattice_kernel_matches_plain_version_above_256_columns(u1):
+    """K9's multi-warp rows (2, 3 and 5 warps of 256 columns, the seam
+    columns crossing through shared memory) against alpha_scan/beta_scan
+    on a ragged batch: valid cells within 1e-4 + 1e-5*|ref|, every cell
+    off beta's lattice exactly LOG_ZERO, one launch."""
+    g = torch.Generator().manual_seed(u1)
+    b, t = 3, 29
+    lp = torch.log_softmax(torch.randn(b, t, u1, 3, generator=g), -1).cuda()
+    blank, emit = lp[..., 0].contiguous(), lp[..., 1].contiguous()
+    emit[..., -1] = LOG_ZERO
+    il = torch.tensor([29, 17, 1]).cuda()
+    ll = torch.tensor([u1 - 1, 255, 0]).cuda()
     before = rnnt_loss.alpha_beta.launches
     got = rnnt_loss.alpha_beta(blank, emit, il, ll)
     torch.cuda.synchronize()
@@ -492,3 +557,67 @@ def test_tiny_k6_k7_paths_training_step_on_card_matches_cpu(model,
             1e-4 * abs(float(m_cpu[k])) + 1e-6, k
     for a, b in zip(g_card, g_cpu):
         assert float((a.cpu() - b).norm()) <= 1e-3 * float(b.norm()) + 1e-7
+
+
+def zero_in_exact_arithmetic(name: str) -> bool:
+    """A key projection's bias: softmax ignores a shift shared by all
+    keys, so its exact gradient is 0 and a computed one is rounding
+    noise."""
+    return name.endswith("linear_k.bias")
+
+
+def grad_errors(grads, ref, names):
+    """{name: ||g - ref|| / scale} per parameter, the scale floored at
+    1e-6 of the reference's global norm (so that a gradient whose exact
+    value is 0 has a finite error: its absolute error over 1e-6 of the
+    global norm)."""
+    gnorm = float(torch.sqrt(sum((r.double() ** 2).sum() for r in ref)))
+    return {n: float((g.double() - r.double()).norm())
+            / max(float(r.double().norm()), 1e-6 * gnorm)
+            for n, g, r in zip(names, grads, ref)}
+
+
+def float64_step(model, batch):
+    """One gradient step of a float64 copy of ``model`` on the CPU →
+    (gradients, metrics): the port's CPU path, every normalisation and
+    loss in float64 too."""
+    m64 = copy.deepcopy(model).double()
+    b64 = dict(batch, feats=batch["feats"].double())
+    return train.make_grad_fn(m64)(train.TrainState(0, m64, None), b64,
+                                   torch.Generator())
+
+
+def test_tiny_postnorm_card_gradients_against_float64_reference():
+    """The tiny post-norm transformer CTC/AED, dropout 0, one fp32 step on
+    the card and on the CPU, each held to the port's CPU path in float64:
+    every gradient's error on the card (relative Frobenius) at most twice
+    the CPU's plus 1e-6; the key projections' biases, whose exact gradient
+    is 0, within 1e-6 of the global norm on both."""
+    cfg = _postnorm_tiny()
+    for conf in (cfg["encoder_conf"], cfg["decoder_conf"]):
+        for k in list(conf) + ["positional_dropout_rate"]:
+            if k.endswith("dropout_rate"):
+                conf[k] = 0.0
+    card, cpu = init_model(cfg, seed=5), init_model(cfg, device="cpu",
+                                                    seed=5)
+    rng = np.random.default_rng(2)
+    batch = {"feats": torch.as_tensor(
+                 rng.standard_normal((4, 64, 80)).astype(np.float32)),
+             "feat_lengths": torch.tensor([64, 50, 33, 20]),
+             "labels": torch.as_tensor(rng.integers(1, 28, (4, 6))),
+             "label_lengths": torch.tensor([6, 3, 0, 5])}
+    g_card, _ = train.make_grad_fn(card)(
+        train.TrainState(0, card, None),
+        {k: v.cuda() for k, v in batch.items()}, torch.Generator())
+    torch.cuda.synchronize()
+    g_cpu, _ = train.make_grad_fn(cpu)(train.TrainState(0, cpu, None),
+                                       batch, torch.Generator())
+    ref, _ = float64_step(cpu, batch)
+    names = [n for n, _ in cpu.named_parameters()]
+    e_card = grad_errors([g.cpu() for g in g_card], ref, names)
+    e_cpu = grad_errors(g_cpu, ref, names)
+    bad = {n: (e_card[n], e_cpu[n]) for n in names
+           if (max(e_card[n], e_cpu[n]) > 1.0
+               if zero_in_exact_arithmetic(n)
+               else e_card[n] > 2 * e_cpu[n] + 1e-6)}
+    assert not bad

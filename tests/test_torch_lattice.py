@@ -4,7 +4,9 @@ fp32:
 
 - K9's plain version (``alpha_scan`` + ``beta_scan``) against
   ``alpha_beta_pallas`` in interpret mode on a ragged batch, to 1e-5, with
-  every invalid cell exactly LOG_ZERO in both;
+  every invalid cell exactly LOG_ZERO in both, and against the JAX
+  package's ``_alpha_scan`` / ``_beta_scan`` at U1 = 300, wider than a
+  warp of the kernel;
 - ``gather_planes`` against ``_gather_planes``, to 1e-5;
 - the ``scan``, ``fused`` and ``pallas`` losses and their logits gradients
   against ``rnnt_loss``, ``rnnt_loss_fused`` and ``rnnt_loss_pallas``
@@ -67,6 +69,34 @@ def test_lattice_plain_version_matches_pallas_kernel():
                      for i, (n, m) in enumerate(zip(ILENS, LLENS))])
     np.testing.assert_allclose(beta[:, 0, 0].numpy(), term, rtol=1e-5,
                                err_msg="tolerance 1e-5 relative")
+
+
+def test_lattice_plain_version_matches_jax_scan_above_256_columns():
+    """At U1 = 300 (the kernel's multi-warp rows) the plain lattice
+    against the JAX package's non-Pallas lattice (``_alpha_scan``,
+    ``_beta_scan``) on ragged planes: valid cells to 1e-4 + 1e-5*|ref|
+    (fp32 logaddexp chains of up to T' + U1 steps), every invalid cell
+    exactly LOG_ZERO in both."""
+    rng = np.random.default_rng(300)
+    b, t, u1 = 3, 20, 300
+    lp = rng.standard_normal((b, t, u1, 3)).astype(np.float32)
+    lp = lp - np.log(np.exp(lp).sum(-1, keepdims=True))
+    blank = np.ascontiguousarray(lp[..., 0])
+    emit = np.ascontiguousarray(lp[..., 1])
+    emit[..., -1] = LOG_ZERO
+    il = np.array([20, 13, 1], np.int32)
+    ll = np.array([u1 - 1, 170, 0], np.int32)
+    want = (jax_rl._alpha_scan(jnp.asarray(blank), jnp.asarray(emit)),
+            jax_rl._beta_scan(jnp.asarray(blank), jnp.asarray(emit),
+                              jnp.asarray(il), jnp.asarray(ll)))
+    got = rnnt_loss.alpha_beta(torch.as_tensor(blank), torch.as_tensor(emit),
+                               torch.as_tensor(il).long(),
+                               torch.as_tensor(ll).long())
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w)
+        off = w == LOG_ZERO
+        assert (g[off] == LOG_ZERO).all()
+        assert (np.abs(g - w)[~off] <= 1e-4 + 1e-5 * np.abs(w[~off])).all()
 
 
 def test_gather_planes_matches_jax():
@@ -152,15 +182,12 @@ def test_streaming_loss_through_k9_keeps_its_values():
 
 
 def test_lattice_kernel_wrapper_refuses_what_it_does_not_take():
-    """The K9 wrapper checks before building anything: a non-fp32 plane,
-    more than 256 columns, or planes off the card raise."""
+    """The K9 wrapper checks before building anything: a non-fp32 plane
+    or planes off the card raise."""
     blank = torch.zeros(2, 5, 3)
     lens = torch.ones(2, dtype=torch.long)
     with pytest.raises(ValueError, match="fp32"):
         rnnt_loss.alpha_beta_kernel(blank.double(), blank.double(), lens,
                                     lens)
-    wide = torch.zeros(2, 5, rnnt_loss.MAX_U1 + 1)
-    with pytest.raises(ValueError, match="U1"):
-        rnnt_loss.alpha_beta_kernel(wide, wide, lens, lens)
     with pytest.raises(ValueError, match="CUDA"):
         rnnt_loss.alpha_beta_kernel(blank, blank, lens, lens)

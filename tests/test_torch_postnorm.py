@@ -16,7 +16,9 @@ parameter tree, carried to the port by the weight bridge.
   encoder or the decoders, and layer parameters ``self_attn``, ``norm1``,
   ``feed_forward``, ``norm2`` only;
 - the encoder outputs of the pre-norm transformer and of the conformer
-  with ``normalize_before: false`` (pre-norm layers, no after_norm).
+  with ``normalize_before: false`` (pre-norm layers, no after_norm);
+- the float64 reference: the port's CPU path in float64 for one step, and
+  the fp32 gradients of the port and of the JAX package held to it.
 """
 
 import copy
@@ -29,6 +31,8 @@ import pytest
 import torch
 
 from test_torch_models import _fill
+from test_torch_kernels import (float64_step, grad_errors,
+                                zero_in_exact_arithmetic)
 from test_torch_train import check_train_steps
 from wenet_celoss_tpu.configs import conformer_ctc_aed
 from wenet_celoss_tpu.models.factory import init_example
@@ -215,3 +219,36 @@ def test_encoder_matches_jax(encoder, normalize_before):
     valid = mask.numpy()
     np.testing.assert_allclose(got.numpy()[valid], np.asarray(want)[valid],
                                rtol=1e-4, atol=1e-4)
+
+
+def test_float64_reference_holds_fp32_gradients():
+    """The tiny post-norm model, dropout 0: the port's CPU path in float64
+    is the reference. The fp32 loss terms of the port (CPU) lie within
+    1e-6 relative of it, and every fp32 gradient of the port and of the
+    JAX package within 1e-5 (relative Frobenius); the key projections'
+    biases, whose exact gradient is 0 (softmax ignores a shift shared by
+    all keys), within 1e-6 of the global norm (their fp32 rounding noise
+    is 1e-9 of it here). The card's fp32 gradients are held to the same
+    reference by tests/test_torch_kernels.py and chip_smoke.py."""
+    cfg, jm, v, tm = _pair()
+    batch = _batch()
+    state = jax_train.TrainState(step=jnp.zeros((), jnp.int32),
+                                 params=v["params"], opt_state=None)
+    j_grads, _, _ = jax_train.make_grad_fn(jm)(state, batch,
+                                               jax.random.PRNGKey(0))
+    j_named = params_from_jax({"params": jax.tree_util.tree_map(
+        np.asarray, j_grads)})
+    names = [n for n, _ in tm.named_parameters()]
+    tb = _torch_batch(batch)
+    grads, metrics = train.make_grad_fn(tm)(train.TrainState(0, tm, None),
+                                            tb, torch.Generator())
+    ref, ref_metrics = float64_step(tm, tb)
+    assert all(r.dtype == torch.float64 for r in ref)
+    for k in LOSSES:
+        assert abs(float(metrics[k]) - float(ref_metrics[k])) <= \
+            1e-6 * abs(float(ref_metrics[k])), k
+    for who, got in (("port", grads), ("jax", [j_named[n] for n in names])):
+        errs = grad_errors(got, ref, names)
+        for n, e in errs.items():
+            assert e <= (1.0 if zero_in_exact_arithmetic(n) else 1e-5), \
+                (who, n, e)

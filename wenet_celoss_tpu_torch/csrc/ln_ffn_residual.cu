@@ -45,34 +45,54 @@
 // grid; here blocks run concurrently, so the work is split in two passes
 // and the cross-block sums are written as per-block partials that a third,
 // small pass adds up in a fixed order (deterministic, no atomics):
-//   A (row-parallel, owns dx): per ROWS rows, computes LN(x) and
+//   A (row-parallel, owns dx): per block of rows, computes LN(x) and
 //     dy2 = drop2(ff_scale * dy) once and also writes both ([N, D] each)
-//     for pass B; loops over F tiles as the forward does, recomputes z1
-//     and dh = dy2 @ W2 per tile, forms dz1 and accumulates dxn = dz1 @ W1
-//     in shared memory; then the LayerNorm VJP and dx; partials of
-//     dgamma, dbeta and db2 per block.
-//   B (F-tile-parallel, owns the weights): per FTB columns of F and one of
-//     S row splits, stages its W1/W2 tiles once, loops over row chunks of
-//     A's LN(x) and dy2 (staged in 16-byte vectors by all threads at
-//     once, so no F-tile repeats the LayerNorm or the dy2 mask),
+//     for pass B; loops over F tiles, recomputes z1 and dh = dy2 @ W2 per
+//     tile, forms dz1 and accumulates dxn = dz1 @ W1; then the LayerNorm
+//     VJP and dx; partials of dgamma, dbeta and db2.
+//   B (F-tile-parallel, owns the weights): per tile of F and one of S row
+//     splits, holds its W1/W2 tiles, loops over row chunks of A's LN(x)
+//     and dy2 (so no F tile repeats the LayerNorm or the dy2 mask),
 //     recomputes z1, the hidden and dz1 for its tile, and accumulates
-//     dW1[tile] += dz1^T @ xn, dW2[:, tile] += dy2^T @ h and db1[tile] in
-//     shared memory; partials per split.
+//     dW1[tile] += dz1^T @ xn, dW2[:, tile] += dy2^T @ h and db1[tile];
+//     partials per split.
 //   R sums the partials.
-// The [N, F] hidden never touches device memory. bf16 runs the GEMMs on
-// the tensor cores with WMMA 16x16x16 fragments; fp32 uses plain FMA so
-// that it stays full fp32 (no TF32). The ragged row edge is masked in the
-// kernels (rows past N are computed from zeros and never stored or
-// summed). Later work: wgmma, TMA staging, a persistent schedule.
+// That is 14 N D F operations against the 10 N D F of the bound: the
+// [N, F] hidden never touches device memory, as on the TPU.
+//
+// bf16 backward (namespace bwd16), designed for Hopper: in each pass TMA
+// keeps 128B-swizzled tiles (64B for pass A's W2 tile) in flight through a
+// ring of mbarrier-guarded stages, one thread refilling a stage as soon as
+// every warp has released it, and 64-row warpgroups run wgmma with every
+// sum in registers. Pass A's warpgroups keep LN(x) and dy2 of their rows in
+// shared memory as the A operands; per F tile of 32 columns, z1 and dh
+// come from wgmma, dz1 is formed in registers (bias, activation and its
+// derivative, the mask of each element from its row and column) and fed
+// back as the register A operand of dxn += dz1 W1t (an m64nD sum, 128
+// registers a thread at D = 256). Pass B's two warpgroups split a row
+// chunk: one computes z1^T and dW1, the other dh^T and dW2, trading the
+// hidden and dh (bf16, in accumulator order) through shared memory under
+// one named barrier a chunk; dW1 and dW2^T stay in registers over the
+// whole split. The schedule fills the card from N (plan16). bf16 takes
+// D in {64, 128, 256}; rows past N are zeros in the tiles, are masked out
+// of the hidden, and are never stored or summed.
+//
+// bf16 forward: WMMA 16x16x16 fragments from shared memory. fp32 uses plain
+// FMA so that it stays full fp32 (no TF32). The ragged row edge is masked
+// in the kernels (rows past N are computed from zeros and never stored or
+// summed).
 //
 // Weights arrive in torch.nn.Linear layout: W1 [F, D], W2 [D, F].
 // Plain C interface, bound with ctypes; each launch returns
 // cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "sm90_gmma.cuh"
 
 namespace {
 
@@ -80,8 +100,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr size_t kMaxSmem = 232448;  // 227 KB usable by one block on sm_90
 constexpr int kKeepAll = 65536;      // dropout threshold meaning "no mask"
-constexpr int kBwdRows = 32;  // rows per pass-A block and fp32 pass-B chunk
-constexpr int kBwdFtB = 32;          // F columns a pass-B block owns
+constexpr int kBwdRows = 32;  // fp32: rows per pass-A block and pass-B chunk
+constexpr int kBwdFtB = 32;   // fp32: F columns a pass-B block owns
 
 // One dropout stream: keep iff (hash32(index ^ key) & 0xFFFF) < thresh.
 struct Drop {
@@ -260,27 +280,31 @@ __device__ void store_residual(const T* __restrict__ x,
 }
 
 // dx = cast(acc) for rows [row0, min(row0 + rows, n)): ffn_fused's pass A,
-// which has no LayerNorm to differentiate and no residual to add.
-template <typename T>
-__device__ void store_acc(const float* acc, int lda, T* __restrict__ dx,
-                          int row0, int rows, int n, int d) {
-  for (int i = threadIdx.x; i < rows * d; i += kThreads) {
+// which has no LayerNorm to differentiate and no residual to add. Thread
+// tid of the NT that share the rows.
+template <typename T, int NT = kThreads>
+__device__ void store_acc(int tid, const float* acc, int lda,
+                          T* __restrict__ dx, int row0, int rows, int n,
+                          int d) {
+  for (int i = tid; i < rows * d; i += NT) {
     const int r = i / d, c = i % d, gr = row0 + r;
     if (gr < n) dx[(size_t)gr * d + c] = from_f<T>(acc[r * lda + c]);
   }
 }
 
 // After pass A's GEMMs: the LayerNorm VJP and dx (one warp a row), and the
-// block's partial column sums of dxn * xhat (dgamma) and dxn (dbeta).
-template <typename T>
-__device__ void ln_vjp_rows(const T* __restrict__ x, const T* __restrict__ dy,
+// rows' partial column sums of dxn * xhat (dgamma) and dxn (dbeta). Thread
+// tid of the NT that share the rows.
+template <typename T, int NT = kThreads>
+__device__ void ln_vjp_rows(int tid, const T* __restrict__ x,
+                            const T* __restrict__ dy,
                             const float* __restrict__ g, const float* acc,
                             int lda, const float* mu, const float* rstd,
                             T* __restrict__ dx, float* __restrict__ dgp,
                             float* __restrict__ dblp, int row0, int rows,
                             int n, int d) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < rows; r += kWarps) {
+  const int warp = tid / 32, lane = tid % 32;
+  for (int r = warp; r < rows; r += NT / 32) {
     const int gr = row0 + r;
     if (gr >= n) continue;
     const float* a = acc + (size_t)r * lda;
@@ -299,7 +323,7 @@ __device__ void ln_vjp_rows(const T* __restrict__ x, const T* __restrict__ dy,
       dx[o] = from_f<T>(to_f(dy[o]) + dx_ln);
     }
   }
-  for (int c = threadIdx.x; c < d; c += kThreads) {
+  for (int c = tid; c < d; c += NT) {
     float sg = 0.0f, sb = 0.0f;
     for (int r = 0; r < rows && row0 + r < n; ++r) {
       const float v = acc[r * lda + c];
@@ -447,294 +471,617 @@ ln_ffn_fwd(const bf* __restrict__ x, const float* __restrict__ g,
                      g != nullptr);
 }
 
-// Pass A: the forward's layout plus dy2 [ROWS][ldx], a second fp32 tile
-// for dh and the row statistics.
+}  // namespace bf16k
+
+// ------------------------------------------------------ bf16 backward ---
+// In both passes TMA keeps 128B-swizzled tiles in flight through a ring
+// of stages guarded by mbarriers (full: the bytes arrived; empty: every
+// warp is done with the stage, and one thread then loads the stage's next
+// tile), and 64-row warpgroups run wgmma with the sums in registers. No
+// separate producer warp: a 256-thread block keeps 255 registers a thread
+// for the m64n256 sums (a ninth warp would cut that to 168, and ptxas then
+// serialises the wgmma). No tile takes a round trip through shared memory
+// between products of one F tile (pass A) or one row chunk (pass B) except
+// the hidden and dh that pass B's two warpgroups trade. dh is rounded to
+// bf16 before its mask and the activation's derivative, where the plain
+// version's autograd rounds it (the cast of the hidden). The element-wise
+// work between products is branch-free (the activation is chosen outside
+// the unrolled loops, masks are selects) and the masks and biases are
+// computed while the products run: with branches in them the loops split
+// into serial blocks and took three quarters of the time.
+namespace bwd16 {
+using bf = __nv_bfloat16;
+using namespace sm90;
+
+constexpr int kWG = 128;      // threads of a warpgroup
+constexpr int FT = 32;        // pass A: F columns of a weight tile
+constexpr int FB = 64;        // pass B: F columns a block owns
+constexpr int RC = 64;        // pass B: rows of a chunk
+constexpr int kStagesB = 2;   // pass B: row chunks in flight
+
+// Byte offset of element (r, c) in a K-major 128B-swizzled bf16 tile of
+// `rows` rows stored as [cols / 64][rows][64], the layout TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_128B (the region starts on 1024 bytes).
+__device__ __forceinline__ uint32_t swz128(int rows, int r, int c) {
+  const int cc = c & 63;
+  return (uint32_t)((c >> 6) * rows * 128 + r * 128 +
+                    (((cc >> 3) ^ (r & 7)) << 4) + (cc & 7) * 2);
+}
+
+// The activation ACT (0 relu, 1 swish) and its derivative at z, in fp32
+// and without a branch, so that an unrolled loop of them stays one basic
+// block the compiler can interleave; swish's sigmoid through the fast
+// exponential and reciprocal (a few ulp from act_fn's, far below bf16's
+// rounding).
+template <int ACT>
+__device__ __forceinline__ void act_pair(float z, float& a, float& da) {
+  if constexpr (ACT == 0) {
+    a = fmaxf(z, 0.0f);
+    da = z > 0.0f ? 1.0f : 0.0f;
+  } else {
+    const float s = __fdividef(1.0f, 1.0f + __expf(-z));
+    a = z * s;
+    da = s * (1.0f + z * (1.0f - s));
+  }
+}
+
+// Bit i of the result: the mask keeps index0 + i * step (drop()'s test,
+// without its branch; a threshold of 65536 keeps every index).
+template <int COUNT>
+__device__ __forceinline__ uint32_t keep_bits(const Drop& dp,
+                                              const uint32_t (&index)[COUNT]) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int i = 0; i < COUNT; ++i)
+    bits |= (uint32_t)((hash32(index[i] ^ dp.key) & 0xFFFFu) <
+                       (uint32_t)dp.thresh) << i;
+  return bits;
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// acc (+)= A (registers) @ B (shared memory, MN-major), N = D.
+template <int D>
+__device__ __forceinline__ void mma_rs_d(float (&acc)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  if constexpr (D == 64)
+    mma_rs_n64<1>(acc, a, b, 1);
+  else if constexpr (D == 128)
+    mma_rs_n128<1>(acc, a, b, 1);
+  else
+    mma_rs_n256<1>(acc, a, b, 1);
+}
+
+// Pass A's dz1 of one F tile in place of z1: drop1(bf16(dh)) act'(z1 + b1),
+// bias[(r / 4) * 2 + r % 2] the bias of register r's column.
+template <int ACT>
+__device__ __forceinline__ void dz_tile(float (&z)[16], const float (&dh)[16],
+                                        const float (&bias)[8], uint32_t kept,
+                                        float scale) {
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    float a, da;
+    act_pair<ACT>(z[r] + bias[(r >> 2) * 2 + (r & 1)], a, da);
+    const float keep = (kept >> r) & 1u ? scale : 0.0f;
+    z[r] = round_bf16(dh[r]) * keep * da;
+  }
+}
+
+// Pass A shared memory, byte offsets from a 1024-aligned base: LN(x) (or
+// x) and dy2 as K-major tiles [D/64][ROWS][64]; the ring of weight stages,
+// each W1[f0:f0+FT, :] as [D/64][FT][64] (128B swizzle) then W2[:, f0:f0+FT]
+// as [D][FT] (64B swizzle); the row statistics; the barriers. After the F
+// loop the fp32 dxn [ROWS][D + 4] overlays the tiles and the ring.
 struct LayoutA {
-  Layout f;
-  size_t o_dy, o_dh, o_mu, o_rstd, bytes;
+  uint32_t dy, ring, w2, stage, mu, rstd, full, empty, bytes;
 };
 
-__host__ __device__ inline LayoutA layout_a(int rows, int d) {
+__host__ __device__ inline LayoutA layout_a(int rows, int d, int stages) {
   LayoutA L;
-  L.f = layout(rows, d);
-  size_t o = L.f.bytes;
-  L.o_dy = o;
-  o += align128((size_t)rows * L.f.ldx * 2);
-  L.o_dh = o;
-  o += align128((size_t)rows * L.f.ldhf * 4);
-  L.o_mu = o;
-  o += align128((size_t)rows * 4);
-  L.o_rstd = o;
-  o += align128((size_t)rows * 4);
-  L.bytes = o;
+  const uint32_t tile = (uint32_t)rows * d * 2;
+  L.dy = tile;
+  L.ring = 2 * tile;
+  L.w2 = (uint32_t)FT * d * 2;
+  L.stage = 2 * L.w2;
+  uint32_t o = L.ring + stages * L.stage;
+  const uint32_t acc = (uint32_t)rows * (d + 4) * 4;
+  if (o < acc) o = acc;
+  L.mu = o;
+  L.rstd = L.mu + rows * 4;
+  L.full = L.rstd + rows * 4;
+  L.empty = L.full + 8 * stages;
+  L.bytes = L.empty + 8 * stages;
   return L;
 }
 
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads)
-ln_ffn_bwd_rows(const bf* __restrict__ x, const bf* __restrict__ dy,
-                const float* __restrict__ g, const float* __restrict__ bl,
-                const bf* __restrict__ w1, const float* __restrict__ b1,
-                const bf* __restrict__ w2, bf* __restrict__ dx,
-                bf* __restrict__ xn_out, bf* __restrict__ dy2_out,
-                float* __restrict__ dgp, float* __restrict__ dblp,
-                float* __restrict__ db2p, int n, int d, int f,
-                float ff_scale, float eps, int act, Drop dp1, Drop dp2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const LayoutA LA = layout_a(ROWS, d);
-  const Layout& L = LA.f;
-  bf* xn = reinterpret_cast<bf*>(smem);
-  bf* w1s = reinterpret_cast<bf*>(smem + L.o_w1);
-  bf* w2s = reinterpret_cast<bf*>(smem + L.o_w2);
-  float* zf = reinterpret_cast<float*>(smem + L.o_hf);
-  bf* dz = reinterpret_cast<bf*>(smem + L.o_h);
-  float* acc = reinterpret_cast<float*>(smem + L.o_acc);
-  bf* dyc = reinterpret_cast<bf*>(smem + LA.o_dy);
-  float* dhf = reinterpret_cast<float*>(smem + LA.o_dh);
-  float* mu = reinterpret_cast<float*>(smem + LA.o_mu);
-  float* rstd = reinterpret_cast<float*>(smem + LA.o_rstd);
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int row0 = blockIdx.x * ROWS;
-  const size_t part = (size_t)blockIdx.x * d;
+// Weight tile t into ring stage s: W1[t FT : t FT + FT, :] and
+// W2[:, t FT : t FT + FT], completing the stage's full barrier.
+template <int D>
+__device__ __forceinline__ void load_w_tile(const LayoutA& L, uint32_t base,
+                                            const CUtensorMap* w1,
+                                            const CUtensorMap* w2, int s,
+                                            int t) {
+  const uint32_t st = base + L.ring + s * L.stage;
+  const uint32_t full = base + L.full + 8 * s;
+  mbar_expect_tx(full, L.stage);
+  for (int c = 0; c < D / 64; ++c)
+    tma_load_2d(st + c * FT * 128, w1, full, c * 64, t * FT);
+  tma_load_2d(st + L.w2, w2, full, t * FT, 0);
+}
 
-  if (g != nullptr)
-    layer_norm_rows<bf>(x, g, bl, xn, L.ldx, row0, ROWS, n, d, eps, mu,
-                        rstd);
-  else
-    stage_rows<bf>(x, xn, L.ldx, row0, ROWS, n, d);
-  load_dy2<bf>(dy, dyc, L.ldx, row0, ROWS, n, d, ff_scale, dp2, db2p + part);
-  for (int i = tid; i < ROWS * L.lda; i += kThreads) acc[i] = 0.0f;
-  __syncthreads();
-  if (xn_out != nullptr) {
-    store_rows<bf>(xn, L.ldx, xn_out, row0, ROWS, n, d);
-    store_rows<bf>(dyc, L.ldx, dy2_out, row0, ROWS, n, d);
-  }
+// Pass A's warpgroups (see bwd_rows).
+template <int D, int NWG, int STAGES>
+__device__ __forceinline__ void rows_consumer(
+    const LayoutA& L, unsigned char* smem, uint32_t base, int wid, int tid,
+    const CUtensorMap* w1_map, const CUtensorMap* w2_map,
+    const bf* __restrict__ x, const bf* __restrict__ dy,
+    const float* __restrict__ g, const float* __restrict__ bl,
+    const float* __restrict__ b1, bf* __restrict__ dx,
+    bf* __restrict__ xn_out, bf* __restrict__ dy2_out,
+    float* __restrict__ dgp, float* __restrict__ dblp,
+    float* __restrict__ db2p, int n, int f, float ff_scale, float eps,
+    int act, Drop dp1, Drop dp2) {
+  constexpr int ROWS = 64 * NWG, LDA = D + 4;
+  const int tiles = f / FT;
+  const int w = wid / 4, t = tid % kWG, warp = wid % 4, lane = tid % 32;
+  const int r0 = blockIdx.x * ROWS + 64 * w;  // this warpgroup's rows
+  const size_t unit = (size_t)blockIdx.x * NWG + w;  // its partials' slot
+  float* mu = reinterpret_cast<float*>(smem + L.mu) + 64 * w;
+  float* rstd = reinterpret_cast<float*>(smem + L.rstd) + 64 * w;
 
-  constexpr int rt_n = ROWS / 16, ct_n = FT / 16;
-  const int dt_n = d / 16;
-
-  for (int f0 = 0; f0 < f; f0 += FT) {
-    stage_weights(w1, w2, w1s, L.ldw1, w2s, L.ldw2, f0, FT, d, f);
-    __syncthreads();
-
-    // zf = xn @ W1_tile^T and dhf = dy2 @ W2_tile, [ROWS, FT] each.
-    for (int t = warp; t < 2 * rt_n * ct_n; t += kWarps) {
-      const int which = t / (rt_n * ct_n), u = t % (rt_n * ct_n);
-      const int rt = u / ct_n, ct = u % ct_n;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.0f);
-      if (which == 0) {
-        mma_tile<wmma::row_major, wmma::col_major>(
-            c, xn + rt * 16 * L.ldx, 1, L.ldx, w1s + ct * 16 * L.ldw1, 1,
-            L.ldw1, d);
-        wmma::store_matrix_sync(zf + rt * 16 * L.ldhf + ct * 16, c, L.ldhf,
-                                wmma::mem_row_major);
-      } else {
-        mma_tile<wmma::row_major, wmma::row_major>(
-            c, dyc + rt * 16 * L.ldx, 1, L.ldx, w2s + ct * 16, L.ldw2,
-            L.ldw2, d);
-        wmma::store_matrix_sync(dhf + rt * 16 * L.ldhf + ct * 16, c, L.ldhf,
-                                wmma::mem_row_major);
+  // LN(x) (or x), one warp a row, two-pass statistics in fp32.
+  for (int r = warp; r < 64; r += 4) {
+    const int gr = r0 + r;
+    float v[D / 32];
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j)
+      v[j] = gr < n ? to_f(x[(size_t)gr * D + lane + 32 * j]) : 0.0f;
+    if (g != nullptr && gr < n) {
+      float s = 0.0f;
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j) s += v[j];
+      const float m = warp_sum(s) / D;
+      float var = 0.0f;
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j) var += (v[j] - m) * (v[j] - m);
+      const float rs = rsqrtf(warp_sum(var) / D + eps);
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j) {
+        const int c = lane + 32 * j;
+        v[j] = (v[j] - m) * rs * g[c] + bl[c];
+      }
+      if (lane == 0) {
+        mu[r] = m;
+        rstd[r] = rs;
       }
     }
-    __syncthreads();
-
-    for (int i = tid; i < ROWS * FT; i += kThreads) {
-      const int r = i / FT, j = i % FT;
-      const float z = zf[r * L.ldhf + j] + b1[f0 + j];
-      const float dh = drop(dp1, (uint32_t)(row0 + r) * (uint32_t)f + f0 + j,
-                            dhf[r * L.ldhf + j]);
-      dz[r * L.ldh + j] = __float2bfloat16(dh * act_deriv(z, act));
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j) {
+      const int c = lane + 32 * j;
+      const bf b = __float2bfloat16(v[j]);
+      *reinterpret_cast<bf*>(smem + swz128(ROWS, 64 * w + r, c)) = b;
+      if (xn_out != nullptr && gr < n) xn_out[(size_t)gr * D + c] = b;
     }
-    __syncthreads();
-
-    // acc[ROWS, D] += dz[ROWS, FT] @ W1_tile[FT, D].
-    for (int t = warp; t < rt_n * dt_n; t += kWarps) {
-      const int rt = t / dt_n, ct = t % dt_n;
-      float* cp = acc + rt * 16 * L.lda + ct * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::load_matrix_sync(c, cp, L.lda, wmma::mem_row_major);
-      mma_tile<wmma::row_major, wmma::row_major>(
-          c, dz + rt * 16 * L.ldh, 1, L.ldh, w1s + ct * 16, L.ldw1, L.ldw1,
-          FT);
-      wmma::store_matrix_sync(cp, c, L.lda, wmma::mem_row_major);
-    }
-    __syncthreads();
   }
-  if (g != nullptr)
-    ln_vjp_rows<bf>(x, dy, g, acc, L.lda, mu, rstd, dx, dgp + part,
-                    dblp + part, row0, ROWS, n, d);
+  // dy2 = drop2(ff_scale * dy), one thread a column; db2's partial.
+  for (int c = t; c < D; c += kWG) {
+    float colsum = 0.0f;
+    for (int r = 0; r < 64; ++r) {
+      const int gr = r0 + r;
+      float v = 0.0f;
+      if (gr < n) {
+        v = drop(dp2, (uint32_t)gr * (uint32_t)D + (uint32_t)c,
+                 to_f(dy[(size_t)gr * D + c]) * ff_scale);
+        colsum += v;
+      }
+      const bf b = __float2bfloat16(v);
+      *reinterpret_cast<bf*>(smem + L.dy + swz128(ROWS, 64 * w + r, c)) = b;
+      if (dy2_out != nullptr && gr < n) dy2_out[(size_t)gr * D + c] = b;
+    }
+    db2p[unit * D + c] = colsum;
+  }
+  fence_async_smem();
+  named_sync(1 + w, kWG);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float z[16], dh[16];
+  uint32_t a0[4], a1[4];
+  // Descriptors: LN(x) and dy2 K-major (A); per stage W1t K-major (z1's
+  // B), W2t MN-major with 64B swizzle (dh's B), W1t MN-major (dxn's B).
+  const uint64_t xd0 = desc(base + 64 * w * 128, 16, 1024, kSwizzle128);
+  const uint64_t yd0 =
+      desc(base + L.dy + 64 * w * 128, 16, 1024, kSwizzle128);
+  const uint64_t w1k0 = desc(base + L.ring, 16, 1024, kSwizzle128);
+  const uint64_t w2m0 = desc(base + L.ring + L.w2, 64, 512, kSwizzle64);
+  const uint64_t w1m0 = desc(base + L.ring, FT * 128, 1024, kSwizzle128);
+  for (int tt = 0; tt < tiles; ++tt) {
+    const int s = tt % STAGES;
+    mbar_wait(base + L.full + 8 * s, (tt / STAGES) & 1);
+    const uint32_t so = s * L.stage;
+    const uint64_t xd = opaque(xd0), yd = opaque(yd0);
+    const uint64_t w1k = desc_at(opaque(w1k0), so);
+    const uint64_t w2m = desc_at(opaque(w2m0), so);
+    const uint64_t w1m = desc_at(opaque(w1m0), so);
+    fence_regs(z);
+    fence_regs(dh);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss_n32<0, 0>(
+          z, desc_at(xd, (kk >> 2) * ROWS * 128 + (kk & 3) * 32),
+          desc_at(w1k, (kk >> 2) * FT * 128 + (kk & 3) * 32), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss_n32<0, 1>(
+          dh, desc_at(yd, (kk >> 2) * ROWS * 128 + (kk & 3) * 32),
+          desc_at(w2m, kk * 1024), kk > 0);
+    wg_commit();
+    // While the products run: the tile's biases and hidden-mask bits.
+    // Register r holds row 16 warp + lane / 4 + 8 ((r / 2) % 2) and column
+    // f0 + 8 (r / 4) + 2 (lane % 4) + r % 2.
+    const int f0 = tt * FT;
+    float bias[8];
+    uint32_t index[16];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      bias[q] = b1[f0 + 8 * (q >> 1) + 2 * (lane & 3) + (q & 1)];
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      index[r] = (uint32_t)(r0 + 16 * warp + lane / 4 + 8 * ((r >> 1) & 1)) *
+                     (uint32_t)f +
+                 f0 + 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
+    const uint32_t kept = keep_bits<16>(dp1, index);
+    wg_wait0();
+    fence_regs(z);
+    fence_regs(dh);
+    if (act == 0)
+      dz_tile<0>(z, dh, bias, kept, dp1.scale);
+    else
+      dz_tile<1>(z, dh, bias, kept, dp1.scale);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      a0[q] = pack_bf16(z[2 * q], z[2 * q + 1]);
+      a1[q] = pack_bf16(z[8 + 2 * q], z[8 + 2 * q + 1]);
+    }
+    fence_regs(a0);
+    fence_regs(a1);
+    fence_regs(acc);
+    wg_fence();
+    mma_rs_d<D>(acc, a0, w1m);
+    mma_rs_d<D>(acc, a1, desc_at(w1m, 2048));
+    wg_commit();
+    wg_wait0();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(base + L.empty + 8 * s);
+    if (tid == 0 && tt + STAGES < tiles) {
+      mbar_wait(base + L.empty + 8 * s, (tt / STAGES) & 1);
+      load_w_tile<D>(L, base, w1_map, w2_map, s, tt + STAGES);
+    }
+  }
+
+  // Every warpgroup is past its last product: dxn overlays the tiles.
+  named_sync(NWG + 1, NWG * kWG);
+  float* accs = reinterpret_cast<float*>(smem) + 64 * w * LDA;
+#pragma unroll
+  for (int r = 0; r < D / 2; r += 2) {
+    const int row = 16 * warp + lane / 4 + 8 * ((r >> 1) & 1);
+    const int col = 8 * (r >> 2) + 2 * (lane & 3);
+    *reinterpret_cast<float2*>(accs + row * LDA + col) =
+        make_float2(acc[r], acc[r + 1]);
+  }
+  named_sync(1 + w, kWG);
+  if (g == nullptr)
+    store_acc<bf, kWG>(t, accs, LDA, dx, r0, 64, n, D);
   else
-    store_acc<bf>(acc, L.lda, dx, row0, ROWS, n, d);
+    ln_vjp_rows<bf, kWG>(t, x, dy, g, accs, LDA, mu, rstd, dx,
+                         dgp + unit * D, dblp + unit * D, r0, 64, n, D);
 }
 
-// Pass B layout: the block's W1/W2 tiles, one row chunk of xn and dy2, the
-// [RB, FTB] tiles, and the fp32 dW1 [FTB][D] / dW2 [D][FTB] / db1 sums.
+// Pass A (row-parallel, owns dx): NWG warpgroups of 64 rows each. Each
+// stages LN(x) (or x) and dy2 = drop2(ff_scale * dy) of its rows in bf16
+// once (also into rows_buf for pass B), then per F tile of FT columns:
+// z1 = xn W1t^T and dh = dy2 W2t (wgmma, shared-memory operands), dz1 =
+// drop1(bf16(dh)) act'(z1 + b1) in registers, and dxn += dz1 W1t with dz1
+// as register A fragments; after the loop the LayerNorm VJP (or the cast,
+// for ffn_fused) and the partials of dgamma, dbeta and db2 of its 64-row
+// unit. Thread 0 keeps the weight ring STAGES tiles ahead: it refills a
+// stage once every warp has released it.
+template <int D, int NWG, int STAGES>
+__global__ void __launch_bounds__(NWG * kWG, 1)
+bwd_rows(const __grid_constant__ CUtensorMap w1_map,
+         const __grid_constant__ CUtensorMap w2_map, const bf* __restrict__ x,
+         const bf* __restrict__ dy, const float* __restrict__ g,
+         const float* __restrict__ bl, const float* __restrict__ b1,
+         bf* __restrict__ dx, bf* __restrict__ xn_out,
+         bf* __restrict__ dy2_out, float* __restrict__ dgp,
+         float* __restrict__ dblp, float* __restrict__ db2p, int n, int f,
+         float ff_scale, float eps, int act, Drop dp1, Drop dp2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const LayoutA L = layout_a(64 * NWG, D, STAGES);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(base + L.full + 8 * s, 1);
+      mbar_init(base + L.empty + 8 * s, 4 * NWG);
+    }
+    mbar_init_fence();
+    for (int t = 0; t < STAGES && t < f / FT; ++t)
+      load_w_tile<D>(L, base, &w1_map, &w2_map, t, t);
+  }
+  __syncthreads();
+  rows_consumer<D, NWG, STAGES>(L, smem, base, warp_uniform(tid / 32), tid,
+                                &w1_map, &w2_map, x, dy, g, bl, b1, dx,
+                                xn_out, dy2_out, dgp, dblp, db2p, n, f,
+                                ff_scale, eps, act, dp1, dp2);
+}
+
+// Pass B shared memory: W1[f0:f0+FB, :] as [D/64][FB][64] and W2[:,
+// f0:f0+FB] as [D][FB] (both 128B swizzle, resident), the ring of row
+// chunks (xn then dy2, each [D/64][RC][64]), the two exchange buffers
+// (bf16 pairs in the accumulator's order, [2][16][128] words each), the
+// barriers.
 struct LayoutB {
-  int ldx, ldw1, ldw2, ldt, ldh, ld1, ld2;
-  size_t o_w1, o_w2, o_dy, o_z, o_dh, o_h, o_dz, o_a1, o_a2, o_b1, bytes;
+  uint32_t w2, ring, dyo, stage, xh, xd, full, empty, wbar, bytes;
 };
 
-// Pass B's chunk: 64 rows in bf16 (more GEMM depth per pass over the
-// shared-memory dW sums), 32 in fp32 (shared memory).
-constexpr int kChunkB = 64;
-
 __host__ __device__ inline LayoutB layout_b(int d) {
-  constexpr int RB = kChunkB, FB = kBwdFtB;
   LayoutB L;
-  L.ldx = d + 8;
-  L.ldw1 = d + 8;
-  L.ldw2 = FB + 8;
-  L.ldt = FB + 4;       // fp32 tiles
-  L.ldh = FB + 8;       // bf16 tiles
-  L.ld1 = d + 4;        // dW1 sums
-  L.ld2 = FB + 4;       // dW2 sums
-  size_t o = align128((size_t)RB * L.ldx * 2);
-  L.o_w1 = o;
-  o += align128((size_t)FB * L.ldw1 * 2);
-  L.o_w2 = o;
-  o += align128((size_t)d * L.ldw2 * 2);
-  L.o_dy = o;
-  o += align128((size_t)RB * L.ldx * 2);
-  L.o_z = o;
-  o += align128((size_t)RB * L.ldt * 4);
-  L.o_dh = o;
-  o += align128((size_t)RB * L.ldt * 4);
-  L.o_h = o;
-  o += align128((size_t)RB * L.ldh * 2);
-  L.o_dz = o;
-  o += align128((size_t)RB * L.ldh * 2);
-  L.o_a1 = o;
-  o += align128((size_t)FB * L.ld1 * 4);
-  L.o_a2 = o;
-  o += align128((size_t)d * L.ld2 * 4);
-  L.o_b1 = o;
-  o += align128((size_t)FB * 4);
-  L.bytes = o;
+  L.w2 = (uint32_t)FB * d * 2;
+  L.ring = 2 * L.w2;
+  L.dyo = (uint32_t)RC * d * 2;
+  L.stage = 2 * L.dyo;
+  L.xh = L.ring + kStagesB * L.stage;
+  L.xd = L.xh + 2 * 16 * kWG * 4;
+  L.full = L.xd + 2 * 16 * kWG * 4;
+  L.empty = L.full + 8 * kStagesB;
+  L.wbar = L.empty + 8 * kStagesB;
+  L.bytes = L.wbar + 8;
   return L;
 }
 
-__global__ void __launch_bounds__(kThreads)
-ln_ffn_bwd_weights(const bf* __restrict__ xn_g, const bf* __restrict__ dy2_g,
-                   const bf* __restrict__ w1, const float* __restrict__ b1,
-                   const bf* __restrict__ w2, float* __restrict__ dw1p,
-                   float* __restrict__ dw2p, float* __restrict__ db1p, int n,
-                   int d, int f, int rows_per_split, int act, Drop dp1) {
-  constexpr int RB = kChunkB, FB = kBwdFtB;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const LayoutB L = layout_b(d);
-  bf* xn = reinterpret_cast<bf*>(smem);
-  bf* w1s = reinterpret_cast<bf*>(smem + L.o_w1);
-  bf* w2s = reinterpret_cast<bf*>(smem + L.o_w2);
-  bf* dyc = reinterpret_cast<bf*>(smem + L.o_dy);
-  float* zf = reinterpret_cast<float*>(smem + L.o_z);
-  float* dhf = reinterpret_cast<float*>(smem + L.o_dh);
-  bf* hc = reinterpret_cast<bf*>(smem + L.o_h);
-  bf* dz = reinterpret_cast<bf*>(smem + L.o_dz);
-  float* a1 = reinterpret_cast<float*>(smem + L.o_a1);
-  float* a2 = reinterpret_cast<float*>(smem + L.o_a2);
-  float* sb1 = reinterpret_cast<float*>(smem + L.o_b1);
-  const int tid = threadIdx.x, warp = tid / 32;
+// Pass B's hidden of one chunk from z1^T in p: h = drop1(act(z1 + b1)) as
+// bf16 pairs into out[q * kWG] (q = r / 2), and p = keep * act'(z1 + b1),
+// bias[(r / 2) % 2] the bias of register r's F column.
+template <int ACT>
+__device__ __forceinline__ void hidden_tile(float (&p)[32], uint32_t* out,
+                                            const float (&bias)[2],
+                                            uint32_t kept, float scale) {
+#pragma unroll
+  for (int r = 0; r < 32; r += 2) {
+    float h[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float a, da;
+      act_pair<ACT>(p[r + e] + bias[(r >> 1) & 1], a, da);
+      const float keep = (kept >> (r + e)) & 1u ? scale : 0.0f;
+      h[e] = a * keep;
+      p[r + e] = keep * da;
+    }
+    out[(r / 2) * kWG] = pack_bf16(h[0], h[1]);
+  }
+}
+
+// Row chunk i of the split (rows row .. row + RC of xn and dy2) into ring
+// stage s, completing the stage's full barrier; rows past N read as zeros.
+template <int D>
+__device__ __forceinline__ void load_chunk(const LayoutB& L, uint32_t base,
+                                           const CUtensorMap* xn,
+                                           const CUtensorMap* dy, int s,
+                                           int row) {
+  const uint32_t st = base + L.ring + s * L.stage;
+  const uint32_t full = base + L.full + 8 * s;
+  mbar_expect_tx(full, L.stage);
+  for (int c = 0; c < D / 64; ++c) {
+    tma_load_2d(st + c * RC * 128, xn, full, c * 64, row);
+    tma_load_2d(st + L.dyo + c * RC * 128, dy, full, c * 64, row);
+  }
+}
+
+// One warpgroup of pass B (ROLE 0: z1^T, the hidden, dW1 and db1; ROLE 1:
+// dh^T and dW2, and its thread 0 refills the row ring) over every chunk
+// of the block's row split.
+template <int D, int ROLE>
+__device__ __forceinline__ void weights_role(
+    const LayoutB& L, unsigned char* smem, uint32_t base, int t, int warp,
+    int lane, const CUtensorMap* xn_map, const CUtensorMap* dy_map,
+    const float* __restrict__ b1, float* __restrict__ dw1p,
+    float* __restrict__ dw2p, float* __restrict__ db1p, int f, int f0,
+    int split, int r_begin, int r_end, int chunks, int act, Drop dp1) {
+  uint32_t* xh = reinterpret_cast<uint32_t*>(smem + L.xh);
+  uint32_t* xd = reinterpret_cast<uint32_t*>(smem + L.xd);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float p[32];
+  uint32_t a[4][4];
+  float db1s[2] = {0.0f, 0.0f};
+  // Descriptors. A: W1t K-major (ROLE 0) or W2t MN-major (ROLE 1); B of
+  // the first product: the chunk's xn or dy2, K-major; of the second: the
+  // same, MN-major.
+  const uint32_t rows = base + L.ring + (ROLE == 0 ? 0 : L.dyo);
+  const uint64_t a0 = ROLE == 0
+      ? desc(base, 16, 1024, kSwizzle128)
+      : desc(base + L.w2, FB * 128, 1024, kSwizzle128);
+  const uint64_t bk0 = desc(rows, 16, 1024, kSwizzle128);
+  const uint64_t bm0 = desc(rows, RC * 128, 1024, kSwizzle128);
+  // ROLE 0's registers hold F columns fc(r) = f0 + 16 warp + lane / 4 +
+  // 8 ((r / 2) % 2) and chunk rows 8 (r / 4) + 2 (lane % 4) + r % 2.
+  const int fc0 = f0 + 16 * warp + lane / 4;
+  const float bias[2] = {ROLE == 0 ? b1[fc0] : 0.0f,
+                         ROLE == 0 ? b1[fc0 + 8] : 0.0f};
+  mbar_wait(base + L.wbar, 0);
+  for (int i = 0; i < chunks; ++i) {
+    const int s = i % kStagesB, buf = i & 1, row0 = r_begin + i * RC;
+    mbar_wait(base + L.full + 8 * s, (i / kStagesB) & 1);
+    const uint32_t so = s * L.stage;
+    const uint64_t ad = opaque(a0);
+    const uint64_t bk = desc_at(opaque(bk0), so);
+    const uint64_t bm = desc_at(opaque(bm0), so);
+    fence_regs(p);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t kb = (kk >> 2) * RC * 128 + (kk & 3) * 32;
+      if constexpr (ROLE == 0)
+        mma_ss_n64<0, 0>(
+            p, desc_at(ad, (kk >> 2) * FB * 128 + (kk & 3) * 32),
+            desc_at(bk, kb), kk > 0);
+      else
+        mma_ss_n64<1, 0>(p, desc_at(ad, kk * 2048), desc_at(bk, kb),
+                         kk > 0);
+    }
+    wg_commit();
+    // While the product runs: the hidden-mask bits, none past the split.
+    uint32_t kept = 0;
+    if constexpr (ROLE == 0) {
+      uint32_t index[32];
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        index[r] = (uint32_t)(row0 + 8 * (r >> 2) + 2 * (lane & 3) +
+                              (r & 1)) * (uint32_t)f +
+                   fc0 + 8 * ((r >> 1) & 1);
+      kept = keep_bits<32>(dp1, index);
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        kept &= ~((uint32_t)(row0 + 8 * (r >> 2) + 2 * (lane & 3) +
+                             (r & 1) >= r_end) << r);
+    }
+    wg_wait0();
+    fence_regs(p);
+
+    if constexpr (ROLE == 0) {
+      // p: z1^T (F rows, chunk rows as columns) -> keep * act'(z1 + b1).
+      if (act == 0)
+        hidden_tile<0>(p, xh + buf * 16 * kWG + t, bias, kept, dp1.scale);
+      else
+        hidden_tile<1>(p, xh + buf * 16 * kWG + t, bias, kept, dp1.scale);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 32; r += 2)
+        xd[(buf * 16 + r / 2) * kWG + t] = pack_bf16(p[r], p[r + 1]);
+    }
+    named_sync(1, 2 * kWG);
+    if constexpr (ROLE == 0) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const float2 d2 = unpack_bf16(xd[(buf * 16 + q) * kWG + t]);
+        const float lo = d2.x * p[2 * q], hi = d2.y * p[2 * q + 1];
+        db1s[q & 1] += lo + hi;
+        a[q >> 2][q & 3] = pack_bf16(lo, hi);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        a[q >> 2][q & 3] = xh[(buf * 16 + q) * kWG + t];
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(a[kk]);
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs_d<D>(acc, a[kk], desc_at(bm, kk * 2048));
+    wg_commit();
+    wg_wait0();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(base + L.empty + 8 * s);
+    if (ROLE == 1 && t == 0 && i + kStagesB < chunks) {
+      mbar_wait(base + L.empty + 8 * s, (i / kStagesB) & 1);
+      load_chunk<D>(L, base, xn_map, dy_map, s, row0 + kStagesB * RC);
+    }
+  }
+
+  // The split's partials. acc: rows = F columns of the tile, cols = D.
+  const int fr = 16 * warp + lane / 4;
+  if constexpr (ROLE == 0) {
+    float* p1 = dw1p + ((size_t)split * f + f0) * D;
+#pragma unroll
+    for (int r = 0; r < D / 2; r += 2) {
+      const int m = fr + 8 * ((r >> 1) & 1);
+      const int c = 8 * (r >> 2) + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(p1 + (size_t)m * D + c) =
+          make_float2(acc[r], acc[r + 1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = db1s[h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if ((lane & 3) == 0) db1p[(size_t)split * f + f0 + fr + 8 * h] = v;
+    }
+  } else {
+    float* p2 = dw2p + (size_t)split * D * f + f0;
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) {
+      const int m = fr + 8 * ((r >> 1) & 1);
+      const int c = 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
+      p2[(size_t)c * f + m] = acc[r];
+    }
+  }
+}
+
+// Pass B (F-parallel, owns dW1, dW2 and db1): block (F tile, row split),
+// two warpgroups. Per chunk of RC rows, warpgroup 0 computes z1^T = W1t
+// xn^T, hands h^T = drop1(act(z1 + b1)) (zero past the split's rows) to
+// warpgroup 1 and takes dh^T from it, forms dz1^T = drop1(dh^T) act'(z1 +
+// b1) and adds dW1t += dz1^T xn and db1; warpgroup 1 computes dh^T =
+// W2t^T dy2^T and adds dW2t^T += h^T dy2. Both weight sums stay in
+// registers over the whole split and are written as the split's partials.
+template <int D>
+__global__ void __launch_bounds__(2 * kWG, 1)
+bwd_weights(const __grid_constant__ CUtensorMap w1_map,
+            const __grid_constant__ CUtensorMap w2_map,
+            const __grid_constant__ CUtensorMap xn_map,
+            const __grid_constant__ CUtensorMap dy_map,
+            const float* __restrict__ b1, float* __restrict__ dw1p,
+            float* __restrict__ dw2p, float* __restrict__ db1p, int n,
+            int f, int rows_per_split, int act, Drop dp1) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const LayoutB L = layout_b(D);
   const int f0 = blockIdx.x * FB, split = blockIdx.y;
   const int r_begin = split * rows_per_split;
   const int r_end = min(n, r_begin + rows_per_split);
-
-  stage_weights(w1, w2, w1s, L.ldw1, w2s, L.ldw2, f0, FB, d, f);
-  for (int i = tid; i < FB * L.ld1; i += kThreads) a1[i] = 0.0f;
-  for (int i = tid; i < d * L.ld2; i += kThreads) a2[i] = 0.0f;
-  for (int i = tid; i < FB; i += kThreads) sb1[i] = 0.0f;
-  // The write-out below maps a1/a2 to threads otherwise than the zeroing.
+  const int chunks = (r_end - r_begin + RC - 1) / RC;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStagesB; ++s) {
+      mbar_init(base + L.full + 8 * s, 1);
+      mbar_init(base + L.empty + 8 * s, 8);
+    }
+    mbar_init(base + L.wbar, 1);
+    mbar_init_fence();
+    const uint32_t wb = base + L.wbar;
+    mbar_expect_tx(wb, 2 * L.w2);
+    for (int c = 0; c < D / 64; ++c) {
+      tma_load_2d(base + c * FB * 128, &w1_map, wb, c * 64, f0);
+      tma_load_2d(base + L.w2 + c * 64 * 128, &w2_map, wb, f0, c * 64);
+    }
+    for (int i = 0; i < kStagesB && i < chunks; ++i)
+      load_chunk<D>(L, base, &xn_map, &dy_map, i, r_begin + i * RC);
+  }
   __syncthreads();
-
-  constexpr int rt_n = RB / 16, ct_n = FB / 16;
-  const int dt_n = d / 16;
-  for (int row0 = r_begin; row0 < r_end; row0 += RB) {
-    stage_rows<bf>(xn_g, xn, L.ldx, row0, RB, r_end, d);
-    stage_rows<bf>(dy2_g, dyc, L.ldx, row0, RB, r_end, d);
-    __syncthreads();
-
-    // zf = xn @ W1_tile^T and dhf = dy2 @ W2_tile, [RB, FB] each.
-    for (int t = warp; t < 2 * rt_n * ct_n; t += kWarps) {
-      const int which = t / (rt_n * ct_n), u = t % (rt_n * ct_n);
-      const int rt = u / ct_n, ct = u % ct_n;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.0f);
-      if (which == 0) {
-        mma_tile<wmma::row_major, wmma::col_major>(
-            c, xn + rt * 16 * L.ldx, 1, L.ldx, w1s + ct * 16 * L.ldw1, 1,
-            L.ldw1, d);
-        wmma::store_matrix_sync(zf + rt * 16 * L.ldt + ct * 16, c, L.ldt,
-                                wmma::mem_row_major);
-      } else {
-        mma_tile<wmma::row_major, wmma::row_major>(
-            c, dyc + rt * 16 * L.ldx, 1, L.ldx, w2s + ct * 16, L.ldw2,
-            L.ldw2, d);
-        wmma::store_matrix_sync(dhf + rt * 16 * L.ldt + ct * 16, c, L.ldt,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncthreads();
-
-    // The hidden and dz1 of the tile; dhf keeps the fp32 dz1 for db1.
-    for (int i = tid; i < RB * FB; i += kThreads) {
-      const int r = i / FB, j = i % FB, gr = row0 + r;
-      float hv = 0.0f, dzv = 0.0f;
-      if (gr < r_end) {
-        const uint32_t idx = (uint32_t)gr * (uint32_t)f + f0 + j;
-        const float z = zf[r * L.ldt + j] + b1[f0 + j];
-        const float keep = drop(dp1, idx, 1.0f);    // 1/keep or 0
-        hv = act_fn(z, act) * keep;
-        dzv = dhf[r * L.ldt + j] * keep * act_deriv(z, act);
-      }
-      hc[r * L.ldh + j] = __float2bfloat16(hv);
-      dz[r * L.ldh + j] = __float2bfloat16(dzv);
-      dhf[r * L.ldt + j] = dzv;
-    }
-    __syncthreads();
-
-    // a1[FB, D] += dz^T @ xn and a2[D, FB] += dy2^T @ h (depth RB).
-    for (int t = warp; t < 2 * ct_n * dt_n; t += kWarps) {
-      const int which = t / (ct_n * dt_n), u = t % (ct_n * dt_n);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (which == 0) {
-        const int jt = u / dt_n, dtile = u % dt_n;
-        float* cp = a1 + jt * 16 * L.ld1 + dtile * 16;
-        wmma::load_matrix_sync(c, cp, L.ld1, wmma::mem_row_major);
-        mma_tile<wmma::col_major, wmma::row_major>(
-            c, dz + jt * 16, L.ldh, L.ldh, xn + dtile * 16, L.ldx, L.ldx,
-            RB);
-        wmma::store_matrix_sync(cp, c, L.ld1, wmma::mem_row_major);
-      } else {
-        const int dtile = u / ct_n, jt = u % ct_n;
-        float* cp = a2 + dtile * 16 * L.ld2 + jt * 16;
-        wmma::load_matrix_sync(c, cp, L.ld2, wmma::mem_row_major);
-        mma_tile<wmma::col_major, wmma::row_major>(
-            c, dyc + dtile * 16, L.ldx, L.ldx, hc + jt * 16, L.ldh, L.ldh,
-            RB);
-        wmma::store_matrix_sync(cp, c, L.ld2, wmma::mem_row_major);
-      }
-    }
-    for (int j = tid; j < FB; j += kThreads) {
-      float s = 0.0f;
-      for (int r = 0; r < RB; ++r) s += dhf[r * L.ldt + j];
-      sb1[j] += s;
-    }
-    __syncthreads();
-  }
-  float* p1 = dw1p + (size_t)split * f * d;
-  float* p2 = dw2p + (size_t)split * d * f;
-  for (int i = tid; i < FB * d; i += kThreads) {
-    const int j = i / d, c = i % d;
-    p1[(size_t)(f0 + j) * d + c] = a1[j * L.ld1 + c];
-  }
-  for (int i = tid; i < d * FB; i += kThreads) {
-    const int c = i / FB, j = i % FB;
-    p2[(size_t)c * f + f0 + j] = a2[c * L.ld2 + j];
-  }
-  for (int j = tid; j < FB; j += kThreads)
-    db1p[(size_t)split * f + f0 + j] = sb1[j];
+  const int wid = warp_uniform(tid / 32);
+  if (wid < 4)
+    weights_role<D, 0>(L, smem, base, tid % kWG, wid, tid % 32, &xn_map,
+                       &dy_map, b1, dw1p, dw2p, db1p, f, f0, split, r_begin,
+                       r_end, chunks, act, dp1);
+  else
+    weights_role<D, 1>(L, smem, base, tid % kWG, wid - 4, tid % 32, &xn_map,
+                       &dy_map, b1, dw1p, dw2p, db1p, f, f0, split, r_begin,
+                       r_end, chunks, act, dp1);
 }
-}  // namespace bf16k
+}  // namespace bwd16
 
 // ---------------------------------------------------------------- fp32 ---
 namespace f32k {
@@ -932,10 +1279,10 @@ ln_ffn_bwd_rows(const float* __restrict__ x, const float* __restrict__ dy,
     __syncthreads();
   }
   if (g != nullptr)
-    ln_vjp_rows<float>(x, dy, g, acc, L.lda, mu, rstd, dx, dgp + part,
-                       dblp + part, row0, ROWS, n, d);
+    ln_vjp_rows<float>(threadIdx.x, x, dy, g, acc, L.lda, mu, rstd, dx,
+                       dgp + part, dblp + part, row0, ROWS, n, d);
   else
-    store_acc<float>(acc, L.lda, dx, row0, ROWS, n, d);
+    store_acc<float>(threadIdx.x, acc, L.lda, dx, row0, ROWS, n, d);
 }
 
 struct LayoutB {
@@ -1104,16 +1451,18 @@ Drop make_drop(unsigned key, int thresh, float scale) {
   return dp;
 }
 
-// Rows of one pass-B split: enough splits for about two blocks per SM,
-// each a whole number of kChunkB-row chunks.
+// fp32 pass B: rows of one split, enough splits for about two blocks per
+// SM, each a whole number of kChunkF32-row chunks.
+constexpr int kChunkF32 = 64;
+
 int bwd_rows_per_split(int n, int f) {
   const int tiles = f / kBwdFtB;
   int s = (2 * 132 + tiles - 1) / tiles;
-  const int chunks = (n + bf16k::kChunkB - 1) / bf16k::kChunkB;
+  const int chunks = (n + kChunkF32 - 1) / kChunkF32;
   if (s > chunks) s = chunks;
   if (s < 1) s = 1;
   const int per = (chunks + s - 1) / s;
-  return per * bf16k::kChunkB;
+  return per * kChunkF32;
 }
 
 // Row splits of pass B, counted after the rounding above, so that every
@@ -1124,14 +1473,31 @@ int bwd_splits(int n, int f) {
   return s < 1 ? 1 : s;
 }
 
-size_t bwd_a_bytes(int dtype, int d) {
-  return dtype == 1 ? bf16k::layout_a(kBwdRows, d).bytes
-                    : f32k::layout_a(kBwdRows, d).bytes;
+// The bf16 backward's schedule. Pass A: two 64-row warpgroups a block
+// while that still gives a block to every SM, else one (N = 8448 fills
+// 132 SMs only with 64-row blocks). Pass B: F / 64 tiles times as many
+// row splits as fill one wave of one block an SM, each split a whole
+// number of RC-row chunks; every split holds at least one row.
+struct Plan16 {
+  int nwg, units, rows_per_split, splits;
+};
+
+Plan16 plan16(int n, int f) {
+  Plan16 p;
+  p.nwg = (n + 127) / 128 >= 132 ? 2 : 1;
+  const int rows = 64 * p.nwg;
+  p.units = (n + rows - 1) / rows * p.nwg;
+  const int tiles = f / bwd16::FB;
+  const int chunks = (n + bwd16::RC - 1) / bwd16::RC;
+  int s = 132 / tiles;
+  if (s > chunks) s = chunks;
+  if (s < 1) s = 1;
+  p.rows_per_split = (chunks + s - 1) / s * bwd16::RC;
+  p.splits = (n + p.rows_per_split - 1) / p.rows_per_split;
+  return p;
 }
 
-size_t bwd_b_bytes(int dtype, int d) {
-  return dtype == 1 ? bf16k::layout_b(d).bytes : f32k::layout_b(d).bytes;
-}
+bool bf16_width(int d) { return d == 64 || d == 128 || d == 256; }
 
 int fwd_rows(int dtype, int d) {
   for (int rows = 32; rows >= 16; rows /= 2) {
@@ -1178,31 +1544,56 @@ int launch_fwd(int dtype, const void* x, const void* g, const void* bl,
   return (int)cudaGetLastError();
 }
 
-// fp32 workspace of the backward (floats): per pass-A block the db2
-// partials (and with the LayerNorm the dgamma and dbeta ones), per pass-B
-// split dW1, dW2 and db1; 0 when the layouts do not fit this width.
+// fp32 workspace of the backward (floats): per pass-A block (bf16: per
+// 64-row unit) the db2 partials (and with the LayerNorm the dgamma and
+// dbeta ones), per pass-B split dW1, dW2 and db1; 0 when the kernels do
+// not take this width.
 long long bwd_workspace(int dtype, int n, int d, int f, bool ln) {
-  if (bwd_a_bytes(dtype, d) > kMaxSmem || bwd_b_bytes(dtype, d) > kMaxSmem)
-    return 0;
-  const long long blocks = (n + kBwdRows - 1) / kBwdRows;
-  const long long splits = bwd_splits(n, f);
-  return (ln ? 3 : 1) * blocks * d + splits * (2LL * f * d + f);
+  long long units, splits;
+  if (dtype == 1) {
+    if (!bf16_width(d) || f % bwd16::FB) return 0;
+    const Plan16 p = plan16(n, f);
+    units = p.units;
+    splits = p.splits;
+  } else {
+    if (f32k::layout_a(kBwdRows, d).bytes > kMaxSmem ||
+        f32k::layout_b(d).bytes > kMaxSmem)
+      return 0;
+    units = (n + kBwdRows - 1) / kBwdRows;
+    splits = bwd_splits(n, f);
+  }
+  return (ln ? 3 : 1) * units * d + splits * (2LL * f * d + f);
 }
 
-// The backward of both functions; g == nullptr selects ffn_fused (bl, dg,
-// dbl, rows_buf and ff_scale unused, dp2 keeps everything): pass B then
-// reads x and dy, which are its LN(x) and dy2.
-template <typename T, typename KA, typename KB>
-int launch_bwd(KA ka, KB kb, const T* x, const T* dy, const float* g,
-               const float* bl, const T* w1, const float* b1, const T* w2,
-               T* dx, float* dg, float* dbl, float* dw1, float* db1,
-               float* dw2, float* db2, float* ws, T* rows_buf, int n, int d,
-               int f, float ff_scale, float eps, int act, Drop dp1, Drop dp2,
-               cudaStream_t s) {
+// The cross-block sums, each in a fixed order.
+int sum_all(bool ln, float* dgp, float* dblp, float* db2p, float* dw1p,
+            float* dw2p, float* db1p, float* dg, float* dbl, float* dw1,
+            float* db1, float* dw2, float* db2, int units, int splits, int d,
+            int f, cudaStream_t s) {
+  cudaError_t e;
+  if (ln) {
+    if ((e = sum_into(dgp, dg, units, d, s)) != cudaSuccess) return (int)e;
+    if ((e = sum_into(dblp, dbl, units, d, s)) != cudaSuccess) return (int)e;
+  }
+  if ((e = sum_into(db2p, db2, units, d, s)) != cudaSuccess) return (int)e;
+  if ((e = sum_into(dw1p, dw1, splits, f * d, s)) != cudaSuccess)
+    return (int)e;
+  if ((e = sum_into(dw2p, dw2, splits, f * d, s)) != cudaSuccess)
+    return (int)e;
+  return (int)sum_into(db1p, db1, splits, f, s);
+}
+
+// The fp32 backward; g == nullptr selects ffn_fused (bl, dg, dbl,
+// rows_buf and ff_scale unused, dp2 keeps everything): pass B then reads x
+// and dy, which are its LN(x) and dy2.
+int launch_bwd_f32(const float* x, const float* dy, const float* g,
+                   const float* bl, const float* w1, const float* b1,
+                   const float* w2, float* dx, float* dg, float* dbl,
+                   float* dw1, float* db1, float* dw2, float* db2, float* ws,
+                   float* rows_buf, int n, int d, int f, float ff_scale,
+                   float eps, int act, Drop dp1, Drop dp2, cudaStream_t s) {
   const bool ln = g != nullptr;
-  const int dtype = sizeof(T) == 2 ? 1 : 0;
-  if (bwd_workspace(dtype, n, d, f, ln) == 0)
-    return (int)cudaErrorInvalidValue;
+  if (bwd_workspace(0, n, d, f, ln) == 0) return (int)cudaErrorInvalidValue;
   const int blocks = (n + kBwdRows - 1) / kBwdRows;
   const int splits = bwd_splits(n, f);
   const int rows_per_split = bwd_rows_per_split(n, f);
@@ -1212,9 +1603,12 @@ int launch_bwd(KA ka, KB kb, const T* x, const T* dy, const float* g,
   float* dw1p = db2p + (size_t)(ln ? 3 : 1) * blocks * d;
   float* dw2p = dw1p + (size_t)splits * f * d;
   float* db1p = dw2p + (size_t)splits * f * d;
-  T* xn_out = ln ? rows_buf : nullptr;
-  T* dy2_out = ln ? rows_buf + (size_t)n * d : nullptr;
-  const size_t a_bytes = bwd_a_bytes(dtype, d), b_bytes = bwd_b_bytes(dtype, d);
+  float* xn_out = ln ? rows_buf : nullptr;
+  float* dy2_out = ln ? rows_buf + (size_t)n * d : nullptr;
+  const size_t a_bytes = f32k::layout_a(kBwdRows, d).bytes;
+  const size_t b_bytes = f32k::layout_b(d).bytes;
+  auto ka = f32k::ln_ffn_bwd_rows<kBwdRows>;
+  auto kb = f32k::ln_ffn_bwd_weights;
   cudaError_t e;
   if ((e = set_smem(ka, a_bytes)) != cudaSuccess) return (int)e;
   if ((e = set_smem(kb, b_bytes)) != cudaSuccess) return (int)e;
@@ -1226,16 +1620,101 @@ int launch_bwd(KA ka, KB kb, const T* x, const T* dy, const float* g,
       ln ? xn_out : x, ln ? dy2_out : dy, w1, b1, w2, dw1p, dw2p, db1p, n, d,
       f, rows_per_split, act, dp1);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if (ln) {
-    if ((e = sum_into(dgp, dg, blocks, d, s)) != cudaSuccess) return (int)e;
-    if ((e = sum_into(dblp, dbl, blocks, d, s)) != cudaSuccess) return (int)e;
+  return sum_all(ln, dgp, dblp, db2p, dw1p, dw2p, db1p, dg, dbl, dw1, db1,
+                 dw2, db2, blocks, splits, d, f, s);
+}
+
+// libcuda's cuTensorMapEncodeTiled, looked up at run time through the
+// CUDA runtime (no -lcuda at build time).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
   }
-  if ((e = sum_into(db2p, db2, blocks, d, s)) != cudaSuccess) return (int)e;
-  if ((e = sum_into(dw1p, dw1, splits, f * d, s)) != cudaSuccess)
-    return (int)e;
-  if ((e = sum_into(dw2p, dw2, splits, f * d, s)) != cudaSuccess)
-    return (int)e;
-  return (int)sum_into(db1p, db1, splits, f, s);
+  return fn;
+}
+
+// A 2-D bf16 row-major [rows, cols] tensor read in boxes of
+// [box_rows, box_cols]; rows past the end read as zeros.
+bool tensor_map(CUtensorMap* m, const void* ptr, int rows, int cols,
+                int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The bf16 backward at width D (see launch_bwd_f32 for g == nullptr).
+template <int D>
+int launch_bwd_bf16(const bf16k::bf* x, const bf16k::bf* dy, const float* g,
+                    const float* bl, const bf16k::bf* w1, const float* b1,
+                    const bf16k::bf* w2, bf16k::bf* dx, float* dg,
+                    float* dbl, float* dw1, float* db1, float* dw2,
+                    float* db2, float* ws, bf16k::bf* rows_buf, int n, int f,
+                    float ff_scale, float eps, int act, Drop dp1, Drop dp2,
+                    cudaStream_t s) {
+  using bf = bf16k::bf;
+  constexpr int d = D;
+  const bool ln = g != nullptr;
+  const Plan16 p = plan16(n, f);
+  float* db2p = ws;
+  float* dgp = ln ? db2p + (size_t)p.units * d : nullptr;
+  float* dblp = ln ? dgp + (size_t)p.units * d : nullptr;
+  float* dw1p = db2p + (size_t)(ln ? 3 : 1) * p.units * d;
+  float* dw2p = dw1p + (size_t)p.splits * f * d;
+  float* db1p = dw2p + (size_t)p.splits * f * d;
+  bf* xn_out = ln ? rows_buf : nullptr;
+  bf* dy2_out = ln ? rows_buf + (size_t)n * d : nullptr;
+  CUtensorMap w1a, w2a, w1b, w2b, xm, dm;
+  const CUtensorMapSwizzle sw128 = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!tensor_map(&w1a, w1, f, d, bwd16::FT, 64, sw128) ||
+      !tensor_map(&w2a, w2, d, f, d, bwd16::FT, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !tensor_map(&w1b, w1, f, d, bwd16::FB, 64, sw128) ||
+      !tensor_map(&w2b, w2, d, f, 64, bwd16::FB, sw128) ||
+      !tensor_map(&xm, ln ? xn_out : x, n, d, bwd16::RC, 64, sw128) ||
+      !tensor_map(&dm, ln ? dy2_out : dy, n, d, bwd16::RC, 64, sw128))
+    return (int)cudaErrorInvalidValue;
+  const int stages = p.nwg == 2 ? 3 : 4;
+  const size_t a_bytes =
+      bwd16::layout_a(64 * p.nwg, d, stages).bytes + 1024;
+  const size_t b_bytes = bwd16::layout_b(d).bytes + 1024;
+  auto ka = p.nwg == 2 ? bwd16::bwd_rows<D, 2, 3> : bwd16::bwd_rows<D, 1, 4>;
+  auto kb = bwd16::bwd_weights<D>;
+  cudaError_t e;
+  if ((e = set_smem(ka, a_bytes)) != cudaSuccess) return (int)e;
+  if ((e = set_smem(kb, b_bytes)) != cudaSuccess) return (int)e;
+  ka<<<p.units / p.nwg, p.nwg * bwd16::kWG, a_bytes, s>>>(
+      w1a, w2a, x, dy, g, bl, b1, dx, xn_out, dy2_out, dgp, dblp, db2p, n,
+      f, ff_scale, eps, act, dp1, dp2);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  kb<<<dim3(f / bwd16::FB, p.splits), 2 * bwd16::kWG, b_bytes, s>>>(
+      w1b, w2b, xm, dm, b1, dw1p, dw2p, db1p, n, f, p.rows_per_split, act,
+      dp1);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  return sum_all(ln, dgp, dblp, db2p, dw1p, dw2p, db1p, dg, dbl, dw1, db1,
+                 dw2, db2, p.units, p.splits, d, f, s);
 }
 
 int launch_bwd_any(int dtype, const void* x, const void* dy, const void* g,
@@ -1248,21 +1727,23 @@ int launch_bwd_any(int dtype, const void* x, const void* dy, const void* g,
   const float* gf = static_cast<const float*>(g);
   const float* blf = static_cast<const float*>(bl);
   const float* b1f = static_cast<const float*>(b1);
-  if (dtype == 1) {
-    using bf = __nv_bfloat16;
-    return launch_bwd<bf>(
-        bf16k::ln_ffn_bwd_rows<kBwdRows>, bf16k::ln_ffn_bwd_weights,
-        static_cast<const bf*>(x), static_cast<const bf*>(dy), gf, blf,
-        static_cast<const bf*>(w1), b1f, static_cast<const bf*>(w2),
-        static_cast<bf*>(dx), dg, dbl, dw1, db1, dw2, db2, ws,
-        static_cast<bf*>(rows_buf), n, d, f, ff_scale, eps, act, dp1, dp2, s);
-  }
-  return launch_bwd<float>(
-      f32k::ln_ffn_bwd_rows<kBwdRows>, f32k::ln_ffn_bwd_weights,
-      static_cast<const float*>(x), static_cast<const float*>(dy), gf, blf,
-      static_cast<const float*>(w1), b1f, static_cast<const float*>(w2),
-      static_cast<float*>(dx), dg, dbl, dw1, db1, dw2, db2, ws,
-      static_cast<float*>(rows_buf), n, d, f, ff_scale, eps, act, dp1, dp2, s);
+  if (dtype == 0)
+    return launch_bwd_f32(
+        static_cast<const float*>(x), static_cast<const float*>(dy), gf, blf,
+        static_cast<const float*>(w1), b1f, static_cast<const float*>(w2),
+        static_cast<float*>(dx), dg, dbl, dw1, db1, dw2, db2, ws,
+        static_cast<float*>(rows_buf), n, d, f, ff_scale, eps, act, dp1, dp2,
+        s);
+  using bf = bf16k::bf;
+  if (bwd_workspace(1, n, d, f, gf != nullptr) == 0)
+    return (int)cudaErrorInvalidValue;
+  auto run = d == 64 ? launch_bwd_bf16<64>
+             : d == 128 ? launch_bwd_bf16<128> : launch_bwd_bf16<256>;
+  return run(static_cast<const bf*>(x), static_cast<const bf*>(dy), gf, blf,
+             static_cast<const bf*>(w1), b1f, static_cast<const bf*>(w2),
+             static_cast<bf*>(dx), dg, dbl, dw1, db1, dw2, db2, ws,
+             static_cast<bf*>(rows_buf), n, f, ff_scale, eps, act, dp1, dp2,
+             s);
 }
 
 }  // namespace

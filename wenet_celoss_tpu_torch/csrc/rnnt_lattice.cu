@@ -29,7 +29,16 @@
 // come by warp shuffle, across the 32-column seam from lane 31 or lane 0
 // of the neighbouring register. The plane values of the next diagonal are
 // loaded while the current one is computed, so the loads' latency leaves
-// the dependent chain. Plain C interface, bound with ctypes.
+// the dependent chain.
+//
+// Rows wider than a warp's 256 columns (U1 > 256): one block a batch row,
+// ceil(U1 / 256) warps, warp k holding columns [256 k, 256 k + 256) as
+// above. The column that crosses a warp seam (alpha's u - 1, beta's u + 1
+// from the previous diagonal) goes through shared memory: each warp
+// publishes its edge value of a diagonal into one of two buffers (by the
+// diagonal's parity) and one block barrier a diagonal orders the writes
+// before the neighbour's read. A block holds at most 32 warps, so U1 <=
+// 8192. Plain C interface, bound with ctypes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,7 +48,8 @@ namespace {
 constexpr float kLogZero = -1.0e6f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 2;     // batch rows per block
-constexpr int kMaxNC = 8;     // columns per lane: U1 <= 256
+constexpr int kMaxNC = 8;     // columns per lane: 256 a warp
+constexpr int kMaxWarps = 32; // warps of a wide row: U1 <= 8192
 
 __device__ __forceinline__ float lae(float a, float b) {
   return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
@@ -156,6 +166,103 @@ lattice(const float* __restrict__ blank, const float* __restrict__ emit,
   }
 }
 
+// A batch row wider than 256 columns: block b, blockDim.x / 32 warps, warp
+// k holding columns [256 k, 256 k + 256); the seam columns cross between
+// warps through `edge` (see the header). load_alpha / load_beta take the
+// lane's first column in place of the lane.
+__global__ void __launch_bounds__(32 * kMaxWarps)
+lattice_wide(const float* __restrict__ blank, const float* __restrict__ emit,
+             const int* __restrict__ tlen, const int* __restrict__ ulen,
+             float* __restrict__ alpha, float* __restrict__ beta, int T,
+             int U1) {
+  constexpr int NC = kMaxNC;
+  __shared__ float edge[2][kMaxWarps];
+  const int lane = threadIdx.x & 31, k = threadIdx.x / 32;
+  const int warps = blockDim.x / 32, col = 32 * NC * k + lane;
+  const int b = blockIdx.x;
+  const size_t base = (size_t)b * T * U1;
+  const float* bl = blank + base;
+  const float* em = emit + base;
+  float* al = alpha + base;
+  float* be = beta + base;
+  const int D = T + U1 - 1;
+  float cur[NC], cb[NC], ce[NC], nb[NC], ne[NC];
+
+  // ---- alpha: diagonal 0 holds the one cell (0, 0) = 0.
+#pragma unroll
+  for (int j = 0; j < NC; ++j) cur[j] = col + 32 * j == 0 ? 0.0f : kLogZero;
+  if (threadIdx.x == 0) al[0] = 0.0f;
+  if (lane == 31) edge[0][k] = cur[NC - 1];
+  __syncthreads();
+  if (D > 1) load_alpha<NC>(bl, em, 1, col, T, U1, nb, ne);
+  for (int d = 1; d < D; ++d) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      cb[j] = nb[j];
+      ce[j] = ne[j];
+    }
+    if (d + 1 < D) load_alpha<NC>(bl, em, d + 1, col, T, U1, nb, ne);
+    const float in = k > 0 ? edge[(d - 1) & 1][k - 1] : kLogZero;
+    float left[NC];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const float up = __shfl_up_sync(kFull, cur[j], 1);
+      const float seam = j > 0 ? __shfl_sync(kFull, cur[j > 0 ? j - 1 : 0],
+                                             31)
+                               : in;
+      left[j] = lane == 0 ? seam : up;
+    }
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int u = col + 32 * j, t = d - u;
+      const bool valid = u < U1 && t >= 0 && t < T;
+      const float v = lae(cur[j] + cb[j], left[j] + ce[j]);
+      cur[j] = valid ? v : kLogZero;
+      if (valid) al[t * U1 + u] = cur[j];
+    }
+    if (lane == 31) edge[d & 1][k] = cur[NC - 1];
+    __syncthreads();
+  }
+
+  // ---- beta: descending; the diagonal past the last is all LOG_ZERO.
+  const int tb = tlen[b], ub = ulen[b];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) cur[j] = kLogZero;
+  if (lane == 0) edge[D & 1][k] = kLogZero;
+  __syncthreads();
+  load_beta<NC>(bl, em, D - 1, col, T, U1, nb, ne);
+  for (int d = D - 1; d >= 0; --d) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      cb[j] = nb[j];
+      ce[j] = ne[j];
+    }
+    if (d > 0) load_beta<NC>(bl, em, d - 1, col, T, U1, nb, ne);
+    const float in = k + 1 < warps ? edge[(d + 1) & 1][k + 1] : kLogZero;
+    float right[NC];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const float down = __shfl_down_sync(kFull, cur[j], 1);
+      const float seam =
+          j + 1 < NC ? __shfl_sync(kFull, cur[j + 1 < NC ? j + 1 : j], 0)
+                     : in;
+      right[j] = lane == 31 ? seam : down;
+    }
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int u = col + 32 * j, t = d - u;
+      const float vb = t + 1 < tb ? cb[j] + cur[j] : kLogZero;
+      const float ve = u + 1 <= ub ? ce[j] + right[j] : kLogZero;
+      float v = t == tb - 1 && u == ub ? cb[j] : lae(vb, ve);
+      const bool valid = u < U1 && t >= 0 && t < tb && u <= ub;
+      cur[j] = valid ? v : kLogZero;
+      if (u < U1 && t >= 0 && t < T) be[t * U1 + u] = cur[j];
+    }
+    if (lane == 0) edge[d & 1][k] = cur[0];
+    __syncthreads();
+  }
+}
+
 template <int NC>
 cudaError_t launch(const float* blank, const float* emit, const int* tlen,
                    const int* ulen, float* alpha, float* beta, int B, int T,
@@ -170,15 +277,21 @@ cudaError_t launch(const float* blank, const float* emit, const int* tlen,
 extern "C" {
 
 // blank, emit, alpha, beta: [B, T, U1] fp32 contiguous; tlen, ulen: [B]
-// int32. Shape checks are the caller's (ops/rnnt_loss.py). Returns a
-// cudaError_t code; 0 is success.
+// int32; U1 <= 8192. Shape checks are the caller's (ops/rnnt_loss.py).
+// Returns a cudaError_t code; 0 is success.
 int rnnt_lattice(const float* blank, const float* emit, const int* tlen,
                  const int* ulen, float* alpha, float* beta, int B, int T,
                  int U1, void* stream) {
-  if (B < 0 || T < 1 || U1 < 1 || U1 > 32 * kMaxNC)
+  if (B < 0 || T < 1 || U1 < 1 || U1 > 32 * kMaxNC * kMaxWarps)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (U1 > 32 * kMaxNC) {
+    const int warps = (U1 + 32 * kMaxNC - 1) / (32 * kMaxNC);
+    lattice_wide<<<B, 32 * warps, 0, s>>>(blank, emit, tlen, ulen, alpha,
+                                          beta, T, U1);
+    return (int)cudaGetLastError();
+  }
   switch ((U1 + 31) / 32) {
     case 1: return (int)launch<1>(blank, emit, tlen, ulen, alpha, beta, B, T, U1, s);
     case 2: return (int)launch<2>(blank, emit, tlen, ulen, alpha, beta, B, T, U1, s);

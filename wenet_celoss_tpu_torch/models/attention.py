@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from wenet_celoss_tpu_torch.models.layers import Dense
 from wenet_celoss_tpu_torch.ops import ln_matmul as lnmm
 from wenet_celoss_tpu_torch.ops.dropout import dropout
+from wenet_celoss_tpu_torch.utils.common import acc_dtype
 
 # Additive mask value (an attention bias of 0 keeps a key, NEG_INF drops
 # it). exp(NEG_INF - max) underflows to exactly 0 in the fp32 softmax.
@@ -101,7 +102,8 @@ class MultiHeadedAttention(nn.Module):
             scores = scores + mask[:, None].to(scores.dtype)
         elif mask is not None:
             scores = scores.masked_fill(~mask[:, None], NEG_INF)
-        attn = torch.softmax(scores.float(), dim=-1).to(dtype)
+        attn = torch.softmax(scores.to(acc_dtype(scores.dtype)),
+                             dim=-1).to(dtype)
         if mask is not None and not additive:
             attn = attn.masked_fill(~mask[:, None], 0.0)
         attn = dropout(attn, self.dropout_rate, gen)

@@ -8,6 +8,7 @@ import torch.nn as nn
 
 from wenet_celoss_tpu_torch.models.layers import Dense
 from wenet_celoss_tpu_torch.ops.ctc_loss import ctc_loss
+from wenet_celoss_tpu_torch.utils.common import acc_dtype
 
 
 class CTC(nn.Module):
@@ -24,4 +25,5 @@ class CTC(nn.Module):
         return losses.sum() / hs_pad.shape[0]
 
     def log_softmax(self, hs_pad) -> torch.Tensor:
-        return torch.log_softmax(self.ctc_lo(hs_pad).float(), dim=-1)
+        logits = self.ctc_lo(hs_pad)
+        return torch.log_softmax(logits.to(acc_dtype(logits.dtype)), dim=-1)

@@ -36,8 +36,8 @@ class TransformerEncoder(nn.Module):
                  normalize_before: bool = True,
                  cmvn: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                  dtype: Optional[torch.dtype] = None,
-                 dropout_rate: float = 0.0,
-                 positional_dropout_rate: float = 0.0,
+                 dropout_rate: float = 0.1,
+                 positional_dropout_rate: float = 0.1,
                  attention_dropout_rate: float = 0.0, **layer_conf):
         super().__init__()
         pos_enc = pos_enc_layer_type or self.pos_enc_layer_type

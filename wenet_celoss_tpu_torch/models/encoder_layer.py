@@ -49,7 +49,7 @@ class PositionwiseFeedForward(nn.Module):
     ``ops.ffn.ffn_fused`` (K6). Every rate is 0 without a generator."""
 
     def __init__(self, idim: int, hidden_units: int,
-                 activation: str = "relu", dropout_rate: float = 0.0,
+                 activation: str = "relu", dropout_rate: float = 0.1,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.activation = activation
@@ -87,7 +87,7 @@ class TransformerEncoderLayer(nn.Module):
     it."""
 
     def __init__(self, size: int, attention_heads: int, linear_units: int,
-                 dropout_rate: float = 0.0,
+                 dropout_rate: float = 0.1,
                  attention_dropout_rate: float = 0.0,
                  normalize_before: bool = True,
                  dtype: Optional[torch.dtype] = None):
@@ -123,7 +123,7 @@ class ConformerEncoderLayer(nn.Module):
                  macaron_style: bool = True, use_cnn_module: bool = True,
                  cnn_module_kernel: int = 15,
                  cnn_module_norm: str = "batch_norm", causal: bool = False,
-                 activation: str = "swish", dropout_rate: float = 0.0,
+                 activation: str = "swish", dropout_rate: float = 0.1,
                  attention_dropout_rate: float = 0.0,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()

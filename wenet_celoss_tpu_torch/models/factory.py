@@ -66,8 +66,12 @@ def build_model(cfg: Dict[str, Any]) -> Model:
     enc_type = cfg.get("encoder", "conformer")
     if enc_type not in ("conformer", "transformer"):
         raise NotImplementedError(f"encoder {enc_type!r} is not ported")
-    if cfg.get("decoder", "bitransformer") != "bitransformer":
-        raise NotImplementedError(f"decoder {cfg['decoder']!r}")
+    dec_type = cfg.get("decoder", "bitransformer")
+    if dec_type not in ("bitransformer", "transformer"):
+        raise NotImplementedError(f"decoder {dec_type!r} is not ported")
+    dec_conf = dict(cfg.get("decoder_conf", {}))
+    if dec_type == "transformer":   # the left-to-right decoder alone
+        dec_conf.setdefault("r_num_blocks", 0)
     dtype = compute_dtype(cfg)
     vocab = cfg["output_dim"]
     cmvn = None
@@ -81,8 +85,7 @@ def build_model(cfg: Dict[str, Any]) -> Model:
             enc_conf.pop(k, None)
     encoder = enc_cls(cfg["input_dim"], cmvn=cmvn, dtype=dtype, **enc_conf)
     enc_out = enc_conf.get("output_size", 256)
-    decoder = BiTransformerDecoder(vocab, enc_out, dtype=dtype,
-                                   **cfg.get("decoder_conf", {}))
+    decoder = BiTransformerDecoder(vocab, enc_out, dtype=dtype, **dec_conf)
     ctc = CTC(vocab, enc_out)
     if "predictor" not in cfg:
         model_conf = cfg.get("model_conf", {})

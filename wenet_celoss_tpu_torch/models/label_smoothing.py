@@ -9,7 +9,7 @@ import math
 
 import torch
 
-from wenet_celoss_tpu_torch.utils.common import IGNORE_ID
+from wenet_celoss_tpu_torch.utils.common import IGNORE_ID, acc_dtype
 
 
 def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -22,7 +22,7 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
     v = logits.shape[-1]
     confidence = 1.0 - smoothing
     low = smoothing / (v - 1)
-    logq = torch.log_softmax(logits.float(), dim=-1)
+    logq = torch.log_softmax(logits.to(acc_dtype(logits.dtype)), dim=-1)
     mask = targets != ignore_id
     tgt = torch.where(mask, targets, torch.zeros_like(targets))
     p_logp = (confidence * math.log(confidence + 1e-20)

@@ -15,6 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from wenet_celoss_tpu_torch.utils.common import acc_dtype
+
 
 class Dense(nn.Linear):
     """``nn.Linear`` (weight [out, in]) with an optional compute dtype."""
@@ -46,8 +48,9 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.compute_dtype or torch.promote_types(x.dtype,
                                                         torch.float32)
-        y = F.layer_norm(x.float(), self.weight.shape, self.weight,
-                         self.bias, self.eps)
+        y = F.layer_norm(x.to(acc_dtype(x.dtype)), self.weight.shape,
+                         self.weight.to(acc_dtype(x.dtype)),
+                         self.bias.to(acc_dtype(x.dtype)), self.eps)
         return y.to(out)
 
 

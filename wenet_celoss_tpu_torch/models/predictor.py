@@ -31,7 +31,7 @@ class RNNPredictor(nn.Module):
     def __init__(self, voca_size: int, embed_size: int, output_size: int,
                  hidden_size: int = 256, num_layers: int = 2,
                  bias: bool = True, rnn_type: str = "lstm",
-                 embed_dropout: float = 0.0, dropout: float = 0.0,
+                 embed_dropout: float = 0.1, dropout: float = 0.1,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         if rnn_type != "lstm":

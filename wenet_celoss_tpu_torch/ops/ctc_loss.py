@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from wenet_celoss_tpu_torch.utils.common import LOG_ZERO
+from wenet_celoss_tpu_torch.utils.common import LOG_ZERO, acc_dtype
 
 
 def _shift(a: torch.Tensor, k: int) -> torch.Tensor:
@@ -46,7 +46,7 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
     can_skip = (ext != blank) & (ext != ext_m2)
     in_range = k[None, :] < (2 * label_lengths[:, None] + 1)
 
-    emit = torch.gather(log_probs.float(), 2,
+    emit = torch.gather(log_probs.to(acc_dtype(log_probs.dtype)), 2,
                         ext[:, None, :].expand(b, t_max, s))   # [B, T, S]
     zero = torch.full((b, s), LOG_ZERO, device=dev)
     first = torch.zeros((b, s), dtype=torch.bool, device=dev)

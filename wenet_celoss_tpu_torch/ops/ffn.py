@@ -184,8 +184,8 @@ def backward_kernel(x2, dy, g, bl, w1, b1, w2, b2, activation, ff_scale,
     lib = _lib()
     words = lib.ln_ffn_residual_bwd_workspace(dtype, n, d, f)
     if words == 0:
-        raise ValueError(f"D={d} does not fit the backward kernel's "
-                         f"shared memory")
+        raise ValueError(f"D={d} is not a width the backward kernel "
+                         f"takes (bf16: 64, 128, 256)")
     ws = torch.empty(words, **f32)
     rows = torch.empty(2, n, d, dtype=x2.dtype, device=x2.device)
     rc = lib.ln_ffn_residual_bwd(
@@ -304,8 +304,8 @@ def ffn_backward_kernel(x2, dy, w1, b1, w2, b2, activation, rate, seed):
     lib = _lib()
     words = lib.ffn_fused_bwd_workspace(dtype, n, d, f)
     if words == 0:
-        raise ValueError(f"D={d} does not fit the backward kernel's "
-                         f"shared memory")
+        raise ValueError(f"D={d} is not a width the backward kernel "
+                         f"takes (bf16: 64, 128, 256)")
     ws = torch.empty(words, **f32)
     rc = lib.ffn_fused_bwd(
         dtype, x2.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),

@@ -28,9 +28,8 @@ fused and pallas): ``rnnt_loss`` (gradient by autograd through the plain
 lattice) and ``rnnt_loss_pallas`` (K9, loss -beta[0, 0], the closed-form
 occupancy gradient), which serves both "fused" and "pallas".
 
-K9 takes U1 <= 256 columns (transcripts of at most 255 tokens); the JAX
-package's data filter (``token_max_length`` 200) keeps its pipeline inside
-that.
+K9 takes a batch row of up to 256 columns on one warp and a wider one
+(U1 up to 8192, a block's 32 warps of 256) on several warps of one block.
 
 The output layer's weight is in ``torch.nn.Linear`` layout [V, H] (the JAX
 package's kernel is [H, V]); labels are [B, U] ids (0 where padded), not
@@ -377,8 +376,8 @@ def occupancies(blank_lp, emit_lp, alpha, beta, input_lengths,
     return occ_b, occ_e
 
 
-# Columns the lattice kernel takes: a lane holds up to 8 of them.
-MAX_U1 = 256
+# Columns the lattice kernel takes: 8 a lane, 32 warps of a block.
+MAX_U1 = 8192
 
 
 def alpha_beta_ref(blank_lp, emit_lp, input_lengths, label_lengths):

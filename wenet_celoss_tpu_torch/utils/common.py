@@ -11,6 +11,12 @@ IGNORE_ID = -1
 LOG_ZERO = -1.0e6
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type normalisations, softmaxes and losses run in: fp32 for bf16
+    and fp32 inputs, fp64 for fp64 ones (the CPU's float64 reference)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def add_sos_eos(ys_pad: torch.Tensor, ys_lens: torch.Tensor, sos: int,
                 eos: int, ignore_id: int = IGNORE_ID):
     """[B, U] labels padded with ``ignore_id`` → (ys_in [B, U+1] = sos +
