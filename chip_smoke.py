@@ -6,13 +6,16 @@
 Phases, in the order they run, each printing JSON lines:
   env       torch and CUDA versions, the card's name and power limit;
   build     every hand-written kernel, one nvcc per source, all at once;
-  k1, k1_bwd  ln_ffn_residual forward and backward with dropout against
-            its plain version (fp32, bf16, main-path and ragged shapes),
-            the weight pass on ragged splits (same bits every call), both
-            masks' keep rates, times, yardsticks and bounds; the bf16
-            backward and its five-mm yardstick also in card time with the
-            calls back to back, the backward split into pass A, pass B and
-            the partial sums under torch.profiler;
+  k1, k1_bwd  ln_ffn_residual forward and backward with dropout 0 and
+            0.1 against its plain version (fp32, bf16, main-path and
+            ragged shapes; the same bits on a second call), the weight
+            pass on ragged splits (same bits every call), both masks' bits
+            and keep rates in fp32 and bf16 (every hidden column), times,
+            yardsticks and bounds; the bf16 forward at N = 8128 and 32512
+            beside two addmm in card time, under both of its schedules;
+            the bf16 backward and its five-mm yardstick also in card time
+            with the calls back to back, the backward split into pass A,
+            pass B and the partial sums under torch.profiler;
   k2_k3, k4 the streaming joint's and the 2-layer LSTM's kernels the same
             way (same bits over repeated backwards);
   k9        the RNN-T lattice against alpha_scan/beta_scan (B=256 T'=127
@@ -30,7 +33,8 @@ Phases, in the order they run, each printing JSON lines:
             bf16: masked rows the bias, the same bits over 3 backwards;
   k6        ffn_fused (the post-norm FFN, K1's kernels without LN and
             residual) the same way, relu and swish, dropout 0 and 0.1; the
-            mask's bits and keep rate; the bf16 backward split by pass;
+            mask's bits (every hidden column) and keep rate in fp32 and
+            bf16; the bf16 backward split by pass;
   slice     S1: the flagship (full width, seeded random weights) decodes
             the 16 committed test-clean WAVs through init_model →
             Decoder.rnnt_greedy_search, no context and 8 hotwords gated
@@ -68,7 +72,7 @@ Phases, in the order they run, each printing JSON lines:
             back to back (CUDA events behind a spin kernel; the kernels
             line's library_ms for K8);
   k6_k7_device  K6 and K7 against the port's unfused compositions the
-            same way (their library_ms).
+            same way (their library_ms; K6's forward also at N = 32512).
 
 Then the card's name and power limit, the kernels line, and the ok line.
 """
@@ -103,6 +107,8 @@ K1_PER_ENCODER_PASS = 24  # 12 blocks x 2 macaron FFN halves
 K8_PER_ENCODER_PASS = 12  # one conv block a layer under CONV_PALLAS=1
 K7_PER_ENCODER_PASS = 24  # 12 QKV + 12 pointwise conv1 under LNMM_PALLAS=1
 K1_GRADS = ("y", "dx", "dg", "dbl", "dw1", "db1", "dw2", "db2")
+# Kernel names of K1's and K6's forward in a profile: fp32, bf16.
+FFN_FWD_KERNELS = ("ln_ffn_fwd<", "fwd16::ffn_fwd<")
 
 failures: list = []
 
@@ -138,14 +144,24 @@ def smi() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+K1_CASES = (  # (N, activation, ff_scale, dtypes); N = 32512 in bf16 only
+    (64 * 127, "swish", 0.5, (torch.float32, torch.bfloat16)),
+    (1000, "relu", 1.0, (torch.float32, torch.bfloat16)),
+    (256 * 127, "swish", 0.5, (torch.bfloat16,)))
+K1_TIMED = ((64 * 127, 0.0), (256 * 127, 0.1))   # decode, training
+
+
 def phase_k1(ffn, bounds) -> dict:
-    """K1 against its plain version; returns its record at the main-path
-    shape in bf16, the card's operating point."""
+    """K1's forward against its plain version at dropout 0 and 0.1, the
+    same bits on a second call; returns its record at the main-path shape
+    in bf16, the card's operating point (N = 8128, rate 0, as decode runs
+    it), with the training shape's times (N = 32512, rate 0.1) under
+    ``*_n32512`` keys."""
     g = torch.Generator().manual_seed(0)
     d, f = 256, 2048
     record = {}
-    for n, act, scale in ((64 * 127, "swish", 0.5), (1000, "relu", 1.0)):
-        for dtype in (torch.float32, torch.bfloat16):
+    for n, act, scale, dtypes in K1_CASES:
+        for dtype in dtypes:
             def rnd(*shape, std=1.0):
                 return (torch.randn(*shape, generator=g) * std).cuda()
             x = rnd(n, d).to(dtype)
@@ -153,58 +169,83 @@ def phase_k1(ffn, bounds) -> dict:
             w1 = rnd(f, d, std=d ** -0.5).to(dtype)
             w2 = rnd(d, f, std=f ** -0.5).to(dtype)
             b1, b2 = rnd(f, std=0.1), rnd(d, std=0.1)
-            args = (x, gam, bet, w1, b1, w2, b2, act, scale)
-            y = ffn.ln_ffn_residual(*args)
-            torch.cuda.synchronize()
-            ref = ffn.ln_ffn_residual_ref(*args)
-            err = (y.float() - ref.float())
-            max_abs = float(err.abs().max())
-            if dtype == torch.float32:
-                ok = bool((err.abs() <= 1e-4 + 1e-4 * ref.abs()).all())
-                tol = "max abs <= 1e-4 + 1e-4*|ref|"
-            else:
-                ok = float(err.norm() / ref.float().norm()) <= 1e-2
-                tol = "relative Frobenius <= 1e-2 vs bf16 plain version"
-            check(ok and bool(torch.isfinite(y).all()),
-                  f"k1 n={n} {act} {dtype} disagrees with its plain version")
-            line = {"n": n, "d": d, "f": f, "activation": act,
-                    "ff_scale": scale, "dtype": str(dtype).split(".")[-1],
-                    "max_abs_err": max_abs,
-                    "rel_fro_err": float(err.norm() / ref.float().norm()),
-                    "tolerance": tol, "ok": ok}
-            if n == 64 * 127:
-                ms = cuda_ms(lambda: ffn.ln_ffn_residual(*args))
-                plain_ms = cuda_ms(lambda: ffn.ln_ffn_residual_ref(*args))
-                b1c, b2c = b1.to(dtype), b2.to(dtype)
-                library_event_ms = cuda_ms(lambda: torch.addmm(
-                    b2c, torch.addmm(b1c, x, w1.t()), w2.t()))
-                # The least time for this work on an H100 SXM at 700 W
-                # (data-sheet peaks; ops/bounds.py).
-                dt = "bf16" if dtype == torch.bfloat16 else "fp32"
-                flops, nbytes = bounds.ln_ffn_residual(n, d, f, dt)
-                bound_ms, bound_by = bounds.bound_ms(flops, nbytes, dt)
-                library_ms = library_event_ms
-                if dtype == torch.bfloat16:   # device time, as K6-K8's
-                    line["device_ms"] = device_ms(
-                        lambda: ffn.ln_ffn_residual(*args), iters=20)
-                    library_ms = device_ms(lambda: torch.addmm(
-                        b2c, torch.addmm(b1c, x, w1.t()), w2.t()), iters=20)
-                line.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                            library_event_ms=library_event_ms,
-                            library="two torch.addmm GEMMs, no LN/act "
-                                    "(bf16: library_ms in device time)",
-                            bound_ms=bound_ms, bound_by=bound_by,
-                            flops=flops, bytes=nbytes,
-                            share_of_bound=bound_ms / ms)
-                if dtype == torch.bfloat16:
-                    record = {"max_abs_err": max_abs, "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by,
-                              "library_ms": library_ms,
-                              "library_event_ms": library_event_ms,
-                              "device_ms": line["device_ms"]}
-            emit("k1", **line)
+            for rate in (0.0, 0.1):
+                args = (x, gam, bet, w1, b1, w2, b2, act, scale, 1e-5, rate,
+                        rate, 4242)
+                y = ffn.ln_ffn_residual(*args)
+                again = ffn.ln_ffn_residual(*args)
+                torch.cuda.synchronize()
+                same = torch.equal(y, again)
+                ref = ffn.ln_ffn_residual_ref(*args)
+                err = (y.float() - ref.float())
+                max_abs = float(err.abs().max())
+                if dtype == torch.float32:
+                    ok = bool((err.abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+                    tol = "max abs <= 1e-4 + 1e-4*|ref|"
+                else:
+                    ok = float(err.norm() / ref.float().norm()) <= 1e-2
+                    tol = "relative Frobenius <= 1e-2 vs bf16 plain version"
+                ok = ok and same and bool(torch.isfinite(y).all())
+                check(ok, f"k1 n={n} {act} {dtype} rate={rate} disagrees "
+                          f"with its plain version (same bits {same})")
+                line = {"n": n, "d": d, "f": f, "activation": act,
+                        "ff_scale": scale, "rate": rate,
+                        "dtype": str(dtype).split(".")[-1],
+                        "max_abs_err": max_abs,
+                        "rel_fro_err": float(err.norm() / ref.float().norm()),
+                        "same_bits_second_call": same, "tolerance": tol,
+                        "ok": ok}
+                if dtype == torch.bfloat16 and (n, rate) in K1_TIMED:
+                    line.update(k1_fwd_times(ffn, bounds, args, n, d, f))
+                    if n == 64 * 127:
+                        record.update(max_abs_err=max_abs, **{
+                            k: line[k] for k in (
+                                "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "library_event_ms",
+                                "device_ms")})
+                    else:
+                        record.update({k + "_n32512": line[k] for k in (
+                            "device_ms", "library_ms", "bound_ms",
+                            "plain_ms")})
+                emit("k1", **line)
     return record
+
+
+def k1_fwd_times(ffn, bounds, args, n, d, f) -> dict:
+    """K1's bf16 forward at one main-path point: event and card times
+    (``device_ms``) beside two addmm (no LN, activation or mask; its card
+    time is ``library_ms``), the plain version and the bound, and the
+    card time under each schedule of the kernel (two warpgroups over 64
+    rows, or 64 of 128 rows each), ``schedule`` the one N gets."""
+    x, w1, b1, w2, b2 = args[0], args[3], args[4], args[5], args[6]
+    b1c, b2c = b1.to(x.dtype), b2.to(x.dtype)
+
+    def k1():
+        return ffn.ln_ffn_residual(*args)
+
+    def addmm():
+        return torch.addmm(b2c, torch.addmm(b1c, x, w1.t()), w2.t())
+    # The least time for this work on an H100 SXM at 700 W (data-sheet
+    # peaks; ops/bounds.py).
+    flops, nbytes = bounds.ln_ffn_residual(n, d, f, "bf16")
+    bound_ms, bound_by = bounds.bound_ms(flops, nbytes, "bf16")
+    out = dict(ms=cuda_ms(k1),
+               plain_ms=cuda_ms(lambda: ffn.ln_ffn_residual_ref(*args),
+                                iters=10),
+               library_event_ms=cuda_ms(addmm),
+               device_ms=device_ms(k1, iters=20),
+               library_ms=device_ms(addmm, iters=20),
+               library="two torch.addmm GEMMs, no LN/act/mask "
+                       "(library_ms in device time)",
+               bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+               bytes=nbytes, schedule=ffn.fwd_schedule(n))
+    out["share_of_bound"] = bound_ms / out["device_ms"]
+    out["over_library"] = out["device_ms"] / out["library_ms"]
+    for force, name in ((1, "split_64_rows"), (0, "rows_128")):
+        ffn.fwd_schedule(n, force)
+        out[f"device_ms_{name}"] = device_ms(k1, iters=20)
+    ffn.fwd_schedule(n, -1)
+    return out
 
 
 def k1_inputs(n: int, dtype, seed: int, d: int = 256, f: int = 2048):
@@ -221,33 +262,43 @@ def k1_inputs(n: int, dtype, seed: int, d: int = 256, f: int = 2048):
 
 def kernel_keep_rates(ffn, dropout, rate: float = 0.1, seed: int = 99,
                       n: int = 256 * 127, d: int = 256, f: int = 2048):
-    """The keep rate of each mask as the forward kernel draws it, and
-    whether each bit equals the plain mask function's. With W1 = 0,
-    b1 = 2 and W2 = [I | 0] (relu) the output is y = x + drop2(drop1(2)
-    + b2) on the first D hidden columns, so y == x exactly where a mask
-    dropped."""
-    x = torch.randn(n, d, generator=torch.Generator().manual_seed(1)).cuda()
+    """The keep rate of each mask as the forward kernel draws it, fp32 and
+    bf16, and whether each bit equals the plain mask function's. With
+    W1 = 0, b1 = 2 (relu) and W2 the identity on the hidden columns
+    [k D, k D + D), the output is y = x + drop2(drop1(2) + b2) there, so
+    y == x exactly where a mask dropped. k walks all F / D column groups,
+    so every hidden bit is compared; the output mask is read with k = 0."""
+    x32 = torch.randn(n, d, generator=torch.Generator().manual_seed(1)).cuda()
     ones, zeros = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
-    w1 = torch.zeros(f, d, device="cuda")
     b1 = torch.full((f,), 2.0, device="cuda")
-    w2 = torch.zeros(d, f, device="cuda")
-    w2[:, :d] = torch.eye(d, device="cuda")
     thresh = dropout.threshold(rate)[0]
     rows = torch.arange(n, device="cuda")[:, None]
     cols = torch.arange(d, device="cuda")[None, :]
     out = {}
-    for name, stream, b2, rates, index in (
-            ("hidden", dropout.STREAM_FFN_HIDDEN, zeros, (rate, 0.0),
-             rows * f + cols),
-            ("output", dropout.STREAM_FFN_OUT, ones, (0.0, rate),
-             rows * d + cols)):
-        y = ffn.forward_kernel(x, ones, zeros, w1, b1, w2, b2, "relu", 1.0,
-                               1e-5, *rates, seed)
-        kept = y != x
-        plain = dropout.keep_mask(seed, stream, index, thresh)
-        out[name] = {"keep_rate": float(kept.double().mean()),
-                     "draws": kept.numel(),
-                     "equals_plain_mask": bool(torch.equal(kept, plain))}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.to(dtype)
+        w1 = torch.zeros(f, d, device="cuda", dtype=dtype)
+        eye = torch.eye(d, device="cuda", dtype=dtype)
+        for name, stream, b2, rates, groups, stride in (
+                ("hidden", dropout.STREAM_FFN_HIDDEN, zeros, (rate, 0.0),
+                 f // d, f),
+                ("output", dropout.STREAM_FFN_OUT, ones, (0.0, rate), 1, d)):
+            kept_n, draws, equal = 0, 0, True
+            for k in range(groups):
+                w2 = torch.zeros(d, f, device="cuda", dtype=dtype)
+                w2[:, k * d:(k + 1) * d] = eye
+                y = ffn.forward_kernel(x, ones, zeros, w1, b1, w2, b2,
+                                       "relu", 1.0, 1e-5, *rates, seed)
+                kept = y != x
+                off = k * d if name == "hidden" else 0
+                plain = dropout.keep_mask(seed, stream,
+                                          rows * stride + off + cols, thresh)
+                equal = equal and bool(torch.equal(kept, plain))
+                kept_n += int(kept.sum())
+                draws += kept.numel()
+            out[f"{name}_{str(dtype).split('.')[-1]}"] = {
+                "keep_rate": kept_n / draws, "draws": draws,
+                "column_groups": groups, "equals_plain_mask": equal}
     return out
 
 
@@ -1076,30 +1127,39 @@ def k6_inputs(n, act, dtype, seed, eps=1e-4):
     return (x, w1, b1, w2, b2), dy
 
 
-def k6_keep_rate(ffn, dropout, rate=0.1, seed=99, n=256 * 127, d=256,
-                 f=2048) -> dict:
+def k6_keep_rate(ffn, dropout, dtype, rate=0.1, seed=99, n=256 * 127,
+                 d=256, f=2048) -> dict:
     """The hidden mask's keep rate as K6's forward kernel draws it and
     whether each bit equals the plain mask function's: with W1 = 0,
-    b1 = 2 (relu), W2 = [I | 0] and b2 = 0, y != 0 exactly where the mask
-    kept one of the first D hidden columns. The backward's mask: with
-    dy = 1, db1 is each column's kept count times 1/keep."""
+    b1 = 2 (relu), W2 the identity on the hidden columns [k D, k D + D)
+    and b2 = 0, y != 0 exactly where the mask kept one of those columns;
+    k walks all F / D column groups. The backward's mask: with W2 = [I | 0]
+    and dy = 1, db1 is each of the first D columns' kept count times
+    1/keep."""
     x = torch.randn(n, d, generator=torch.Generator().manual_seed(1)).cuda()
-    w1 = torch.zeros(f, d, device="cuda")
+    x = x.to(dtype)
+    w1 = torch.zeros(f, d, device="cuda", dtype=dtype)
     b1 = torch.full((f,), 2.0, device="cuda")
-    w2 = torch.zeros(d, f, device="cuda")
-    w2[:, :d] = torch.eye(d, device="cuda")
     b2 = torch.zeros(d, device="cuda")
-    y = ffn.ffn_forward_kernel(x, w1, b1, w2, b2, "relu", rate, seed)
     thresh, scale = dropout.threshold(rate)
     index = (torch.arange(n, device="cuda")[:, None] * f
              + torch.arange(f, device="cuda")[None, :])
     plain = dropout.keep_mask(seed, dropout.STREAM_FFN_HIDDEN, index, thresh)
-    kept = y != 0
+    kept_n, equal = 0, True
+    for k in range(f // d):
+        w2 = torch.zeros(d, f, device="cuda", dtype=dtype)
+        w2[:, k * d:(k + 1) * d] = torch.eye(d, device="cuda", dtype=dtype)
+        kept = ffn.ffn_forward_kernel(x, w1, b1, w2, b2, "relu", rate,
+                                      seed) != 0
+        equal = equal and bool(torch.equal(kept, plain[:, k * d:(k + 1) * d]))
+        kept_n += int(kept.sum())
+    w2 = torch.zeros(d, f, device="cuda", dtype=dtype)
+    w2[:, :d] = torch.eye(d, device="cuda", dtype=dtype)
     _, _, db1, _, _ = ffn.ffn_backward_kernel(
         x, torch.ones_like(x), w1, b1, w2, b2, "relu", rate, seed)
     counts = torch.round(db1[:d].double() / scale)
-    return {"keep_rate": float(kept.double().mean()), "draws": kept.numel(),
-            "equals_plain_mask": bool(torch.equal(kept, plain[:, :d])),
+    return {"keep_rate": kept_n / plain.numel(), "draws": plain.numel(),
+            "column_groups": f // d, "equals_plain_mask": equal,
             "bwd_counts_equal_plain": bool(torch.equal(
                 counts, plain[:, :d].sum(0).double()))}
 
@@ -1107,11 +1167,12 @@ def k6_keep_rate(ffn, dropout, rate=0.1, seed=99, n=256 * 127, d=256,
 def phase_k6(ffn, bounds, dropout) -> tuple:
     """K6 forward and backward against the plain version and autograd
     through it on the card, D = 256, F = 2048, fp32 and bf16, rates 0 and
-    0.1, at the post-norm path's shapes (K6_CASES); the same bits over 3
-    backward calls; the mask's bits and keep rate; in bf16 the times at
-    N = 8128 (forward, rate 0) and 32512 (backward, rate 0.1), the plain
-    versions' and the bounds, and the backward split into its passes.
-    Returns the (forward, backward) records."""
+    0.1, at the post-norm path's shapes (K6_CASES); the same bits on a
+    second forward and over 3 backward calls; the mask's bits and keep
+    rate in fp32 and bf16; in bf16 the times at N = 8128 (forward, rate 0)
+    and 32512 (forward and backward, rate 0.1), the plain versions' and
+    the bounds, and the backward split into its passes. Returns the
+    (forward, backward) records."""
     rec_f, rec_b = {}, {}
     for n, act in K6_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1119,11 +1180,13 @@ def phase_k6(ffn, bounds, dropout) -> tuple:
             for rate in (0.0, 0.1):
                 cfg = (act, rate, 4242)
                 y = ffn.ffn_forward_kernel(*args, *cfg)
+                y_again = ffn.ffn_forward_kernel(*args, *cfg)
                 got = [ffn.ffn_backward_kernel(args[0], dy, *args[1:], *cfg)
                        for _ in range(3)]
                 torch.cuda.synchronize()
-                same = all(torch.equal(p, q) for again in got[1:]
-                           for p, q in zip(got[0], again))
+                same = torch.equal(y, y_again) and all(
+                    torch.equal(p, q) for again in got[1:]
+                    for p, q in zip(got[0], again))
                 want = (ffn.ffn_fused_ref(*args, *cfg),
                         *ffn.ffn_backward_ref(args[0], dy, *args[1:], *cfg))
                 limit = 1e-5 if dtype == torch.float32 else 1e-2
@@ -1133,7 +1196,7 @@ def phase_k6(ffn, bounds, dropout) -> tuple:
                           f"same bits {same}")
                 line = {"n": n, "d": 256, "f": 2048, "activation": act,
                         "dtype": str(dtype).split(".")[-1], "rate": rate,
-                        "ok": ok, "bwd_same_bits_over_3_calls": same,
+                        "ok": ok, "same_bits_fwd_twice_bwd_3_calls": same,
                         "errors": errs,
                         "tolerance": f"relative Frobenius <= {limit} "
                                      "against the plain version and "
@@ -1150,10 +1213,18 @@ def phase_k6(ffn, bounds, dropout) -> tuple:
                     bound, by = bounds.bound_ms(flops, nbytes, "bf16")
                     line.update(fwd_ms=ms, fwd_plain_ms=plain,
                                 fwd_bound_ms=bound, fwd_bound_by=by)
-                    rec_f = {"max_abs_err": errs["y"]["max_abs"], "ms": ms,
-                             "plain_ms": plain, "bound_ms": bound,
-                             "bound_by": by}
+                    rec_f.update(max_abs_err=errs["y"]["max_abs"], ms=ms,
+                                 plain_ms=plain, bound_ms=bound, bound_by=by)
                 if bf and rate > 0 and n == 256 * 127:
+                    ms = cuda_ms(lambda: ffn.ffn_forward_kernel(*args, *cfg))
+                    plain = cuda_ms(lambda: ffn.ffn_fused_ref(*args, *cfg),
+                                    iters=10)
+                    flops, nbytes = bounds.ffn_fused(n, 256, 2048, "bf16")
+                    bound, by = bounds.bound_ms(flops, nbytes, "bf16")
+                    line.update(fwd_ms=ms, fwd_plain_ms=plain,
+                                fwd_bound_ms=bound, fwd_bound_by=by)
+                    rec_f.update(ms_n32512=ms, plain_ms_n32512=plain,
+                                 bound_ms_n32512=bound)
                     ms = cuda_ms(lambda: ffn.ffn_backward_kernel(
                         args[0], dy, *args[1:], *cfg), iters=20)
                     plain = cuda_ms(lambda: ffn.ffn_backward_ref(
@@ -1176,14 +1247,19 @@ def phase_k6(ffn, bounds, dropout) -> tuple:
                              "plain_ms": plain, "bound_ms": bound,
                              "bound_by": by, **split}
                 emit("k6", **line)
-    keep = k6_keep_rate(ffn, dropout)
-    sigma = (0.9 * 0.1 / keep["draws"]) ** 0.5
-    check(keep["equals_plain_mask"] and keep["bwd_counts_equal_plain"]
-          and abs(keep["keep_rate"] - 0.9) < 5 * sigma, f"k6 mask: {keep}")
-    emit("k6_mask", rate=0.1, expected_keep=0.9, **keep,
-         tolerance="forward bit-equal to the plain mask, keep rate within 5 "
-                   "sigma of 0.9; the backward's kept count of each hidden "
-                   "column (db1 * keep, rounded) equal to the plain mask's")
+    for dtype in (torch.float32, torch.bfloat16):
+        keep = k6_keep_rate(ffn, dropout, dtype)
+        sigma = (0.9 * 0.1 / keep["draws"]) ** 0.5
+        check(keep["equals_plain_mask"] and keep["bwd_counts_equal_plain"]
+              and abs(keep["keep_rate"] - 0.9) < 5 * sigma,
+              f"k6 mask {dtype}: {keep}")
+        emit("k6_mask", rate=0.1, expected_keep=0.9,
+             dtype=str(dtype).split(".")[-1], **keep,
+             tolerance="forward bit-equal to the plain mask on every hidden "
+                       "column, keep rate within 5 sigma of 0.9; the "
+                       "backward's kept count of each of the first D hidden "
+                       "columns (db1 * keep, rounded) equal to the plain "
+                       "mask's")
     return rec_f, rec_b
 
 
@@ -1671,8 +1747,8 @@ def phase_k6_k7_device(ffn, lnmm, k6_recs, k7_recs) -> None:
     (``device_ms``), bf16, the phases' timed shapes: K7 at N = 8128, K = 768
     forward (the port's LayerNorm, F.layer_norm in fp32 cast to bf16, then
     F.linear) and N = 32512 backward; K6 at N = 8128 forward (two
-    F.linear and relu) and N = 32512 backward at rate 0.1 (the
-    composition without dropout). A backward's yardstick is forward +
+    F.linear and relu), and at N = 32512 forward and backward at rate 0.1
+    (the composition without dropout). A backward's yardstick is forward +
     backward less forward. These card times are the kernels line's
     ``library_ms``."""
     import torch.nn.functional as F
@@ -1710,6 +1786,14 @@ def phase_k6_k7_device(ffn, lnmm, k6_recs, k7_recs) -> None:
         ins = [a.detach().requires_grad_(True) for a in args]
         with torch.no_grad():
             unfused_fwd = device_ms(lambda: unfused(*args))
+            if name == "k6":   # the training point, rate 0.1
+                line["k6_fwd_n32512"] = {
+                    "kernel_ms": device_ms(lambda: ffn.ffn_forward_kernel(
+                        *args, "relu", 0.1, 1), iters=20),
+                    "unfused_ms": unfused_fwd}
+                k6_recs[0].update(
+                    device_ms_n32512=line["k6_fwd_n32512"]["kernel_ms"],
+                    library_ms_n32512=unfused_fwd)
 
         def both():
             torch.autograd.grad(unfused(*ins), ins, dy)
@@ -1749,7 +1833,8 @@ def phase_profile(dec, feats, lens, ctx, ctx_lens, mode: str,
          timed_ms=timed_ms, profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / timed_ms,
          idle_share_profiled=1.0 - busy_ms / wall_ms,
-         k1_ms=sum(v for k, v in by_name.items() if "ln_ffn_fwd" in k),
+         k1_ms=sum(v for k, v in by_name.items()
+                   if any(key in k for key in FFN_FWD_KERNELS)),
          k7_ms=sum(v for k, v in by_name.items() if "ln_mm_fwd" in k),
          kernels=len(by_name),
          top=[{"kernel": k[:90], "ms": v} for k, v in top])
@@ -2166,7 +2251,8 @@ def phase_train_profile(state, step, batch, gen, timed_ms, mode="train",
          idle_share=1.0 - busy_ms / timed_ms,
          idle_share_profiled=1.0 - busy_ms / wall_ms,
          **{f"{kernel}_fwd_ms": sum(v for k, v in by_name.items()
-                                    if "ln_ffn_fwd" in k),
+                                    if any(key in k
+                                           for key in FFN_FWD_KERNELS)),
             f"{kernel}_bwd_ms": sum(v for k, v in by_name.items()
                                     if "ln_ffn_bwd" in k or "bwd16::" in k
                                     or "sum_partials" in k)},
@@ -2367,7 +2453,7 @@ def phase_rnnt_profile(state, step, batch, gen, timed_ms,
          profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / timed_ms,
          idle_share_profiled=1.0 - busy_ms / wall_ms,
-         k1_fwd_ms=ms("ln_ffn_fwd"),
+         k1_fwd_ms=ms(*FFN_FWD_KERNELS),
          k1_bwd_ms=ms("ln_ffn_bwd", "bwd16::", "namespace)::sum_partials"),
          k2_ms=ms("joint_fwd"), k3_ms=ms("joint_bwd_rows",
                                          "joint_bwd_weights"),

@@ -182,9 +182,32 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                        "swish")
 
 
+@pytest.mark.parametrize("with_ln", [True, False])
+@pytest.mark.parametrize("d", [96, 320])
+def test_check_args_refuses_bf16_widths_the_kernels_do_not_take(d, with_ln):
+    """The bf16 kernels, forward and backward, take D in {64, 128, 256}:
+    check_args (run before every launch) raises on any other bf16 width,
+    for ln_ffn_residual and ffn_fused alike, and takes those three; fp32
+    takes the refused width."""
+    def args(width, dt):
+        f = 128
+        g = torch.ones(width) if with_ln else None
+        bl = torch.zeros(width) if with_ln else None
+        return (torch.zeros(4, width, dtype=dt), g, bl,
+                torch.zeros(f, width, dtype=dt), torch.zeros(f),
+                torch.zeros(width, f, dtype=dt), torch.zeros(width))
+    with pytest.raises(ValueError, match="bf16 kernels"):
+        ffn.check_args(*args(d, torch.bfloat16), "relu")
+    ffn.check_args(*args(d, torch.float32), "relu")
+    for width in ffn.BF16_WIDTHS:
+        ffn.check_args(*args(width, torch.bfloat16), "relu")
+
+
 def test_kernel_bound_at_main_path_shape():
-    """Forward 4·N·D·F operations at the bf16 peak: 17.05 GFLOP, 17.2 us;
-    backward 10·N·D·F at the training shape: 170.4 GFLOP, 0.172 ms."""
+    """Forward 4·N·D·F operations at the bf16 peak: 17.05 GFLOP, 17.2 us
+    at the decode shape, 68.2 GFLOP, 0.0689 ms at the training shape (K1
+    and K6 alike, both listed); backward 10·N·D·F at the training shape:
+    170.4 GFLOP, 0.172 ms."""
     from wenet_celoss_tpu_torch.ops import bounds
     flops, nbytes = bounds.ln_ffn_residual(64 * 127, 256, 2048, "bf16")
     assert flops == 4 * 64 * 127 * 256 * 2048
@@ -196,3 +219,10 @@ def test_kernel_bound_at_main_path_shape():
     assert by == "operations" and abs(ms - 0.1723) < 1e-3
     assert {r["kernel"].split()[0] for r in bounds.flagship()} == {
         "K1", "K2", "K3", "K4", "K6", "K7", "K8", "K9"}
+    rows = {r["kernel"]: r for r in bounds.flagship()}
+    for name in ("K1 ln_ffn_residual (training)", "K6 ffn_fused (training)"):
+        r = rows[name]
+        assert r["shape"] == "N=32512 D=256 F=2048" and r["dtype"] == "bf16"
+        assert r["flops"] == 4 * 256 * 127 * 256 * 2048
+        assert r["bound_by"] == "operations"
+        assert abs(r["bound_ms"] - 0.06894) < 1e-4

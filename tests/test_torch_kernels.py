@@ -31,27 +31,42 @@ def _card():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,activation,ff_scale",
-                         [(1000, "relu", 1.0), (8128, "swish", 0.5)])
-def test_kernel_matches_plain_version_on_card(dtype, n, activation,
-                                              ff_scale):
+@pytest.mark.parametrize("kernel", ["ln_ffn_residual", "ffn_fused"])
+@pytest.mark.parametrize("d,f", [(64, 512), (256, 2048)])
+@pytest.mark.parametrize("n", [1, 1000, 8128, 32512])
+@pytest.mark.parametrize("activation", ["relu", "swish"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_kernel_matches_plain_version_on_card(dtype, kernel, d, f, n,
+                                              activation, rate):
+    """The forward of K1 (ln_ffn_residual, ff_scale 0.5, both masks at
+    ``rate``) and K6 (ffn_fused, the hidden mask) at the tiny and full
+    widths, N from one row to the training encoder's 32512 (both
+    schedules of the bf16 kernel), against the plain version with the
+    same masks: fp32 to 1e-4 + 1e-4*|ref| elementwise, bf16 to relative
+    Frobenius 1e-2 (summation order and bf16 rounding of the hidden at
+    the plain version's points); one launch a call, and the same bits on
+    a second call."""
     dt = getattr(torch, dtype)
-    d, f = 256, 2048
-    rng = np.random.default_rng(5)
-
-    def arr(*shape, std=1.0, mean=0.0):
-        return torch.as_tensor(mean + std * rng.standard_normal(shape),
-                               dtype=torch.float32, device="cuda")
-    x = arr(n, d).to(dt)
-    g, bl = arr(d, std=0.1, mean=1.0), arr(d, std=0.1)
-    w1, b1 = arr(f, d, std=d ** -0.5).to(dt), arr(f, std=0.1)
-    w2, b2 = arr(d, f, std=f ** -0.5).to(dt), arr(d, std=0.1)
-    before = ffn.ln_ffn_residual.launches
-    got = ffn.ln_ffn_residual(x, g, bl, w1, b1, w2, b2, activation, ff_scale)
+    args, _ = _k1_args(n, dt, seed=n + d, d=d, f=f)
+    x, g, bl, w1, b1, w2, b2 = args
+    if kernel == "ln_ffn_residual":
+        cfg = (activation, 0.5, 1e-5, rate, rate, 99)
+        counter = ffn.ln_ffn_residual
+        before = counter.launches
+        got = ffn.ln_ffn_residual(*args, *cfg)
+        again = ffn.ln_ffn_residual(*args, *cfg)
+        want = ffn.ln_ffn_residual_ref(*args, *cfg)
+    else:
+        cfg = (activation, rate, 99)
+        counter = ffn.ffn_fused
+        before = counter.launches
+        got = ffn.ffn_fused(x, w1, b1, w2, b2, *cfg)
+        again = ffn.ffn_fused(x, w1, b1, w2, b2, *cfg)
+        want = ffn.ffn_fused_ref(x, w1, b1, w2, b2, *cfg)
     torch.cuda.synchronize()
-    assert ffn.ln_ffn_residual.launches == before + 1
-    want = ffn.ln_ffn_residual_ref(x, g, bl, w1, b1, w2, b2, activation,
-                                   ff_scale)
+    assert counter.launches == before + 2
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
     err = got.float() - want.float()
     if dt == torch.float32:
         assert bool((err.abs() <= 1e-4 + 1e-4 * want.abs()).all())

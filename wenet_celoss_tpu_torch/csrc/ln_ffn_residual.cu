@@ -34,12 +34,41 @@
 // against ~O(N*D + D*F) bytes, well past the H100's ~295 operations a byte:
 // both are compute-bound (ops/bounds.py).
 //
-// Design, simple first. Forward: one CTA of 256 threads owns a block of
-// ROWS rows; the TPU kernel holds the whole [rows, F] hidden in VMEM, which
-// does not fit in shared memory, so the CTA loops over F in tiles of FT
-// columns, stages W1[f0:f0+FT, :] and W2[:, f0:f0+FT] in shared memory,
-// computes the hidden tile and adds its product with W2 into an fp32
-// [ROWS, D] accumulator in shared memory.
+// fp32 forward: one CTA of 256 threads owns a block of ROWS rows; the TPU
+// kernel holds the whole [rows, F] hidden in VMEM, which does not fit in
+// shared memory, so the CTA loops over F in tiles of FT columns, stages
+// W1[f0:f0+FT, :] and W2[:, f0:f0+FT] in shared memory, computes the
+// hidden tile and adds its product with W2 into an fp32 [ROWS, D]
+// accumulator in shared memory (plain FMA, so that it stays full fp32).
+//
+// bf16 forward (namespace fwd16), designed for Hopper. A block of two
+// warpgroups (256 threads) holds A, the block's rows of LN(x) (fp32
+// statistics, one warp a row, written as bf16 into a K-major 128B-swizzled
+// tile) or of x (loaded by TMA), for the whole F loop. TMA keeps F tiles of
+// FT = 64 columns, W1[f0:f0+64, :] and W2[:, f0:f0+64] (both K-major
+// B operands, 128B swizzle), in flight through a ring of 2-4 stages (as
+// many as fit); the last warp to release a stage refills it, so no
+// producer warp caps the registers. Per F tile a warpgroup computes
+// z1 = A W1t^T with wgmma (m64n64, both operands in shared memory), then in
+// registers b1, the activation and the hidden mask (bits from the
+// accumulator's row * F + col, computed while the product runs), rounds to
+// bf16 and feeds the hidden as the register A operand of acc += h W2t^T
+// (m64nD). acc, 128 registers a thread at D = 256, stays in registers over
+// the whole F loop: the [rows, F] hidden never leaves the chip, as on the
+// TPU. The epilogue sums the warpgroups' accumulators through shared
+// memory once and, eight columns a thread, adds b2, the output mask, the
+// scale and the residual in fp32 and casts once on store.
+//
+// The forward's schedule (fwd16_split) fills the card and bounds the
+// weight traffic: every block streams all of W1 and W2 (2 MiB at D = 256,
+// F = 2048) from L2 once, so the L2 -> shared memory bytes are blocks x
+// 2 MiB. Below 132 blocks of 128 rows (N <= 16768) a block takes 64 rows
+// and its two warpgroups split every F tile, 32 columns each (3 stages at
+// D = 256), adding their sums at the end: 127 blocks at N = 8128 (one an
+// SM), 266 MB. Above it each warpgroup owns 64 of a block's 128 rows and
+// both read every tile (2 stages): 254 blocks at N = 32512, 533 MB, half
+// the weight reads of 64-row blocks. chip_smoke.py's k1 phase times both
+// schedules at both sizes.
 //
 // Backward: the TPU accumulates the weight gradients across a sequential
 // grid; here blocks run concurrently, so the work is split in two passes
@@ -77,10 +106,8 @@
 // D in {64, 128, 256}; rows past N are zeros in the tiles, are masked out
 // of the hidden, and are never stored or summed.
 //
-// bf16 forward: WMMA 16x16x16 fragments from shared memory. fp32 uses plain
-// FMA so that it stays full fp32 (no TF32). The ragged row edge is masked
-// in the kernels (rows past N are computed from zeros and never stored or
-// summed).
+// The ragged row edge is masked in the kernels (rows past N are computed
+// from zeros and never stored or summed).
 //
 // Weights arrive in torch.nn.Linear layout: W1 [F, D], W2 [D, F].
 // Plain C interface, bound with ctypes; each launch returns
@@ -89,7 +116,6 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "sm90_gmma.cuh"
@@ -223,23 +249,6 @@ __device__ void load_dy2(const T* __restrict__ dy, T* dyc, int ldx, int row0,
   }
 }
 
-// Copy rows [row0, row0 + rows) of src [*, d] into dst (row stride ld, a
-// multiple of 16 bytes) in 16-byte vectors, all threads at once; rows at
-// or past row_end are zero.
-template <typename T>
-__device__ void stage_rows(const T* __restrict__ src, T* dst, int ld,
-                           int row0, int rows, int row_end, int d) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int vecs = d / kVec;
-  for (int i = threadIdx.x; i < rows * vecs; i += kThreads) {
-    const int r = i / vecs, v = i % vecs, gr = row0 + r;
-    uint4 q = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < row_end)
-      q = *reinterpret_cast<const uint4*>(src + (size_t)gr * d + v * kVec);
-    *reinterpret_cast<uint4*>(dst + r * ld + v * kVec) = q;
-  }
-}
-
 // Copy rows [row0, row0 + rows) of src [*, d] into dst (row stride ld)
 // element by element; rows at or past row_end are zero.
 template <typename T>
@@ -335,144 +344,6 @@ __device__ void ln_vjp_rows(int tid, const T* __restrict__ x,
   }
 }
 
-// ---------------------------------------------------------------- bf16 ---
-namespace bf16k {
-using bf = __nv_bfloat16;
-using namespace nvcuda;
-constexpr int FT = 64;
-
-// C[16x16 tile] (+)= A @ B over depth k, A and B in shared memory.
-template <typename LA, typename LB>
-__device__ __forceinline__ void mma_tile(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float>& c, const bf* a,
-    int lda_step, int lda, const bf* b, int ldb_step, int ldb, int depth) {
-  for (int k = 0; k < depth; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf, LA> fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf, LB> fb;
-    wmma::load_matrix_sync(fa, a + (size_t)k * lda_step, lda);
-    wmma::load_matrix_sync(fb, b + (size_t)k * ldb_step, ldb);
-    wmma::mma_sync(c, fa, fb, c);
-  }
-}
-
-struct Layout {
-  int ldx, ldw1, ldw2, ldhf, ldh, lda;
-  size_t o_w1, o_w2, o_hf, o_h, o_acc, bytes;
-};
-
-__host__ __device__ inline Layout layout(int rows, int d) {
-  Layout L;
-  L.ldx = d + 8;        // bf16: rows stay 16-byte aligned, banks shift
-  L.ldw1 = d + 8;
-  L.ldw2 = FT + 8;
-  L.ldhf = FT + 4;      // fp32
-  L.ldh = FT + 8;
-  L.lda = d + 4;        // fp32
-  size_t o = align128((size_t)rows * L.ldx * 2);
-  L.o_w1 = o;
-  o += align128((size_t)FT * L.ldw1 * 2);
-  L.o_w2 = o;
-  o += align128((size_t)d * L.ldw2 * 2);
-  L.o_hf = o;
-  o += align128((size_t)rows * L.ldhf * 4);
-  L.o_h = o;
-  o += align128((size_t)rows * L.ldh * 2);
-  L.o_acc = o;
-  o += align128((size_t)rows * L.lda * 4);
-  L.bytes = o;
-  return L;
-}
-
-// Stage W1[f0:f0+ft, :] as [ft][ldw1] and W2[:, f0:f0+ft] as [d][ldw2].
-__device__ void stage_weights(const bf* __restrict__ w1,
-                              const bf* __restrict__ w2, bf* w1s, int ldw1,
-                              bf* w2s, int ldw2, int f0, int ft, int d,
-                              int f) {
-  const int vec_w1 = d / 8, vec_w2 = ft / 8;   // 16-byte vectors
-  for (int i = threadIdx.x; i < ft * vec_w1; i += kThreads) {
-    const int j = i / vec_w1, v = i % vec_w1;
-    *reinterpret_cast<uint4*>(w1s + j * ldw1 + v * 8) =
-        *reinterpret_cast<const uint4*>(w1 + (size_t)(f0 + j) * d + v * 8);
-  }
-  for (int i = threadIdx.x; i < d * vec_w2; i += kThreads) {
-    const int c = i / vec_w2, v = i % vec_w2;
-    *reinterpret_cast<uint4*>(w2s + c * ldw2 + v * 8) =
-        *reinterpret_cast<const uint4*>(w2 + (size_t)c * f + f0 + v * 8);
-  }
-}
-
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads)
-ln_ffn_fwd(const bf* __restrict__ x, const float* __restrict__ g,
-           const float* __restrict__ bl, const bf* __restrict__ w1,
-           const float* __restrict__ b1, const bf* __restrict__ w2,
-           const float* __restrict__ b2, bf* __restrict__ y, int n, int d,
-           int f, float ff_scale, float eps, int act, Drop dp1, Drop dp2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout(ROWS, d);
-  bf* xn = reinterpret_cast<bf*>(smem);
-  bf* w1s = reinterpret_cast<bf*>(smem + L.o_w1);
-  bf* w2s = reinterpret_cast<bf*>(smem + L.o_w2);
-  float* hf = reinterpret_cast<float*>(smem + L.o_hf);
-  bf* h = reinterpret_cast<bf*>(smem + L.o_h);
-  float* acc = reinterpret_cast<float*>(smem + L.o_acc);
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int row0 = blockIdx.x * ROWS;
-
-  if (g != nullptr)
-    layer_norm_rows<bf>(x, g, bl, xn, L.ldx, row0, ROWS, n, d, eps);
-  else
-    stage_rows<bf>(x, xn, L.ldx, row0, ROWS, n, d);
-  for (int i = tid; i < ROWS * L.lda; i += kThreads) acc[i] = 0.0f;
-
-  constexpr int rt_n = ROWS / 16, ct_n = FT / 16;
-  const int dt_n = d / 16;
-
-  for (int f0 = 0; f0 < f; f0 += FT) {
-    stage_weights(w1, w2, w1s, L.ldw1, w2s, L.ldw2, f0, FT, d, f);
-    __syncthreads();
-
-    // GEMM1: hf[ROWS, FT] = xn[ROWS, D] @ W1_tile^T (W1_tile^T is
-    // column-major in w1s).
-    for (int t = warp; t < rt_n * ct_n; t += kWarps) {
-      const int rt = t / ct_n, ct = t % ct_n;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.0f);
-      mma_tile<wmma::row_major, wmma::col_major>(
-          c, xn + rt * 16 * L.ldx, 1, L.ldx, w1s + ct * 16 * L.ldw1, 1,
-          L.ldw1, d);
-      wmma::store_matrix_sync(hf + rt * 16 * L.ldhf + ct * 16, c, L.ldhf,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    for (int i = tid; i < ROWS * FT; i += kThreads) {
-      const int r = i / FT, j = i % FT;
-      const float hv = act_fn(hf[r * L.ldhf + j] + b1[f0 + j], act);
-      h[r * L.ldh + j] = __float2bfloat16(
-          drop(dp1, (uint32_t)(row0 + r) * (uint32_t)f + f0 + j, hv));
-    }
-    __syncthreads();
-
-    // GEMM2: acc[ROWS, D] += h[ROWS, FT] @ W2_tile^T.
-    for (int t = warp; t < rt_n * dt_n; t += kWarps) {
-      const int rt = t / dt_n, ct = t % dt_n;
-      float* cp = acc + rt * 16 * L.lda + ct * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::load_matrix_sync(c, cp, L.lda, wmma::mem_row_major);
-      mma_tile<wmma::row_major, wmma::col_major>(
-          c, h + rt * 16 * L.ldh, 1, L.ldh, w2s + ct * 16 * L.ldw2, 1,
-          L.ldw2, FT);
-      wmma::store_matrix_sync(cp, c, L.lda, wmma::mem_row_major);
-    }
-    __syncthreads();
-  }
-  store_residual<bf>(x, b2, acc, L.lda, y, row0, ROWS, n, d, ff_scale, dp2,
-                     g != nullptr);
-}
-
-}  // namespace bf16k
-
 // ------------------------------------------------------ bf16 backward ---
 // In both passes TMA keeps 128B-swizzled tiles in flight through a ring
 // of stages guarded by mbarriers (full: the bytes arrived; empty: every
@@ -542,17 +413,18 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// acc (+)= A (registers) @ B (shared memory, MN-major), N = D.
-template <int D>
+// acc (+)= A (registers) @ B (shared memory, MN-major; TB = 0: K-major),
+// N = D.
+template <int D, int TB = 1>
 __device__ __forceinline__ void mma_rs_d(float (&acc)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t b) {
   if constexpr (D == 64)
-    mma_rs_n64<1>(acc, a, b, 1);
+    mma_rs_n64<TB>(acc, a, b, 1);
   else if constexpr (D == 128)
-    mma_rs_n128<1>(acc, a, b, 1);
+    mma_rs_n128<TB>(acc, a, b, 1);
   else
-    mma_rs_n256<1>(acc, a, b, 1);
+    mma_rs_n256<TB>(acc, a, b, 1);
 }
 
 // Pass A's dz1 of one F tile in place of z1: drop1(bf16(dh)) act'(z1 + b1),
@@ -1083,6 +955,366 @@ bwd_weights(const __grid_constant__ CUtensorMap w1_map,
 }
 }  // namespace bwd16
 
+// ------------------------------------------------------- bf16 forward ---
+// Two warpgroups a block, one block an SM (see the note at the top). TMA
+// keeps the weight tiles of FT columns in flight through a ring of
+// mbarrier-guarded stages; the last warp to release a stage refills it. Per
+// F tile a warpgroup computes z1 = A W1t^T (wgmma, both operands in shared
+// memory), forms the hidden in registers (bias, activation, mask, bf16) and
+// feeds it as the register A operand of acc += h W2t^T, whose [64, D] sum
+// stays in registers over the whole F loop. The element-wise work is
+// branch-free inside the unrolled loops, and the biases and mask bits are
+// formed while z1's product runs.
+namespace fwd16 {
+using bf = __nv_bfloat16;
+using namespace sm90;
+using bwd16::act_pair;
+using bwd16::keep_bits;
+using bwd16::kWG;
+using bwd16::mma_rs_d;
+using bwd16::swz128;
+
+constexpr int FT = 64;   // F columns of a weight tile
+
+// Rows of a block: SPLIT, two warpgroups share 64 rows and split each F
+// tile's columns; else each warpgroup owns 64 of 128 rows.
+__host__ __device__ constexpr int rows_of(int split) {
+  return split ? 64 : 128;
+}
+
+__host__ __device__ constexpr uint32_t stage_bytes(int d) {
+  return 2u * FT * d * 2;
+}
+
+// As many stages as fit beside the A tile, at most 4.
+__host__ __device__ constexpr int stages(int d, int split) {
+  const long long s = ((long long)kMaxSmem - 1024 - 128 -
+                       (long long)rows_of(split) * d * 2) /
+                      stage_bytes(d);
+  return s > 4 ? 4 : (int)s;
+}
+
+// Shared memory, byte offsets from a 1024-aligned base: the A tile (LN(x)
+// or x, K-major, [D/64][ROWS][64], 128B swizzle); the ring, each stage
+// W1[f0:f0+FT, :] as [D/64][FT][64] then W2[:, f0:f0+FT] as [D][64] (both
+// K-major B operands, 128B swizzle); after the F loop the two warpgroups'
+// fp32 sums [2][64][D + 4] overlay both; then the full barriers, the
+// barrier of x's load and the release counts.
+struct Layout {
+  uint32_t ring, w2, stage, full, xbar, count, bytes;
+};
+
+__host__ __device__ inline Layout layout(int d, int split) {
+  Layout L;
+  L.ring = (uint32_t)rows_of(split) * d * 2;
+  L.w2 = (uint32_t)FT * d * 2;
+  L.stage = stage_bytes(d);
+  uint32_t o = L.ring + stages(d, split) * L.stage;
+  const uint32_t sums = 2u * 64 * (d + 4) * 4;
+  if (o < sums) o = sums;
+  L.full = o;
+  L.xbar = L.full + 8 * 4;
+  L.count = L.xbar + 8;
+  L.bytes = L.count + 4 * 4;
+  return L;
+}
+
+// Weight tile t into ring stage s, completing the stage's full barrier.
+template <int D>
+__device__ __forceinline__ void load_tile(const Layout& L, uint32_t base,
+                                          const CUtensorMap* w1,
+                                          const CUtensorMap* w2, int s,
+                                          int t) {
+  const uint32_t st = base + L.ring + s * L.stage;
+  const uint32_t full = base + L.full + 8 * s;
+  mbar_expect_tx(full, L.stage);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    tma_load_2d(st + c * FT * 128, w1, full, c * 64, t * FT);
+  tma_load_2d(st + L.w2, w2, full, t * FT, 0);
+}
+
+// LN(x) of the block's rows into the A tile as bf16: one warp a row, D / 32
+// consecutive columns a lane, two-pass statistics in fp32 as the Pallas
+// kernel takes them; rows at or past n are zeros.
+template <int D, int ROWS>
+__device__ __forceinline__ void ln_tile(unsigned char* smem,
+                                        const bf* __restrict__ x,
+                                        const float* __restrict__ g,
+                                        const float* __restrict__ bl,
+                                        int row0, int n, float eps) {
+  constexpr int V = D / 32, W = V / 2;   // values and bf16 pairs a lane
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c0 = lane * V;
+  for (int r = warp; r < ROWS; r += 2 * kWG / 32) {
+    const int gr = row0 + r;
+    uint32_t w[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) w[j] = 0u;
+    if (gr < n) {
+      const bf* src = x + (size_t)gr * D + c0;
+      if constexpr (W == 4) {
+        const uint4 q = *reinterpret_cast<const uint4*>(src);
+        w[0] = q.x;
+        w[1] = q.y;
+        w[2] = q.z;
+        w[3] = q.w;
+      } else if constexpr (W == 2) {
+        const uint2 q = *reinterpret_cast<const uint2*>(src);
+        w[0] = q.x;
+        w[1] = q.y;
+      } else {
+        w[0] = *reinterpret_cast<const uint32_t*>(src);
+      }
+      float v[V];
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        const float2 p = unpack_bf16(w[j]);
+        v[2 * j] = p.x;
+        v[2 * j + 1] = p.y;
+      }
+      float s = 0.0f;
+#pragma unroll
+      for (int j = 0; j < V; ++j) s += v[j];
+      const float m = warp_sum(s) / D;
+      float var = 0.0f;
+#pragma unroll
+      for (int j = 0; j < V; ++j) var += (v[j] - m) * (v[j] - m);
+      const float rs = rsqrtf(warp_sum(var) / D + eps);
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        const int c = c0 + 2 * j;
+        w[j] = pack_bf16((v[2 * j] - m) * rs * g[c] + bl[c],
+                         (v[2 * j + 1] - m) * rs * g[c + 1] + bl[c + 1]);
+      }
+    }
+    unsigned char* dst = smem + swz128(ROWS, r, c0);
+    if constexpr (W == 4)
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    else if constexpr (W == 2)
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    else
+      *reinterpret_cast<uint32_t*>(dst) = w[0];
+  }
+}
+
+// The hidden of a warpgroup's NC = 2 NR columns of one F tile from z1:
+// bf16(drop1(act(z1 + b1))), packed as the register A fragments of the
+// NC / 16 k-steps of the second product; bias[(r / 4) * 2 + r % 2] is the
+// bias of register r's column.
+template <int ACT, int NR>
+__device__ __forceinline__ void hidden_tile(const float (&z)[NR],
+                                            const float (&bias)[NR / 2],
+                                            uint32_t kept, float scale,
+                                            uint32_t (&a)[NR / 8][4]) {
+#pragma unroll
+  for (int r = 0; r < NR; r += 2) {
+    float h[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v, dv;   // dv unused: the compiler drops it
+      act_pair<ACT>(z[r + e] + bias[(r >> 2) * 2 + e], v, dv);
+      h[e] = v * ((kept >> (r + e)) & 1u ? scale : 0.0f);
+    }
+    a[r >> 3][(r >> 1) & 3] = pack_bf16(h[0], h[1]);
+  }
+}
+
+// z (+)= A @ B, both K-major in shared memory, N = NR * 2.
+template <int NR>
+__device__ __forceinline__ void mma_ss_z(float (&z)[NR], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  if constexpr (NR == 16)
+    mma_ss_n32<0, 0>(z, a, b, scale_d);
+  else
+    mma_ss_n64<0, 0>(z, a, b, scale_d);
+}
+
+// y for the block's rows, ln_ffn_residual (g given) or ffn_fused (g ==
+// nullptr: x arrives in the A tile by TMA; no output mask, no residual).
+// Both warpgroups take every F tile: with SPLIT each its 32 of the tile's
+// 64 columns over the block's 64 rows, else all 64 over its own 64 rows.
+template <int D, int SPLIT>
+__global__ void __launch_bounds__(2 * kWG, 1)
+ffn_fwd(const __grid_constant__ CUtensorMap w1_map,
+        const __grid_constant__ CUtensorMap w2_map,
+        const __grid_constant__ CUtensorMap x_map, const bf* __restrict__ x,
+        const float* __restrict__ g, const float* __restrict__ bl,
+        const float* __restrict__ b1, const float* __restrict__ b2,
+        bf* __restrict__ y, int n, int f, float ff_scale, float eps, int act,
+        Drop dp1, Drop dp2) {
+  constexpr int ROWS = rows_of(SPLIT), STAGES = stages(D, SPLIT);
+  constexpr int LD = D + 4, NC = SPLIT ? FT / 2 : FT, NR = NC / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const Layout L = layout(D, SPLIT);
+  int* count = reinterpret_cast<int*>(smem + L.count);
+  const int tid = threadIdx.x, row0 = blockIdx.x * ROWS, tiles = f / FT;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(base + L.full + 8 * s, 1);
+      count[s] = 0;
+    }
+    mbar_init(base + L.xbar, 1);
+    mbar_init_fence();
+    for (int t = 0; t < STAGES && t < tiles; ++t)
+      load_tile<D>(L, base, &w1_map, &w2_map, t, t);
+    if (g == nullptr) {
+      // x's 64-row boxes that hold a row below n (rows past n read as
+      // zeros; a box wholly past it is not loaded, and its rows, never
+      // stored, keep whatever the tile held).
+      const int boxes = min(ROWS / 64, (n - row0 + 63) / 64);
+      mbar_expect_tx(base + L.xbar, boxes * 64 * D * 2);
+      for (int rb = 0; rb < boxes; ++rb)
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_2d(base + c * ROWS * 128 + rb * 64 * 128, &x_map,
+                      base + L.xbar, c * 64, row0 + rb * 64);
+    }
+  }
+  if (g != nullptr) {
+    ln_tile<D, ROWS>(smem, x, g, bl, row0, n, eps);
+    fence_async_smem();
+  }
+  __syncthreads();
+  if (g == nullptr) mbar_wait(base + L.xbar, 0);
+
+  const int wid = warp_uniform(tid / 32);
+  const int wg = wid / 4, warp = wid % 4, lane = tid % 32;
+  const int r_wg = SPLIT ? 0 : 64 * wg;    // the warpgroup's rows ...
+  const int c_wg = SPLIT ? NC * wg : 0;    // ... and columns of a tile
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float z[NR];
+  uint32_t a[NR / 8][4];
+  // Descriptors, all K-major: the warpgroup's rows of the A tile, its
+  // columns of each stage's W1t (z1's B: rows of W1) and its k-steps of
+  // W2t (the second product's B).
+  const uint64_t ad0 = desc(base + r_wg * 128, 16, 1024, kSwizzle128);
+  const uint64_t w1d0 =
+      desc(base + L.ring + c_wg * 128, 16, 1024, kSwizzle128);
+  const uint64_t w2d0 =
+      desc(base + L.ring + L.w2 + c_wg * 2, 16, 1024, kSwizzle128);
+  // Register r of z1 holds row `row` + 8 ((r / 2) % 2) and column `col` +
+  // 8 (r / 4) + r % 2 of the tile.
+  const uint32_t row = (uint32_t)(row0 + r_wg + 16 * warp + lane / 4);
+  for (int i = 0; i < tiles; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(base + L.full + 8 * s, (i / STAGES) & 1);
+    const uint32_t so = s * L.stage;
+    const uint64_t ad = opaque(ad0);
+    const uint64_t w1d = desc_at(opaque(w1d0), so);
+    const uint64_t w2d = desc_at(opaque(w2d0), so);
+    fence_regs(z);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss_z<NR>(z, desc_at(ad, (kk >> 2) * ROWS * 128 + (kk & 3) * 32),
+                   desc_at(w1d, (kk >> 2) * FT * 128 + (kk & 3) * 32),
+                   kk > 0);
+    wg_commit();
+    // While the product runs: the biases and hidden-mask bits.
+    const int col = i * FT + c_wg + 2 * (lane & 3);
+    float bias[NR / 2];
+#pragma unroll
+    for (int q = 0; q < NR / 2; ++q)
+      bias[q] = b1[col + 8 * (q >> 1) + (q & 1)];
+    uint32_t kept = 0xFFFFFFFFu;
+    if (dp1.thresh < kKeepAll) {
+      uint32_t index[NR];
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+        index[r] = (row + 8 * ((r >> 1) & 1)) * (uint32_t)f + col +
+                   8 * (r >> 2) + (r & 1);
+      kept = keep_bits<NR>(dp1, index);
+    }
+    wg_wait0();
+    fence_regs(z);
+    if (act == 0)
+      hidden_tile<0, NR>(z, bias, kept, dp1.scale, a);
+    else
+      hidden_tile<1, NR>(z, bias, kept, dp1.scale, a);
+#pragma unroll
+    for (int kk = 0; kk < NR / 8; ++kk) fence_regs(a[kk]);
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < NR / 8; ++kk)
+      mma_rs_d<D, 0>(acc, a[kk], desc_at(w2d, kk * 32));
+    wg_commit();
+    wg_wait0();
+    fence_regs(acc);
+    // The warp is done with the stage. The last of the eight warps to say
+    // so loads tile i + STAGES into it; counts only grow, so the stage's
+    // k-th tile is released when its count reaches 8 (k + 1).
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      if (atomicAdd(&count[s], 1) == 8 * (i / STAGES + 1) - 1 &&
+          i + STAGES < tiles) {
+        __threadfence_block();
+        load_tile<D>(L, base, &w1_map, &w2_map, s, i + STAGES);
+      }
+    }
+  }
+
+  // Every warpgroup is past its last product: the sums overlay the tiles.
+  __syncthreads();
+  float* sums = reinterpret_cast<float*>(smem);
+  float* mine = sums + wg * 64 * LD;
+#pragma unroll
+  for (int r = 0; r < D / 2; r += 2) {
+    const int rr = 16 * warp + lane / 4 + 8 * ((r >> 1) & 1);
+    const int cc = 8 * (r >> 2) + 2 * (lane & 3);
+    *reinterpret_cast<float2*>(mine + rr * LD + cc) =
+        make_float2(acc[r], acc[r + 1]);
+  }
+  __syncthreads();
+  // Eight columns a thread, rows in order: + b2, and for ln_ffn_residual
+  // the output mask, the scale and the residual in fp32; one cast.
+  for (int i = tid; i < ROWS * (D / 8); i += 2 * kWG) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8, gr = row0 + r;
+    if (gr >= n) break;
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; j += 4) {
+      float4 p = *reinterpret_cast<const float4*>(sums + r * LD + c + j);
+      if (SPLIT) {
+        const float4 q =
+            *reinterpret_cast<const float4*>(sums + (64 + r) * LD + c + j);
+        p.x += q.x;
+        p.y += q.y;
+        p.z += q.z;
+        p.w += q.w;
+      }
+      v[j] = p.x + b2[c + j];
+      v[j + 1] = p.y + b2[c + j + 1];
+      v[j + 2] = p.z + b2[c + j + 2];
+      v[j + 3] = p.w + b2[c + j + 3];
+    }
+    const size_t o = (size_t)gr * D + c;
+    if (g != nullptr) {
+      const uint4 q = *reinterpret_cast<const uint4*>(x + o);
+      const uint32_t xw[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 xv = unpack_bf16(xw[j]);
+        v[2 * j] = xv.x + ff_scale * drop(dp2, (uint32_t)(o + 2 * j),
+                                          v[2 * j]);
+        v[2 * j + 1] =
+            xv.y + ff_scale * drop(dp2, (uint32_t)(o + 2 * j + 1),
+                                   v[2 * j + 1]);
+      }
+    }
+    *reinterpret_cast<uint4*>(y + o) =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                   pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
+}
+}  // namespace fwd16
+
 // ---------------------------------------------------------------- fp32 ---
 namespace f32k {
 constexpr int FT = 32;
@@ -1499,48 +1731,42 @@ Plan16 plan16(int n, int f) {
 
 bool bf16_width(int d) { return d == 64 || d == 128 || d == 256; }
 
-int fwd_rows(int dtype, int d) {
-  for (int rows = 32; rows >= 16; rows /= 2) {
-    const size_t b = dtype == 1 ? bf16k::layout(rows, d).bytes
-                                : f32k::layout(rows, d).bytes;
-    if (b <= kMaxSmem) return rows;
-  }
+// The bf16 forward's schedule (fwd16): two warpgroups split the columns
+// of every F tile over 64 rows (SPLIT) while 128-row blocks would not give
+// every SM one, else each takes 64 of a block's 128 rows (as plan16's
+// pass A).
+// fwd16_force >= 0 forces it (ln_ffn_residual_fwd_schedule, for timing
+// both schedules).
+int fwd16_force = -1;
+
+int fwd16_split(int n) {
+  if (fwd16_force >= 0) return fwd16_force;
+  return (n + 127) / 128 >= 132 ? 0 : 1;
+}
+
+// Rows a block of the fp32 forward takes: 32 when its layout fits, else
+// 16; 0 when neither fits this width.
+int fwd_rows_f32(int d) {
+  for (int rows = 32; rows >= 16; rows /= 2)
+    if (f32k::layout(rows, d).bytes <= kMaxSmem) return rows;
   return 0;
 }
 
-// The forward of both functions; g == nullptr selects ffn_fused (bl and
-// ff_scale unused, dp2 keeps everything).
-int launch_fwd(int dtype, const void* x, const void* g, const void* bl,
-               const void* w1, const void* b1, const void* w2,
-               const void* b2, void* y, int n, int d, int f, float ff_scale,
-               float eps, int act, Drop dp1, Drop dp2, void* stream) {
-  const int rows = fwd_rows(dtype, d);
+// The fp32 forward; g == nullptr selects ffn_fused (bl and ff_scale
+// unused, dp2 keeps everything).
+int launch_fwd_f32(const float* x, const float* g, const float* bl,
+                   const float* w1, const float* b1, const float* w2,
+                   const float* b2, float* y, int n, int d, int f,
+                   float ff_scale, float eps, int act, Drop dp1, Drop dp2,
+                   cudaStream_t s) {
+  const int rows = fwd_rows_f32(d);
   if (rows == 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = (n + rows - 1) / rows;
+  auto kernel = rows == 32 ? f32k::ln_ffn_fwd<32> : f32k::ln_ffn_fwd<16>;
+  const size_t bytes = f32k::layout(rows, d).bytes;
   cudaError_t e;
-  if (dtype == 1) {
-    using bf = __nv_bfloat16;
-    auto kernel = rows == 32 ? bf16k::ln_ffn_fwd<32> : bf16k::ln_ffn_fwd<16>;
-    const size_t bytes = bf16k::layout(rows, d).bytes;
-    if ((e = set_smem(kernel, bytes)) != cudaSuccess) return (int)e;
-    kernel<<<grid, kThreads, bytes, s>>>(
-        static_cast<const bf*>(x), static_cast<const float*>(g),
-        static_cast<const float*>(bl), static_cast<const bf*>(w1),
-        static_cast<const float*>(b1), static_cast<const bf*>(w2),
-        static_cast<const float*>(b2), static_cast<bf*>(y), n, d, f,
-        ff_scale, eps, act, dp1, dp2);
-  } else {
-    auto kernel = rows == 32 ? f32k::ln_ffn_fwd<32> : f32k::ln_ffn_fwd<16>;
-    const size_t bytes = f32k::layout(rows, d).bytes;
-    if ((e = set_smem(kernel, bytes)) != cudaSuccess) return (int)e;
-    kernel<<<grid, kThreads, bytes, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g),
-        static_cast<const float*>(bl), static_cast<const float*>(w1),
-        static_cast<const float*>(b1), static_cast<const float*>(w2),
-        static_cast<const float*>(b2), static_cast<float*>(y), n, d, f,
-        ff_scale, eps, act, dp1, dp2);
-  }
+  if ((e = set_smem(kernel, bytes)) != cudaSuccess) return (int)e;
+  kernel<<<(n + rows - 1) / rows, kThreads, bytes, s>>>(
+      x, g, bl, w1, b1, w2, b2, y, n, d, f, ff_scale, eps, act, dp1, dp2);
   return (int)cudaGetLastError();
 }
 
@@ -1668,14 +1894,14 @@ bool tensor_map(CUtensorMap* m, const void* ptr, int rows, int cols,
 
 // The bf16 backward at width D (see launch_bwd_f32 for g == nullptr).
 template <int D>
-int launch_bwd_bf16(const bf16k::bf* x, const bf16k::bf* dy, const float* g,
-                    const float* bl, const bf16k::bf* w1, const float* b1,
-                    const bf16k::bf* w2, bf16k::bf* dx, float* dg,
+int launch_bwd_bf16(const bwd16::bf* x, const bwd16::bf* dy, const float* g,
+                    const float* bl, const bwd16::bf* w1, const float* b1,
+                    const bwd16::bf* w2, bwd16::bf* dx, float* dg,
                     float* dbl, float* dw1, float* db1, float* dw2,
-                    float* db2, float* ws, bf16k::bf* rows_buf, int n, int f,
+                    float* db2, float* ws, bwd16::bf* rows_buf, int n, int f,
                     float ff_scale, float eps, int act, Drop dp1, Drop dp2,
                     cudaStream_t s) {
-  using bf = bf16k::bf;
+  using bf = bwd16::bf;
   constexpr int d = D;
   const bool ln = g != nullptr;
   const Plan16 p = plan16(n, f);
@@ -1734,7 +1960,7 @@ int launch_bwd_any(int dtype, const void* x, const void* dy, const void* g,
         static_cast<float*>(dx), dg, dbl, dw1, db1, dw2, db2, ws,
         static_cast<float*>(rows_buf), n, d, f, ff_scale, eps, act, dp1, dp2,
         s);
-  using bf = bf16k::bf;
+  using bf = bwd16::bf;
   if (bwd_workspace(1, n, d, f, gf != nullptr) == 0)
     return (int)cudaErrorInvalidValue;
   auto run = d == 64 ? launch_bwd_bf16<64>
@@ -1746,13 +1972,67 @@ int launch_bwd_any(int dtype, const void* x, const void* dy, const void* g,
              s);
 }
 
+// The bf16 forward at width D (see launch_fwd_f32 for g == nullptr).
+template <int D>
+int launch_fwd_bf16(const bwd16::bf* x, const float* g, const float* bl,
+                    const bwd16::bf* w1, const float* b1,
+                    const bwd16::bf* w2, const float* b2, bwd16::bf* y,
+                    int n, int f, float ff_scale, float eps, int act,
+                    Drop dp1, Drop dp2, cudaStream_t s) {
+  const int split = fwd16_split(n);
+  CUtensorMap w1m, w2m, xm = {};
+  const CUtensorMapSwizzle sw128 = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!tensor_map(&w1m, w1, f, D, fwd16::FT, 64, sw128) ||
+      !tensor_map(&w2m, w2, D, f, D, fwd16::FT, sw128) ||
+      (g == nullptr && !tensor_map(&xm, x, n, D, 64, 64, sw128)))
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = fwd16::layout(D, split).bytes + 1024;
+  auto kernel = split ? fwd16::ffn_fwd<D, 1> : fwd16::ffn_fwd<D, 0>;
+  cudaError_t e;
+  if ((e = set_smem(kernel, bytes)) != cudaSuccess) return (int)e;
+  const int rows = fwd16::rows_of(split);
+  kernel<<<(n + rows - 1) / rows, 2 * bwd16::kWG, bytes, s>>>(
+      w1m, w2m, xm, x, g, bl, b1, b2, y, n, f, ff_scale, eps, act, dp1,
+      dp2);
+  return (int)cudaGetLastError();
+}
+
+// The forward of both functions; g == nullptr selects ffn_fused.
+int launch_fwd(int dtype, const void* x, const void* g, const void* bl,
+               const void* w1, const void* b1, const void* w2,
+               const void* b2, void* y, int n, int d, int f, float ff_scale,
+               float eps, int act, Drop dp1, Drop dp2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* gf = static_cast<const float*>(g);
+  const float* blf = static_cast<const float*>(bl);
+  const float* b1f = static_cast<const float*>(b1);
+  const float* b2f = static_cast<const float*>(b2);
+  if (dtype == 0)
+    return launch_fwd_f32(static_cast<const float*>(x), gf, blf,
+                          static_cast<const float*>(w1), b1f,
+                          static_cast<const float*>(w2), b2f,
+                          static_cast<float*>(y), n, d, f, ff_scale, eps,
+                          act, dp1, dp2, s);
+  using bf = bwd16::bf;
+  if (!bf16_width(d) || f % fwd16::FT) return (int)cudaErrorInvalidValue;
+  auto run = d == 64 ? launch_fwd_bf16<64>
+             : d == 128 ? launch_fwd_bf16<128> : launch_fwd_bf16<256>;
+  return run(static_cast<const bf*>(x), gf, blf, static_cast<const bf*>(w1),
+             b1f, static_cast<const bf*>(w2), b2f, static_cast<bf*>(y), n,
+             f, ff_scale, eps, act, dp1, dp2, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Rows a forward CTA takes for this dtype (0 = fp32, 1 = bf16) and width:
-// 32 when the shared-memory layout fits, else 16; 0 when neither fits.
-int ln_ffn_residual_rows(int dtype, int d) { return fwd_rows(dtype, d); }
+// The bf16 forward's schedule: -1 chooses from N, 1 forces two warpgroups
+// over 64 rows, 0 one warpgroup a 64-row half of 128 rows. Returns the
+// schedule this N gets under the setting.
+int ln_ffn_residual_fwd_schedule(int force, int n) {
+  fwd16_force = force;
+  return fwd16_split(n);
+}
 
 // Shape and alignment checks are the caller's (ops/ffn.py). Returns a
 // cudaError_t code; 0 is success. thresh >= 65536 turns a mask off.

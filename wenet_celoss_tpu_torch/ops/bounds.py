@@ -12,7 +12,8 @@ prints one row per ``pallas_call`` of the JAX package at the flagship
 shapes: the decode bench (B=64, 512 frames → T'=127 after subsampling)
 for the encoder kernels' forwards, the train bench (B=256, T'=127, 32
 labels → U+1=33) for the backwards and the loss and predictor kernels,
-d=256, F=2048, join dim 512, vocab 5002, bf16.
+d=256, F=2048, join dim 512, vocab 5002, bf16; K1's and K6's forwards
+also at the train bench's N.
 """
 
 from __future__ import annotations
@@ -161,6 +162,9 @@ def flagship() -> List[Dict]:
         ("K1 ln_ffn_residual", "ops/ffn_pallas.py:384",
          f"N={n_dec} D=256 F=2048",
          ln_ffn_residual(n_dec, 256, 2048, "bf16")),
+        ("K1 ln_ffn_residual (training)", "ops/ffn_pallas.py:384",
+         f"N={n_train} D=256 F=2048",
+         ln_ffn_residual(n_train, 256, 2048, "bf16")),
         ("K1 ln_ffn_residual backward", "ops/ffn_pallas.py:422",
          f"N={n_train} D=256 F=2048",
          ln_ffn_residual_bwd(n_train, 256, 2048, "bf16")),
@@ -174,6 +178,8 @@ def flagship() -> List[Dict]:
          "B=256 U1=33 H=256", lstm2_seq_bwd(256, 33, 256, "bf16")),
         ("K6 ffn_fused", "ops/ffn_pallas.py:170",
          f"N={n_dec} D=256 F=2048", ffn_fused(n_dec, 256, 2048, "bf16")),
+        ("K6 ffn_fused (training)", "ops/ffn_pallas.py:170",
+         f"N={n_train} D=256 F=2048", ffn_fused(n_train, 256, 2048, "bf16")),
         ("K6 ffn_fused backward", "ops/ffn_pallas.py:201",
          f"N={n_train} D=256 F=2048",
          ffn_fused_bwd(n_train, 256, 2048, "bf16")),

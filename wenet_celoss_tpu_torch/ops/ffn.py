@@ -30,6 +30,7 @@ _ACTS = {"relu": 0, "swish": 1}
 # F-tile of the kernel per compute dtype (F must be a multiple of it).
 F_TILE = {torch.float32: 32, torch.bfloat16: 64}
 MAX_D = 512
+BF16_WIDTHS = (64, 128, 256)   # the widths the bf16 kernels take
 
 
 def _act(name: str, z: torch.Tensor) -> torch.Tensor:
@@ -99,6 +100,9 @@ def check_args(x2, g, bl, w1, b1, w2, b2, activation):
         raise ValueError(f"unsupported activation {activation!r}")
     if d % 16 or d > MAX_D:
         raise ValueError(f"D={d} must be a multiple of 16 up to {MAX_D}")
+    if cdt == torch.bfloat16 and d not in BF16_WIDTHS:
+        raise ValueError(f"D={d} is not a width the bf16 kernels take "
+                         f"{BF16_WIDTHS}")
     if f % F_TILE[cdt]:
         raise ValueError(f"F={f} must be a multiple of {F_TILE[cdt]} "
                          f"for {cdt}")
@@ -370,6 +374,14 @@ ffn_fused.launches = 0
 ffn_fused.bwd_launches = 0
 
 
+def fwd_schedule(n: int, force: int = -1) -> int:
+    """The bf16 forward's schedule at ``n`` rows: 1 when a block's two
+    warpgroups share 64 rows, 0 when each takes 64 of 128. ``force`` 0 or
+    1 imposes it on every later launch (to time both), -1 restores the
+    choice from N."""
+    return _lib().ln_ffn_residual_fwd_schedule(int(force), int(n))
+
+
 def _lib() -> ctypes.CDLL:
     lib = load_library("ln_ffn_residual")
     if lib.ln_ffn_residual_fwd.argtypes is None:
@@ -379,6 +391,8 @@ def _lib() -> ctypes.CDLL:
         lib.ln_ffn_residual_fwd.argtypes = (
             [i] + [p] * 8 + [i] * 3 + [fl] * 2 + [i] + masks + [p])
         lib.ln_ffn_residual_fwd.restype = i
+        lib.ln_ffn_residual_fwd_schedule.argtypes = [i, i]
+        lib.ln_ffn_residual_fwd_schedule.restype = i
         lib.ln_ffn_residual_bwd_workspace.argtypes = [i] * 4
         lib.ln_ffn_residual_bwd_workspace.restype = ctypes.c_longlong
         lib.ln_ffn_residual_bwd.argtypes = (
