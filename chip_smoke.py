@@ -17,7 +17,10 @@ Phases, in the order they run, each printing JSON lines:
             with the calls back to back, the backward split into pass A,
             pass B and the partial sums under torch.profiler;
   k2_k3, k4 the streaming joint's and the 2-layer LSTM's kernels the same
-            way (same bits over repeated backwards);
+            way (same bits over repeated calls; K2/K3 also at H=512 on a
+            ragged N and with blank and labels on V - 1); K2, K3 and their
+            chunked cuBLAS yardsticks (also with W padded to V = 5008) in
+            card time, K3 split by pass, its workspace bytes;
   k9        the RNN-T lattice against alpha_scan/beta_scan (B=256 T'=127
             U1=33 full and ragged, the pallas path's B=64, a wide U1=90,
             U1=600 full and ragged on three warps a row):
@@ -474,10 +477,12 @@ def rel_fro(a, b) -> float:
     return float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def joint_inputs(b, t, u1, h, v, dtype, seed):
+def joint_inputs(b, t, u1, h, v, dtype, seed, tail=False):
     """K2/K3's arguments on the card: enc_j, pred_j, w [V, H], bias,
     labels [B, U1-1], lengths, and plane gradients gb, ge that are 0 off
-    each utterance's lattice (shaped like occupancies: nonnegative)."""
+    each utterance's lattice (shaped like occupancies: nonnegative). With
+    ``tail`` every other label is V - 1, the last real column of the
+    padded V tile."""
     g = torch.Generator().manual_seed(seed)
 
     def rnd(*shape, std=1.0):
@@ -487,6 +492,8 @@ def joint_inputs(b, t, u1, h, v, dtype, seed):
     w = rnd(v, h, std=h ** -0.5).to(dtype)
     bias = rnd(v, std=0.1)
     labels = torch.randint(1, v, (b, u1 - 1), generator=g).cuda()
+    if tail:
+        labels[:, ::2] = v - 1
     ilen = torch.randint(max(1, t // 2), t + 1, (b,), generator=g).cuda()
     llen = torch.randint(0, u1, (b,), generator=g).cuda()
     ilen[0], llen[0] = t, u1 - 1
@@ -499,25 +506,34 @@ def joint_inputs(b, t, u1, h, v, dtype, seed):
     return (enc, pred, w, bias, labels), gb.contiguous(), ge.contiguous()
 
 
-JOINT_CASES = (  # (name, B, T, U1, H, V, dtype)
-    ("train_bf16", 256, 127, 33, 512, 5002, torch.bfloat16),
-    ("small_fp32", 3, 19, 5, 64, 40, torch.float32),
-    ("ragged_fp32", 5, 37, 9, 128, 1000, torch.float32),
-    ("ragged_bf16", 5, 37, 9, 128, 1000, torch.bfloat16),
+JOINT_CASES = (  # (name, B, T, U1, H, V, dtype, blank)
+    ("train_bf16", 256, 127, 33, 512, 5002, torch.bfloat16, 0),
+    ("small_fp32", 3, 19, 5, 64, 40, torch.float32, 0),
+    ("ragged_fp32", 5, 37, 9, 128, 1000, torch.float32, 0),
+    ("ragged_bf16", 5, 37, 9, 128, 1000, torch.bfloat16, 0),
+    # N = 1001 rows, a multiple of neither K2's 128-row blocks nor K3's
+    # 64-row chunks, at the flagship's widths.
+    ("ragged_h512_bf16", 7, 13, 11, 512, 5002, torch.bfloat16, 0),
+    # blank and every other label on V - 1: the padded tail's edge.
+    ("tail_bf16", 5, 37, 9, 512, 5002, torch.bfloat16, 5001),
 )
 
 
 def phase_k2_k3(rnnt, bounds, timed: bool = True) -> tuple:
     """K2 and K3 against their plain versions on the card; the same bits
-    over repeated K3 calls; at the training shape in bf16 the times of
-    both, the plain versions', cuBLAS GEMMs of the same products (chunked
-    over T) and the bounds. Returns the (K2, K3) records."""
+    over repeated K2 and K3 calls; at the training shape in bf16 the times
+    of both, the plain versions', cuBLAS GEMMs of the same products
+    (chunked over T) and the bounds. Returns the (K2, K3) records."""
     rec2, rec3 = {}, {}
-    for name, b, t, u1, h, v, dtype in JOINT_CASES:
-        args, gb, ge = joint_inputs(b, t, u1, h, v, dtype, seed=t + v)
-        got = rnnt.joint_planes_kernel(*args, 0, "tanh")
+    for name, b, t, u1, h, v, dtype, blank in JOINT_CASES:
+        args, gb, ge = joint_inputs(b, t, u1, h, v, dtype, seed=t + v,
+                                    tail=blank == v - 1)
+        fwd = [rnnt.joint_planes_kernel(*args, blank, "tanh")
+               for _ in range(2)]
         torch.cuda.synchronize()
-        want = rnnt.joint_planes_ref(*args, 0, "tanh")
+        got = fwd[0]
+        same_fwd = all(torch.equal(x, y) for x, y in zip(*fwd))
+        want = rnnt.joint_planes_ref(*args, blank, "tanh")
         errs = {}
         for pname, a, r in zip(("blank_lp", "emit_lp", "lse"), got, want):
             if pname == "emit_lp":   # row U has no label
@@ -526,22 +542,25 @@ def phase_k2_k3(rnnt, bounds, timed: bool = True) -> tuple:
             errs[pname] = {"max_abs": float(err.max()),
                            "ok": bool((err <= 1e-3 + 1e-4 * r.abs()).all())}
         lse = got[2].contiguous()
-        bwd = [rnnt.joint_planes_bwd_kernel(*args, gb, ge, lse, 0, "tanh")
+        bwd = [rnnt.joint_planes_bwd_kernel(*args, gb, ge, lse, blank,
+                                            "tanh")
                for _ in range(3)]
         torch.cuda.synchronize()
         same = all(torch.equal(x, y) for again in bwd[1:]
                    for x, y in zip(bwd[0], again))
-        want_b = rnnt.joint_planes_bwd_ref(*args, gb, ge, lse, 0, "tanh")
+        want_b = rnnt.joint_planes_bwd_ref(*args, gb, ge, lse, blank, "tanh")
         limit = 1e-4 if dtype == torch.float32 else 1e-2
         for gname, a, r in zip(("denc", "dpred", "dw", "db"), bwd[0],
                                want_b):
             rel = rel_fro(a, r)
             errs[gname] = {"max_abs": float((a - r).abs().max()),
                            "rel_fro": rel, "ok": rel <= limit}
-        ok = same and all(e["ok"] for e in errs.values())
-        check(ok, f"k2_k3 {name}: {errs}, same bits {same}")
+        ok = same and same_fwd and all(e["ok"] for e in errs.values())
+        check(ok, f"k2_k3 {name}: {errs}, same bits K3 {same}, K2 "
+                  f"{same_fwd}")
         line = {"case": name, "B": b, "T": t, "U1": u1, "H": h, "V": v,
-                "dtype": str(dtype).split(".")[-1], "ok": ok,
+                "blank": blank, "dtype": str(dtype).split(".")[-1],
+                "ok": ok, "k2_same_bits_over_2_calls": same_fwd,
                 "k3_same_bits_over_3_calls": same, "errors": errs,
                 "tolerance": "planes: max abs <= 1e-3 + 1e-4*|ref| (row U "
                              "of emit_lp excluded: no label); gradients "
@@ -550,27 +569,36 @@ def phase_k2_k3(rnnt, bounds, timed: bool = True) -> tuple:
                              "before its GEMMs as the Pallas kernel does)"}
         if name == "train_bf16" and timed:
             line.update(joint_times(rnnt, bounds, args, gb, ge, lse))
+            keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "event_ms", "library_event_ms", "library_ms_v5008")
             rec2 = {"max_abs_err": errs["lse"]["max_abs"],
-                    **{k: line["k2"][k] for k in (
-                        "ms", "plain_ms", "bound_ms", "bound_by",
-                        "library_ms")}}
+                    **{k: line["k2"][k] for k in keys}}
             rec3 = {"max_abs_err": errs["denc"]["max_abs"],
+                    **{k: line["k3"][k] for k in keys},
                     **{k: line["k3"][k] for k in (
-                        "ms", "plain_ms", "bound_ms", "bound_by",
-                        "library_ms")}}
+                        "pass_a_ms", "pass_b_ms", "partial_sums_ms",
+                        "workspace_bytes")}}
         emit("k2_k3", **line)
     return rec2, rec3
 
 
 def joint_times(rnnt, bounds, args, gb, ge, lse) -> dict:
+    """K2's and K3's card time (``device_ms``; ``event_ms`` by events
+    around the calls), K3 split by pass, its workspace, the plain
+    versions' times and the cuBLAS yardsticks of the same products, also
+    with W padded to V = 5008 (rows a multiple of 16 bytes), for
+    information."""
     enc, pred, w, bias, labels = args
     b, t, h = enc.shape
     u1, v = pred.shape[1], w.shape[0]
-    k2 = cuda_ms(lambda: rnnt.joint_planes_kernel(*args, 0, "tanh"),
-                 iters=5, warmup=1)
-    k3 = cuda_ms(lambda: rnnt.joint_planes_bwd_kernel(*args, gb, ge, lse, 0,
-                                                      "tanh"),
-                 iters=3, warmup=1)
+
+    def k2():
+        rnnt.joint_planes_kernel(*args, 0, "tanh")
+
+    def k3():
+        rnnt.joint_planes_bwd_kernel(*args, gb, ge, lse, 0, "tanh")
+    k2_event = cuda_ms(k2, iters=5, warmup=1)
+    k3_event = cuda_ms(k3, iters=3, warmup=1)
     p2 = cuda_ms(lambda: rnnt.joint_planes_ref(*args, 0, "tanh"), iters=2,
                  warmup=1)
     p3 = cuda_ms(lambda: rnnt.joint_planes_bwd_ref(*args, gb, ge, lse, 0,
@@ -581,33 +609,61 @@ def joint_times(rnnt, bounds, args, gb, ge, lse) -> dict:
     # for K2; the logits, dlogits @ W and the dW product for K3.
     chunk = 16
     rows = b * chunk * u1
-    hid = torch.randn(rows, h, device="cuda").to(enc.dtype)
-    dl = torch.randn(rows, v, device="cuda").to(enc.dtype)
     n_chunks = -(-t // chunk)
 
-    def logits():
-        for _ in range(n_chunks):
-            torch.mm(hid, w.t())
+    def yardsticks(wv):
+        hid = torch.randn(rows, h, device="cuda").to(enc.dtype)
+        dl = torch.randn(rows, wv.shape[0], device="cuda").to(enc.dtype)
 
-    def three():
-        for _ in range(n_chunks):
-            torch.mm(hid, w.t())
-            torch.mm(dl, w)
-            torch.mm(dl.t(), hid)
-    lib2 = cuda_ms(logits, iters=3, warmup=1)
-    lib3 = cuda_ms(three, iters=3, warmup=1)
+        def logits():
+            for _ in range(n_chunks):
+                torch.mm(hid, wv.t())
+
+        def three():
+            for _ in range(n_chunks):
+                torch.mm(hid, wv.t())
+                torch.mm(dl, wv)
+                torch.mm(dl.t(), hid)
+        return logits, three
+    logits, three = yardsticks(w)
+    lib2_event = cuda_ms(logits, iters=3, warmup=1)
+    lib3_event = cuda_ms(three, iters=3, warmup=1)
+    w5008 = torch.zeros(5008, h, device="cuda", dtype=w.dtype)
+    w5008[:v] = w
+    logits_pad, three_pad = yardsticks(w5008)
+    dev = {"k2": device_ms(k2, iters=5),
+           "lib2": device_ms(logits, iters=3),
+           "lib2_pad": device_ms(logits_pad, iters=3),
+           "k3": device_ms(k3, iters=3),
+           "lib3": device_ms(three, iters=3),
+           "lib3_pad": device_ms(three_pad, iters=3)}
+    passes = device_passes(k3, launches=5, iters=3)
+    words = rnnt._lib().rnnt_joint_bwd_workspace(1, b, t, u1, h, v)
     out = {}
-    for key, ms, plain, lib, fn in (
-            ("k2", k2, p2, lib2, bounds.joint_planes_fwd),
-            ("k3", k3, p3, lib3, bounds.joint_planes_bwd)):
+    for key, ms, event, plain, lib, lib_event, lib_pad, fn in (
+            ("k2", dev["k2"], k2_event, p2, dev["lib2"], lib2_event,
+             dev["lib2_pad"], bounds.joint_planes_fwd),
+            ("k3", dev["k3"], k3_event, p3, dev["lib3"], lib3_event,
+             dev["lib3_pad"], bounds.joint_planes_bwd)):
         flops, nbytes = fn(b, t, u1, h, v, "bf16")
         bound, by = bounds.bound_ms(flops, nbytes, "bf16")
-        out[key] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                    "bound_ms": bound, "bound_by": by, "flops": flops,
-                    "bytes": nbytes, "share_of_bound": bound / ms}
+        out[key] = {"ms": ms, "event_ms": event, "plain_ms": plain,
+                    "library_ms": lib, "library_event_ms": lib_event,
+                    "library_ms_v5008": lib_pad, "bound_ms": bound,
+                    "bound_by": by, "flops": flops, "bytes": nbytes,
+                    "share_of_bound": bound / ms,
+                    "over_library": ms / lib}
+    out["k3"].update({k: passes[k] for k in (
+        "pass_a_ms", "pass_b_ms", "partial_sums_ms", "profile_complete",
+        "intervals")}, device_ms_passes_run=passes["device_ms"],
+        workspace_bytes=4 * words)
     out["library"] = ("torch.mm bf16 GEMMs of the same products in "
                       f"{chunk}-frame chunks (logits; + dlogits @ W and "
-                      "dW for K3), no softmax")
+                      "dW for K3), no softmax; library_ms_v5008 the same "
+                      "with W zero-padded to 5008 rows, for information")
+    out["timing"] = ("ms, library_ms, library_ms_v5008: card ms per call "
+                     "(device_ms); *_event_ms: CUDA events around the "
+                     "calls; plain_ms by events")
     return out
 
 

@@ -228,32 +228,47 @@ def _rnd(g, *shape, std=1.0):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("activation", ["tanh", "swish"])
-def test_joint_kernels_match_plain_versions_on_card(dtype, activation):
+@pytest.mark.parametrize("activation", ["tanh", "relu", "swish"])
+@pytest.mark.parametrize("h,v,blank", [(128, 1000, 0), (512, 5002, 0),
+                                       (512, 1000, 999)])
+def test_joint_kernels_match_plain_versions_on_card(dtype, activation, h, v,
+                                                    blank):
     """K2's planes to 1e-3 + 1e-4*|ref| (row U of emit_lp has no label)
     and K3's four gradients to relative Frobenius 1e-4 (fp32) or 1e-2
-    (bf16) on a ragged shape (T' = 37, V = 1000, neither a multiple of a
-    tile), the same bits on a second K3 call."""
+    (bf16) on a ragged shape (B*T'*U1 = 1665 rows, T' = 37, V not a
+    multiple of a tile) at both joint widths the configs run (2d = 128 and
+    512); the last case puts blank and every other label on V - 1, the
+    padded tile's last real column. One launch a call, and the same bits
+    on a second call of each kernel."""
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(3)
-    b, t, u1, h, v = 5, 37, 9, 128, 1000
+    b, t, u1 = 5, 37, 9
     args = (_rnd(g, b, t, h, std=0.5).to(dt), _rnd(g, b, u1, h, std=0.5).to(
         dt), _rnd(g, v, h, std=h ** -0.5).to(dt), _rnd(g, v, std=0.1),
         torch.randint(1, v, (b, u1 - 1), generator=g).cuda())
+    if blank:
+        args[4][:, ::2] = v - 1
     gb = torch.rand(b, t, u1, generator=g).cuda()
     ge = torch.rand(b, t, u1, generator=g).cuda()
     ge[..., -1] = 0.0
-    got = rnnt_loss.joint_planes_kernel(*args, 0, activation)
-    want = rnnt_loss.joint_planes_ref(*args, 0, activation)
-    for a, r in zip(got, want):
+    k2, k3 = rnnt_loss.joint_planes, rnnt_loss.joint_planes_bwd
+    before = (k2.launches, k3.launches)
+    got = rnnt_loss.joint_planes_kernel(*args, blank, activation)
+    again = rnnt_loss.joint_planes_kernel(*args, blank, activation)
+    want = rnnt_loss.joint_planes_ref(*args, blank, activation)
+    for a, c, r in zip(got, again, want):
+        assert torch.equal(a, c)
         err = (a - r)[..., :-1].abs()
         assert bool((err <= 1e-3 + 1e-4 * r[..., :-1].abs()).all())
     lse = got[2].contiguous()
-    first = rnnt_loss.joint_planes_bwd_kernel(*args, gb, ge, lse, 0,
+    first = rnnt_loss.joint_planes_bwd_kernel(*args, gb, ge, lse, blank,
                                               activation)
-    again = rnnt_loss.joint_planes_bwd_kernel(*args, gb, ge, lse, 0,
+    again = rnnt_loss.joint_planes_bwd_kernel(*args, gb, ge, lse, blank,
                                               activation)
-    ref = rnnt_loss.joint_planes_bwd_ref(*args, gb, ge, lse, 0, activation)
+    torch.cuda.synchronize()
+    assert (k2.launches, k3.launches) == (before[0] + 2, before[1] + 2)
+    ref = rnnt_loss.joint_planes_bwd_ref(*args, gb, ge, lse, blank,
+                                         activation)
     limit = 1e-4 if dt == torch.float32 else 1e-2
     for a, c, r in zip(first, again, ref):
         assert torch.equal(a, c)

@@ -142,3 +142,33 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
         rnnt_loss.rnnt_loss_streaming(*args, _t(np.ones(3, np.int32)),
                                       _t(np.ones(3, np.int32)),
                                       activation="gelu")
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+@pytest.mark.parametrize("h", [64, 256])
+def test_check_refuses_bf16_joint_widths_the_kernels_do_not_take(h, kernel):
+    """The bf16 joint kernels (K2, K3) take H in {128, 512}: _check, run
+    before every launch, raises on any other bf16 width before it reaches
+    "the kernels take CUDA tensors"; the taken widths, and the refused
+    width in fp32, get as far as that."""
+    b, t, u1, v = 2, 3, 4, 10
+
+    def call(width, dt):
+        g = torch.Generator().manual_seed(0)
+        enc = torch.randn(b, t, width, generator=g).to(dt)
+        pred = torch.randn(b, u1, width, generator=g).to(dt)
+        w = torch.randn(v, width, generator=g).to(dt)
+        bias, labels = torch.zeros(v), torch.ones(b, u1 - 1, dtype=torch.int32)
+        if kernel == "fwd":
+            return rnnt_loss.joint_planes_kernel(enc, pred, w, bias, labels,
+                                                 0, "tanh")
+        planes = torch.zeros(b, t, u1)
+        return rnnt_loss.joint_planes_bwd_kernel(enc, pred, w, bias, labels,
+                                                 planes, planes, planes, 0,
+                                                 "tanh")
+    with pytest.raises(ValueError, match="bf16 kernels"):
+        call(h, torch.bfloat16)
+    for width, dt in ((h, torch.float32),
+                      *((x, torch.bfloat16) for x in rnnt_loss.BF16_WIDTHS)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call(width, dt)

@@ -1850,47 +1850,7 @@ int launch_bwd_f32(const float* x, const float* dy, const float* g,
                  dw2, db2, blocks, splits, d, f, s);
 }
 
-// libcuda's cuTensorMapEncodeTiled, looked up at run time through the
-// CUDA runtime (no -lcuda at build time).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// A 2-D bf16 row-major [rows, cols] tensor read in boxes of
-// [box_rows, box_cols]; rows past the end read as zeros.
-bool tensor_map(CUtensorMap* m, const void* ptr, int rows, int cols,
-                int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t steps[2] = {1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+using sm90::tensor_map;
 
 // The bf16 backward at width D (see launch_bwd_f32 for g == nullptr).
 template <int D>

@@ -1,6 +1,8 @@
-// Helpers shared by the hand-written kernels of the RNN-T joint
-// (rnnt_joint.cu) and the 2-layer LSTM (lstm2_seq.cu): element
-// conversions, the dropout hash, and one block-wide tile product
+// Helpers shared by the hand-written kernels of the conv block
+// (conv_block.cu), ln_matmul.cu, the 2-layer LSTM (lstm2_seq.cu) and the
+// RNN-T joint's fp32 form (rnnt_joint.cu): element conversions, the
+// dropout hash, the fixed-order partial sums, and one block-wide tile
+// product
 //
 //   C[M x N] (fp32, row-major, ldc) += A[M x K] * B[K x N]
 //

@@ -47,6 +47,9 @@ from wenet_celoss_tpu_torch.utils.common import LOG_ZERO
 
 ACTS = {"tanh": 0, "relu": 1, "swish": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Joint widths H the bf16 kernels take (wgmma tiles of H/2 a warpgroup):
+# the flagship's 2 * 256 and the tiny configs' 2 * 64.
+BF16_WIDTHS = (128, 512)
 
 
 def _act(name: str, pre: torch.Tensor) -> torch.Tensor:
@@ -162,6 +165,9 @@ def _check(enc_j, pred_j, w, b, labels, activation):
         raise ValueError(f"unsupported joint activation: {activation}")
     if h % 16:
         raise ValueError(f"H={h} must be a multiple of 16")
+    if enc_j.dtype == torch.bfloat16 and h not in BF16_WIDTHS:
+        raise ValueError(f"H={h} is not a width the bf16 kernels take "
+                         f"{BF16_WIDTHS}")
     shapes = {"pred_j": (pred_j, (bsz, u1, h)), "w": (w, (w.shape[0], h)),
               "b": (b, (w.shape[0],)), "labels": (labels, (bsz, u1 - 1))}
     for name, (t, shape) in shapes.items():
@@ -232,8 +238,7 @@ def joint_planes_bwd_kernel(enc_j, pred_j, w, b, labels, gb, ge, lse,
                                              t_max, u1, h, v)
         if words == 0:
             raise ValueError(f"H={h} is not taken by the backward kernel "
-                             f"(its tiles must fit shared memory and, in "
-                             f"bf16, H <= 512)")
+                             f"(its fp32 tiles must fit shared memory)")
         if words < 0:
             raise RuntimeError("rnnt_joint backward: a CUDA query failed "
                                "while sizing its workspace")
