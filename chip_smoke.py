@@ -34,6 +34,8 @@ Phases, in the order they run, each printing JSON lines:
             the main paths' shapes (N = 8128, 32512, 8448; K = 768 QKV and
             512 pointwise conv1 with a row mask; a ragged N), fp32 and
             bf16: masked rows the bias, the same bits over 3 backwards;
+            the bf16 forward at N = 8128 and 32512 (K = 768) in card time
+            under each schedule it keeps (1 or 2 column groups);
   k6        ffn_fused (the post-norm FFN, K1's kernels without LN and
             residual) the same way, relu and swish, dropout 0 and 0.1; the
             mask's bits (every hidden column) and keep rate in fp32 and
@@ -112,6 +114,11 @@ K7_PER_ENCODER_PASS = 24  # 12 QKV + 12 pointwise conv1 under LNMM_PALLAS=1
 K1_GRADS = ("y", "dx", "dg", "dbl", "dw1", "db1", "dw2", "db2")
 # Kernel names of K1's and K6's forward in a profile: fp32, bf16.
 FFN_FWD_KERNELS = ("ln_ffn_fwd<", "fwd16::ffn_fwd<")
+# K7's forward and backward (passes A, B and the split sums): bf16, fp32.
+K7_FWD_KERNELS = ("lnmm16::fwd<", "f32k::ln_mm_fwd(")
+K7_BWD_KERNELS = ("lnmm16::bwd_rows<", "lnmm16::bwd_weights<",
+                  "lnmm16::sum_splits(", "f32k::ln_mm_bwd_rows(",
+                  "f32k::ln_mm_bwd_weights(")
 
 failures: list = []
 
@@ -1074,7 +1081,7 @@ K7_CASES = (  # (N, K, row mask): the main paths' shapes and a ragged N
     (256 * 127, 768, False),   # encoder QKV, a training step
     (256 * 127, 512, True),    # pointwise conv1, a training step
     (256 * 33, 768, False),    # decoder self-attention, a training step
-    (1000, 512, True))         # ragged against the 64-row blocks
+    (1000, 512, True))         # ragged against the 64- and 128-row blocks
 
 
 def k7_inputs(n, k, masked, dtype, seed, d=256):
@@ -1097,7 +1104,9 @@ def phase_k7(lnmm, bounds) -> tuple:
     shapes (K7_CASES); masked rows must come out as the bias; the same
     bits over 3 backward calls; in bf16 the times at the decode batch's
     QKV shape (forward) and the training step's (backward), the plain
-    versions' and the bounds. Returns the (forward, backward) records."""
+    versions' and the bounds, and the forward's card time under each
+    schedule at N = 8128 and 32512 (K = 768). Returns the (forward,
+    backward) records."""
     rec_f, rec_b = {}, {}
     for n, k, masked in K7_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1130,6 +1139,9 @@ def phase_k7(lnmm, bounds) -> tuple:
                                  "it (fp32 sums in another order; bf16 "
                                  "rounding of LN(x) and dxn at other "
                                  "points)"}
+            if dtype == torch.bfloat16 and k == 768 and n in (64 * 127,
+                                                              256 * 127):
+                line.update(k7_fwd_schedules(lnmm, args, mask, n, k))
             if dtype == torch.bfloat16 and (n, k) == (64 * 127, 768):
                 ms = cuda_ms(lambda: lnmm.forward_kernel(*args, mask, 1e-5))
                 plain = cuda_ms(lambda: lnmm.ln_matmul_ref(*args, mask))
@@ -1154,6 +1166,20 @@ def phase_k7(lnmm, bounds) -> tuple:
                          "bound_by": by}
             emit("k7", **line)
     return rec_f, rec_b
+
+
+def k7_fwd_schedules(lnmm, args, mask, n, k) -> dict:
+    """K7's bf16 forward in card time (``device_ms``) under each schedule
+    the kernel keeps: every 128-row block over all K output tiles (1
+    column group) or over half of them (2), and the groups N gets."""
+    out = {"fwd_groups_chosen": lnmm.fwd_schedule(n, k)}
+    with torch.no_grad():
+        for groups in (1, 2):
+            lnmm.fwd_schedule(n, k, groups)
+            out[f"fwd_device_ms_groups_{groups}"] = device_ms(
+                lambda: lnmm.forward_kernel(*args, mask, 1e-5), iters=20)
+    lnmm.fwd_schedule(n, k, -1)
+    return out
 
 
 K6_OUTS = ("y", "dx", "dw1", "db1", "dw2", "db2")
@@ -1891,7 +1917,8 @@ def phase_profile(dec, feats, lens, ctx, ctx_lens, mode: str,
          idle_share_profiled=1.0 - busy_ms / wall_ms,
          k1_ms=sum(v for k, v in by_name.items()
                    if any(key in k for key in FFN_FWD_KERNELS)),
-         k7_ms=sum(v for k, v in by_name.items() if "ln_mm_fwd" in k),
+         k7_ms=sum(v for k, v in by_name.items()
+                   if any(key in k for key in K7_FWD_KERNELS)),
          kernels=len(by_name),
          top=[{"kernel": k[:90], "ms": v} for k, v in top])
 
@@ -2498,13 +2525,26 @@ def phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train,
 def phase_rnnt_profile(state, step, batch, gen, timed_ms,
                        mode="rnnt_train", env=None) -> None:
     """One flagship training step under torch.profiler, run after every
-    timing: busy time, idle share, each kernel's time (K9 included)."""
-    with routes(**(env or {})):
-        wall_ms, busy_ms, by_name = profile_step(state, step, batch, gen)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    timing: busy time, idle share, each kernel's time (K9 included). On
+    the LNMM_PALLAS path K7's forward and backward must read above 0 ms:
+    a profile that misses them is taken again (the profiler drops card
+    intervals now and then), and three that miss them fail the run, so
+    that a kernel renamed away from K7_FWD_KERNELS / K7_BWD_KERNELS cannot
+    read 0 silently."""
+    lnmm = mode == "lnmm_train"
 
     def ms(*keys):
         return sum(v for k, v in by_name.items() if any(s in k for s in keys))
+    with routes(**(env or {})):
+        for _ in range(3 if lnmm else 1):
+            wall_ms, busy_ms, by_name = profile_step(state, step, batch, gen)
+            if ms(*K7_FWD_KERNELS) > 0 and ms(*K7_BWD_KERNELS) > 0:
+                break
+    if lnmm:
+        check(ms(*K7_FWD_KERNELS) > 0 and ms(*K7_BWD_KERNELS) > 0,
+              "lnmm_train profile: K7's kernels "
+              f"{K7_FWD_KERNELS + K7_BWD_KERNELS} read 0 ms in 3 profiles")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     emit("profile", mode=mode, timed_ms=timed_ms,
          profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / timed_ms,
@@ -2517,16 +2557,19 @@ def phase_rnnt_profile(state, step, batch, gen, timed_ms,
          tile_partial_sums_ms=ms("tile::sum_partials"),
          k9_ms=ms("lattice<"), k8_fwd_ms=ms("conv_fwd<"),
          k8_bwd_ms=ms("conv_bwd_a<", "conv_bwd_b<", "namespace)::wgrad_"),
-         k7_fwd_ms=ms("ln_mm_fwd<"),
-         k7_bwd_ms=ms("ln_mm_bwd_rows<", "ln_mm_bwd_weights<"),
+         k7_fwd_ms=ms(*K7_FWD_KERNELS), k7_bwd_ms=ms(*K7_BWD_KERNELS),
          kernels=len(by_name),
          top=[{"kernel": k[:90], "ms": v} for k, v in top])
 
 
 def kernel_line(name, source, replaces, by_path, record) -> dict:
+    """One kernel's entry; ``factor`` is its time (card time where it has
+    one) over its yardstick's, null without a yardstick."""
+    lib = record.get("library_ms")
+    ms = record.get("device_ms", record.get("ms"))
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=sum(by_path.values()), launches_by_path=by_path,
-                **record)
+                factor=ms / lib if lib else None, **record)
 
 
 def main() -> int:

@@ -450,16 +450,21 @@ def _rel(a, b) -> float:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,k,masked", [(1000, 768, False), (8448, 768, False),
-                                        (4064, 512, True), (77, 512, True)])
-def test_ln_matmul_kernels_match_plain_version_on_card(dtype, n, k, masked):
+@pytest.mark.parametrize("n,k,masked,d", [
+    (1000, 768, False, 256), (8448, 768, False, 256), (4064, 512, True, 256),
+    (77, 512, True, 256), (129, 768, True, 256), (8191, 512, False, 256),
+    (1000, 192, True, 64), (129, 192, False, 64), (1000, 384, True, 128),
+    (8191, 384, False, 128)])
+def test_ln_matmul_kernels_match_plain_version_on_card(dtype, n, k, masked,
+                                                       d):
     """K7's output and its five gradients against autograd through the
-    plain version: relative Frobenius 1e-5 (fp32) or 1e-2 (bf16), N ragged
-    against the 64-row blocks; masked rows come out as the bias; the same
-    bits on every backward call."""
+    plain version: relative Frobenius 1e-5 (fp32) or 1e-2 (bf16), at every
+    width the bf16 kernels take (K = 192 leaves the weight pass's last
+    block half its 128 columns), N ragged against the 64- and 128-row
+    blocks; masked rows come out as the bias; the same bits on every
+    backward call."""
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(n)
-    d = 256
     args = [_rnd(g, n, d).to(dt), 1.0 + _rnd(g, d, std=0.1),
             _rnd(g, d, std=0.1), _rnd(g, k, d, std=d ** -0.5).to(dt),
             _rnd(g, k, std=0.1)]

@@ -239,6 +239,22 @@ def test_switch_values(monkeypatch, value, attn, conv):
     assert (lnmm.enabled("attn"), lnmm.enabled("conv")) == (attn, conv)
 
 
+@pytest.mark.parametrize("d", [32, 96, 512])
+def test_check_args_refuses_bf16_widths_the_kernels_do_not_take(d):
+    """The bf16 kernels, forward and backward, take D in {64, 128, 256}:
+    check_args (run before every launch) raises on any other bf16 width and
+    takes those three; fp32 takes the refused width."""
+    def args(width, dt, k=128):
+        return (torch.zeros(4, width, dtype=dt), torch.ones(width),
+                torch.zeros(width), torch.zeros(k, width, dtype=dt),
+                torch.zeros(k), torch.ones(4))
+    with pytest.raises(ValueError, match="bf16 kernels"):
+        lnmm.check_args(*args(d, torch.bfloat16))
+    lnmm.check_args(*args(d, torch.float32))
+    for width in lnmm.BF16_WIDTHS:
+        lnmm.check_args(*args(width, torch.bfloat16))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     x, g, bl, w, b, mask, _ = (torch.from_numpy(a) for a in _lnmm_args())
     w = w.t().contiguous()

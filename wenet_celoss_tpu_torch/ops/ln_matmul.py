@@ -30,6 +30,7 @@ from wenet_celoss_tpu_torch.ops._build import load_library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 D_MULTIPLE, K_MULTIPLE, MAX_D = 16, 64, 512
+BF16_WIDTHS = (64, 128, 256)   # the widths the bf16 kernels take
 
 
 def enabled(site: str) -> bool:
@@ -59,8 +60,9 @@ def ln_matmul_ref(x, g, bl, w, b, mask: Optional[torch.Tensor] = None,
 
 
 def check_args(x, g, bl, w, b, mask):
-    """Raise on what the kernels do not take: device, dtype, layout,
-    alignment and shapes."""
+    """Raise on what the kernels do not take: dtype, widths, layout,
+    alignment, shapes and devices that differ (``on_card`` adds that the
+    device is a card)."""
     if x.dim() != 2:
         raise ValueError(f"x must be [N, D], got {tuple(x.shape)}")
     n, d = x.shape
@@ -71,6 +73,9 @@ def check_args(x, g, bl, w, b, mask):
     if d % D_MULTIPLE or d > MAX_D:
         raise ValueError(f"D={d} must be a multiple of {D_MULTIPLE} up to "
                          f"{MAX_D}")
+    if x.dtype == torch.bfloat16 and d not in BF16_WIDTHS:
+        raise ValueError(f"D={d} is not a width the bf16 kernels take "
+                         f"{BF16_WIDTHS}")
     if k % K_MULTIPLE:
         raise ValueError(f"K={k} must be a multiple of {K_MULTIPLE}")
     shapes = {"w": (w, (k, d)), "g": (g, (d,)), "bl": (bl, (d,)),
@@ -86,12 +91,21 @@ def check_args(x, g, bl, w, b, mask):
     for name, t in (("x", x), *((k_, v[0]) for k_, v in shapes.items())):
         if t is None:
             continue
-        if t.device != x.device or t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}: the kernels take "
-                             f"CUDA tensors on one device")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}: "
+                             f"the kernels take tensors on one device")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
+
+
+def on_card(x, g, bl, w, b, mask):
+    """check_args, and that the tensors lie on a card: what every launch
+    runs first."""
+    check_args(x, g, bl, w, b, mask)
+    if x.device.type != "cuda":
+        raise ValueError(f"x is on {x.device}: the kernels take CUDA "
+                         f"tensors")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -104,7 +118,7 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def forward_kernel(x, g, bl, w, b, mask, eps):
     """Launch the forward kernel on CUDA tensors (no autograd)."""
-    check_args(x, g, bl, w, b, mask)
+    on_card(x, g, bl, w, b, mask)
     n, d = x.shape
     k = w.shape[0]
     y = torch.empty(n, k, dtype=x.dtype, device=x.device)
@@ -116,7 +130,7 @@ def forward_kernel(x, g, bl, w, b, mask, eps):
         float(eps), _stream(x))
     if rc != 0:
         raise RuntimeError(f"ln_matmul kernel launch failed: cudaError {rc}"
-                           f" (D={d} may not fit shared memory)")
+                           f" (fp32 D={d} may not fit shared memory)")
     ln_matmul.launches += 1
     return y
 
@@ -124,7 +138,7 @@ def forward_kernel(x, g, bl, w, b, mask, eps):
 def backward_kernel(x, g, bl, w, b, mask, dy, eps):
     """Launch the backward kernels on CUDA tensors → (dx in x's dtype, and
     dg, dbl, dw [K, D], db in fp32; b is checked, not read)."""
-    check_args(x, g, bl, w, b, mask)
+    on_card(x, g, bl, w, b, mask)
     n, d = x.shape
     k = w.shape[0]
     if tuple(dy.shape) != (n, k) or dy.dtype != x.dtype or \
@@ -142,8 +156,8 @@ def backward_kernel(x, g, bl, w, b, mask, dy, eps):
     dtype = _DTYPES[x.dtype]
     words = lib.ln_matmul_bwd_workspace(dtype, n, d, k)
     if words <= 0:
-        raise RuntimeError(f"ln_matmul backward: D={d} does not fit shared "
-                           f"memory, or a CUDA error ({words})")
+        raise RuntimeError(f"ln_matmul backward: the kernels do not take "
+                           f"D={d}, or a CUDA error ({words})")
     ws = torch.empty(words, **f32)
     xn = torch.empty_like(x)
     rc = lib.ln_matmul_bwd(
@@ -203,6 +217,14 @@ ln_matmul.launches = 0
 ln_matmul.bwd_launches = 0
 
 
+def fwd_schedule(n: int, k: int, force: int = -1) -> int:
+    """The bf16 forward's column groups at ``n`` rows and ``k`` outputs:
+    each block of 128 rows takes K / (64 groups) output tiles. ``force``
+    > 0 forces that many groups (where it divides K / 64) until it is set
+    back to -1 (chosen from N and K); for timing the schedules."""
+    return _lib().ln_matmul_fwd_schedule(int(force), int(n), int(k))
+
+
 def _lib() -> ctypes.CDLL:
     lib = load_library("ln_matmul")
     if lib.ln_matmul_fwd.argtypes is None:
@@ -213,4 +235,6 @@ def _lib() -> ctypes.CDLL:
         lib.ln_matmul_bwd_workspace.restype = ctypes.c_longlong
         lib.ln_matmul_bwd.argtypes = [i] + [p] * 13 + [i] * 3 + [fl, p]
         lib.ln_matmul_bwd.restype = i
+        lib.ln_matmul_fwd_schedule.argtypes = [i] * 3
+        lib.ln_matmul_fwd_schedule.restype = i
     return lib
