@@ -18,9 +18,13 @@ Phases, in the order they run, each printing JSON lines:
             pass B and the partial sums under torch.profiler;
   k2_k3, k4 the streaming joint's and the 2-layer LSTM's kernels the same
             way (same bits over repeated calls; K2/K3 also at H=512 on a
-            ragged N and with blank and labels on V - 1); K2, K3 and their
-            chunked cuBLAS yardsticks (also with W padded to V = 5008) in
-            card time, K3 split by pass, its workspace bytes;
+            ragged N and with blank and labels on V - 1; K4 in bf16 at H
+            64, 128 and 256, B ragged against its 64-row clusters, U1 = 1,
+            its mask equal to the plain one); K2, K3 and their chunked
+            cuBLAS yardsticks (also with W padded to V = 5008) in card
+            time, K3 split by pass, its workspace bytes; K4 and cuDNN's
+            LSTM in card time at B = 256 and 64, each direction split by
+            stage;
   k9        the RNN-T lattice against alpha_scan/beta_scan (B=256 T'=127
             U1=33 full and ragged, the pallas path's B=64, a wide U1=90,
             U1=600 full and ragged on three warps a row):
@@ -88,6 +92,7 @@ import contextlib
 import copy
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -114,6 +119,11 @@ K7_PER_ENCODER_PASS = 24  # 12 QKV + 12 pointwise conv1 under LNMM_PALLAS=1
 K1_GRADS = ("y", "dx", "dg", "dbl", "dw1", "db1", "dw2", "db2")
 # Kernel names of K1's and K6's forward in a profile: fp32, bf16.
 FFN_FWD_KERNELS = ("ln_ffn_fwd<", "fwd16::ffn_fwd<")
+# K4's forward (the cluster recurrences and the xw2 GEMM) and backward
+# (the recurrences, the gd GEMM, the weight pass and its sums): bf16, fp32.
+K4_FWD_KERNELS = ("lstm16::fwd_rec<", "lstm16::xw2_gemm<", "lstm2_fwd<")
+K4_BWD_KERNELS = ("lstm16::bwd_rec<", "lstm16::gd_gemm<",
+                  "lstm16::dw_gemm<", "lstm16::bwd_sums(", "lstm2_bwd")
 # K7's forward and backward (passes A, B and the split sums): bf16, fp32.
 K7_FWD_KERNELS = ("lnmm16::fwd<", "f32k::ln_mm_fwd(")
 K7_BWD_KERNELS = ("lnmm16::bwd_rows<", "lnmm16::bwd_weights<",
@@ -677,10 +687,27 @@ def joint_times(rnnt, bounds, args, gb, ge, lse) -> dict:
 LSTM_CASES = (  # (name, B, U1, H, dtype)
     ("train_bf16", 256, 33, 256, torch.bfloat16),
     ("train_fp32", 256, 33, 256, torch.float32),
+    ("pallas_bf16", 64, 33, 256, torch.bfloat16),   # T6's batch
     ("ragged_bf16", 37, 9, 256, torch.bfloat16),
+    ("ragged100_bf16", 100, 17, 256, torch.bfloat16),   # 64 + 36 rows
+    ("h64_bf16", 37, 9, 64, torch.bfloat16),
+    ("h128_bf16", 100, 9, 128, torch.bfloat16),
+    ("u1_bf16", 37, 1, 256, torch.bfloat16),
     ("ragged_fp32", 37, 9, 64, torch.float32),
+    ("u1_fp32", 37, 1, 64, torch.float32),
 )
+LSTM_TIMED = ("train_bf16", "pallas_bf16")
 K4_GRADS = ("dxw1", "dwh1", "dwi2", "dbh2", "dwh2")
+# K4's bf16 stages in a profile: (name, substrings of the kernel's name,
+# launches a call).
+K4_FWD_STAGES = (("layer1_rec", ("fwd_rec<", ", false>"), 1),
+                 ("xw2_gemm", ("xw2_gemm<",), 1),
+                 ("layer2_rec", ("fwd_rec<", ", true>"), 1))
+K4_BWD_STAGES = (("layer2_rec", ("bwd_rec<", ", true>"), 1),
+                 ("gd_gemm", ("gd_gemm<",), 1),
+                 ("layer1_rec", ("bwd_rec<", ", false>"), 1),
+                 ("weight_pass", ("dw_gemm<",), 1),
+                 ("sums", ("bwd_sums(",), 2))
 
 
 def lstm_inputs(b, u1, h, dtype, seed):
@@ -697,11 +724,14 @@ def lstm_inputs(b, u1, h, dtype, seed):
 
 def phase_k4(lstm, bounds, dropout, timed: bool = True) -> tuple:
     """K4 forward and backward against autograd through the plain version
-    (dropout 0 and 0.1, same seed), the keep rate of the inter-layer mask
-    as the forward kernel draws it, the same bits over repeated backward
-    calls, and at the training shape in bf16 the times, the plain
-    versions' and cuDNN's LSTM (same weights, dropout 0). Returns the
-    (forward, backward) records."""
+    (dropout 0 and 0.1, same seed) at every LSTM_CASES shape (bf16 H 64,
+    128, 256; B ragged against the 64-row cluster group; U1 = 1), the
+    mask as the forward kernel draws it equal to the plain one, the same
+    bits over repeated backward calls, and in bf16 at B = 256 and 64
+    (U1 = 33, H = 256) the times: the kernels', the plain versions' and
+    cuDNN's LSTM (same weights, dropout 0; its card busy time and
+    events), each direction split by stage. Returns the (forward,
+    backward) records of B = 256."""
     rec_f, rec_b = {}, {}
     seed = 4242
     for name, b, u1, h, dtype in LSTM_CASES:
@@ -718,7 +748,7 @@ def phase_k4(lstm, bounds, dropout, timed: bool = True) -> tuple:
                      for _ in range(3)]
             torch.cuda.synchronize()
             same = all(torch.equal(x, z) for a in again[1:]
-                       for x, z in zip(again[0][1:], a[1:]))
+                       for x, z in zip(again[0], a))
             limit = 1e-4 if dtype == torch.float32 else 2e-2
             errs = {}
             for gname, a, r in zip(("y",) + K4_GRADS, (y.detach(), *got),
@@ -751,29 +781,51 @@ def phase_k4(lstm, bounds, dropout, timed: bool = True) -> tuple:
                 check(mask_ok, f"k4 {name} mask: keep {rate_kept}")
                 line.update(keep_rate=rate_kept, draws=keep.numel(),
                             mask_equals_plain=bool(torch.equal(keep, plain)))
-            if name == "train_bf16" and rate == 0.0 and timed:
+            if name in LSTM_TIMED and rate == 0.0 and timed:
                 line.update(lstm_times(lstm, bounds, args, dy))
-                rec_f = {"max_abs_err": errs["y"]["max_abs"],
-                         **{k: line["fwd"][k] for k in (
-                             "ms", "plain_ms", "bound_ms", "bound_by",
-                             "library_ms")}}
-                rec_b = {"max_abs_err": errs["dxw1"]["max_abs"],
-                         **{k: line["bwd"][k] for k in (
-                             "ms", "plain_ms", "bound_ms", "bound_by",
-                             "library_ms")}}
+                if name == "train_bf16":
+                    keys = ("ms", "event_ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms", "library_event_ms",
+                            "us_per_step", "stages")
+                    rec_f = {"max_abs_err": errs["y"]["max_abs"],
+                             **{k: line["fwd"][k] for k in keys}}
+                    rec_b = {"max_abs_err": errs["dxw1"]["max_abs"],
+                             **{k: line["bwd"][k] for k in keys}}
+                else:
+                    for rec, key in ((rec_f, "fwd"), (rec_b, "bwd")):
+                        rec.update(ms_b64=line[key]["ms"],
+                                   library_ms_b64=line[key]["library_ms"])
             emit("k4", **line)
     return rec_f, rec_b
 
 
 def lstm_times(lstm, bounds, args, dy) -> dict:
+    """K4's bf16 forward (saving the states, as training runs it) and
+    backward: card ms per call (``device_ms``), by events
+    (``event_ms``), split by stage, µs per serial step (2 U1 steps each
+    way); the plain versions' times (events); cuDNN's 2-layer LSTM with
+    the same recurrent weights, forward and forward + backward, card
+    busy time and events; the bounds."""
     xw1, wh1, wi2, bh2, wh2 = args
     b, u1, g4 = xw1.shape
     h = g4 // 4
-    fwd = cuda_ms(lambda: lstm.forward_kernel(*args, save=True), iters=20)
-    _, saved = lstm.forward_kernel(*args, save=True)
-    bwd = cuda_ms(lambda: lstm.backward_kernel(dy, *args, saved), iters=20)
-    p_fwd = cuda_ms(lambda: lstm.lstm2_seq_ref(*args), iters=3, warmup=1)
-    p_bwd = cuda_ms(lambda: lstm.backward_ref(dy, *args), iters=3, warmup=1)
+
+    def fwd_call():
+        return lstm.forward_kernel(*args, save=True)
+    _, saved = fwd_call()
+
+    def bwd_call():
+        return lstm.backward_kernel(dy, *args, saved)
+    dev = {"fwd": device_ms(fwd_call, iters=20),
+           "bwd": device_ms(bwd_call, iters=20)}
+    ev = {"fwd": cuda_ms(fwd_call, iters=20), "bwd": cuda_ms(bwd_call,
+                                                             iters=20)}
+    stages = {"fwd": stage_ms(fwd_call, K4_FWD_STAGES),
+              "bwd": stage_ms(bwd_call, K4_BWD_STAGES)}
+    plain = {"fwd": cuda_ms(lambda: lstm.lstm2_seq_ref(*args), iters=3,
+                            warmup=1),
+             "bwd": cuda_ms(lambda: lstm.backward_ref(dy, *args), iters=3,
+                            warmup=1)}
     # Yardstick: cuDNN's 2-layer LSTM with the same recurrent weights,
     # dropout 0 (it also runs layer 1's input projection, from H inputs).
     net = torch.nn.LSTM(h, h, num_layers=2, batch_first=True).cuda().to(
@@ -783,26 +835,47 @@ def lstm_times(lstm, bounds, args, dy) -> dict:
         net.weight_ih_l1.copy_(wi2)
         net.weight_hh_l1.copy_(wh2)
         net.bias_hh_l1.copy_(bh2)
+    net.flatten_parameters()   # one packed weight buffer, as cuDNN wants
     x = torch.randn(b, u1, h, device="cuda").to(xw1.dtype)
-    with torch.no_grad():
-        lib_fwd = cuda_ms(lambda: net(x), iters=20)
+
+    def lib_fwd():
+        with torch.no_grad():
+            net(x)
     xg = x.requires_grad_(True)
 
-    def both():
+    def lib_both():
         out, _ = net(xg)
         torch.autograd.grad(out, [xg] + list(net.parameters()), dy)
-    lib_both = cuda_ms(both, iters=20)
+    lf_dev, lb_dev = busy_ms(lib_fwd), busy_ms(lib_both)
+    lf_ev, lb_ev = cuda_ms(lib_fwd, iters=20), cuda_ms(lib_both, iters=20)
+    lib = {"fwd": (lf_dev, lf_ev), "bwd": (lb_dev - lf_dev, lb_ev - lf_ev)}
     out = {"library": "torch.nn.LSTM (cuDNN), 2 layers, same recurrent "
-                      "weights, dropout 0; backward = forward+backward "
-                      "minus forward"}
-    for key, ms, plain, lib, fn in (
-            ("fwd", fwd, p_fwd, lib_fwd, bounds.lstm2_seq),
-            ("bwd", bwd, p_bwd, lib_both - lib_fwd, bounds.lstm2_seq_bwd)):
+                      "weights, flattened, dropout 0; backward = "
+                      "forward+backward minus forward",
+           "timing": "ms: card ms per call (device_ms); library_ms: the "
+                     "card's busy ms per call under torch.profiler, the "
+                     "median of 3 profiles (cuDNN's LSTM synchronises with "
+                     "the host, flattened weights or not, so device_ms "
+                     "cannot queue it ahead); *_event_ms: CUDA events "
+                     "around the calls; plain_ms by events; stages from "
+                     "torch.profiler; us_per_step = ms over the 2 U1 serial "
+                     "steps; port_bytes: what the kernels move (not in the "
+                     "bound), port_bytes_ms: those bytes at the memory rate"}
+    port = dict(zip(("fwd", "bwd"),
+                    bounds.lstm2_seq_port_bytes(b, u1, h, "bf16")))
+    for key, fn in (("fwd", bounds.lstm2_seq), ("bwd", bounds.lstm2_seq_bwd)):
         flops, nbytes = fn(b, u1, h, "bf16")
         bound, by = bounds.bound_ms(flops, nbytes, "bf16")
-        out[key] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                    "bound_ms": bound, "bound_by": by, "flops": flops,
-                    "bytes": nbytes, "share_of_bound": bound / ms}
+        out[key] = {"ms": dev[key], "event_ms": ev[key],
+                    "plain_ms": plain[key], "library_ms": lib[key][0],
+                    "library_event_ms": lib[key][1], "bound_ms": bound,
+                    "bound_by": by, "flops": flops, "bytes": nbytes,
+                    "port_bytes": port[key],
+                    "port_bytes_ms": port[key] / bounds.PEAK_BYTES * 1e3,
+                    "share_of_bound": bound / dev[key],
+                    "factor": dev[key] / lib[key][0],
+                    "us_per_step": dev[key] * 1e3 / (2 * u1),
+                    "stages": stages[key]}
     return out
 
 
@@ -1752,35 +1825,54 @@ def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-PASS_NAMES = (("bwd_rows", "pass_a"), ("bwd_weights", "pass_b"),
-              ("sum_partials", "partial_sums"))
+def busy_ms(fn, iters: int = 10, profiles: int = 3) -> float:
+    """The card's busy ms per call of ``fn``: the union of its card
+    intervals under torch.profiler over ``iters`` calls, the median of
+    ``profiles`` profiles. For a call that synchronises with the host
+    inside (cuDNN's LSTM does), which ``device_ms`` cannot queue ahead."""
+    for _ in range(2):
+        fn()
+    runs = []
+    for _ in range(profiles):
+        prof, _ = device_profile(fn, iters, want=1)
+        runs.append(device_busy(prof)[0] / iters)
+    return statistics.median(runs)
 
 
-def device_passes(fn, launches: int, iters: int = 10) -> dict:
-    """K1's or K6's bf16 backward (``launches`` kernels a call: pass A,
-    pass B and the fixed-order partial sums): its card ms per call from
-    ``device_ms``, and under torch.profiler the ms per call of pass A
-    (bwd_rows), pass B (bwd_weights) and the partial sums. Each is the
-    mean of the recorded intervals of its kernels times its launches a
-    call, so a profile that dropped some intervals (the profiler does now
-    and then) still gives it; a pass with no recorded interval in four
-    profiles is not measured (null)."""
-    out = {"device_ms": device_ms(fn, iters=iters)}
-    prof, complete = device_profile(fn, iters, want=launches * iters)
-    per_call = {"pass_a": 1, "pass_b": 1, "partial_sums": launches - 2}
-    spans = {name: [] for name in per_call}
+def stage_ms(fn, stages, iters: int = 10) -> dict:
+    """``fn``'s card ms per call split by stage under torch.profiler;
+    ``stages`` holds (name, substrings of its kernels' names, launches a
+    call). Each stage is the mean of its recorded intervals times its
+    launches a call, so a profile that dropped some intervals (the
+    profiler does now and then) still gives it; a stage with no recorded
+    interval in four profiles is not measured (null)."""
+    want = sum(n for *_, n in stages) * iters
+    prof, complete = device_profile(fn, iters, want=want)
+    spans = {name: [] for name, *_ in stages}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        for key, name in PASS_NAMES:
-            if key in e.name:
+        for name, keys, _ in stages:
+            if all(k in e.name for k in keys):
                 spans[name].append(e.time_range.elapsed_us() / 1e3)
+    out = {name + "_ms": (sum(spans[name]) / len(spans[name]) * n
+                          if spans[name] else None)
+           for name, _, n in stages}
     out.update(profile_complete=complete,
-               intervals=f"{device_events(prof)} of {launches * iters}")
-    for name, ms in spans.items():
-        out[name + "_ms"] = (sum(ms) / len(ms) * per_call[name]
-                             if ms else None)
+               intervals=f"{device_events(prof)} card intervals recorded "
+                         f"for {want} launches")
     return out
+
+
+def device_passes(fn, launches: int, iters: int = 10) -> dict:
+    """A two-pass bf16 backward (K1's, K6's or K3's: ``launches`` kernels a
+    call, pass A, pass B and the fixed-order partial sums): its card ms
+    per call from ``device_ms``, and each pass's from ``stage_ms``."""
+    return {"device_ms": device_ms(fn, iters=iters),
+            **stage_ms(fn, (("pass_a", ("bwd_rows",), 1),
+                            ("pass_b", ("bwd_weights",), 1),
+                            ("partial_sums", ("sum_partials",),
+                             launches - 2)), iters)}
 
 
 def phase_k8_device(conv, fwd_rec: dict, bwd_rec: dict) -> None:
@@ -2525,25 +2617,30 @@ def phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train,
 def phase_rnnt_profile(state, step, batch, gen, timed_ms,
                        mode="rnnt_train", env=None) -> None:
     """One flagship training step under torch.profiler, run after every
-    timing: busy time, idle share, each kernel's time (K9 included). On
-    the LNMM_PALLAS path K7's forward and backward must read above 0 ms:
-    a profile that misses them is taken again (the profiler drops card
-    intervals now and then), and three that miss them fail the run, so
-    that a kernel renamed away from K7_FWD_KERNELS / K7_BWD_KERNELS cannot
-    read 0 silently."""
+    timing: busy time, idle share, each kernel's time (K9 included). K4's
+    forward and backward (every flagship path) and, on the LNMM_PALLAS
+    path, K7's must read above 0 ms: a profile that misses them is taken
+    again (the profiler drops card intervals now and then), and three
+    that miss them fail the run, so that a kernel renamed away from
+    K4_*_KERNELS or K7_*_KERNELS cannot read 0 silently."""
     lnmm = mode == "lnmm_train"
 
     def ms(*keys):
         return sum(v for k, v in by_name.items() if any(s in k for s in keys))
+
+    def seen():
+        return ms(*K4_FWD_KERNELS) > 0 and ms(*K4_BWD_KERNELS) > 0 and (
+            not lnmm or (ms(*K7_FWD_KERNELS) > 0 and
+                         ms(*K7_BWD_KERNELS) > 0))
     with routes(**(env or {})):
-        for _ in range(3 if lnmm else 1):
+        for _ in range(3):
             wall_ms, busy_ms, by_name = profile_step(state, step, batch, gen)
-            if ms(*K7_FWD_KERNELS) > 0 and ms(*K7_BWD_KERNELS) > 0:
+            if seen():
                 break
-    if lnmm:
-        check(ms(*K7_FWD_KERNELS) > 0 and ms(*K7_BWD_KERNELS) > 0,
-              "lnmm_train profile: K7's kernels "
-              f"{K7_FWD_KERNELS + K7_BWD_KERNELS} read 0 ms in 3 profiles")
+    check(seen(), f"{mode} profile: K4's kernels "
+                  f"{K4_FWD_KERNELS + K4_BWD_KERNELS}"
+                  + (f" or K7's {K7_FWD_KERNELS + K7_BWD_KERNELS}"
+                     if lnmm else "") + " read 0 ms in 3 profiles")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     emit("profile", mode=mode, timed_ms=timed_ms,
          profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
@@ -2553,7 +2650,7 @@ def phase_rnnt_profile(state, step, batch, gen, timed_ms,
          k1_bwd_ms=ms("ln_ffn_bwd", "bwd16::", "namespace)::sum_partials"),
          k2_ms=ms("joint_fwd"), k3_ms=ms("joint_bwd_rows",
                                          "joint_bwd_weights"),
-         k4_ms=ms("lstm2_fwd"), k4_bwd_ms=ms("lstm2_bwd"),
+         k4_ms=ms(*K4_FWD_KERNELS), k4_bwd_ms=ms(*K4_BWD_KERNELS),
          tile_partial_sums_ms=ms("tile::sum_partials"),
          k9_ms=ms("lattice<"), k8_fwd_ms=ms("conv_fwd<"),
          k8_bwd_ms=ms("conv_bwd_a<", "conv_bwd_b<", "namespace)::wgrad_"),

@@ -277,13 +277,18 @@ def test_joint_kernels_match_plain_versions_on_card(dtype, activation, h, v,
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_lstm_kernels_match_plain_version_on_card(dtype, rate):
+@pytest.mark.parametrize("b,u1,h", [(37, 9, 64), (100, 9, 128),
+                                    (100, 17, 256), (37, 1, 64),
+                                    (37, 1, 256), (256, 33, 256)])
+def test_lstm_kernels_match_plain_version_on_card(dtype, rate, b, u1, h):
     """K4's output and five gradients against autograd through the plain
     version with the same mask, relative Frobenius 1e-4 (fp32) or 2e-2
-    (bf16), on a ragged batch of 37 rows."""
+    (bf16), at every bf16 width (H 64, 128, 256), on batches ragged
+    against the bf16 kernels' 64-row cluster group (37, 100), with one
+    label step (U1 = 1) and at the training shape; one launch each way,
+    and the same bits on a second backward."""
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(4)
-    b, u1, h = 37, 9, 64
     args = (_rnd(g, b, u1, 4 * h, std=0.5).to(dt),
             *(_rnd(g, 4 * h, h, std=h ** -0.5) for _ in range(2)),
             _rnd(g, 4 * h, std=0.1), _rnd(g, 4 * h, h, std=h ** -0.5))
@@ -298,9 +303,12 @@ def test_lstm_kernels_match_plain_version_on_card(dtype, rate):
     want = (lstm.lstm2_seq_ref(*args, rate=rate, seed=9),
             *lstm.backward_ref(dy, *args, rate=rate, seed=9))
     limit = 1e-4 if dt == torch.float32 else 2e-2
-    for a, r in zip((y, *got), want):
-        assert float((a.float() - r.float()).norm()
-                     / r.float().norm()) <= limit
+    for a, r in zip((y, *got), want):   # U1 = 1: dWh1 = dWh2 = 0 exactly
+        assert float((a.float() - r.float()).norm()) <= \
+            limit * float(r.float().norm())
+    again = torch.autograd.grad(lstm.lstm2_seq(*ins, rate=rate, seed=9),
+                                ins, dy)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
 def test_tiny_flagship_training_step_on_card_matches_cpu():

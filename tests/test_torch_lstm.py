@@ -22,6 +22,7 @@ import torch
 from test_torch_models import _pair
 from wenet_celoss_tpu.ops.lstm_pallas import lstm2_seq as jax_lstm2_seq
 from wenet_celoss_tpu_torch.ops import dropout
+from wenet_celoss_tpu_torch.ops import lstm as lstm_ops
 from wenet_celoss_tpu_torch.ops.lstm import lstm2_seq
 
 B, U, H = 4, 7, 256
@@ -147,3 +148,40 @@ def test_inter_layer_mask_keep_rate_and_offset():
     np.testing.assert_array_equal(
         (got != 0).reshape(-1).numpy(), keep[768:768 + 256].numpy())
     assert float(got.max()) == pytest.approx(scale)
+
+
+@pytest.mark.parametrize("h", [32, 48, 96, 192, 320])
+def test_check_args_refuses_bf16_widths_the_kernels_do_not_take(h):
+    """A bf16 width outside H in {64, 128, 256} raises in check_args,
+    before any launch and with no card or built library (CPU tensors);
+    the same width in fp32, and the taken bf16 widths, pass it."""
+    def args(h, dtype):
+        return (torch.zeros(2, 3, 4 * h, dtype=dtype),
+                *(torch.zeros(4 * h, h) for _ in range(2)),
+                torch.zeros(4 * h), torch.zeros(4 * h, h))
+    with pytest.raises(ValueError, match="bf16"):
+        lstm_ops.check_args(*args(h, torch.bfloat16))
+    lstm_ops.check_args(*args(h, torch.float32))
+    for ok in lstm_ops.BF16_WIDTHS:
+        lstm_ops.check_args(*args(ok, torch.bfloat16))
+
+
+def test_k4_bounds_count_what_the_function_needs():
+    """K4's bounds count the function's own bytes (forward: xw1, the
+    weights and bh2 in, y out; backward: dy and the saved states in,
+    dxw1, the weight gradients and dbh2 out); the port's extra traffic
+    (saved states written, xw2, T(dz2), gd) is reported apart and is
+    larger."""
+    from wenet_celoss_tpu_torch.ops import bounds
+    b, u, h, e = 256, 33, 256, 2
+    flops, nbytes = bounds.lstm2_seq(b, u, h, "bf16")
+    assert flops == 3 * 2 * b * h * 4 * h * u
+    assert nbytes == (b * u * 4 * h * e + 3 * 4 * h * h * e + 4 * 4 * h
+                      + b * u * h * e)
+    flops_b, nbytes_b = bounds.lstm2_seq_bwd(b, u, h, "bf16")
+    assert flops_b == 2 * flops
+    saved = b * u * (2 * 4 * h * 4 + 2 * h * 4 + 3 * h * e)
+    assert nbytes_b == (b * u * h * e + 3 * 4 * h * h * e + saved
+                        + b * u * 4 * h * e + 3 * 4 * h * h * 4 + 4 * 4 * h)
+    port_f, port_b = bounds.lstm2_seq_port_bytes(b, u, h, "bf16")
+    assert port_f > nbytes and port_b > nbytes_b

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers,
-// TMA tile loads and stores, warpgroup MMA (wgmma) with its shared-memory
-// matrix descriptors, and named barriers; and, for the launchers,
+// TMA tile loads and stores, thread-block clusters (rank, distributed
+// shared memory stores and bulk copies, the cluster barrier), warpgroup
+// MMA (wgmma) with its shared-memory matrix descriptors, and named
+// barriers; and, for the launchers,
 // tensor_map(), which encodes a TMA tensor map on the host (libcuda's
 // cuTensorMapEncodeTiled, looked up at run time, so nothing links
 // -lcuda).
@@ -103,6 +105,54 @@ __device__ __forceinline__ void bulk_wait_read() {
 // Generic-proxy writes to shared memory made visible to wgmma and TMA.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- thread-block clusters and distributed shared memory
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of `addr` (this CTA's shared memory) in the
+// CTA of rank `rank`: the same variable of that CTA.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes into another CTA's shared memory (a shared::cluster address).
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// The cluster-wide barrier, split: every thread of every CTA arrives
+// (its earlier writes, to any CTA's shared memory, released) and later
+// waits (acquiring the others').
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// `bytes` of this CTA's shared memory at src into another CTA's at dst (a
+// shared::cluster address), completing that many transactions of the
+// barrier at bar (a shared::cluster address, in the destination CTA).
+__device__ __forceinline__ void bulk_copy_peer(uint32_t dst, uint32_t src,
+                                               uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // Barrier `id` (1..15) over `count` threads, whole warps.
@@ -441,20 +491,24 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A 2-D bf16 row-major [rows, cols] tensor read in boxes of
-// [box_rows, box_cols]; rows and columns past the end read as zeros.
-inline bool tensor_map(CUtensorMap* m, const void* ptr, int rows, int cols,
+// A 2-D row-major [rows, cols] tensor (bf16, or fp32 with f32) read or
+// written in boxes of [box_rows, box_cols]; rows and columns past the end
+// read as zeros and are not written.
+inline bool tensor_map(CUtensorMap* m, const void* ptr, int rows, long long cols,
                        int box_rows, int box_cols,
-                       CUtensorMapSwizzle swizzle) {
+                       CUtensorMapSwizzle swizzle, bool f32 = false) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * (f32 ? 4 : 2)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t steps[2] = {1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return fn(m,
+            f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            2, const_cast<void*>(ptr), dims, strides, box, steps,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -133,7 +133,8 @@ def joint_planes_bwd(b: int, t: int, u1: int, h: int, v: int, dtype: str):
 def lstm2_seq(b: int, u1: int, h: int, dtype: str):
     """K4 forward: per step, layer 1's recurrent GEMM and layer 2's input
     and recurrent GEMMs, [B, H] × [H, 4H] each; xw1 and the three weights
-    in, the top layer's outputs out."""
+    in, the top layer's outputs out. Neither bound sees the 2·U1 serial
+    steps, which set the kernels' time."""
     e = ELT[dtype]
     return (3 * 2 * b * h * 4 * h * u1,
             b * u1 * 4 * h * e + 3 * h * 4 * h * e + 4 * 4 * h
@@ -147,12 +148,38 @@ def lstm2_seq_bwd(b: int, u1: int, h: int, dtype: str):
     [4H, H] each; dy, the weights and the saved states (gate
     pre-activations and cells in fp32, h and the dropped h in the compute
     dtype) in; dxw1 out in the compute dtype, the weight gradients in
-    fp32."""
+    fp32. Neither bound sees the 2·U1 serial steps, which set the
+    kernels' time."""
     e = ELT[dtype]
     flops = 6 * 2 * b * h * 4 * h * u1
     saved = b * u1 * (2 * 4 * h * 4 + 2 * h * 4 + 3 * h * e)
     return (flops, b * u1 * h * e + 3 * h * 4 * h * e + saved
             + b * u1 * 4 * h * e + 3 * h * 4 * h * 4 + 4 * 4 * h)
+
+
+def lstm2_seq_port_bytes(b: int, u1: int, h: int, dtype: str):
+    """The bytes K4's kernels move in device memory, forward (saving the
+    states, as training runs it) and backward: what the bounds above
+    count, plus what the port's design adds. Forward: the dropped d, the
+    saved states (gate pre-activations and cells of both layers in fp32,
+    the h each step read in the compute dtype) and, in bf16, layer 2's
+    input pre-activations xw2 written and read in fp32 and d read by the
+    xw2 GEMM. Backward: dxw1 read again and T(dz2) written and read twice
+    (the gd GEMM, the weight pass) and, in bf16, gd written and read in
+    fp32. The weight pass's split partials are left out. Reported beside
+    the bounds, never in them."""
+    e = ELT[dtype]
+    rows = b * u1
+    fwd = (rows * (4 * h * e + h * e + h * e + 2 * 4 * h * 4 + 2 * h * 4
+                   + 2 * h * e)
+           + 3 * h * 4 * h * e + 4 * 4 * h)
+    saved = 2 * 4 * h * 4 + 2 * h * 4 + 2 * h * e + h * e
+    bwd = (rows * (h * e + saved + 2 * 4 * h * e + 3 * 4 * h * e)
+           + 3 * h * 4 * h * e + 3 * h * 4 * h * 4 + 4 * 4 * h)
+    if dtype == "bf16":
+        fwd += rows * (2 * 4 * h * 4 + h * e)
+        bwd += rows * 2 * h * 4
+    return fwd, bwd
 
 
 def flagship() -> List[Dict]:

@@ -17,6 +17,12 @@ gradients come back in fp32 (the JAX wrapper casts before the kernel and
 so rounds them to bf16). Unlike the TPU kernel, which recomputes the
 states into bf16 scratch, the card's forward saves the gate
 pre-activations and cell states in fp32 for the backward.
+
+The bf16 kernels take H in ``BF16_WIDTHS`` (a cluster of 8 CTAs splits
+the hidden units, each wgmma-sized); ``check_args`` refuses any other
+bf16 width before a launch, on any device. fp32 takes a multiple of 16
+whose states fit a block's shared memory (asked of the library at
+launch).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from wenet_celoss_tpu_torch.ops import dropout as drop
 from wenet_celoss_tpu_torch.ops._build import load_library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BF16_WIDTHS = (64, 128, 256)   # the widths the bf16 kernels take
 
 
 def lstm2_seq_ref(xw1, wh1, wi2, bh2, wh2, rate: float = 0.0,
@@ -67,20 +74,33 @@ def _cell(z, c):
 
 
 def check_args(xw1, wh1, wi2, bh2, wh2):
-    """Raise on what the kernels do not take."""
+    """Raise on what the kernels do not take: layout, dtype, a bf16 width
+    outside ``BF16_WIDTHS``, shapes and devices that differ (``on_card``
+    adds that the device is a card and asks the library about fp32
+    widths)."""
     if xw1.dim() != 3 or xw1.shape[2] % 4:
         raise ValueError(f"xw1 must be [B, U, 4H], got {tuple(xw1.shape)}")
     if xw1.dtype not in _DTYPES:
         raise TypeError(f"xw1 dtype {xw1.dtype} not supported")
     h = xw1.shape[2] // 4
+    if xw1.dtype == torch.bfloat16 and h not in BF16_WIDTHS:
+        raise ValueError(f"H={h} is not a width the bf16 kernels take "
+                         f"{BF16_WIDTHS}")
     for name, t, shape in (("wh1", wh1, (4 * h, h)), ("wi2", wi2, (4 * h, h)),
                            ("wh2", wh2, (4 * h, h)), ("bh2", bh2, (4 * h,))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
         if t.device != xw1.device:
             raise ValueError(f"{name} is on {t.device}, xw1 on {xw1.device}")
+
+
+def on_card(xw1, wh1, wi2, bh2, wh2):
+    """check_args, that the tensors lie on a card, and that the library
+    takes the width: what every launch runs first."""
+    check_args(xw1, wh1, wi2, bh2, wh2)
     if xw1.device.type != "cuda":
         raise ValueError("the kernels take CUDA tensors")
+    h = xw1.shape[2] // 4
     if not _lib().lstm2_seq_fits(_DTYPES[xw1.dtype], h):
         raise ValueError(f"H={h} is not taken by the kernels (a multiple "
                          f"of 16 whose states fit shared memory)")
@@ -107,27 +127,35 @@ def _stream(t: torch.Tensor) -> int:
 
 def forward_kernel(xw1, wh1, wi2, bh2, wh2, rate=0.0, seed=0,
                    save: bool = False):
-    """Launch the forward kernel → (y, saved states or None)."""
-    check_args(xw1, wh1, wi2, bh2, wh2)
+    """Launch the forward kernels → (y, saved states or None).
+
+    The saved states are zs [2, B, U, 4H] and cs [2, B, U, H] in fp32,
+    hs [2, B, U, H] (slot t: the h that step t read, h[t - 1]; slot 0
+    zero) and ds [B, U, H] in the compute dtype."""
+    on_card(xw1, wh1, wi2, bh2, wh2)
     xw1, (w1, w2i, w2h), bh2 = _operands(xw1, wh1, wi2, bh2, wh2)
     b, u, g4 = xw1.shape
     h = g4 // 4
-    y = torch.empty(b, u, h, dtype=xw1.dtype, device=xw1.device)
+    dt, dev = xw1.dtype, xw1.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    y = torch.empty(b, u, h, dtype=dt, device=dev)
+    ds = torch.empty(b, u, h, dtype=dt, device=dev)
     saved = None
-    ptrs = [None] * 4
+    ptrs = [None] * 3
     if save:
-        f32 = dict(dtype=torch.float32, device=xw1.device)
         saved = (torch.empty(2, b, u, g4, **f32),
                  torch.empty(2, b, u, h, **f32),
-                 torch.empty(2, b, u + 1, h, dtype=xw1.dtype,
-                             device=xw1.device),
-                 torch.empty(b, u, h, dtype=xw1.dtype, device=xw1.device))
-        ptrs = [s.data_ptr() for s in saved]
+                 torch.empty(2, b, u, h, dtype=dt, device=dev), ds)
+        ptrs = [s.data_ptr() for s in saved[:3]]
     if b and u:
-        rc = _lib().lstm2_seq_fwd(
-            _DTYPES[xw1.dtype], xw1.data_ptr(), w1.data_ptr(),
-            w2i.data_ptr(), bh2.data_ptr(), w2h.data_ptr(), y.data_ptr(),
-            *ptrs, b, u, h, *_mask_args(rate, seed), _stream(xw1))
+        lib = _lib()
+        ws = torch.empty(lib.lstm2_seq_fwd_workspace(_DTYPES[dt], b, u, h),
+                         **f32)
+        rc = lib.lstm2_seq_fwd(
+            _DTYPES[dt], xw1.data_ptr(), w1.data_ptr(), w2i.data_ptr(),
+            bh2.data_ptr(), w2h.data_ptr(), y.data_ptr(), *ptrs,
+            ds.data_ptr(), ws.data_ptr() if ws.numel() else None, b, u, h,
+            *_mask_args(rate, seed), _stream(xw1))
         if rc != 0:
             raise RuntimeError(f"lstm2_seq kernel launch failed: "
                                f"cudaError {rc}")
@@ -138,7 +166,7 @@ def forward_kernel(xw1, wh1, wi2, bh2, wh2, rate=0.0, seed=0,
 def backward_kernel(dy, xw1, wh1, wi2, bh2, wh2, saved, rate=0.0, seed=0):
     """Launch the backward kernels → (dxw1 in xw1's dtype, dwh1, dwi2,
     dbh2, dwh2 in fp32)."""
-    check_args(xw1, wh1, wi2, bh2, wh2)
+    on_card(xw1, wh1, wi2, bh2, wh2)
     xw1, (w1, w2i, w2h), _ = _operands(xw1, wh1, wi2, bh2, wh2)
     b, u, g4 = xw1.shape
     h = g4 // 4
@@ -152,7 +180,8 @@ def backward_kernel(dy, xw1, wh1, wi2, bh2, wh2, saved, rate=0.0, seed=0):
     dbh2 = torch.zeros(g4, **f32)
     if b and u:
         lib = _lib()
-        ws = torch.empty(lib.lstm2_seq_bwd_workspace(b, u, h), **f32)
+        ws = torch.empty(lib.lstm2_seq_bwd_workspace(_DTYPES[xw1.dtype], b,
+                                                     u, h), **f32)
         dz2c = torch.empty_like(xw1)
         zs, cs, hs, ds = saved
         rc = lib.lstm2_seq_bwd(
@@ -230,9 +259,11 @@ def _lib() -> ctypes.CDLL:
                        ctypes.c_float)
         lib.lstm2_seq_fits.argtypes = [i, i]
         lib.lstm2_seq_fits.restype = i
-        lib.lstm2_seq_fwd.argtypes = [i] + [p] * 10 + [i] * 3 + [u, i, fl, p]
+        lib.lstm2_seq_fwd_workspace.argtypes = [i] * 4
+        lib.lstm2_seq_fwd_workspace.restype = ctypes.c_longlong
+        lib.lstm2_seq_fwd.argtypes = [i] + [p] * 11 + [i] * 3 + [u, i, fl, p]
         lib.lstm2_seq_fwd.restype = i
-        lib.lstm2_seq_bwd_workspace.argtypes = [i] * 3
+        lib.lstm2_seq_bwd_workspace.argtypes = [i] * 4
         lib.lstm2_seq_bwd_workspace.restype = ctypes.c_longlong
         lib.lstm2_seq_bwd.argtypes = [i] + [p] * 13 + [i] * 3 + [u, i, fl, p]
         lib.lstm2_seq_bwd.restype = i
