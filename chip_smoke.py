@@ -32,8 +32,9 @@ Phases, in the order they run, each printing JSON lines:
             the terminal alpha; its time and bound;
   k8        the fused conv block, forward (N=64*127) and backward
             (N=256*127), D=256 K=15, fp32/bf16, causal or not, dropout 0
-            and 0.1, against the plain version; the mask's bits and keep
-            rate; times beside the port's unfused block;
+            and 0.1, against the plain version, and bf16 at T = 300 and
+            256 (across the kernels' 128-frame steps); the mask's bits and
+            keep rate; times beside the port's unfused block;
   k7        ln_matmul forward and backward against its plain version at
             the main paths' shapes (N = 8128, 32512, 8448; K = 768 QKV and
             512 pointwise conv1 with a row mask; a ragged N), fp32 and
@@ -77,9 +78,9 @@ Phases, in the order they run, each printing JSON lines:
   rnnt_train_wavs  T5: 24 flagship steps on the WAVs (the loss falls);
   profile   each decode and training step under torch.profiler, last: the
             card's busy time, idle share and each kernel's time;
-  k8_device K8 against the port's unfused block in card time, calls
-            back to back (CUDA events behind a spin kernel; the kernels
-            line's library_ms for K8);
+  k8_device K8 against the port's unfused block in card time, calls back to back (CUDA events behind a spin kernel;
+            the kernels line's library_ms for K8), the forward at N =
+            8128 and 32512, the backward split by pass;
   k6_k7_device  K6 and K7 against the port's unfused compositions the
             same way (their library_ms; K6's forward also at N = 32512).
 
@@ -129,6 +130,18 @@ K7_FWD_KERNELS = ("lnmm16::fwd<", "f32k::ln_mm_fwd(")
 K7_BWD_KERNELS = ("lnmm16::bwd_rows<", "lnmm16::bwd_weights<",
                   "lnmm16::sum_splits(", "f32k::ln_mm_bwd_rows(",
                   "f32k::ln_mm_bwd_weights(")
+
+# K8's forward and backward in a profile: bf16 (namespace conv16: the
+# cluster kernel, pass B, pass C and the sums), fp32.
+K8_FWD_KERNELS = ("conv16::clu<false>", "conv_fwd<")
+K8_BWD_KERNELS = ("conv16::clu<true>", "conv16::bwd_b(", "conv16::wgrad(",
+                  "conv16::sum_segs(", "conv_bwd_a<", "conv_bwd_b<",
+                  "namespace)::wgrad_")
+# K8's bf16 backward by pass (stage_ms).
+K8_BWD_STAGES = (("pass_a", ("conv16::clu<true>",), 1),
+                 ("pass_b", ("conv16::bwd_b(",), 1),
+                 ("pass_c", ("conv16::wgrad(",), 1),
+                 ("sums", ("conv16::sum_segs(",), 1))
 
 failures: list = []
 
@@ -1002,14 +1015,22 @@ def conv_keep_rate(conv, dropout, rate=0.1, seed=77, b=256, t=127, d=256,
             "equals_plain_mask": bool(torch.equal(kept, plain))}
 
 
+# bf16 K8 cases whose T crosses the kernels' 128-frame steps: three steps
+# (the hidden and dy0 carried twice), and T = 256: two steps when causal,
+# three when not, the last without PW1 rows (non-causal output frames
+# trail the PW1 rows by 7).
+K8_LONG_T = (300, 256)
+
+
 def phase_k8(conv, bounds, dropout) -> tuple:
     """K8 forward (N = 64*127) and backward (N = 256*127) against the
     plain version and autograd through it on the card, D = 256, K = 15,
-    fp32 and bf16, causal and not, rates 0 and 0.1, on padded batches; the
-    same bits over repeated backward calls; the output mask's keep rate and
-    bits; at the route's operating point (bf16, non-causal) the times, the
-    plain versions', the port's unfused block as the yardstick, and the
-    bounds. Returns the (forward, backward) records."""
+    fp32 and bf16, causal and not, rates 0 and 0.1, on padded batches;
+    bf16 again at B = 8 with T in K8_LONG_T; the same bits over repeated
+    backward calls; the output mask's keep rate and bits; at the route's
+    operating point (bf16, non-causal) the times, the plain versions', the
+    port's unfused block as the yardstick, and the bounds. Returns the
+    (forward, backward) records."""
     d, k, t = 256, 15, 127
     rec_f, rec_b = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1060,6 +1081,31 @@ def phase_k8(conv, bounds, dropout) -> tuple:
                                  "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}}
                 emit("k8", **line)
+    for t_long in K8_LONG_T:
+        for causal in (False, True):
+            for rate in (0.0, 0.1):
+                cfg = (4242, causal, rate, 1e-5)
+                x, mask, params, dy = conv_inputs(8, t_long, d, k,
+                                                  torch.bfloat16, seed=t_long)
+                y = conv.forward_kernel(x, mask, *params, *cfg)
+                got = [conv.backward_kernel(x, mask, *params, dy, *cfg)
+                       for _ in range(3)]
+                torch.cuda.synchronize()
+                same = all(torch.equal(p, q) for again in got[1:]
+                           for p, q in zip(got[0], again))
+                want_y = conv.conv_block_residual_ref(x, mask, *params, *cfg)
+                want = conv.backward_ref(x, mask, *params, dy, *cfg)
+                errs = output_errors(K8_OUTS, (y, *got[0]), (want_y, *want),
+                                     2e-2)
+                ok = same and all(e["ok"] for e in errs.values())
+                check(ok, f"k8 bf16 T={t_long} causal={causal} rate={rate}:"
+                          f" {errs}, same bits {same}")
+                emit("k8", dtype="bfloat16", causal=causal, rate=rate,
+                     b=8, t=t_long, D=d, K=k, ok=ok,
+                     bwd_same_bits_over_3_calls=same, errors=errs,
+                     tolerance="relative Frobenius <= 0.02 against the "
+                               "plain version and autograd through it; T "
+                               "crosses the kernels' 128-frame steps")
     keep = conv_keep_rate(conv, dropout)
     check(keep["equals_plain_mask"] and abs(keep["keep_rate"] - 0.9)
           <= 0.003 * 0.9, f"k8 mask: {keep}")
@@ -1875,41 +1921,62 @@ def device_passes(fn, launches: int, iters: int = 10) -> dict:
                              launches - 2)), iters)}
 
 
-def phase_k8_device(conv, fwd_rec: dict, bwd_rec: dict) -> None:
-    """K8 against the port's unfused block in card time (bf16,
-    non-causal, D=256, K=15): forwards at N = 64*127 and 256*127, and the
-    backward at 256*127 (the unfused block's: forward + backward less
-    forward). Event times of the unfused block at N = 64*127 carry about
-    ten host launches, so the kernels line's ``library_ms`` takes these
-    card times (``device_ms``) and keeps the event times as
-    ``library_event_ms``."""
+def phase_k8_device(conv, bounds, fwd_rec: dict, bwd_rec: dict) -> None:
+    """K8 in card time (``device_ms``), bf16, non-causal, D=256, K=15:
+    the conv16 kernels and the port's unfused block, in that order at each
+    shape: forwards at N = 64*127 (rate 0, decode) and 256*127 (rates 0
+    and 0.1, T7's shape), the backward at 256*127 (rate 0.1; the unfused
+    block's: forward + backward less forward), and K8's backward split by
+    pass (``stage_ms``, taken again, up to three times, until its profile
+    holds every interval). Event times of the unfused
+    block at N = 64*127 carry about ten host launches, so the kernels
+    line's ``library_ms`` takes these card times and keeps the event times
+    as ``library_event_ms``."""
     d, k, t = 256, 15, 127
     cfg = (4242, False, 0.1, 1e-5)
-    fcfg = (cfg[0], cfg[1], 0.0, cfg[3])
     line = {}
-    for b, seed in ((64, 1), (256, 2)):
+    for b, seed, rates in ((64, 1, (0.0,)), (256, 2, (0.0, 0.1))):
         x, mask, params, dy = conv_inputs(b, t, d, k, torch.bfloat16, seed)
         block, weights = unfused_block((x, mask, params), x.dtype)
+        flops, nbytes = bounds.conv_block_residual(b * t, d, k, "bf16")
+        bound, _ = bounds.bound_ms(flops, nbytes, "bf16")
         with torch.no_grad():
-            line[f"fwd_n{b * t}"] = {
-                "k8_ms": device_ms(lambda: conv.forward_kernel(
-                    x, mask, *params, *fcfg), iters=20),
-                "unfused_ms": device_ms(lambda: block(x), iters=20)}
+            unfused = device_ms(lambda: block(x), iters=20)
+            for rate in rates:
+                c = (cfg[0], False, rate, cfg[3])
+                new = device_ms(lambda: conv.forward_kernel(
+                    x, mask, *params, *c), iters=20)
+                line[f"fwd_n{b * t}_rate{rate}"] = {
+                    "k8_ms": new, "unfused_ms": unfused,
+                    "factor": new / unfused, "bound_ms": bound, "share_of_bound": bound / new}
     xg = x.detach().requires_grad_(True)
 
     def both():
         torch.autograd.grad(block(xg), [xg] + weights, dy)
     unfused_both = device_ms(both)
+    unfused_bwd = unfused_both - line[f"fwd_n{256 * t}_rate0.0"]["unfused_ms"]
+    flops, nbytes = bounds.conv_block_residual_bwd(256 * t, d, k, "bf16")
+    bound, _ = bounds.bound_ms(flops, nbytes, "bf16")
+
+    def bwd():
+        conv.backward_kernel(x, mask, *params, dy, *cfg)
+    new = device_ms(bwd)
+    for _ in range(3):
+        passes = stage_ms(bwd, K8_BWD_STAGES)
+        if passes["profile_complete"]:
+            break
     line[f"bwd_n{256 * t}"] = {
-        "k8_ms": device_ms(lambda: conv.backward_kernel(x, mask, *params, dy,
-                                                        *cfg)),
-        "unfused_ms": unfused_both - line[f"fwd_n{256 * t}"]["unfused_ms"],
-        "unfused_fwd_and_bwd_ms": unfused_both}
-    for rec, key in ((fwd_rec, f"fwd_n{64 * t}"),
+        "k8_ms": new, "unfused_ms": unfused_bwd,
+        "unfused_fwd_and_bwd_ms": unfused_both, "factor": new / unfused_bwd,
+        "bound_ms": bound, "share_of_bound": bound / new,
+        "k8_passes": passes}
+    for rec, key in ((fwd_rec, f"fwd_n{64 * t}_rate0.0"),
                      (bwd_rec, f"bwd_n{256 * t}")):
         rec.update(device_ms=line[key]["k8_ms"],
                    library_event_ms=rec["library_ms"],
                    library_ms=line[key]["unfused_ms"])
+    fwd_rec.update(
+        device_ms_n32512_rate01=line[f"fwd_n{256 * t}_rate0.1"]["k8_ms"])
     emit("k8_device", **line,
          how="card ms per call, calls back to back (device_ms: CUDA "
              "events behind a spin kernel); backward at dropout 0.1, the "
@@ -2619,11 +2686,13 @@ def phase_rnnt_profile(state, step, batch, gen, timed_ms,
     """One flagship training step under torch.profiler, run after every
     timing: busy time, idle share, each kernel's time (K9 included). K4's
     forward and backward (every flagship path) and, on the LNMM_PALLAS
-    path, K7's must read above 0 ms: a profile that misses them is taken
-    again (the profiler drops card intervals now and then), and three
-    that miss them fail the run, so that a kernel renamed away from
-    K4_*_KERNELS or K7_*_KERNELS cannot read 0 silently."""
+    path, K7's and, on the CONV_PALLAS path, K8's must read above 0 ms: a
+    profile that misses them is taken again (the profiler drops card
+    intervals now and then), and three that miss them fail the run, so
+    that a kernel renamed away from K4_*_KERNELS, K7_*_KERNELS or
+    K8_*_KERNELS cannot read 0 silently."""
     lnmm = mode == "lnmm_train"
+    conv_path = mode == "conv_train"
 
     def ms(*keys):
         return sum(v for k, v in by_name.items() if any(s in k for s in keys))
@@ -2631,7 +2700,9 @@ def phase_rnnt_profile(state, step, batch, gen, timed_ms,
     def seen():
         return ms(*K4_FWD_KERNELS) > 0 and ms(*K4_BWD_KERNELS) > 0 and (
             not lnmm or (ms(*K7_FWD_KERNELS) > 0 and
-                         ms(*K7_BWD_KERNELS) > 0))
+                         ms(*K7_BWD_KERNELS) > 0)) and (
+            not conv_path or (ms(*K8_FWD_KERNELS) > 0 and
+                              ms(*K8_BWD_KERNELS) > 0))
     with routes(**(env or {})):
         for _ in range(3):
             wall_ms, busy_ms, by_name = profile_step(state, step, batch, gen)
@@ -2640,7 +2711,9 @@ def phase_rnnt_profile(state, step, batch, gen, timed_ms,
     check(seen(), f"{mode} profile: K4's kernels "
                   f"{K4_FWD_KERNELS + K4_BWD_KERNELS}"
                   + (f" or K7's {K7_FWD_KERNELS + K7_BWD_KERNELS}"
-                     if lnmm else "") + " read 0 ms in 3 profiles")
+                     if lnmm else "")
+                  + (f" or K8's {K8_FWD_KERNELS + K8_BWD_KERNELS}"
+                     if conv_path else "") + " read 0 ms in 3 profiles")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     emit("profile", mode=mode, timed_ms=timed_ms,
          profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
@@ -2652,8 +2725,8 @@ def phase_rnnt_profile(state, step, batch, gen, timed_ms,
                                          "joint_bwd_weights"),
          k4_ms=ms(*K4_FWD_KERNELS), k4_bwd_ms=ms(*K4_BWD_KERNELS),
          tile_partial_sums_ms=ms("tile::sum_partials"),
-         k9_ms=ms("lattice<"), k8_fwd_ms=ms("conv_fwd<"),
-         k8_bwd_ms=ms("conv_bwd_a<", "conv_bwd_b<", "namespace)::wgrad_"),
+         k9_ms=ms("lattice<"), k8_fwd_ms=ms(*K8_FWD_KERNELS),
+         k8_bwd_ms=ms(*K8_BWD_KERNELS),
          k7_fwd_ms=ms(*K7_FWD_KERNELS), k7_bwd_ms=ms(*K7_BWD_KERNELS),
          kernels=len(by_name),
          top=[{"kernel": k[:90], "ms": v} for k, v in top])
@@ -2776,7 +2849,7 @@ def main() -> int:
     phase_rnnt_profile(*conv_profile, mode="conv_train", env=CONV)
     phase_rnnt_profile(*lnmm_profile, mode="lnmm_train", env=LNMM)
     phase_rnnt_profile(*pallas_profile, mode="rnnt_pallas_train")
-    phase_k8_device(conv, k8, k8_bwd)
+    phase_k8_device(conv, bounds, k8, k8_bwd)
     phase_k6_k7_device(ffn, ln_matmul, (k6, k6_bwd), (k7, k7_bwd))
     paths = {"train": (t1, CTC_PER_STEP),
              "train_rnnt": (rnnt, RNNT_PER_STEP),

@@ -10,7 +10,9 @@ JAX package on the CPU in fp32:
   one call a layer): every loss term and gradient against the JAX
   package's training step, whose layers run the unfused module;
 - at rate 0.1 the forward and the backward draw the same mask, the plain
-  mask function's.
+  mask function's;
+- ``check_args`` refuses, before any launch, every bf16 width and kernel
+  size but the one the bf16 kernels take (D = 256, K = 15).
 """
 
 import jax
@@ -139,3 +141,44 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
         conv.check_args(*even, causal=False)
     with pytest.raises(ValueError, match="CUDA"):
         conv.forward_kernel(*args, 0, False, 0.0, 1e-5)
+
+
+@pytest.mark.parametrize("d,k,causal", [(128, 15, False), (64, 15, True),
+                                        (512, 15, False), (256, 7, False),
+                                        (256, 31, True), (256, 14, True)])
+def test_bf16_kernels_refuse_shapes_they_do_not_take(d, k, causal):
+    """check_args refuses, before any launch, a bf16 width or kernel size
+    the conv16 kernels do not take (they take D = 256 with K = 15); the
+    same shape in fp32 passes the shape checks and stops only at the
+    device check."""
+    x, mask, params = _inputs(3, d=d)
+    params = list(params)
+    params[4] = np.zeros((k, d), np.float32)
+    args = [torch.as_tensor(a) for a in (x, mask, *params)]
+    bf16 = list(args)
+    for i in (0, 4, 10):   # x, w1, w2 in the compute dtype
+        bf16[i] = args[i].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 kernels take"):
+        conv.check_args(*bf16, causal=causal)
+    with pytest.raises(ValueError, match="bf16 kernels take"):
+        conv.forward_kernel(*bf16, 0, causal, 0.0, 1e-5)
+    dy = bf16[0].clone()
+    with pytest.raises(ValueError, match="bf16 kernels take"):
+        conv.backward_kernel(*bf16, dy, 0, causal, 0.0, 1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv.check_args(*args, causal=causal)
+
+
+def test_bf16_kernels_take_the_configs_shape():
+    """D = 256 with K = 15, causal and not (every layer_norm conv module
+    of the repo's configs), passes the bf16 shape checks and stops only
+    at the device check on CPU tensors."""
+    x, mask, params = _inputs(3, d=256)
+    params = list(params)
+    params[4] = np.zeros((15, 256), np.float32)
+    args = [torch.as_tensor(a) for a in (x, mask, *params)]
+    for i in (0, 4, 10):
+        args[i] = args[i].to(torch.bfloat16)
+    for causal in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            conv.check_args(*args, causal=causal)

@@ -2,7 +2,8 @@
 configs, on the CPU: the dropout rates a config that leaves them out
 builds (the modules' defaults), and ``decoder: "transformer"`` (the
 left-to-right decoder alone, ``r_num_blocks`` 0), whose parameter tree,
-losses and every gradient must match the JAX model's.
+losses and every gradient must match the JAX model's; and the streaming
+loss's chunk, which ``model_conf`` does not set in either factory.
 """
 
 import functools
@@ -179,3 +180,17 @@ def test_transformer_decoder_loss_and_every_gradient_match_jax():
         scale = max(float(np.abs(w).max()), 1e-3)
         err = float(np.abs(g.numpy() - w).max())
         assert err <= 1e-4 * scale, (name, err, scale)
+
+
+def test_streaming_chunk_is_the_jax_models_field():
+    """A config that carries ``streaming_chunk: 4`` builds the JAX model
+    with its field default (the JAX factory never passes the key); the
+    port's chunk equals that field."""
+    cfgs = [cf.conformer_rnnt_bias(tiny=True, vocab_size=VOCAB)
+            for cf in (jax_configs, configs)]
+    for cfg in cfgs:
+        cfg.setdefault("model_conf", {})["streaming_chunk"] = 4
+    jm = jax_init_model(cfgs[0])
+    tm = init_model(cfgs[1], device="cpu")
+    assert jm.streaming_chunk == 16
+    assert tm.streaming_chunk == jm.streaming_chunk

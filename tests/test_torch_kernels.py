@@ -421,16 +421,24 @@ def _conv_args(b, t, d, k, dt, seed):
     return args, mask, _rnd(g, b, t, d).to(dt)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype,b,t,d", [
+    ("float32", 3, 45, 128), ("bfloat16", 3, 45, 256),
+    ("bfloat16", 2, 300, 256), ("bfloat16", 2, 256, 256),
+    ("bfloat16", 3, 150, 256)])
 @pytest.mark.parametrize("causal,rate", [(False, 0.0), (False, 0.1),
                                          (True, 0.1)])
-def test_conv_block_kernels_match_plain_version_on_card(dtype, causal, rate):
+def test_conv_block_kernels_match_plain_version_on_card(dtype, b, t, d,
+                                                        causal, rate):
     """K8's output and its eleven backward outputs against autograd
     through the plain version with the same mask, relative Frobenius 1e-4
-    (fp32) or 2e-2 (bf16), on a padded batch whose T (45) is not a
-    multiple of the 32-frame tile; the same bits on a second backward."""
+    (fp32) or 2e-2 (bf16), on padded batches: fp32 at T = 45 (not a
+    multiple of its 32-frame tile, K = 7 non-causal), bf16 (D = 256, K =
+    15) at T = 45, 150, 256 and 300 (one, two and three 128-frame steps;
+    256 ends on a step without PW1 rows); the same bits on a second
+    backward."""
     dt = getattr(torch, dtype)
-    args, mask, dy = _conv_args(3, 45, 128, 15 if causal else 7, dt, 6)
+    k = 15 if causal or dt == torch.bfloat16 else 7
+    args, mask, dy = _conv_args(b, t, d, k, dt, 6)
     cfg = dict(seed=321, causal=causal, rate=rate)
     ins = [a.detach().requires_grad_(True) for a in args]
     before = (conv.conv_block_residual.launches,
@@ -664,3 +672,18 @@ def test_tiny_postnorm_card_gradients_against_float64_reference():
                if zero_in_exact_arithmetic(n)
                else e_card[n] > 2 * e_cpu[n] + 1e-6)}
     assert not bad
+
+
+def test_conv_block_bf16_refuses_other_shapes_on_card():
+    """A bf16 width or kernel size outside (256, 15) raises before any
+    launch on CUDA tensors too, forward and backward."""
+    args, mask, dy = _conv_args(2, 40, 128, 15, torch.bfloat16, 3)
+    before = (conv.conv_block_residual.launches,
+              conv.conv_block_residual.bwd_launches)
+    with pytest.raises(ValueError, match="bf16 kernels take"):
+        conv.forward_kernel(args[0], mask, *args[1:], 0, False, 0.0, 1e-5)
+    with pytest.raises(ValueError, match="bf16 kernels take"):
+        conv.backward_kernel(args[0], mask, *args[1:], dy, 0, False, 0.0,
+                             1e-5)
+    assert (conv.conv_block_residual.launches,
+            conv.conv_block_residual.bwd_launches) == before

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers,
-// TMA tile loads and stores, thread-block clusters (rank, distributed
+// TMA tile loads and stores (2-D and 3-D), thread-block clusters (rank, distributed
 // shared memory stores and bulk copies, the cluster barrier), warpgroup
 // MMA (wgmma) with its shared-memory matrix descriptors, and named
 // barriers; and, for the launchers,
@@ -81,6 +81,20 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// The same for a 3-D box at (c0 = inner, c1, c2 = outer); elements past
+// the tensor's end read as zeros. Keep coordinates >= 0: a box starting
+// below 0 faulted on the H100 ("illegal instruction").
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 // ---- TMA stores: one 2-D box of shared memory at src into `map` at (c0 =
 // inner, c1 = outer); rows and columns past the tensor's end are not
 // written. Stores are committed in bulk groups; before shared memory a
@@ -94,12 +108,28 @@ __device__ __forceinline__ void tma_store_2d(const void* map, uint32_t src,
       "r"(src), "r"(c0), "r"(c1)
       : "memory");
 }
+// A 3-D box; elements past the tensor's end are not written (coordinates
+// >= 0, as for loads).
+__device__ __forceinline__ void tma_store_3d(const void* map, uint32_t src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 template <int N>
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// The same until they are complete: their writes to global memory done.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Generic-proxy writes to shared memory made visible to wgmma and TMA.
@@ -130,6 +160,13 @@ __device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
   asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
                    addr),
                "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// 8 bytes into another CTA's shared memory (a shared::cluster address).
+__device__ __forceinline__ void st_cluster(uint32_t addr, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(v.x), "f"(v.y)
                : "memory");
 }
 
@@ -507,6 +544,31 @@ inline bool tensor_map(CUtensorMap* m, const void* ptr, int rows, long long cols
             f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
             2, const_cast<void*>(ptr), dims, strides, box, steps,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D row-major [outer, mid, inner] tensor (bf16, or fp32 with f32),
+// boxes of [1, box_mid, box_inner]; elements past its end read as zeros
+// and are not written.
+inline bool tensor_map_3d(CUtensorMap* m, const void* ptr, long long inner,
+                          long long mid, long long outer, int box_inner,
+                          int box_mid, CUtensorMapSwizzle swizzle,
+                          bool f32 = false) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const int esz = f32 ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)mid,
+                              (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)(inner * esz),
+                                 (cuuint64_t)(inner * mid * esz)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_mid, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return fn(m,
+            f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            3, const_cast<void*>(ptr), dims, strides, box, steps,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -9,29 +9,19 @@
 // with the accumulator in shared memory. A is row-major (A(i,k) =
 // A[i*lda + k]) or column-major (A[k*lda + i]); B row-major (B(k,j) =
 // B[k*ldb + j]) or column-major (B[j*ldb + k]). A and B may lie in shared
-// or global memory. bf16 runs on the tensor cores with WMMA 16x16x16
-// fragments (M, N, K multiples of 16; pointers 32-byte aligned; lda, ldb
-// multiples of 8 and ldc of 4), the block's warps taking the 16x16 output
-// tiles in turn. fp32 runs plain FMA in 4x4 register tiles per thread (M
+// or global memory. It runs plain FMA in 4x4 register tiles per thread (M
 // and N multiples of 4), so it stays full fp32 (no TF32). Each output tile
-// always goes to the same warp or thread for the same (M, N), so two calls
+// always goes to the same thread for the same (M, N), so two calls
 // on the same C need no barrier between them; the caller synchronises
 // before reading C elsewhere. With LOAD = false the product starts from 0
 // instead of C's contents (C = A * B).
-//
-// mma_frags is the register-resident bf16 form: the accumulator tiles stay
-// in each warp's fragments across calls (no shared-memory round trip per
-// call) and are written out once by frags_store.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace tile {
 
@@ -89,39 +79,6 @@ __host__ __device__ constexpr size_t align128(size_t b) {
 }
 
 template <bool A_ROW, bool B_ROW, bool LOAD = true>
-__device__ void mma_acc(float* C, int ldc, const bf* A, int lda, const bf* B,
-                        int ldb, int M, int N, int K) {
-  using namespace nvcuda;
-  using LA = typename std::conditional<A_ROW, wmma::row_major,
-                                       wmma::col_major>::type;
-  using LB = typename std::conditional<B_ROW, wmma::row_major,
-                                       wmma::col_major>::type;
-  const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  const int tn = N / 16, tiles = (M / 16) * tn;
-  for (int tile = warp; tile < tiles; tile += nwarps) {
-    const int i0 = (tile / tn) * 16, j0 = (tile % tn) * 16;
-    float* cp = C + (size_t)i0 * ldc + j0;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (LOAD)
-      wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.0f);
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf, LA> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf, LB> fb;
-      wmma::load_matrix_sync(
-          fa, A_ROW ? A + (size_t)i0 * lda + k : A + (size_t)k * lda + i0,
-          lda);
-      wmma::load_matrix_sync(
-          fb, B_ROW ? B + (size_t)k * ldb + j0 : B + (size_t)j0 * ldb + k,
-          ldb);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
-  }
-}
-
-template <bool A_ROW, bool B_ROW, bool LOAD = true>
 __device__ void mma_acc(float* C, int ldc, const float* A, int lda,
                         const float* B, int ldb, int M, int N, int K) {
   const int tn = N / 4, tiles = (M / 4) * tn;
@@ -152,79 +109,6 @@ __device__ void mma_acc(float* C, int ldc, const float* A, int lda,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) C[(size_t)(i0 + i) * ldc + j0 + j] = acc[i][j];
-  }
-}
-
-using Acc = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
-                                   float>;
-
-// The 16x16 output tiles of an M x N product (numbered row-major) that
-// fragment f of this warp holds: tiles warp * nf .. warp * nf + nf - 1,
-// nf = ceil(tiles / warps), so a warp's tiles mostly share a row of A.
-__device__ __forceinline__ int frag_tile(int f, int M, int N, int* i0,
-                                         int* j0) {
-  const int nwarps = blockDim.x / 32, tn = N / 16, tiles = (M / 16) * tn;
-  const int nf = (tiles + nwarps - 1) / nwarps;
-  const int tile = (threadIdx.x / 32) * nf + f;
-  *i0 = (tile / tn) * 16;
-  *j0 = (tile % tn) * 16;
-  return f < nf && tile < tiles;
-}
-
-// Tiles per warp that mma_frags needs for an M x N product.
-__host__ __device__ constexpr int frags_needed(int M, int N) {
-  return ((M / 16) * (N / 16) + kWarps - 1) / kWarps;
-}
-
-template <int NF>
-__device__ void frags_zero(Acc (&acc)[NF]) {
-#pragma unroll
-  for (int f = 0; f < NF; ++f) nvcuda::wmma::fill_fragment(acc[f], 0.0f);
-}
-
-// acc += A[M x K] * B[K x N] (bf16, layouts as mma_acc); needs
-// frags_needed(M, N) <= NF. The A fragment is loaded once per k-step for
-// the warp's tiles that share its row.
-template <int NF, bool A_ROW, bool B_ROW>
-__device__ void mma_frags(Acc (&acc)[NF], const bf* A, int lda, const bf* B,
-                          int ldb, int M, int N, int K) {
-  using namespace nvcuda;
-  using LA = typename std::conditional<A_ROW, wmma::row_major,
-                                       wmma::col_major>::type;
-  using LB = typename std::conditional<B_ROW, wmma::row_major,
-                                       wmma::col_major>::type;
-  for (int k = 0; k < K; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf, LA> fa;
-    int row = -1;
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      int i0, j0;
-      if (!frag_tile(f, M, N, &i0, &j0)) continue;
-      if (i0 != row) {
-        wmma::load_matrix_sync(
-            fa, A_ROW ? A + (size_t)i0 * lda + k : A + (size_t)k * lda + i0,
-            lda);
-        row = i0;
-      }
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf, LB> fb;
-      wmma::load_matrix_sync(
-          fb, B_ROW ? B + (size_t)k * ldb + j0 : B + (size_t)j0 * ldb + k,
-          ldb);
-      wmma::mma_sync(acc[f], fa, fb, acc[f]);
-    }
-  }
-}
-
-// C[M x N] (row-major, ldc; shared or global memory) = the warp's tiles.
-template <int NF>
-__device__ void frags_store(const Acc (&acc)[NF], float* C, int ldc, int M,
-                            int N) {
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    int i0, j0;
-    if (frag_tile(f, M, N, &i0, &j0))
-      nvcuda::wmma::store_matrix_sync(C + (size_t)i0 * ldc + j0, acc[f], ldc,
-                                      nvcuda::wmma::mem_row_major);
   }
 }
 

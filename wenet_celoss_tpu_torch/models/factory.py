@@ -124,13 +124,14 @@ def build_model(cfg: Dict[str, Any]) -> Model:
     if abs(tw + cw + aw - 1.0) >= 1e-6:
         raise ValueError("transducer + ctc + attention weights must sum "
                          "to 1")
+    # No streaming_chunk: the JAX factory passes none, so its model keeps
+    # the field default (16) whatever model_conf says.
     return Transducer(
         vocab, encoder, predictor, joint, context_bias, blank=0,
         decoder=decoder, ctc=ctc, transducer_weight=tw, ctc_weight=cw,
         hw_weight=model_conf.get("hw_weight", 0.4),
         loss_mode=model_conf.get("loss_mode", "both"),
         rnnt_impl=rnnt_impl,
-        streaming_chunk=model_conf.get("streaming_chunk", 16),
         lsm_weight=model_conf.get("lsm_weight", 0.0),
         reverse_weight=model_conf.get("reverse_weight", 0.0),
         length_normalized_loss=model_conf.get("length_normalized_loss",

@@ -7,9 +7,10 @@ backward, with its output dropout.
 It is a ``torch.autograd.Function`` that saves only its inputs, as the
 Pallas VJP does; the backward recomputes the block. On CUDA tensors its
 forward and backward launch the hand-written kernels of
-``csrc/conv_block.cu``; on CPU tensors they run ``conv_block_residual_ref``,
-the plain PyTorch version with the kernel's rounding points (the backward
-by autograd through it).
+``csrc/conv_block.cu`` (bf16: the wgmma/TMA kernels of namespace
+``conv16``, D = 256 and K = 15 only; fp32: the plain-FMA kernels); on CPU
+tensors they run ``conv_block_residual_ref``, the plain PyTorch version
+with the kernel's rounding points (the backward by autograd through it).
 
 Padding is the module's (``models/convolution.py``): a causal block
 left-pads K - 1 frames in the raw domain before PW1 (those frames carry
@@ -35,10 +36,14 @@ from wenet_celoss_tpu_torch.ops import dropout as drop
 from wenet_celoss_tpu_torch.ops._build import load_library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Channel counts the kernels take: a multiple of 64 (the weight-gradient
-# tiles) whose tiles fit shared memory (the library says which).
+# Channel counts the fp32 kernels take: a multiple of 64 (the
+# weight-gradient tiles) whose tiles fit shared memory (the library says
+# which).
 D_MULTIPLE = 64
 MAX_K = 31
+# (D, K) the bf16 kernels take (namespace conv16): every layer_norm conv
+# module of the repo's configs.
+BF16_SHAPES = ((256, 15),)
 
 
 def _ln(x, g, b, eps):
@@ -96,6 +101,9 @@ def check_args(x, mask, *params, causal: bool):
     if not 1 <= k <= MAX_K or (not causal and k % 2 == 0):
         raise ValueError(f"K={k} must be in [1, {MAX_K}] and odd unless "
                          f"causal")
+    if x.dtype == torch.bfloat16 and (d, k) not in BF16_SHAPES:
+        raise ValueError(f"D={d}, K={k} is not a shape the bf16 kernels "
+                         f"take {BF16_SHAPES}")
     shapes = dict(zip(_PARAMS, ((d,), (d,), (d, 2 * d), (2 * d,), (k, d),
                                 (d,), (d,), (d,), (d, d), (d,))))
     for name, p in zip(_PARAMS, params):
@@ -150,7 +158,8 @@ def forward_kernel(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2,
 def backward_kernel(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2,
                     dy, seed, causal, rate, eps):
     """Launch the backward kernels on CUDA tensors → (dx in x's dtype, and
-    dg1, db1, dw1, dbw1, dw_dw, db_dw, dg2, db2, dw2, dbw2 in fp32)."""
+    dg1, db1, dw1, dbw1, dw_dw, db_dw, dg2, db2, dw2, dbw2 in fp32, views
+    of one buffer in that order)."""
     params = (g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2)
     check_args(x, mask, *params, causal=causal)
     if dy.shape != x.shape or dy.dtype != x.dtype or \
@@ -158,20 +167,22 @@ def backward_kernel(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2,
         raise ValueError("dy must be a contiguous tensor like x")
     bsz, t, d = x.shape
     k = w_dw.shape[0]
-    grads = [torch.zeros(p.shape, dtype=torch.float32, device=x.device)
-             for p in params]
+    flat = torch.zeros(sum(p.numel() for p in params), dtype=torch.float32,
+                       device=x.device)
+    grads = [g.view(p.shape) for g, p in
+             zip(flat.split([p.numel() for p in params]), params)]
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return (dx, *grads)
     lib = _lib()
-    nbytes = lib.conv_block_bwd_workspace(_DTYPES[x.dtype], bsz, t, d, k,
-                                          int(causal))
+    code = _DTYPES[x.dtype]
+    nbytes = lib.conv_block_bwd_workspace(code, bsz, t, d, k, int(causal))
     if nbytes <= 0:
         raise ValueError(f"D={d}, K={k} do not fit the backward kernels' "
                          f"shared memory")
     ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     rc = lib.conv_block_bwd(
-        _DTYPES[x.dtype], x.data_ptr(), mask.data_ptr(),
+        code, x.data_ptr(), mask.data_ptr(),
         *(p.data_ptr() for p in params), dy.data_ptr(), dx.data_ptr(),
         *(g.data_ptr() for g in grads), ws.data_ptr(), bsz, t, d, k,
         int(causal), float(eps), *_masks(seed, rate), _stream(x))
