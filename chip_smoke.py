@@ -27,9 +27,10 @@ Phases, in the order they run, each printing JSON lines:
             stage;
   k9        the RNN-T lattice against alpha_scan/beta_scan (B=256 T'=127
             U1=33 full and ragged, the pallas path's B=64, a wide U1=90,
-            U1=600 full and ragged on three warps a row):
+            U1=600 full and ragged on ten warps a direction):
             valid cells, invalid cells exactly LOG_ZERO, beta[0,0] against
-            the terminal alpha; its time and bound;
+            the terminal alpha, the same bits over 3 calls; its card
+            time, µs a diagonal step, its bound;
   k8        the fused conv block, forward (N=64*127) and backward
             (N=256*127), D=256 K=15, fp32/bf16, causal or not, dropout 0
             and 0.1, against the plain version, and bf16 at T = 300 and
@@ -77,7 +78,11 @@ Phases, in the order they run, each printing JSON lines:
   postnorm_train  T9: the post-norm model at T1's point, timed;
   rnnt_train_wavs  T5: 24 flagship steps on the WAVs (the loss falls);
   profile   each decode and training step under torch.profiler, last: the
-            card's busy time, idle share and each kernel's time;
+            card's busy time, idle share and each kernel's time (K4's and
+            K9's, and K7's and K8's on their paths, must read above 0);
+            one more T4 step, ops/dropout.py's apply_mask wrapped to
+            name its caller, charges its int64 element-wise kernels to
+            their call sites (int64_sites);
   k8_device K8 against the port's unfused block in card time, calls back to back (CUDA events behind a spin kernel;
             the kernels line's library_ms for K8), the forward at N =
             8128 and 32512, the backward split by pass;
@@ -130,6 +135,8 @@ K7_FWD_KERNELS = ("lnmm16::fwd<", "f32k::ln_mm_fwd(")
 K7_BWD_KERNELS = ("lnmm16::bwd_rows<", "lnmm16::bwd_weights<",
                   "lnmm16::sum_splits(", "f32k::ln_mm_bwd_rows(",
                   "f32k::ln_mm_bwd_weights(")
+# K9 (alpha and beta, every plan) in a profile.
+K9_KERNELS = ("k9::lattice<",)
 
 # K8's forward and backward in a profile: bf16 (namespace conv16: the
 # cluster kernel, pass B, pass C and the sums), fp32.
@@ -897,7 +904,7 @@ LATTICE_CASES = (  # (name, B, T', U1, ragged lengths)
     ("train_ragged", 256, 127, 33, True),
     ("pallas_b64", 64, 127, 33, False),
     ("wide_ragged", 64, 200, 90, True),
-    ("wide_600", 16, 127, 600, False),          # 3 warps a row
+    ("wide_600", 16, 127, 600, False),  # 10 warps a direction (ring)
     ("wide_600_ragged", 16, 127, 600, True),
 )
 
@@ -919,16 +926,20 @@ def lattice_inputs(b, t, u1, ragged, seed, log_zero):
 def phase_k9(rnnt, bounds) -> dict:
     """K9 against alpha_scan/beta_scan on the card: valid cells within
     1e-4 + 1e-5*|ref|, invalid cells exactly LOG_ZERO, beta[0, 0] equal to
-    the terminal alpha + blank within 1e-5 relative; at the training shape
-    the kernel's time, the plain loops' and the bound. Returns that
-    record."""
+    the terminal alpha + blank within 1e-5 relative, the same bits over 3
+    calls; at the full-length shapes its card time (``device_ms``), µs a
+    dependent diagonal step, the plain loops' time and the bound. Returns
+    the training shape's record."""
     record = {}
     for name, b, t, u1, ragged in LATTICE_CASES:
         blank, emit_lp, il, ll = lattice_inputs(b, t, u1, ragged, t + u1,
                                                 rnnt.LOG_ZERO)
-        got = rnnt.alpha_beta_kernel(blank, emit_lp, il, ll)
+        args = (blank, emit_lp, il, ll)
+        got = rnnt.alpha_beta_kernel(*args)
         torch.cuda.synchronize()
-        want = rnnt.alpha_beta_ref(blank, emit_lp, il, ll)
+        same = all(torch.equal(x, y) for _ in range(2)
+                   for x, y in zip(got, rnnt.alpha_beta_kernel(*args)))
+        want = rnnt.alpha_beta_ref(*args)
         errs = {}
         for pname, a, r in zip(("alpha", "beta"), got, want):
             off = r == rnnt.LOG_ZERO
@@ -942,32 +953,40 @@ def phase_k9(rnnt, bounds) -> dict:
         rows = torch.arange(b, device="cuda")
         term = alpha[rows, il - 1, ll] + blank[rows, il - 1, ll]
         rel = float(((beta[:, 0, 0] - term).abs() / term.abs()).max())
-        ok = all(e["ok"] for e in errs.values()) and rel <= 1e-5
-        check(ok, f"k9 {name}: {errs}, beta[0,0] vs terminal rel {rel}")
+        ok = all(e["ok"] for e in errs.values()) and rel <= 1e-5 and same
+        check(ok, f"k9 {name}: {errs}, beta[0,0] vs terminal rel {rel}, "
+                  f"same bits over 3 calls {same}")
         line = {"case": name, "B": b, "T": t, "U1": u1, "ragged": ragged,
-                "ok": ok, "errors": errs, "beta00_vs_terminal_rel": rel,
+                "ok": ok, "errors": errs,
+                "beta00_vs_terminal_rel": rel, "same_bits_3_calls": same,
                 "tolerance": "valid cells max abs <= 1e-4 + 1e-5*|ref| "
                              "(fp32 logaddexp chains of up to T'+U1 steps "
                              "in another order of operations); invalid "
                              "cells exactly LOG_ZERO; beta[0,0] vs terminal "
                              "alpha + blank <= 1e-5 relative"}
         if not ragged:
-            ms = cuda_ms(lambda: rnnt.alpha_beta_kernel(blank, emit_lp, il,
-                                                        ll), iters=20)
-            plain_ms = cuda_ms(lambda: rnnt.alpha_beta_ref(blank, emit_lp,
-                                                           il, ll),
-                               iters=3, warmup=1)
+            steps = t + u1 - 1   # alpha and beta side by side
+            # int32 lengths: the wrapper's casts are not the kernel's time
+            args32 = (blank, emit_lp, il.int(), ll.int())
+            ms = device_ms(lambda: rnnt.alpha_beta_kernel(*args32),
+                           iters=20)
+            plain_ms = cuda_ms(lambda: rnnt.alpha_beta_ref(*args), iters=3,
+                               warmup=1)
             flops, nbytes = bounds.alpha_beta(b, t, u1)
             bound, by = bounds.bound_ms(flops, nbytes, "fp32")
-            line.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                        bound_by=by, flops=flops, bytes=nbytes,
+            line.update(ms=ms, chain_steps=steps,
+                        us_per_step=ms * 1e3 / steps,
+                        plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                        flops=flops, bytes=nbytes,
                         share_of_bound=bound / ms,
+                        timing="device_ms: card time, calls back to back",
                         library="none: no single PyTorch call computes the "
                                 "lattice")
             if name == "train":
                 record = {"max_abs_err": max(e["max_abs"]
                                              for e in errs.values()),
-                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                          "ms": ms, "us_per_step": ms * 1e3 / steps,
+                          "plain_ms": plain_ms, "bound_ms": bound,
                           "bound_by": by, "library_ms": None}
         emit("k9", **line)
     return record
@@ -2684,13 +2703,13 @@ def phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train,
 def phase_rnnt_profile(state, step, batch, gen, timed_ms,
                        mode="rnnt_train", env=None) -> None:
     """One flagship training step under torch.profiler, run after every
-    timing: busy time, idle share, each kernel's time (K9 included). K4's
-    forward and backward (every flagship path) and, on the LNMM_PALLAS
-    path, K7's and, on the CONV_PALLAS path, K8's must read above 0 ms: a
+    timing: busy time, idle share, each kernel's time. K4's forward and
+    backward and K9 (every flagship path) and, on the LNMM_PALLAS path,
+    K7's and, on the CONV_PALLAS path, K8's must read above 0 ms: a
     profile that misses them is taken again (the profiler drops card
     intervals now and then), and three that miss them fail the run, so
-    that a kernel renamed away from K4_*_KERNELS, K7_*_KERNELS or
-    K8_*_KERNELS cannot read 0 silently."""
+    that a kernel renamed away from K4_*_KERNELS, K9_KERNELS, K7_*_KERNELS
+    or K8_*_KERNELS cannot read 0 silently."""
     lnmm = mode == "lnmm_train"
     conv_path = mode == "conv_train"
 
@@ -2698,7 +2717,8 @@ def phase_rnnt_profile(state, step, batch, gen, timed_ms,
         return sum(v for k, v in by_name.items() if any(s in k for s in keys))
 
     def seen():
-        return ms(*K4_FWD_KERNELS) > 0 and ms(*K4_BWD_KERNELS) > 0 and (
+        return ms(*K4_FWD_KERNELS) > 0 and ms(*K4_BWD_KERNELS) > 0 and \
+            ms(*K9_KERNELS) > 0 and (
             not lnmm or (ms(*K7_FWD_KERNELS) > 0 and
                          ms(*K7_BWD_KERNELS) > 0)) and (
             not conv_path or (ms(*K8_FWD_KERNELS) > 0 and
@@ -2709,7 +2729,7 @@ def phase_rnnt_profile(state, step, batch, gen, timed_ms,
             if seen():
                 break
     check(seen(), f"{mode} profile: K4's kernels "
-                  f"{K4_FWD_KERNELS + K4_BWD_KERNELS}"
+                  f"{K4_FWD_KERNELS + K4_BWD_KERNELS}, K9's {K9_KERNELS}"
                   + (f" or K7's {K7_FWD_KERNELS + K7_BWD_KERNELS}"
                      if lnmm else "")
                   + (f" or K8's {K8_FWD_KERNELS + K8_BWD_KERNELS}"
@@ -2725,11 +2745,95 @@ def phase_rnnt_profile(state, step, batch, gen, timed_ms,
                                          "joint_bwd_weights"),
          k4_ms=ms(*K4_FWD_KERNELS), k4_bwd_ms=ms(*K4_BWD_KERNELS),
          tile_partial_sums_ms=ms("tile::sum_partials"),
-         k9_ms=ms("lattice<"), k8_fwd_ms=ms(*K8_FWD_KERNELS),
+         k9_ms=ms(*K9_KERNELS), k8_fwd_ms=ms(*K8_FWD_KERNELS),
          k8_bwd_ms=ms(*K8_BWD_KERNELS),
          k7_fwd_ms=ms(*K7_FWD_KERNELS), k7_bwd_ms=ms(*K7_BWD_KERNELS),
          kernels=len(by_name),
          top=[{"kernel": k[:90], "ms": v} for k, v in top])
+
+
+def _ancestors(e):
+    while e.cpu_parent is not None:
+        e = e.cpu_parent
+        yield e
+
+
+def int64_elementwise(name: str) -> bool:
+    """A PyTorch element-wise kernel on int64 ("long") operands."""
+    return "elementwise" in name and ("<long" in name or "long>" in name
+                                      or "long," in name or "int64" in name)
+
+
+def _mask_site() -> str:
+    """The port's file:line that called into ops/dropout.py."""
+    f = sys._getframe(2)
+    while f is not None and f.f_code.co_filename.endswith("ops/dropout.py"):
+        f = f.f_back
+    if f is None:
+        return "?"
+    return (f"{f.f_code.co_filename.split('wenet_celoss_tpu_torch/')[-1]}"
+            f":{f.f_lineno}")
+
+
+def phase_int64_sites(state, step, batch, gen, dropout, mode="rnnt_train",
+                      top: int = 12) -> None:
+    """Where a training step's int64 element-wise kernels come from: one
+    extra step under torch.profiler with input shapes (after the timed and
+    profiled steps, which it leaves untouched), ``dropout.apply_mask``
+    wrapped for that step in a record_function named by its caller's
+    file:line. Each int64 kernel is charged to the op that launched it and
+    the op to the enclosing apply_mask call, else to its Python stack
+    where the profiler recorded one."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                record_function)
+    plain = dropout.apply_mask
+
+    def traced(*args, **kw):
+        with record_function("apply_mask@" + _mask_site()):
+            return plain(*args, **kw)
+    dropout.apply_mask = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True, with_stack=True) as prof:
+            step(state, batch, gen)
+            torch.cuda.synchronize()
+    finally:
+        dropout.apply_mask = plain
+    _, by_name = device_busy(prof)
+    card_ms = sum(v for k, v in by_name.items() if int64_elementwise(k))
+    sites = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        ks = [k for k in getattr(e, "kernels", []) if
+              int64_elementwise(k.name)]
+        if not ks:
+            continue
+        where = next((a.name for a in _ancestors(e)
+                      if a.name.startswith("apply_mask@")), None)
+        if where is None:
+            frames = [f for f in (getattr(e, "stack", None) or [])
+                      or [a.name for a in _ancestors(e)]
+                      if "wenet_celoss_tpu_torch" in f]
+            where = (frames[0].split("wenet_celoss_tpu_torch/")[-1]
+                     if frames else "(outside apply_mask, no Python stack)")
+        shape = str(e.input_shapes[0]) if e.input_shapes else "?"
+        ms_, n, ops = sites.get((where, shape), (0.0, 0, set()))
+        sites[(where, shape)] = (ms_ + sum(k.duration for k in ks) / 1e3,
+                                 n + len(ks), ops | {e.name})
+    ranked = sorted(sites.items(), key=lambda kv: -kv[1][0])
+    emit("int64_sites", mode=mode, int64_elementwise_card_ms=card_ms,
+         attributed_ms=sum(v[0] for v in sites.values()),
+         in_apply_mask_ms=sum(v[0] for (w, _), v in sites.items()
+                              if w.startswith("apply_mask@")),
+         kernels=sorted(((k[:100], v) for k, v in by_name.items()
+                         if int64_elementwise(k)), key=lambda kv: -kv[1])[:6],
+         sites=[{"site": w, "shape": shp, "ms": m, "launches": n,
+                 "ops": sorted(ops)}
+                for (w, shp), (m, n, ops) in ranked[:top]],
+         note="one extra profiled step; the profiler may drop card "
+              "intervals, so attributed_ms may read below the card's sum")
 
 
 def kernel_line(name, source, replaces, by_path, record) -> dict:
@@ -2846,6 +2950,7 @@ def main() -> int:
     phase_train_profile(*postnorm_profile, mode="postnorm_train",
                         kernel="k6")
     phase_rnnt_profile(*rnnt_profile)
+    phase_int64_sites(*rnnt_profile[:4], dropout)
     phase_rnnt_profile(*conv_profile, mode="conv_train", env=CONV)
     phase_rnnt_profile(*lnmm_profile, mode="lnmm_train", env=LNMM)
     phase_rnnt_profile(*pallas_profile, mode="rnnt_pallas_train")

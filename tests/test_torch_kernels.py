@@ -407,6 +407,57 @@ def test_lattice_kernel_matches_plain_version_above_256_columns(u1):
         assert bool((err <= 1e-4 + 1e-5 * r[~off].abs()).all())
 
 
+# K9 at its edge shapes: (B, T', U1, input lengths, label lengths). One
+# cell; one row of the lattice either way; 0 labels and T_b = 1; rows of
+# 140 bytes (every 4th 16-byte aligned); U1 around 256 (4 and 5 warps a
+# direction), on 9 warps, and on 32 warps at 5 and 8 columns a lane (the
+# 8192-column limit). The kernel stages a row that fits in shared memory
+# and runs the rest on rings: the training width at T' = 300 and one
+# column at T' = 3400 take the ring with 0 labels, T_b = 1 and full rows.
+LATTICE_EDGES = (
+    (1, 1, 1, [1], [0]),
+    (3, 1, 6, [1, 1, 1], [5, 0, 2]),
+    (2, 7, 1, [7, 1], [0, 0]),
+    (5, 5, 7, [5, 1, 3, 5, 2], [6, 0, 6, 2, 0]),
+    (3, 9, 255, [9, 1, 4], [254, 0, 100]),
+    (3, 9, 256, [9, 5, 1], [255, 17, 0]),
+    (3, 9, 257, [9, 2, 7], [256, 256, 3]),
+    (2, 6, 513, [6, 3], [512, 40]),
+    (2, 3, 4097, [3, 2], [4096, 1000]),
+    (2, 3, 8192, [3, 1], [8191, 0]),
+    (4, 300, 33, [300, 1, 300, 157], [32, 0, 0, 20]),
+    (2, 3400, 1, [3400, 1], [0, 0]),
+)
+
+
+@pytest.mark.parametrize("case", range(len(LATTICE_EDGES)))
+def test_lattice_kernel_edge_shapes(case):
+    """K9 at LATTICE_EDGES against alpha_scan/beta_scan: valid cells
+    within 1e-4 + 1e-5*|ref|, every cell off a lattice exactly LOG_ZERO,
+    beta[0,0] equal to the terminal alpha + blank within 1e-5 relative,
+    the same bits again."""
+    b, t, u1, il, ll = LATTICE_EDGES[case]
+    g = torch.Generator().manual_seed(case)
+    lp = torch.log_softmax(torch.randn(b, t, u1, 3, generator=g), -1).cuda()
+    blank, emit = lp[..., 0].contiguous(), lp[..., 1].contiguous()
+    emit[..., -1] = LOG_ZERO
+    il, ll = torch.tensor(il).cuda(), torch.tensor(ll).cuda()
+    got = rnnt_loss.alpha_beta_kernel(blank, emit, il, ll)
+    again = rnnt_loss.alpha_beta_kernel(blank, emit, il, ll)
+    torch.cuda.synchronize()
+    want = rnnt_loss.alpha_beta_ref(blank, emit, il, ll)
+    for a, a2, r in zip(got, again, want):
+        assert torch.equal(a, a2)
+        off = r == LOG_ZERO
+        assert bool((a[off] == LOG_ZERO).all())
+        err = (a - r)[~off].abs()
+        assert bool((err <= 1e-4 + 1e-5 * r[~off].abs()).all())
+    rows = torch.arange(b, device="cuda")
+    term = got[0][rows, il - 1, ll] + blank[rows, il - 1, ll]
+    assert bool(((got[1][:, 0, 0] - term).abs()
+                 <= 1e-5 * term.abs()).all())
+
+
 def _conv_args(b, t, d, k, dt, seed):
     g = torch.Generator().manual_seed(seed)
     lens = torch.randint(1, t + 1, (b,), generator=g)

@@ -181,6 +181,22 @@ def test_streaming_loss_through_k9_keeps_its_values():
                                    atol=1e-6, err_msg="tolerance 1e-6")
 
 
+def test_lattice_kernel_wrapper_refuses_shapes_it_does_not_take():
+    """The K9 wrapper checks the planes' shapes before anything else:
+    planes that are not [B, T, U1] alike, and rows above the kernel's
+    8192 columns, raise on any device."""
+    lens = torch.ones(2, dtype=torch.long)
+    with pytest.raises(ValueError, match="alike"):
+        rnnt_loss.alpha_beta_kernel(torch.zeros(2, 5, 3),
+                                    torch.zeros(2, 5, 4), lens, lens)
+    with pytest.raises(ValueError, match="alike"):
+        rnnt_loss.alpha_beta_kernel(torch.zeros(10, 3), torch.zeros(10, 3),
+                                    lens, lens)
+    wide = torch.zeros(2, 1, rnnt_loss.MAX_U1 + 1)
+    with pytest.raises(ValueError, match="8192"):
+        rnnt_loss.alpha_beta_kernel(wide, wide, lens, lens)
+
+
 def test_lattice_kernel_wrapper_refuses_what_it_does_not_take():
     """The K9 wrapper checks before building anything: a non-fp32 plane
     or planes off the card raise."""

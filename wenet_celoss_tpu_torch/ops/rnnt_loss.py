@@ -28,8 +28,11 @@ fused and pallas): ``rnnt_loss`` (gradient by autograd through the plain
 lattice) and ``rnnt_loss_pallas`` (K9, loss -beta[0, 0], the closed-form
 occupancy gradient), which serves both "fused" and "pallas".
 
-K9 takes a batch row of up to 256 columns on one warp and a wider one
-(U1 up to 8192, a block's 32 warps of 256) on several warps of one block.
+K9 runs alpha and beta side by side, each on a chain of warps (64 lattice
+columns a warp, more on a row's 32 warps above U1 = 2048, U1 up to 8192),
+from the row's planes staged in shared memory where they fit and from
+per-lane rings of diagonals where they do not (the kernel chooses by
+the row's size).
 
 The output layer's weight is in ``torch.nn.Linear`` layout [V, H] (the JAX
 package's kernel is [H, V]); labels are [B, U] ids (0 where padded), not
