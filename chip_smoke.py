@@ -59,6 +59,18 @@ Phases, in the order they run, each printing JSON lines:
             (K8 first: 12 K7, 12 K8);
   bench     B1/B2: bf16 decode at B=64, T=512, two blank biases;
   bench_lnmm  B1-lnmm: B1 with LNMM_PALLAS unset and set in turns;
+  decode_modes  S1 for the CTC greedy, CTC prefix beam, attention beam,
+            attention rescoring, RNN-T beam (plain and with the 8
+            hotwords) and both transducer/attention rescorings (non-zero
+            weights): top-1 tokens identical to the CPU fp32 run except
+            where the CPU's score gap between the two hypotheses is under
+            1e-3 (CTC greedy: its frames' top-2 log-prob gap); the prefix
+            beam's best score and emission times; each mode's launches;
+  bench_modes  B3: bench.py's decode keys ctc_greedy,
+            attention_rescoring, rnnt_beam, ctc_beam_td_attn_rescoring
+            (beams 10, 5, 10) and attention (beam 10) at B1's shape and
+            blank bias, timed; their launches a batch (K1; K2, K4 and K9
+            in transducer_score);
   train_check, train, train_wavs  T0-T2: conformer_ctc_aed, one fp32 step
             card against CPU, bf16 steps at B=256 T=512 U=32 timed, 24
             steps on the committed train-clean-100 WAVs (the loss falls);
@@ -68,18 +80,22 @@ Phases, in the order they run, each printing JSON lines:
             every gradient's error on the card against the port's CPU step
             in float64 at most twice the CPU's fp32 error plus 1e-6;
   rnnt_train_check, rnnt_pallas_train_check, conv_train_check,
-  lnmm_train_check  one fp32 step of the flagship with hotwords, card
-            against CPU: the streaming loss (K2, K9, K3), rnnt_impl pallas
-            (character vocabulary), CONV_PALLAS=1, LNMM_PALLAS=1 (T8-check);
-  rnnt_train, conv_train, lnmm_train, rnnt_pallas_train  T4, T7, T8, T6:
-            the flagship in bf16 with dropout 0.1 timed (B=256; B=64 for
-            pallas, whose [B, T', U+1, V] logits materialise), launches per
-            step;
+  lnmm_train_check, bn_train_check  one fp32 step of the flagship with
+            hotwords, card against CPU: the streaming loss (K2, K9, K3),
+            rnnt_impl pallas (character vocabulary), CONV_PALLAS=1,
+            LNMM_PALLAS=1 (T8-check), the batch_norm conv module (BN-check,
+            its running statistics after the step too);
+  rnnt_train, conv_train, lnmm_train, bn_train, rnnt_pallas_train  T4,
+            T7, T8, T10, T6: the flagship in bf16 with dropout 0.1 timed
+            (B=256; B=64 for pallas, whose [B, T', U+1, V] logits
+            materialise), launches per step (T10: batch_norm, K8 0);
   postnorm_train  T9: the post-norm model at T1's point, timed;
-  rnnt_train_wavs  T5: 24 flagship steps on the WAVs (the loss falls);
-  profile   each decode and training step under torch.profiler, last: the
-            card's busy time, idle share and each kernel's time (K4's and
-            K9's, and K7's and K8's on their paths, must read above 0);
+  rnnt_train_wavs, bn_train_wavs  T5 and T10's curve: 24 flagship steps
+            on the WAVs (the loss falls);
+  profile   each decode (B3's modes too) and training step under
+            torch.profiler, last: the card's busy time, idle share and
+            each kernel's time (K4's and K9's, and K7's and K8's on their
+            paths, must read above 0);
             one more T4 step, ops/dropout.py's apply_mask wrapped to
             name its caller, charges its int64 element-wise kernels to
             their call sites (int64_sites);
@@ -184,10 +200,12 @@ def smi() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-K1_CASES = (  # (N, activation, ff_scale, dtypes); N = 32512 in bf16 only
+K1_CASES = (  # (N, activation, ff_scale, dtypes); N >= 32512 in bf16 only
     (64 * 127, "swish", 0.5, (torch.float32, torch.bfloat16)),
     (1000, "relu", 1.0, (torch.float32, torch.bfloat16)),
-    (256 * 127, "swish", 0.5, (torch.bfloat16,)))
+    (256 * 127, "swish", 0.5, (torch.bfloat16,)),
+    # The attention decoder's rows in B3's n-best modes: B·beam·(L+1).
+    (64 * 10 * 128, "relu", 1.0, (torch.bfloat16,)))
 K1_TIMED = ((64 * 127, 0.0), (256 * 127, 0.1))   # decode, training
 
 
@@ -906,6 +924,10 @@ LATTICE_CASES = (  # (name, B, T', U1, ragged lengths)
     ("wide_ragged", 64, 200, 90, True),
     ("wide_600", 16, 127, 600, False),  # 10 warps a direction (ring)
     ("wide_600_ragged", 16, 127, 600, True),
+    # transducer_score over B3's n-best: 64 utterances × beam 10, every
+    # hypothesis padded to T' + 1 columns.
+    ("nbest", 640, 127, 128, False),
+    ("nbest_ragged", 640, 127, 128, True),
 )
 
 
@@ -990,6 +1012,83 @@ def phase_k9(rnnt, bounds) -> dict:
                           "bound_by": by, "library_ms": None}
         emit("k9", **line)
     return record
+
+
+# K4's forward cases at transducer_score's shapes: (name, B, U1, H, dtype);
+# B3 in bf16, S1 in fp32, and a B ragged against the 64-row clusters.
+NBEST_LSTM_CASES = (("nbest_bf16", 640, 128, 256, torch.bfloat16),
+                    ("nbest_fp32", 640, 128, 256, torch.float32),
+                    ("nbest_ragged_bf16", 617, 128, 256, torch.bfloat16))
+
+
+def phase_nbest_kernels(rnnt, lstm, bounds) -> None:
+    """K2 and K4 as transducer_score calls them on B3's n-best (64
+    utterances × beam 10, T' = 127, U1 = 128): forward only, under
+    torch.no_grad(), each one launch, against its plain version on the
+    same inputs, the same bits on a second call, with the card time and
+    the bound. K2's plain version runs 4 frames at a time (its logits are
+    26 GB at 16)."""
+    b, t, u1, h, v = 640, 127, 128, 512, 5002
+    args, _, _ = joint_inputs(b, t, u1, h, v, torch.bfloat16, seed=u1 + v)
+    with torch.no_grad():
+        before = rnnt.joint_planes.launches
+        got = rnnt.joint_planes(*args, 0, "tanh")
+        torch.cuda.synchronize()
+        launched = rnnt.joint_planes.launches - before
+        same = all(torch.equal(x, y) for x, y in zip(
+            got, rnnt.joint_planes_kernel(*args, 0, "tanh")))
+        want = rnnt.joint_planes_ref(*args, 0, "tanh", chunk=4)
+    errs = {}
+    for pname, a, r in zip(("blank_lp", "emit_lp", "lse"), got, want):
+        if pname == "emit_lp":   # row U has no label
+            a, r = a[..., :-1], r[..., :-1]
+        err = (a - r).abs()
+        errs[pname] = {"max_abs": float(err.max()),
+                       "ok": bool((err <= 1e-3 + 1e-4 * r.abs()).all())}
+    del want
+    ok = launched == 1 and same and all(e["ok"] for e in errs.values())
+    check(ok, f"nbest k2: {errs}, launches {launched}, same bits {same}")
+    flops, nbytes = bounds.joint_planes_fwd(b, t, u1, h, v, "bf16")
+    bound, by = bounds.bound_ms(flops, nbytes, "bf16")
+    ms = device_ms(lambda: rnnt.joint_planes_kernel(*args, 0, "tanh"),
+                   iters=3, warmup=1)
+    emit("nbest_kernels", kernel="k2", B=b, T=t, U1=u1, H=h, V=v,
+         dtype="bfloat16", ok=ok, launches=launched, same_bits=same,
+         errors=errs, ms=ms, bound_ms=bound, bound_by=by,
+         share_of_bound=bound / ms,
+         tolerance="planes: max abs <= 1e-3 + 1e-4*|ref| (row U of "
+                   "emit_lp excluded: no label)",
+         timing="ms: card ms per call (device_ms)")
+    del got, args
+    torch.cuda.empty_cache()
+    for name, b, u1, h, dtype in NBEST_LSTM_CASES:
+        args, _ = lstm_inputs(b, u1, h, dtype, seed=b + u1)
+        with torch.no_grad():
+            before = lstm.lstm2_seq.launches
+            y = lstm.lstm2_seq(*args)
+            torch.cuda.synchronize()
+            launched = lstm.lstm2_seq.launches - before
+            same = torch.equal(y, lstm.lstm2_seq(*args))
+            want = lstm.lstm2_seq_ref(*args)
+        limit = 1e-4 if dtype == torch.float32 else 2e-2
+        rel = rel_fro(y, want)
+        ok = launched == 1 and same and rel <= limit and bool(
+            torch.isfinite(y).all())
+        check(ok, f"nbest k4 {name}: rel {rel}, launches {launched}, "
+                  f"same bits {same}")
+        dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+        flops, nbytes = bounds.lstm2_seq(b, u1, h, dt)
+        bound, by = bounds.bound_ms(flops, nbytes, dt)
+        ms = device_ms(lambda: lstm.forward_kernel(*args), iters=5)
+        emit("nbest_kernels", kernel="k4", case=name, B=b, U1=u1, H=h,
+             dtype=str(dtype).split(".")[-1], ok=ok, launches=launched,
+             same_bits=same, rel_fro_err=rel,
+             max_abs_err=float((y.float() - want.float()).abs().max()),
+             ms=ms, us_per_step=ms * 1e3 / (2 * u1), bound_ms=bound,
+             bound_by=by,
+             tolerance=f"relative Frobenius <= {limit} against the plain "
+                       "version (K4's training-shape tolerance)",
+             timing="ms: card ms per call (device_ms), no states saved")
 
 
 K8_OUTS = ("y", "dx", "dg1", "db1", "dw1", "dbw1", "dw_dw", "db_dw", "dg2",
@@ -1500,6 +1599,11 @@ def load_wavs():
     return [p.name for p in paths], batch, lens
 
 
+def subsampled(frames: int) -> int:
+    """Encoder frames after the conv2d subsampling (x4)."""
+    return ((frames - 3) // 2 + 1 - 3) // 2 + 1
+
+
 def load_train_wavs():
     """The committed train-clean-100 WAVs through the port's numpy fbank,
     with character tokens from ``text`` (ids 1.. in sorted character
@@ -1520,7 +1624,7 @@ def load_train_wavs():
             raise ValueError(f"{p}: sample rate {sr}")
         fb = compute_fbank_np(wav)
         chars = text[p.stem]
-        frames = ((len(fb) - 3) // 2 + 1 - 3) // 2 + 1   # conv2d x4
+        frames = subsampled(len(fb))
         if frames < len(chars) + sum(a == b for a, b in zip(chars,
                                                              chars[1:])):
             dropped += 1
@@ -2214,6 +2318,296 @@ def phase_bench_lnmm(init_model, Decoder, conformer_rnnt_bias,
              out[f"{mode}_on_ms_per_batch"]) for mode in ("plain", "gated_on")]
 
 
+# S1-modes: each decode mode of the new slice on the WAVs, fp32, card
+# against CPU. (name, the card's call through the entry point a user makes
+# → top-1 token lists, the CPU's n-best {tokens, lens, scores} whose best
+# is the top-1). ``h`` is (ctx, ctx_lens), the 8 hotwords.
+S1_MODES = (
+    ("ctc_prefix_beam",
+     lambda d, f, l, h: [n[0] for n in d.ctc_prefix_beam_search(
+         f, l, beam=10)[0]],
+     lambda d, f, l, h: d.ctc_prefix_beam_search(f, l, beam=10)[1]),
+    ("attention", lambda d, f, l, h: d.attention(f, l, beam=10),
+     lambda d, f, l, h: d.attention_nbest(f, l, beam=10)),
+    ("attention_rescoring",
+     lambda d, f, l, h: d.attention_rescoring(
+         f, l, beam=10, ctc_weight=0.5, reverse_weight=0.3),
+     lambda d, f, l, h: d.attention_rescoring_nbest(
+         f, l, beam=10, ctc_weight=0.5, reverse_weight=0.3)),
+    ("rnnt_beam",
+     lambda d, f, l, h: d.rnnt_beam_to_lists(d.rnnt_beam_search(
+         f, l, beam=5)[0]),
+     lambda d, f, l, h: d.rnnt_beam_search(f, l, beam=5)[0]),
+    ("rnnt_beam_hotwords",
+     lambda d, f, l, h: d.rnnt_beam_to_lists(d.rnnt_beam_search(
+         f, l, beam=5, context_list=h[0], context_lengths=h[1])[0]),
+     lambda d, f, l, h: d.rnnt_beam_search(
+         f, l, beam=5, context_list=h[0], context_lengths=h[1])[0]),
+    ("ctc_beam_td_attn_rescoring",
+     lambda d, f, l, h: d.ctc_beam_td_attn_rescoring(
+         f, l, beam=10, ctc_weight=0.5, transducer_weight=0.7,
+         attn_weight=0.3, reverse_weight=0.3),
+     lambda d, f, l, h: d.ctc_beam_td_attn_nbest(
+         f, l, beam=10, ctc_weight=0.5, transducer_weight=0.7,
+         attn_weight=0.3, reverse_weight=0.3)),
+    ("rnnt_beam_attn_rescoring",
+     lambda d, f, l, h: d.rnnt_beam_attn_rescoring(
+         f, l, beam=5, attn_weight=0.4, transducer_weight=1.0,
+         reverse_weight=0.3, context_list=h[0], context_lengths=h[1]),
+     lambda d, f, l, h: d.rnnt_beam_attn_nbest(
+         f, l, beam=5, attn_weight=0.4, transducer_weight=1.0,
+         reverse_weight=0.3, context_list=h[0], context_lengths=h[1])))
+
+
+def compare_nbest(card_lists, cpu_nbest):
+    """Card top-1 token lists against the CPU's n-best. An utterance
+    whose top-1 differs passes only where the card's hypothesis is in the
+    CPU's n-best within NEAR_TIE of the CPU's best score; else it is a
+    fault (the card's hypothesis outside the CPU's n-best: gap inf)."""
+    toks = cpu_nbest["tokens"].cpu().tolist()
+    lens = cpu_nbest["lens"].cpu().tolist()
+    scores = cpu_nbest["scores"].cpu()
+    best = torch.argmax(scores, dim=1).tolist()
+    same, ties, bad = 0, [], []
+    for i, hyp in enumerate(card_lists):
+        hyps = [row[:n] for row, n in zip(toks[i], lens[i])]
+        if hyp == hyps[best[i]]:
+            same += 1
+            continue
+        gap = float("inf")
+        if hyp in hyps:
+            gap = float(scores[i, best[i]] - scores[i, hyps.index(hyp)])
+        (ties if gap < NEAR_TIE else bad).append(
+            {"utt": i, "cpu_score_gap": gap})
+    return same, ties, bad
+
+
+def ctc_greedy_check(dec, cpu_dec, feats, lens) -> dict:
+    """CTC greedy card against CPU: a token list may differ only where
+    each frame whose argmax differs has a CPU top-2 log-prob gap under
+    NEAR_TIE."""
+    from wenet_celoss_tpu_torch.decode.ctc_greedy import ctc_greedy_frames
+    reset_counts()
+    card = dec.ctc_greedy_search(feats, lens)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    cpu = cpu_dec.ctc_greedy_search(feats, lens)
+    _, c_mask, c_lp = dec.encode_ctc(feats, lens)
+    _, r_mask, r_lp = cpu_dec.encode_ctc(feats, lens)
+    c_ids = ctc_greedy_frames(c_lp, c_mask).cpu()
+    r_ids = ctc_greedy_frames(r_lp, r_mask)
+    top2 = torch.topk(r_lp, 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    same, ties, bad = 0, [], []
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if a == b:
+            same += 1
+            continue
+        diff = (c_ids[i] != r_ids[i]) & r_mask[i]
+        worst = float(gap[i][diff].max()) if bool(diff.any()) else \
+            float("inf")
+        (ties if worst < NEAR_TIE else bad).append(
+            {"utt": i, "frames": int(diff.sum()), "cpu_top2_gap": worst})
+    return dict(identical_to_cpu=same, near_tie_flips=ties, other_diffs=bad,
+                tokens=sum(map(len, card)), launches=launches,
+                min_cpu_top2_gap=float(gap[r_mask].min()))
+
+
+def transducer_score_check(dec, cpu_dec, feats, lens, nbest) -> dict:
+    """transducer_score on the card against the CPU on the same inputs:
+    the CPU's encoder output and the CPU's prefix-beam n-best that
+    ctc_beam_td_attn_rescoring scores (K4, K2 and K9 at the n-best's
+    shapes, fp32): one launch of each, every score within 1e-3 +
+    1e-5*|cpu| (K9's tolerance: fp32 log-add chains in another order)."""
+    enc, mask, _ = cpu_dec.encode_ctc(feats, lens)
+    hyps, hyp_lens = nbest["tokens"].cpu(), nbest["lens"].cpu()
+    with torch.no_grad():
+        want = cpu_dec.model.transducer_score(enc, mask, hyps, hyp_lens)
+        reset_counts()
+        got = dec.model.transducer_score(enc.cuda(), mask.cuda(),
+                                         hyps.cuda(), hyp_lens.cuda())
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in read_counts().items() if n}
+    err = (got.cpu() - want).abs()
+    ok = bool((err <= 1e-3 + 1e-5 * want.abs()).all()) and \
+        launches == {"k2": 1, "k4": 1, "k9": 1}
+    check(ok, f"decode_modes transducer_score: max abs {float(err.max())}, "
+              f"launches {launches}")
+    return dict(ok=ok, hypotheses=list(hyps.shape), max_abs_err=float(
+        err.max()), max_rel_err=float((err / want.abs()).max()),
+        launches=launches, tolerance="1e-3 + 1e-5*|cpu| per score")
+
+
+def phase_decode_modes(slice_run) -> dict:
+    """S1 for the beam and rescoring modes: S1's fp32 model (the flagship,
+    blank bias +3.0) decodes the 16 WAVs through each mode of S1_MODES
+    and CTC greedy on the card, held against the CPU: top-1 tokens
+    identical, a flip only where the CPU's score gap between the two
+    hypotheses is under NEAR_TIE; the prefix beam's best score within
+    1e-3 and its emission times identical where the hypothesis is. Every
+    count is set to 0 just before each mode's card call and read just
+    after, and held to mode_want. transducer_score alone, card against
+    CPU on the same n-best (transducer_score_check)."""
+    dec, feats, lens, ctx, ctx_lens, _, cpu_dec = slice_run
+    hw = (ctx, ctx_lens)
+    out = {"ctc_greedy": ctc_greedy_check(dec, cpu_dec, feats, lens)}
+    for name, card_fn, cpu_fn in S1_MODES:
+        reset_counts()
+        t0 = time.perf_counter()
+        card = card_fn(dec, feats, lens, hw)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = read_counts()
+        t0 = time.perf_counter()
+        cpu = cpu_fn(cpu_dec, feats, lens, hw)
+        cpu_s = time.perf_counter() - t0
+        same, ties, bad = compare_nbest(card, cpu)
+        rec = dict(identical_to_cpu=same, near_tie_flips=ties,
+                   other_diffs=bad, tokens=sum(map(len, card)),
+                   launches=launches, card_s=card_s, cpu_s=cpu_s,
+                   cpu_best_not_first=int(
+                       (torch.argmax(cpu["scores"], 1) != 0).sum()))
+        if name == "ctc_prefix_beam":
+            _, res, _, _ = dec.ctc_prefix_beam_search(feats, lens, beam=10)
+            hit = [i for i, h in enumerate(card)
+                   if h == cpu["tokens"][i, 0, :cpu["lens"][i, 0]].tolist()]
+            rec["best_score_max_abs_vs_cpu"] = max(
+                (abs(float(res["scores"][i, 0] - cpu["scores"][i, 0]))
+                 for i in hit), default=0.0)
+            rec["best_times_identical"] = sum(
+                torch.equal(res["times"][i, 0].cpu(), cpu["times"][i, 0])
+                for i in hit)
+            check(rec["best_score_max_abs_vs_cpu"] <= 1e-3,
+                  f"decode_modes {name}: best score off the CPU's by "
+                  f"{rec['best_score_max_abs_vs_cpu']}")
+            check(rec["best_times_identical"] == len(hit),
+                  f"decode_modes {name}: emission times differ from the "
+                  f"CPU's on {len(hit) - rec['best_times_identical']} "
+                  f"utterances")
+        out[name] = rec
+        if name == "ctc_beam_td_attn_rescoring":
+            emit("decode_modes", mode="transducer_score", **
+                 transducer_score_check(dec, cpu_dec, feats, lens, cpu))
+    frames = subsampled(feats.shape[1])
+    for name, rec in out.items():
+        want = mode_want(name.replace("_hotwords", ""), frames,
+                         reverse=name in RESCORINGS)
+        check(rec["launches"] == want, f"decode_modes {name}: launches "
+              f"{rec['launches']}, want {want}")
+        check(not rec["other_diffs"], f"decode_modes {name}: card and CPU "
+              f"differ away from a near tie: {rec['other_diffs']}")
+        check(rec["tokens"] > 0, f"decode_modes {name}: no token emitted")
+        emit("decode_modes", mode=name, utterances=len(lens), dtype="float32",
+             **rec)
+
+
+# B3: the decode modes of bench.py's decode keys (and attention) at its
+# decode shape, with its beams: (name, call).
+B3_MODES = (
+    ("ctc_greedy", lambda d, f, l: d.ctc_greedy_search(f, l)),
+    ("attention_rescoring",
+     lambda d, f, l: d.attention_rescoring(f, l, beam=10)),
+    ("rnnt_beam", lambda d, f, l: d.rnnt_beam_to_lists(
+        d.rnnt_beam_search(f, l, beam=5)[0])),
+    ("ctc_beam_td_attn_rescoring",
+     lambda d, f, l: d.ctc_beam_td_attn_rescoring(f, l, beam=10)),
+    ("attention", lambda d, f, l: d.attention(f, l, beam=10)))
+
+
+RESCORINGS = ("attention_rescoring", "ctc_beam_td_attn_rescoring",
+              "rnnt_beam_attn_rescoring")
+
+
+def mode_want(name: str, frames: int, reverse: bool) -> dict:
+    """Each kernel's launches in one decode of mode ``name`` over
+    ``frames`` encoder frames: 24 K1 an encoder pass; the attention beam's
+    3 decoder layers a step, one step a frame; a rescoring's teacher-forced
+    decoders 3 layers each (the right one only with a reverse weight);
+    transducer_score one K4, K2 and K9."""
+    k1 = K1_PER_ENCODER_PASS
+    if name == "attention":
+        k1 += 3 * frames
+    elif name in RESCORINGS:
+        k1 += 6 if reverse else 3
+    want = {**NO_LAUNCHES, "k1": k1}
+    if name == "ctc_beam_td_attn_rescoring":
+        want.update(k2=1, k4=1, k9=1)
+    return want
+
+
+def phase_bench_modes(init_model, Decoder, conformer_rnnt_bias,
+                      blank_bias: float):
+    """B3: bf16, B=64 × 512 random frames, B1's blank bias: each mode of
+    B3_MODES timed (median host ms of 5 synchronised batches, of 3 for a
+    mode above 2 s a batch), its peak memory, and its kernel launches in
+    one batch (every count set to 0 just before that batch and read just
+    after; that batch is this mode's main-path run). Returns ({mode:
+    (launches, want)}, what phase_modes_profile needs)."""
+    b, t = 64, 512
+    _, dec, feats, lens, _, _ = bench_setup(
+        init_model, Decoder, conformer_rnnt_bias, blank_bias, b, t)
+    frames = subsampled(t)
+    audio_s = b * t * 0.01
+    paths, to_profile = {}, []
+    for name, fn in B3_MODES:
+        reset_counts()
+        t0 = time.perf_counter()
+        hyps = fn(dec, feats, lens)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        want = mode_want(name, frames, reverse=False)
+        check(launches == want, f"bench_modes {name}: launches {launches}, "
+                                f"want {want}")
+        paths[name] = (launches, want)
+        iters = 3 if first_ms > 2000 else 5
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(dec, feats, lens)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        fields = median_fields(name, times, audio_s)
+        emit("bench_modes", mode=name, batch=b, frames=t,
+             dtype="bfloat16", blank_bias=blank_bias, iters=iters,
+             first_ms=first_ms, **fields,
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+             launches_per_batch={k: n for k, n in launches.items() if n},
+             tokens_per_utt=sum(map(len, hyps)) / b,
+             timing="median host ms per batch, synchronised")
+        to_profile.append((name, dec, feats, lens, fn,
+                           fields[f"{name}_ms_per_batch"]))
+    return paths, to_profile
+
+
+def phase_modes_profile(name, dec, feats, lens, fn, timed_ms) -> None:
+    """One B3 batch under torch.profiler, run after every timing: the
+    card's busy ms, its idle share of the unprofiled median, the kernels
+    that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(dec, feats, lens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, by_name = device_busy(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+
+    def ms(*keys):
+        return sum(v for k, v in by_name.items() if any(s in k for s in keys))
+    emit("profile", mode=f"b3_{name}", timed_ms=timed_ms,
+         profiled_wall_ms=wall_ms, device_busy_ms=busy,
+         idle_share=1.0 - busy / timed_ms,
+         idle_share_profiled=1.0 - busy / wall_ms,
+         k1_ms=ms(*FFN_FWD_KERNELS), k2_ms=ms("joint_fwd"),
+         k4_ms=ms(*K4_FWD_KERNELS), k9_ms=ms(*K9_KERNELS),
+         kernels=len(by_name),
+         top=[{"kernel": k[:90], "ms": v} for k, v in top])
+
+
 def no_dropout(cfg):
     """The config with every dropout rate 0."""
     for conf in (cfg["encoder_conf"], cfg["decoder_conf"]):
@@ -2272,11 +2666,16 @@ def float64_check(what, cpu, batch, train, names, card_g, cpu_g,
 
 
 def card_vs_cpu(what, init_model, cfg, train, model, batch, card,
-                loss_rtol: float = 1e-4, spread: bool = False) -> dict:
+                loss_rtol: float = 1e-4, spread: bool = False,
+                start_state=None) -> dict:
     """The CPU's run of one gradient step of ``model`` (same weights, same
     batch) against the card's ``card`` = (grads, metrics): every loss term
     to ``loss_rtol`` relative, the gradient norm to 1e-4 relative, each
-    parameter's gradient to 1e-3 relative Frobenius.
+    parameter's gradient to 1e-3 relative Frobenius. The CPU's model
+    starts from ``start_state`` (the card model's state before its step;
+    default its state now). A batch_norm model's running statistics after
+    both steps: each mean and variance to 1e-4 of its tensor's largest
+    element.
 
     With ``spread`` the CPU runs the step a second time on 3 threads
     (another summation order), and the limits become the larger of those
@@ -2288,13 +2687,28 @@ def card_vs_cpu(what, init_model, cfg, train, model, batch, card,
     card_g, card_m = card
     torch.set_num_threads(os.cpu_count() or 1)
     cpu = init_model(cfg, device="cpu", seed=0)
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.load_state_dict(start_state or {
+        k: v.cpu() for k, v in model.state_dict().items()})
 
     def cpu_step():
         return train.make_grad_fn(cpu)(
             train.TrainState(0, cpu, None), on(batch, "cpu"),
             torch.Generator())
     cpu_g, cpu_m = cpu_step()
+    fields = {}
+    stats = [(n, b, cpu.get_buffer(n)) for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))]
+    if stats:
+        errs = {n: float((a.cpu() - c).abs().max() / c.abs().max())
+                for n, a, c in stats}
+        worst_stat = max(errs, key=errs.get)
+        check(errs[worst_stat] <= 1e-4, f"{what} running statistic "
+              f"{worst_stat}: {errs[worst_stat]} of its largest element")
+        fields.update(running_stats=len(stats), running_stats_worst=worst_stat,
+                      running_stats_worst_rel=errs[worst_stat],
+                      running_stats_moved=any(
+                          not torch.equal(a.cpu(), start_state[n])
+                          for n, a, _ in stats) if start_state else None)
     alt_g = None
     if spread:
         torch.set_num_threads(3)
@@ -2307,7 +2721,6 @@ def card_vs_cpu(what, init_model, cfg, train, model, batch, card,
     gn_card = float(train.global_norm(card_g))
     gn_cpu = float(train.global_norm(cpu_g))
     gn_limit = 1e-4
-    fields = {}
     if spread:
         gn_spread = abs(float(train.global_norm(alt_g)) - gn_cpu) / gn_cpu
         gn_limit = max(gn_limit, 2 * gn_spread)
@@ -2315,8 +2728,18 @@ def card_vs_cpu(what, init_model, cfg, train, model, batch, card,
     check(abs(gn_card - gn_cpu) <= gn_limit * gn_cpu,
           f"{what} gnorm card {gn_card} cpu {gn_cpu} (limit {gn_limit})")
     worst, worst_rel, worst_name, raised = 0.0, 0.0, None, {}
+    # A depthwise convolution's bias feeding a batch norm has a zero
+    # gradient in exact arithmetic (the mean subtraction cancels it): both
+    # runs' gradients must be rounding noise, under 1e-6 of the gnorm.
+    bn_cancelled = {n for n, m in model.named_modules()
+                    if getattr(m, "norm", None) == "batch_norm"}
+    noise = {}
     for i, ((name, _), a, b) in enumerate(zip(model.named_parameters(),
                                               card_g, cpu_g)):
+        if name.endswith(".depthwise_conv.bias") and \
+                name.rsplit(".", 2)[0] in bn_cancelled:
+            noise[name] = max(float(a.norm()), float(b.norm())) / gn_cpu
+            continue
         # Key-projection biases have a zero gradient in exact arithmetic
         # (softmax ignores a shift shared by all keys): floor the scale.
         scale = max(float(b.norm()), 1e-6 * gn_cpu)
@@ -2331,6 +2754,12 @@ def card_vs_cpu(what, init_model, cfg, train, model, batch, card,
             worst, worst_rel, worst_name = rel / limit, rel, name
     check(worst <= 1.0, f"{what} gradient {worst_name} over its limit by "
                         f"{worst}")
+    if noise:
+        loudest = max(noise, key=noise.get)
+        check(noise[loudest] <= 1e-6, f"{what} gradient {loudest}, zero in "
+              f"exact arithmetic, at {noise[loudest]} of the gnorm")
+        fields.update(bn_cancelled_biases=len(noise),
+                      bn_cancelled_bias_max_over_gnorm=noise[loudest])
     if spread:
         fields["limits_raised_by_cpu_spread"] = raised
         fields["float64_reference"] = float64_check(
@@ -2580,6 +3009,17 @@ def with_hotwords(batch, seed: int = 0, extra_slots: int = 2):
                                      max_phrases=len(ctx) + extra_slots)}
 
 
+def batch_norm_flagship(conformer_rnnt_bias):
+    """The flagship config with the batch_norm conv module, as the repo's
+    yaml sets it (examples/librispeech/conf/conformer_rnnt_bias.yaml:21;
+    the card machine has no PyYAML, so the yaml is not read)."""
+    def cfg():
+        c = conformer_rnnt_bias()
+        c["encoder_conf"]["cnn_module_norm"] = "batch_norm"
+        return c
+    return cfg
+
+
 def no_dropout_rnnt(cfg):
     cfg = no_dropout(cfg)
     cfg["predictor_conf"].update(embed_dropout=0.0, dropout=0.0)
@@ -2604,6 +3044,7 @@ def phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs,
         cfg["output_dim"] = vocab
     batch = with_hotwords(head(wavs, 16))
     model = init_model(cfg, seed=0)
+    start = {k: v.cpu().clone() for k, v in model.state_dict().items()}
     reset_counts()
     with routes(**env):
         card_g, card_m = train.make_grad_fn(model)(
@@ -2613,8 +3054,10 @@ def phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs,
     launches = read_counts()
     check(launches == want, f"{what}: launches {launches}, want {want}")
     fields = card_vs_cpu(what, init_model, cfg, train, model,
-                         batch, (card_g, card_m), loss_rtol=1e-5)
+                         batch, (card_g, card_m), loss_rtol=1e-5,
+                         start_state=start)
     emit(what, model="conformer_rnnt_bias", dtype="float32",
+         cnn_module_norm=cfg["encoder_conf"]["cnn_module_norm"],
          rnnt_impl=impl, switches=env, vocab=cfg["output_dim"],
          dropout=0.0, utterances=len(batch["feat_lengths"]),
          frames_max=int(batch["feat_lengths"].max()),
@@ -2626,7 +3069,10 @@ def phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs,
          **fields, launches=launches,
          tolerance="losses 1e-5 relative, gnorm 1e-4; each gradient 1e-3 "
                    "relative Frobenius (floor 1e-6 * gnorm for the key "
-                   "biases, whose exact gradient is 0)")
+                   "biases, whose exact gradient is 0; a batch-normed "
+                   "depthwise bias, also 0 exactly, under 1e-6 * gnorm on "
+                   "both); running statistics 1e-4 of each tensor's "
+                   "largest element")
     return launches
 
 
@@ -2687,14 +3133,14 @@ def phase_rnnt_train(init_model, conformer_rnnt_bias, train, b: int = 256,
 
 
 def phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train,
-                          wavs) -> None:
+                          wavs, what="rnnt_train_wavs") -> None:
     """24 bf16 steps of the flagship with dropout 0.1 on the committed
     WAVs with hotwords from their transcripts; warmup cut to 4 steps. The
     median of the last 5 losses must be below the first."""
     batch = on(with_hotwords(wavs), "cuda")
-    first, last5, curve = train_curve("rnnt_train_wavs", init_model, train,
+    first, last5, curve = train_curve(what, init_model, train,
                                       conformer_rnnt_bias(), batch)
-    emit("rnnt_train_wavs", wavs=str(TRAIN_DIR.relative_to(ROOT)),
+    emit(what, wavs=str(TRAIN_DIR.relative_to(ROOT)),
          utterances=len(wavs["feat_lengths"]),
          phrases=int(batch["context_n_valid"]), warmup_steps=4,
          first_loss=first, median_last5=last5, curve=curve)
@@ -2891,6 +3337,7 @@ def main() -> int:
     k2, k3 = phase_k2_k3(rnnt_loss, bounds)
     k4, k4_bwd = phase_k4(lstm, bounds, dropout)
     k9 = phase_k9(rnnt_loss, bounds)
+    phase_nbest_kernels(rnnt_loss, lstm, bounds)
     k8, k8_bwd = phase_k8(conv, bounds, dropout)
     k7, k7_bwd = phase_k7(ln_matmul, bounds)
     k6, k6_bwd = phase_k6(ffn, bounds, dropout)
@@ -2904,6 +3351,9 @@ def main() -> int:
                                   ffn, bias)
     lnmm_bench = phase_bench_lnmm(init_model, Decoder, conformer_rnnt_bias,
                                   BENCH_BLANK_BIASES[0])
+    phase_decode_modes(slice_run)
+    b3_paths, b3_profile = phase_bench_modes(
+        init_model, Decoder, conformer_rnnt_bias, BENCH_BLANK_BIASES[0])
     wavs, dropped = load_train_wavs()
     emit("train_wavs_loaded", utterances=len(wavs["feat_lengths"]),
          left_out_unalignable=dropped)
@@ -2926,6 +3376,9 @@ def main() -> int:
     phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs,
                            what="lnmm_train_check", env=LNMM,
                            want=LNMM_PER_STEP)
+    bn_flagship = batch_norm_flagship(conformer_rnnt_bias)
+    phase_rnnt_train_check(init_model, bn_flagship, train, wavs,
+                           what="bn_train_check")
     rnnt_profile, rnnt = phase_rnnt_train(init_model, conformer_rnnt_bias,
                                           train)
     conv_profile, conv_run = phase_rnnt_train(
@@ -2934,6 +3387,9 @@ def main() -> int:
     lnmm_profile, lnmm_run = phase_rnnt_train(
         init_model, conformer_rnnt_bias, train, what="lnmm_train",
         env=LNMM, want=LNMM_PER_STEP, t4_ms_per_step=rnnt_profile[-1])
+    bn_profile, bn_run = phase_rnnt_train(
+        init_model, bn_flagship, train, what="bn_train",
+        t4_ms_per_step=rnnt_profile[-1], cnn_module_norm="batch_norm")
     pallas_profile, pallas = phase_rnnt_train(
         init_model, conformer_rnnt_bias, train, b=64,
         what="rnnt_pallas_train", impl="pallas", want=PALLAS_PER_STEP)
@@ -2942,8 +3398,12 @@ def main() -> int:
         what="postnorm_train", model_name="postnorm_transformer_aed",
         want=POSTNORM_PER_STEP)
     phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train, wavs)
+    phase_rnnt_train_wavs(init_model, bn_flagship, train, wavs,
+                          what="bn_train_wavs")
     for args in to_profile:
         phase_profile(*args)
+    for args in b3_profile:
+        phase_modes_profile(*args)
     for args in lnmm_bench:
         phase_profile(*args, env=LNMM)
     phase_train_profile(*train_profile)
@@ -2953,6 +3413,7 @@ def main() -> int:
     phase_int64_sites(*rnnt_profile[:4], dropout)
     phase_rnnt_profile(*conv_profile, mode="conv_train", env=CONV)
     phase_rnnt_profile(*lnmm_profile, mode="lnmm_train", env=LNMM)
+    phase_rnnt_profile(*bn_profile, mode="bn_train")
     phase_rnnt_profile(*pallas_profile, mode="rnnt_pallas_train")
     phase_k8_device(conv, bounds, k8, k8_bwd)
     phase_k6_k7_device(ffn, ln_matmul, (k6, k6_bwd), (k7, k7_bwd))
@@ -2961,7 +3422,9 @@ def main() -> int:
              "conv_train": (conv_run, CONV_PER_STEP),
              "lnmm_train": (lnmm_run, LNMM_PER_STEP),
              "train_rnnt_pallas": (pallas, PALLAS_PER_STEP),
-             "postnorm_train": (t9, POSTNORM_PER_STEP)}
+             "postnorm_train": (t9, POSTNORM_PER_STEP),
+             "bn_train": (bn_run, RNNT_PER_STEP),
+             **{"decode_" + n: v for n, v in b3_paths.items()}}
     idle = {path: sorted(k for k, n in want.items()
                          if n > 0 and launches[k] == 0)
             for path, (launches, want) in paths.items()}

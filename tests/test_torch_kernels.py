@@ -311,6 +311,81 @@ def test_lstm_kernels_match_plain_version_on_card(dtype, rate, b, u1, h):
     assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [640, 617])
+def test_lstm_forward_at_the_nbest_shape_on_card(dtype, b):
+    """K4's forward without autograd at the shape transducer_score gives
+    it (the n-best of 64 utterances at beam 10: B = 640, U1 = 128, H =
+    256) and on a B ragged against the 64-row clusters: one launch, the
+    output within the training shape's tolerance (relative Frobenius 1e-4
+    fp32, 2e-2 bf16) of the plain version over 128 steps."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(b)
+    h, u1 = 256, 128
+    args = (_rnd(g, b, u1, 4 * h, std=0.5).to(dt),
+            *(_rnd(g, 4 * h, h, std=h ** -0.5) for _ in range(2)),
+            _rnd(g, 4 * h, std=0.1), _rnd(g, 4 * h, h, std=h ** -0.5))
+    before = lstm.lstm2_seq.launches
+    with torch.no_grad():
+        y = lstm.lstm2_seq(*args)
+        torch.cuda.synchronize()
+        assert lstm.lstm2_seq.launches == before + 1
+        want = lstm.lstm2_seq_ref(*args)
+    limit = 1e-4 if dt == torch.float32 else 2e-2
+    assert float((y.float() - want.float()).norm()) <= \
+        limit * float(want.float().norm())
+
+
+def test_joint_forward_at_the_nbest_shape_on_card():
+    """K2 without autograd at transducer_score's shape on the n-best of
+    64 utterances at beam 10: B = 640 hypotheses of T' = 127 frames
+    (81280 encoder rows), U1 = 128, H = 512, V = 5002, bf16: one launch,
+    the planes within 1e-3 + 1e-4*|ref| of the plain version (row U of
+    emit_lp has no label)."""
+    g = torch.Generator().manual_seed(5)
+    b, t, u1, h, v = 640, 127, 128, 512, 5002
+    dt = torch.bfloat16
+    args = (_rnd(g, b, t, h, std=0.5).to(dt), _rnd(g, b, u1, h, std=0.5).to(
+        dt), _rnd(g, v, h, std=h ** -0.5).to(dt), _rnd(g, v, std=0.1),
+        torch.randint(1, v, (b, u1 - 1), generator=g).cuda())
+    before = rnnt_loss.joint_planes.launches
+    with torch.no_grad():
+        got = rnnt_loss.joint_planes(*args, 0, "tanh")
+        torch.cuda.synchronize()
+        assert rnnt_loss.joint_planes.launches == before + 1
+        want = rnnt_loss.joint_planes_ref(*args, 0, "tanh", chunk=4)
+    for a, r in zip(got, want):
+        err = (a - r)[..., :-1].abs()
+        assert bool((err <= 1e-3 + 1e-4 * r[..., :-1].abs()).all())
+
+
+def test_lattice_at_the_nbest_shape_on_card():
+    """K9 without autograd at the n-best's lattice (B = 640, T' = 127,
+    U1 = 128) with ragged frame and label lengths: valid cells within
+    1e-4 + 1e-5*|ref|, every cell off a lattice exactly LOG_ZERO, one
+    launch."""
+    g = torch.Generator().manual_seed(11)
+    b, t, u1 = 640, 127, 128
+    lp = torch.log_softmax(torch.randn(b, t, u1, 3, generator=g), -1).cuda()
+    blank, emit = lp[..., 0].contiguous(), lp[..., 1].contiguous()
+    emit[..., -1] = LOG_ZERO
+    il = torch.randint(1, t + 1, (b,), generator=g).cuda()
+    il[0] = t
+    ll = torch.randint(0, u1, (b,), generator=g).cuda()
+    ll[0] = u1 - 1
+    before = rnnt_loss.alpha_beta.launches
+    with torch.no_grad():
+        got = rnnt_loss.alpha_beta(blank, emit, il, ll)
+        torch.cuda.synchronize()
+        assert rnnt_loss.alpha_beta.launches == before + 1
+        want = rnnt_loss.alpha_beta_ref(blank, emit, il, ll)
+    for a, r in zip(got, want):
+        off = r == LOG_ZERO
+        assert bool((a[off] == LOG_ZERO).all())
+        err = (a - r)[~off].abs()
+        assert bool((err <= 1e-4 + 1e-5 * r[~off].abs()).all())
+
+
 def test_tiny_flagship_training_step_on_card_matches_cpu():
     """One fp32 gradient step of the tiny flagship with hotwords, dropout
     0: every loss term within 1e-4 and every gradient within 1e-3

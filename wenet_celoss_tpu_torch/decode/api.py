@@ -1,27 +1,47 @@
-"""Decode API, RNN-T greedy modes (port of ``wenet_celoss_tpu/decode/api.py``:
-``Decoder.rnnt_greedy_arrays`` and ``Decoder.rnnt_greedy_search`` with no
-context, and with context under ``context_filter_state`` "on" or "off").
+"""Decode API, one call per decode mode (port of
+``wenet_celoss_tpu/decode/api.py``): CTC greedy, CTC prefix beam,
+attention beam, attention rescoring, RNN-T greedy (no context, or context
+under ``context_filter_state`` "on" or "off"), RNN-T beam (with or
+without a context list), and the two transducer/attention rescorings.
 
-The ``"exact"`` host-driven backtracking mode and the other decode modes
-come with later slices.
+Full context only: a chunked or simulated-streaming encode raises, as do
+the ``"exact"`` gating mode's host-driven backtracking; both come with
+later slices.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import torch
 
-from wenet_celoss_tpu_torch.decode import rnnt_greedy
+from wenet_celoss_tpu_torch.decode import (attention_beam, ctc_greedy,
+                                           ctc_prefix_beam, rescoring,
+                                           rnnt_beam, rnnt_greedy)
+from wenet_celoss_tpu_torch.models.asr_model import ASRModel
 from wenet_celoss_tpu_torch.models.factory import resolve_device
 from wenet_celoss_tpu_torch.models.transducer import Transducer
 
 
-class Decoder:
-    """Binds a model to decode calls, on the card unless the caller passes
-    ``device="cpu"``."""
+def _lists(tokens: torch.Tensor, lens: torch.Tensor) -> List[List[int]]:
+    """tokens [B, U], lens [B] → token lists."""
+    return [row[:ln] for row, ln in zip(tokens.cpu().tolist(),
+                                        lens.cpu().tolist())]
 
-    def __init__(self, model: Transducer, device=None):
+
+def _best(nbest):
+    """(tokens [B, U], lens [B]) of the highest-scoring hypothesis of an
+    n-best (the first on a tie)."""
+    return rescoring.pick_best(nbest["scores"], nbest["tokens"],
+                               nbest["lens"])
+
+
+class Decoder:
+    """Binds an ASRModel or a Transducer to decode calls, in eval mode, on
+    the card unless the caller passes ``device="cpu"``. Inputs may be
+    numpy arrays or tensors."""
+
+    def __init__(self, model: Union[ASRModel, Transducer], device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.last_gates = None
@@ -29,6 +49,112 @@ class Decoder:
     def _tensor(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
+    def _inputs(self, feats, feat_lens):
+        return (self._tensor(feats, torch.float32),
+                self._tensor(feat_lens, torch.long))
+
+    # ------------------------------------------------------- CTC / AED ---
+    @torch.no_grad()
+    def encode_ctc(self, feats, feat_lens, decoding_chunk_size: int = -1,
+                   num_decoding_left_chunks: int = -1):
+        """→ (encoder_out [B, T', D], pad_mask [B, T'], CTC log-probs
+        [B, T', V])."""
+        feats, feat_lens = self._inputs(feats, feat_lens)
+        return self.model.encode_ctc(feats, feat_lens, decoding_chunk_size,
+                                     num_decoding_left_chunks)
+
+    def encode_ctc_streaming(self, feats, feat_lens, decoding_chunk_size,
+                             num_decoding_left_chunks=-1):
+        raise NotImplementedError(
+            "simulated streaming (encode_ctc_streaming) comes with the "
+            "streaming slice (ROADMAP.md)")
+
+    def _encode(self, feats, feat_lens, simulate_streaming: bool = False,
+                decoding_chunk_size: int = -1,
+                num_decoding_left_chunks: int = -1):
+        if simulate_streaming and decoding_chunk_size > 0:
+            return self.encode_ctc_streaming(feats, feat_lens,
+                                             decoding_chunk_size,
+                                             num_decoding_left_chunks)
+        return self.encode_ctc(feats, feat_lens, decoding_chunk_size,
+                               num_decoding_left_chunks)
+
+    def ctc_greedy_search(self, feats, feat_lens, **kw) -> List[List[int]]:
+        _, mask, ctc_lp = self._encode(feats, feat_lens, **kw)
+        return ctc_greedy.ctc_greedy_search(ctc_lp, mask)
+
+    @torch.no_grad()
+    def ctc_prefix_beam_search(self, feats, feat_lens, beam: int = 10,
+                               first_beam: Optional[int] = None, **kw):
+        """→ (best token list per utterance, the search's result dict,
+        encoder_out, pad_mask). ``first_beam`` (the tokens a frame
+        considers) defaults to ``beam``."""
+        enc, mask, ctc_lp = self._encode(feats, feat_lens, **kw)
+        res = ctc_prefix_beam.ctc_prefix_beam_search(
+            ctc_lp, mask.sum(dim=1), beam=beam,
+            first_beam=first_beam if first_beam else beam)
+        return ctc_prefix_beam.nbest_to_lists(res, 1), res, enc, mask
+
+    @torch.no_grad()
+    def attention_nbest(self, feats, feat_lens, beam: int = 10,
+                        max_len: int = 0, **kw):
+        """The attention beam's n-best: {tokens [B, N, L], lens [B, N],
+        scores [B, N]}, best first; ``max_len`` 0 is the encoder's
+        length."""
+        enc, mask, _ = self._encode(feats, feat_lens, **kw)
+        if max_len <= 0:
+            max_len = int(enc.shape[1])
+        model = self.model
+        hyps, lens, scores = attention_beam.attention_beam_search(
+            model.decoder_one_step, enc, mask, model.sos, model.eos, beam,
+            max_len)
+        return {"tokens": hyps, "lens": lens, "scores": scores}
+
+    def attention_arrays(self, feats, feat_lens, beam: int = 10,
+                         max_len: int = 0, **kw):
+        """(hyps [B, N, L], lens [B, N]), best first."""
+        nb = self.attention_nbest(feats, feat_lens, beam, max_len, **kw)
+        return nb["tokens"], nb["lens"]
+
+    def attention(self, feats, feat_lens, beam: int = 10, max_len: int = 0,
+                  **kw) -> List[List[int]]:
+        hyps, lens = self.attention_arrays(feats, feat_lens, beam=beam,
+                                           max_len=max_len, **kw)
+        return attention_beam.attention_hyps_to_lists(hyps, lens,
+                                                      self.model.eos)
+
+    @torch.no_grad()
+    def attention_rescoring_nbest(self, feats, feat_lens, beam: int = 10,
+                                  ctc_weight: float = 0.0,
+                                  reverse_weight: float = 0.0, **kw):
+        """The CTC prefix beam's n-best with ``scores`` [B, N] replaced by
+        the rescoring's totals (attention + ctc_weight * CTC)."""
+        _, res, enc, mask = self.ctc_prefix_beam_search(
+            feats, feat_lens, beam=beam, **kw)
+        model = self.model
+        _, _, total = rescoring.attention_rescoring(
+            model.decoder_scores, enc, mask, res, model.sos, model.eos,
+            ctc_weight, reverse_weight)
+        return {**res, "scores": total}
+
+    def attention_rescoring_arrays(self, feats, feat_lens, beam: int = 10,
+                                   ctc_weight: float = 0.0,
+                                   reverse_weight: float = 0.0, **kw):
+        """(best_tokens [B, U], best_lens [B]): the CTC prefix beam's
+        n-best re-ranked by the attention decoder."""
+        return _best(self.attention_rescoring_nbest(
+            feats, feat_lens, beam=beam, ctc_weight=ctc_weight,
+            reverse_weight=reverse_weight, **kw))
+
+    def attention_rescoring(self, feats, feat_lens, beam: int = 10,
+                            ctc_weight: float = 0.0,
+                            reverse_weight: float = 0.0,
+                            **kw) -> List[List[int]]:
+        return _lists(*self.attention_rescoring_arrays(
+            feats, feat_lens, beam=beam, ctc_weight=ctc_weight,
+            reverse_weight=reverse_weight, **kw))
+
+    # ------------------------------------------------------ Transducer ---
     @torch.no_grad()
     def rnnt_greedy_arrays(self, feats, feat_lens, n_steps: int = 4,
                            context_list=None, context_lengths=None,
@@ -40,8 +166,7 @@ class Decoder:
         ids padded with -1 (row 0 is the no-bias sentinel ``[0]``),
         context_lengths [N]. ``trace``: see ``decode.rnnt_greedy``."""
         model = self.model
-        feats = self._tensor(feats, torch.float32)
-        feat_lens = self._tensor(feat_lens, torch.long)
+        feats, feat_lens = self._inputs(feats, feat_lens)
         b = feats.shape[0]
         p_step = model.predictor_step
         if context_list is None:
@@ -105,3 +230,107 @@ class Decoder:
         if gates is not None:
             self.last_gates = (gates, lens)
         return rnnt_greedy.greedy_to_lists(toks, lens)
+
+    @torch.no_grad()
+    def rnnt_beam_search(self, feats, feat_lens, beam: int = 5,
+                         ctc_weight: float = 0.0,
+                         transducer_weight: float = 1.0, context_list=None,
+                         context_lengths=None):
+        """RNN-T prefix beam search (top-k min(beam, 10) a hypothesis),
+        fused with the CTC head when ``ctc_weight`` > 0, on the biased
+        encoder and predictor streams when a context list is given →
+        (result dict: tokens [B, N, U], lens [B, N], scores [B, N], best
+        first; encoder_out searched; pad_mask)."""
+        model = self.model
+        feats, feat_lens = self._inputs(feats, feat_lens)
+        b = feats.shape[0]
+        bias_hidden = None
+        if context_list is not None:
+            bias_hidden = model.bias_hidden(
+                self._tensor(context_list, torch.long),
+                self._tensor(context_lengths, torch.long))
+        enc, enc_biased, _, mask = model.encode_transducer(feats, feat_lens,
+                                                           bias_hidden)
+        enc_use = enc if bias_hidden is None else enc_biased
+        joint_fn = model.joint_step
+        if bias_hidden is not None:
+            def joint_fn(enc_t, pred_u):
+                pred_b, _ = model.predictor_bias_step(bias_hidden, pred_u)
+                return model.joint_step(enc_t, pred_b)
+        ctc_lp = model.ctc_logprobs(enc_use) if ctc_weight > 0.0 else None
+        res = rnnt_beam.rnnt_prefix_beam_search(
+            model.predictor_step, joint_fn,
+            model.predictor_init_state(b * beam), enc_use, mask.sum(dim=1),
+            beam=beam, topk=min(beam, 10), ctc_log_probs=ctc_lp,
+            transducer_weight=transducer_weight, ctc_weight=ctc_weight,
+            blank=model.blank)
+        return res, enc_use, mask
+
+    def rnnt_beam_to_lists(self, res) -> List[List[int]]:
+        """The best hypothesis of each utterance as a token list."""
+        return _lists(res["tokens"][:, 0], res["lens"][:, 0])
+
+    def _attention_scores(self, enc, mask, res, reverse_weight: float):
+        model = self.model
+        return rescoring.score_hyps_with_decoder(
+            model.decoder_scores, enc, mask, res["tokens"], res["lens"],
+            model.sos, model.eos, reverse_weight)
+
+    @torch.no_grad()
+    def ctc_beam_td_attn_nbest(self, feats, feat_lens, beam: int = 10,
+                               ctc_weight: float = 0.0,
+                               transducer_weight: float = 0.0,
+                               attn_weight: float = 0.0,
+                               reverse_weight: float = 0.0, **kw):
+        """The CTC prefix beam's n-best with ``scores`` [B, N] replaced by
+        ``attn_weight * att + ctc_weight * ctc + transducer_weight * td``
+        (td: ``Transducer.transducer_score``)."""
+        _, res, enc, mask = self.ctc_prefix_beam_search(
+            feats, feat_lens, beam=beam, **kw)
+        att = self._attention_scores(enc, mask, res, reverse_weight)
+        td = self.model.transducer_score(enc, mask, res["tokens"],
+                                         res["lens"])
+        return {**res, "scores": attn_weight * att
+                + ctc_weight * res["scores"] + transducer_weight * td}
+
+    def ctc_beam_td_attn_rescoring_arrays(self, feats, feat_lens,
+                                          beam: int = 10, **weights):
+        """(best_tokens [B, U], best_lens [B]) of
+        :meth:`ctc_beam_td_attn_nbest`."""
+        return _best(self.ctc_beam_td_attn_nbest(feats, feat_lens,
+                                                 beam=beam, **weights))
+
+    def ctc_beam_td_attn_rescoring(self, feats, feat_lens, beam: int = 10,
+                                   ctc_weight: float = 0.0,
+                                   transducer_weight: float = 0.0,
+                                   attn_weight: float = 0.0,
+                                   reverse_weight: float = 0.0,
+                                   **kw) -> List[List[int]]:
+        return _lists(*self.ctc_beam_td_attn_rescoring_arrays(
+            feats, feat_lens, beam=beam, ctc_weight=ctc_weight,
+            transducer_weight=transducer_weight, attn_weight=attn_weight,
+            reverse_weight=reverse_weight, **kw))
+
+    @torch.no_grad()
+    def rnnt_beam_attn_nbest(self, feats, feat_lens, beam: int = 5,
+                             attn_weight: float = 1.0,
+                             transducer_weight: float = 1.0,
+                             search_ctc_weight: float = 0.0,
+                             reverse_weight: float = 0.0, context_list=None,
+                             context_lengths=None):
+        """The RNN-T beam's n-best with ``scores`` [B, N] replaced by
+        ``attn_weight * att + transducer_weight * beam score``."""
+        res, enc, mask = self.rnnt_beam_search(
+            feats, feat_lens, beam=beam, ctc_weight=search_ctc_weight,
+            transducer_weight=transducer_weight, context_list=context_list,
+            context_lengths=context_lengths)
+        att = self._attention_scores(enc, mask, res, reverse_weight)
+        return {**res, "scores": attn_weight * att
+                + transducer_weight * res["scores"]}
+
+    def rnnt_beam_attn_rescoring(self, feats, feat_lens, beam: int = 5,
+                                 **kw) -> List[List[int]]:
+        """The transducer n-best re-ranked by the attention decoder (see
+        :meth:`rnnt_beam_attn_nbest`), best hypothesis per utterance."""
+        return _lists(*_best(self.rnnt_beam_attn_nbest(
+            feats, feat_lens, beam=beam, **kw)))

@@ -1,7 +1,8 @@
-"""Hybrid CTC + attention ASR model, training forward (port of
-``wenet_celoss_tpu/models/asr_model.py``: ``__call__`` and
-``_calc_att_loss``; the decode-support methods come with the decode
-slices).
+"""Hybrid CTC + attention ASR model (port of
+``wenet_celoss_tpu/models/asr_model.py``): the training forward
+(``__call__`` and ``_calc_att_loss``) and the full-context decode-support
+methods (``encode``, ``ctc_logprobs``, ``encode_ctc``, ``decoder_scores``,
+``decoder_one_step``); chunked encoding comes with the streaming slice.
 
 loss = ctc_weight * ctc + (1 - ctc_weight) * att, where att mixes the
 left-to-right and (U2++) right-to-left decoders' label-smoothed losses by
@@ -20,8 +21,8 @@ from wenet_celoss_tpu_torch.models.decoder import BiTransformerDecoder
 from wenet_celoss_tpu_torch.models.encoder import TransformerEncoder
 from wenet_celoss_tpu_torch.models.label_smoothing import \
     label_smoothing_loss
-from wenet_celoss_tpu_torch.utils.common import (IGNORE_ID, accuracy,
-                                                 add_sos_eos,
+from wenet_celoss_tpu_torch.utils.common import (IGNORE_ID, acc_dtype,
+                                                 accuracy, add_sos_eos,
                                                  reverse_pad_list)
 
 
@@ -90,3 +91,46 @@ class ASRModel(nn.Module):
             loss = (1 - self.reverse_weight) * loss \
                 + self.reverse_weight * loss_r
         return loss, accuracy(l_logits, ys_out, self.ignore_id)
+
+    # ------------------------------------------------ decode support ---
+    def encode(self, speech, speech_lengths, decoding_chunk_size: int = -1,
+               num_decoding_left_chunks: int = -1):
+        """Full-context encoding, no dropout → (encoder_out [B, T', D],
+        pad_mask [B, T']). Both chunk arguments must be -1."""
+        if decoding_chunk_size != -1 or num_decoding_left_chunks != -1:
+            raise NotImplementedError(
+                f"decoding_chunk_size={decoding_chunk_size}, "
+                f"num_decoding_left_chunks={num_decoding_left_chunks}: "
+                "chunked encoding comes with the streaming slice "
+                "(ROADMAP.md)")
+        return self.encoder(speech, speech_lengths)
+
+    def ctc_logprobs(self, encoder_out: torch.Tensor) -> torch.Tensor:
+        return self.ctc.log_softmax(encoder_out)
+
+    def encode_ctc(self, speech, speech_lengths,
+                   decoding_chunk_size: int = -1,
+                   num_decoding_left_chunks: int = -1):
+        """→ (encoder_out, pad_mask, CTC log-probs [B, T', V] fp32)."""
+        encoder_out, pad_mask = self.encode(speech, speech_lengths,
+                                            decoding_chunk_size,
+                                            num_decoding_left_chunks)
+        return encoder_out, pad_mask, self.ctc.log_softmax(encoder_out)
+
+    def decoder_scores(self, encoder_out, enc_pad_mask, hyps_in, hyps_lens,
+                       r_hyps_in, reverse_weight: float = 0.0):
+        """Teacher-forced log-probs of both decoders for n-best rescoring
+        → (left, right), each [B, U, V] fp32 (the right one of zero
+        logits without a right decoder or reverse weight)."""
+        l_logits, r_logits = self.decoder(encoder_out, enc_pad_mask,
+                                          hyps_in, hyps_lens, r_hyps_in,
+                                          reverse_weight)
+        return (torch.log_softmax(l_logits.to(acc_dtype(l_logits.dtype)),
+                                  dim=-1),
+                torch.log_softmax(r_logits.to(acc_dtype(r_logits.dtype)),
+                                  dim=-1))
+
+    def decoder_one_step(self, memory, memory_pad_mask, ys_buffer,
+                         pos: int) -> torch.Tensor:
+        return self.decoder.forward_one_step(memory, memory_pad_mask,
+                                             ys_buffer, pos)

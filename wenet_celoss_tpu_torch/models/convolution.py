@@ -24,26 +24,45 @@ from wenet_celoss_tpu_torch.models.layers import Dense, LayerNorm
 from wenet_celoss_tpu_torch.ops import ln_matmul as lnmm
 
 
-class BatchNormEval(nn.Module):
-    """Inference BatchNorm over the last axis with running statistics:
-    (x - mean) * (weight * rsqrt(var + eps)) + bias, in fp32 (flax's
-    order of operations)."""
+class BatchNorm(nn.Module):
+    """BatchNorm over the last axis with flax's semantics
+    (``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``), in fp32 whatever the
+    input's dtype, normalising as ``(x - mean) * (weight * rsqrt(var +
+    eps)) + bias``.
 
-    def __init__(self, size: int, eps: float = 1e-5):
+    Training (the module's training mode, ``nn.Module.train()``): the
+    statistics of this batch over every
+    leading position (the caller passes no mask, so padded frames count,
+    as in the JAX package), the variance taken as E[x²] - E[x]² clipped at
+    0, the gradient flowing through both; then, once per call and outside
+    autograd, ``running = momentum * running + (1 - momentum) * batch``
+    with the biased variance (``nn.BatchNorm1d`` keeps an unbiased one and
+    weights the other way). Evaluation: the running statistics."""
+
+    def __init__(self, size: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(size))
         self.bias = nn.Parameter(torch.zeros(size))
         self.register_buffer("running_mean", torch.zeros(size))
         self.register_buffer("running_var", torch.ones(size))
+        self.momentum = momentum
         self.eps = eps
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(
-                "batch_norm in training mode is not ported (use the "
-                "layer_norm conv module)")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x.float() - self.running_mean) * mul + self.bias
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dims)
+            var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
 
 
 class ConvolutionModule(nn.Module):
@@ -64,17 +83,16 @@ class ConvolutionModule(nn.Module):
         # Depthwise conv over time, torch layout [C, 1, K].
         self.depthwise_conv = nn.Conv1d(channels, channels, kernel_size,
                                         groups=channels)
-        self.norm_layer = (BatchNormEval(channels) if norm == "batch_norm"
+        self.norm_layer = (BatchNorm(channels) if norm == "batch_norm"
                            else LayerNorm(channels, dtype=dtype))
         self.pointwise_conv2 = Dense(channels, channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor,
                 pad_mask: Optional[torch.Tensor] = None,
-                train: bool = False, ln: Optional[LayerNorm] = None
-                ) -> torch.Tensor:
+                ln: Optional[LayerNorm] = None) -> torch.Tensor:
         """x [B, T, C], pre-normed by ``ln`` here when given; pad_mask
-        [B, T] True = valid; ``train`` puts batch_norm in training mode
-        (not ported: raises)."""
+        [B, T] True = valid; a batch_norm follows the module's training
+        mode (batch statistics, running statistics advanced)."""
         if ln is not None and lnmm.enabled("conv"):
             bsz, t, c = x.shape
             cdt = self.compute_dtype or torch.promote_types(x.dtype,
@@ -98,8 +116,7 @@ class ConvolutionModule(nn.Module):
         y = F.conv1d(h.to(cdt).transpose(1, 2), w.weight.to(cdt),
                      w.bias.to(cdt), padding=pad,
                      groups=w.groups).transpose(1, 2)
-        y = F.silu(self.norm_layer(y, train) if self.norm == "batch_norm"
-                   else self.norm_layer(y))
+        y = F.silu(self.norm_layer(y))
         y = self.pointwise_conv2(y)
         if pad_mask is not None:
             y = torch.where(pad_mask[..., None], y, torch.zeros_like(y))

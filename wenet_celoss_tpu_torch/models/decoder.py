@@ -5,8 +5,9 @@ decoder. Pre-norm layers (``normalize_before``): each FFN block is one
 launch of the K1 kernel (relu, ff_scale 1), and the self-attention's
 pre-norm and QKV projection one launch of K7 when ``LNMM_PALLAS`` routes
 "attn". Post-norm layers: each FFN is one launch of K6, and no
-``after_norm`` exists. ``forward_one_step`` comes with the decode slice.
-Dropout runs when the caller passes a generator (training).
+``after_norm`` exists. ``forward_one_step`` is the attention beam
+search's step. Dropout runs when the caller passes a generator
+(training).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from wenet_celoss_tpu_torch.models.encoder_layer import \
     PositionwiseFeedForward
 from wenet_celoss_tpu_torch.models.layers import Dense, LayerNorm
 from wenet_celoss_tpu_torch.ops.dropout import dropout
+from wenet_celoss_tpu_torch.utils.common import acc_dtype
 from wenet_celoss_tpu_torch.utils.mask import (make_non_pad_mask,
                                                subsequent_mask)
 
@@ -106,6 +108,29 @@ class TransformerDecoder(nn.Module):
             x = self.after_norm(x)
         return self.output_layer(x)
 
+    def forward_one_step(self, memory, memory_pad_mask, ys_buffer,
+                         pos: int) -> torch.Tensor:
+        """One beam-search step over a fixed-size token buffer: the causal
+        decoder over the whole buffer ys_buffer [B, L] with the positions
+        after ``pos`` masked, then ``after_norm`` and the output layer on
+        row ``pos`` alone → fp32 log-probs of the next token [B, V].
+        Every step reruns the whole buffer, as the JAX package does (a
+        search is quadratic in L; a KV cache is a later optimisation).
+        memory [B, T, D], memory_pad_mask [B, T] True = valid."""
+        l_max = ys_buffer.shape[1]
+        dev = ys_buffer.device
+        valid = torch.arange(l_max, device=dev) <= pos
+        tgt_mask = valid[None, None, :] & subsequent_mask(l_max, dev)[None]
+        x, _ = self.pos_enc(self.embed_tokens(ys_buffer))
+        mem_mask = memory_pad_mask[:, None, :]
+        for layer in self.decoders:
+            x = layer(x, tgt_mask, memory, mem_mask)
+        x = x[:, pos]
+        if self.after_norm is not None:
+            x = self.after_norm(x)
+        logits = self.output_layer(x)
+        return torch.log_softmax(logits.to(acc_dtype(logits.dtype)), dim=-1)
+
 
 class BiTransformerDecoder(nn.Module):
     """Left-to-right decoder plus, with ``r_num_blocks > 0``, a
@@ -144,3 +169,9 @@ class BiTransformerDecoder(nn.Module):
         r_x = self.right_decoder(memory, memory_pad_mask, r_ys_in_pad,
                                  ys_in_lens, gen)
         return l_x, r_x
+
+    def forward_one_step(self, memory, memory_pad_mask, ys_buffer,
+                         pos: int) -> torch.Tensor:
+        """The left-to-right decoder's step (see TransformerDecoder)."""
+        return self.left_decoder.forward_one_step(memory, memory_pad_mask,
+                                                  ys_buffer, pos)

@@ -14,8 +14,11 @@ residual) is one launch of ``conv_block_residual`` (K8) and one of its
 backward; else, with ``LNMM_PALLAS`` at "1" or "conv", its pre-LN and
 pointwise conv1 are one launch of ``ln_matmul`` (K7), as are the
 self-attention's pre-LN and QKV projection with "1" or "attn". Dropout
-runs when the caller passes a generator (training); without one every
-layer is deterministic.
+runs when the caller passes a generator; without one every layer is
+deterministic. A batch_norm conv module normalises with the batch's
+statistics while the layer is in training mode (``nn.Module.train()``,
+which the training entry points set, whatever the generator), else with
+its running statistics.
 """
 
 from __future__ import annotations
@@ -153,8 +156,9 @@ class ConformerEncoderLayer(nn.Module):
                 pad_mask: Optional[torch.Tensor] = None,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, T, D]; att_bias [B, T, T] additive; pos_emb [1, T, D];
-        pad_mask [B, T] True = valid; ``gen`` (training) drives dropout
-        and puts the conv module's norm in training mode."""
+        pad_mask [B, T] True = valid; ``gen`` drives dropout; training
+        mode (``self.training``) puts a batch_norm conv module on the
+        batch's statistics."""
         def drop(h):
             return dropout(h, self.dropout_rate, gen)
         if self.feed_forward_macaron is not None:
@@ -169,7 +173,6 @@ class ConformerEncoderLayer(nn.Module):
                 x = self._fused_conv_block(x, pad_mask, gen)
             else:
                 x = x + drop(self.conv_module(x, pad_mask,
-                                              train=gen is not None,
                                               ln=self.norm_conv))
         x = self.feed_forward(x, ln=self.norm_ff, ff_scale=self.ff_scale,
                               gen=gen)

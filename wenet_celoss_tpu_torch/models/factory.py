@@ -19,7 +19,7 @@ import torch.nn as nn
 from wenet_celoss_tpu_torch.models.asr_model import ASRModel
 from wenet_celoss_tpu_torch.models.cmvn import load_cmvn
 from wenet_celoss_tpu_torch.models.context_bias import ContextBias
-from wenet_celoss_tpu_torch.models.convolution import BatchNormEval
+from wenet_celoss_tpu_torch.models.convolution import BatchNorm
 from wenet_celoss_tpu_torch.models.ctc_head import CTC
 from wenet_celoss_tpu_torch.models.decoder import BiTransformerDecoder
 from wenet_celoss_tpu_torch.models.encoder import (ConformerEncoder,
@@ -177,10 +177,10 @@ def init_params(model: nn.Module, seed: int = 0) -> None:
         elif isinstance(mod, nn.Embedding):
             w = mod.weight
             w.copy_(_normal(w.shape, 1.0 / math.sqrt(w.shape[0]), g))
-        elif isinstance(mod, (LayerNorm, BatchNormEval)):
+        elif isinstance(mod, (LayerNorm, BatchNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
-            if isinstance(mod, BatchNormEval):
+            if isinstance(mod, BatchNorm):
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
     for name, p in model.named_parameters():

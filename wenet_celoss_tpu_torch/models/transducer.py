@@ -219,3 +219,40 @@ class Transducer(ASRModel):
                      pred_u: torch.Tensor) -> torch.Tensor:
         """enc_j [B, T, J] × pred [B, P] → joint logits [B, T, V]."""
         return self.joint.frames(enc_j, pred_u)
+
+    def joint_step(self, enc_t: torch.Tensor,
+                   pred_u: torch.Tensor) -> torch.Tensor:
+        """enc_t [B, E] × pred_u [B, P] → joint logits [B, V]."""
+        return self.joint.single(enc_t, pred_u)
+
+    def predictor_forward(self, ys_in: torch.Tensor) -> torch.Tensor:
+        """Whole-sequence predictor forward of blank-prepended labels, no
+        dropout (K4 on the card)."""
+        return self.predictor(ys_in)
+
+    def transducer_score(self, encoder_out, enc_pad_mask, hyps, hyps_lens):
+        """Per-hypothesis transducer log-probability, -RNN-T loss of each
+        label sequence given the plain encoder output, over the whole
+        n-best at once with the streaming loss (the [B·N, T, U, V] joint
+        never materialises; on the card: K4, then K2, then K9).
+
+        encoder_out [B, T, E]; enc_pad_mask [B, T]; hyps [B, N, U]
+        (padding arbitrary); hyps_lens [B, N] → scores [B, N]. Every
+        hypothesis is scored at the padded length U."""
+        b, n, u = hyps.shape
+        flat = hyps.reshape(b * n, u)
+        flat_lens = hyps_lens.reshape(b * n)
+        memory = encoder_out.repeat_interleave(n, dim=0)
+        enc_lens = enc_pad_mask.sum(dim=1).repeat_interleave(n)
+        valid = (torch.arange(u, device=hyps.device)[None, :]
+                 < flat_lens[:, None])
+        toks = torch.where(valid, flat, torch.zeros_like(flat))
+        ys_in = add_blank(flat, flat_lens, self.blank, self.ignore_id)
+        enc_j, pred_j = self.joint.project(memory,
+                                           self.predictor_forward(ys_in))
+        w_out, b_out = self.joint.output_params()
+        losses = rnnt_loss_streaming(
+            enc_j, pred_j, w_out, b_out, toks, enc_lens, flat_lens,
+            self.blank, activation=self.joint.activation,
+            chunk=self.streaming_chunk)
+        return -losses.reshape(b, n)

@@ -19,6 +19,13 @@ optimizer's moments are fp32 tensors beside them), where the JAX package
 returns a new pytree. Dropout draws its seeds from the caller's
 ``torch.Generator``; the compute dtype (bf16 or fp32) is the model's.
 Reported ``gnorm`` is the pre-clip global norm.
+
+The gradient and training-step functions put the model in training mode
+and the evaluation function in eval mode. A batch_norm conv module's
+running statistics (the JAX package's ``TrainState.batch_stats``) are the
+model's buffers: each training forward advances them, on every
+micro-batch and on a step whose norm is not finite too, as the JAX
+package's executor and ``train_step`` do.
 """
 
 from __future__ import annotations
@@ -130,6 +137,7 @@ def make_grad_fn(model: nn.Module, accum_grad: int = 1):
 
     def grad_fn(state: TrainState, batch: Batch,
                 gen: Optional[torch.Generator]):
+        state.model.train()
         params = state.params
         metrics = _forward(state.model, batch, gen)
         grads = torch.autograd.grad(metrics["loss"] / accum_grad, params,
@@ -175,6 +183,7 @@ def make_eval_fn(model: nn.Module):
 
     @torch.no_grad()
     def eval_fn(state: TrainState, batch: Batch):
+        state.model.eval()
         return _forward(state.model, batch, None)
 
     return eval_fn

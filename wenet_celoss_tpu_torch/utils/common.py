@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import torch
 import torch.nn.functional as F
 
@@ -65,6 +67,28 @@ def accuracy(logits: torch.Tensor, targets: torch.Tensor,
     mask = targets != ignore_id
     correct = ((pred == targets) & mask).sum()
     return correct.float() / mask.sum().clamp_min(1).float()
+
+
+def stable_topk(x: torch.Tensor, k: int, dim: int = -1):
+    """The ``k`` largest values along ``dim`` and their indices, largest
+    first and, among equal values, the lowest index first (the order of
+    ``jax.lax.top_k``; ``torch.topk`` on a card leaves ties unordered, and
+    dead beams at LOG_ZERO tie exactly)."""
+    values, indices = torch.sort(x, dim=dim, descending=True, stable=True)
+    return values.narrow(dim, 0, k), indices.narrow(dim, 0, k)
+
+
+def remove_duplicates_and_blank(hyp: Sequence[int],
+                                blank: int = 0) -> List[int]:
+    """Host-side CTC collapse: drop repeats, then blanks."""
+    out: List[int] = []
+    prev = -1
+    for t in hyp:
+        t = int(t)
+        if t != blank and t != prev:
+            out.append(t)
+        prev = t
+    return out
 
 
 def get_activation(name: str):
