@@ -11,7 +11,8 @@ Phases, in the order they run, each printing JSON lines:
             ragged shapes; the same bits on a second call), the weight
             pass on ragged splits (same bits every call), both masks' bits
             and keep rates in fp32 and bf16 (every hidden column), times,
-            yardsticks and bounds; the bf16 forward at N = 8128 and 32512
+            yardsticks and bounds (also at one streaming chunk's rows, N =
+            16 and 1024, swish); the bf16 forward at N = 8128 and 32512
             beside two addmm in card time, under both of its schedules;
             the bf16 backward and its five-mm yardstick also in card time
             with the calls back to back, the backward split into pass A,
@@ -66,11 +67,20 @@ Phases, in the order they run, each printing JSON lines:
             where the CPU's score gap between the two hypotheses is under
             1e-3 (CTC greedy: its frames' top-2 log-prob gap); the prefix
             beam's best score and emission times; each mode's launches;
+  stream_slice  S2: the full-width U2++ conformer (fp32, seeded) decodes
+            the same WAVs chunk by chunk (chunk 16, 4 left chunks) through
+            CTC greedy and attention rescoring, card against CPU by S1's
+            flip rules, 24 K1 launches a chunk (the stream_decode path);
+            U2's contract: with static_chunk_size 16 the streamed encoder
+            output equals the chunk-masked full forward (1e-4);
   bench_modes  B3: bench.py's decode keys ctc_greedy,
             attention_rescoring, rnnt_beam, ctc_beam_td_attn_rescoring
             (beams 10, 5, 10) and attention (beam 10) at B1's shape and
             blank bias, timed; their launches a batch (K1; K2, K4 and K9
             in transducer_score);
+  bench_stream  B4: bench.py's streaming key, the U2++ model at vocab
+            1024, bf16, B=64 × 512 frames, 7 chunks, 168 K1 launches a
+            batch, timed;
   train_check, train, train_wavs  T0-T2: conformer_ctc_aed, one fp32 step
             card against CPU, bf16 steps at B=256 T=512 U=32 timed, 24
             steps on the committed train-clean-100 WAVs (the loss falls);
@@ -79,6 +89,9 @@ Phases, in the order they run, each printing JSON lines:
             twice the CPU's own difference between 8 and 3 threads, and
             every gradient's error on the card against the port's CPU step
             in float64 at most twice the CPU's fp32 error plus 1e-6;
+  u2pp_train_check  T11-check: T0 for the U2++ conformer with its
+            dynamic chunk drawn from the same seeded generator on both
+            (the first seed that draws a chunk, not the full context);
   rnnt_train_check, rnnt_pallas_train_check, conv_train_check,
   lnmm_train_check, bn_train_check  one fp32 step of the flagship with
             hotwords, card against CPU: the streaming loss (K2, K9, K3),
@@ -90,6 +103,9 @@ Phases, in the order they run, each printing JSON lines:
             (B=256; B=64 for pallas, whose [B, T', U+1, V] logits
             materialise), launches per step (T10: batch_norm, K8 0);
   postnorm_train  T9: the post-norm model at T1's point, timed;
+  u2pp_train, u2pp_conv_train  T11, T11-conv: the U2++ conformer at T1's
+            point with its dynamic chunk, and under CONV_PALLAS=1 (K8
+            causal, 12 + 12 a step), timed;
   rnnt_train_wavs, bn_train_wavs  T5 and T10's curve: 24 flagship steps
             on the WAVs (the loss falls);
   profile   each decode (B3's modes too) and training step under
@@ -102,6 +118,8 @@ Phases, in the order they run, each printing JSON lines:
   k8_device K8 against the port's unfused block in card time, calls back to back (CUDA events behind a spin kernel;
             the kernels line's library_ms for K8), the forward at N =
             8128 and 32512, the backward split by pass;
+  k8_causal_device  K8 causal against the port's unfused causal block
+            the same way: forward at N = 8128 and 32512, backward 32512;
   k6_k7_device  K6 and K7 against the port's unfused compositions the
             same way (their library_ms; K6's forward also at N = 32512).
 
@@ -205,8 +223,12 @@ K1_CASES = (  # (N, activation, ff_scale, dtypes); N >= 32512 in bf16 only
     (1000, "relu", 1.0, (torch.float32, torch.bfloat16)),
     (256 * 127, "swish", 0.5, (torch.bfloat16,)),
     # The attention decoder's rows in B3's n-best modes: B·beam·(L+1).
-    (64 * 10 * 128, "relu", 1.0, (torch.bfloat16,)))
-K1_TIMED = ((64 * 127, 0.0), (256 * 127, 0.1))   # decode, training
+    (64 * 10 * 128, "relu", 1.0, (torch.bfloat16,)),
+    # One streaming chunk's rows (16 frames): B4's 64 utterances, and one.
+    (64 * 16, "swish", 0.5, (torch.float32, torch.bfloat16)),
+    (16, "swish", 0.5, (torch.float32, torch.bfloat16)))
+# Decode, training, and one streaming chunk of B4 (64 utterances x 16).
+K1_TIMED = ((64 * 127, 0.0), (256 * 127, 0.1), (64 * 16, 0.0))
 
 
 def phase_k1(ffn, bounds) -> dict:
@@ -214,7 +236,8 @@ def phase_k1(ffn, bounds) -> dict:
     same bits on a second call; returns its record at the main-path shape
     in bf16, the card's operating point (N = 8128, rate 0, as decode runs
     it), with the training shape's times (N = 32512, rate 0.1) under
-    ``*_n32512`` keys."""
+    ``*_n32512`` keys and a streaming chunk's (N = 1024, rate 0) under
+    ``*_n1024``."""
     g = torch.Generator().manual_seed(0)
     d, f = 256, 2048
     record = {}
@@ -262,7 +285,7 @@ def phase_k1(ffn, bounds) -> dict:
                                 "library_ms", "library_event_ms",
                                 "device_ms")})
                     else:
-                        record.update({k + "_n32512": line[k] for k in (
+                        record.update({f"{k}_n{n}": line[k] for k in (
                             "device_ms", "library_ms", "bound_ms",
                             "plain_ms")})
                 emit("k1", **line)
@@ -1233,7 +1256,7 @@ def phase_k8(conv, bounds, dropout) -> tuple:
     return rec_f, rec_b
 
 
-def unfused_block(args, dtype):
+def unfused_block(args, dtype, causal: bool = False):
     """The port's unfused conv block, LayerNorm → ConvolutionModule →
     residual, with K8's weights: a yardstick the port does not call."""
     from wenet_celoss_tpu_torch.models.convolution import ConvolutionModule
@@ -1241,7 +1264,8 @@ def unfused_block(args, dtype):
     x, mask, (g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2) = args
     d, k = x.shape[2], w_dw.shape[0]
     ln = LayerNorm(d, dtype=dtype).cuda()
-    cm = ConvolutionModule(d, k, "layer_norm", dtype=dtype).cuda()
+    cm = ConvolutionModule(d, k, "layer_norm", causal,
+                           dtype=dtype).cuda()
     with torch.no_grad():
         for p, v in ((ln.weight, g1), (ln.bias, b1),
                      (cm.pointwise_conv1.weight, w1.t()),
@@ -2106,6 +2130,58 @@ def phase_k8_device(conv, bounds, fwd_rec: dict, bwd_rec: dict) -> None:
              "unfused block without dropout")
 
 
+def phase_k8_causal_device(conv, bounds, fwd_rec: dict,
+                           bwd_rec: dict) -> None:
+    """K8 causal, the U2++ conv block's route under CONV_PALLAS=1, in card
+    time (``device_ms``), bf16, D=256, K=15, against the port's unfused
+    causal block in the same call: the forward at N = 64*127 (rate 0) and
+    256*127 (rate 0.1, T11-conv's shape), the backward at 256*127 (rate
+    0.1; the unfused block's forward + backward less forward). The
+    readings join K8's records under ``causal_*`` keys."""
+    d, k, t = 256, 15, 127
+    line = {}
+    for b, seed, rate in ((64, 1, 0.0), (256, 2, 0.1)):
+        cfg = (4242, True, rate, 1e-5)
+        x, mask, params, dy = conv_inputs(b, t, d, k, torch.bfloat16, seed)
+        block, weights = unfused_block((x, mask, params), x.dtype,
+                                       causal=True)
+        flops, nbytes = bounds.conv_block_residual(b * t, d, k, "bf16")
+        bound, by = bounds.bound_ms(flops, nbytes, "bf16")
+        with torch.no_grad():
+            unfused = device_ms(lambda: block(x), iters=20)
+            new = device_ms(lambda: conv.forward_kernel(
+                x, mask, *params, *cfg), iters=20)
+        line[f"fwd_n{b * t}_rate{rate}"] = {
+            "k8_ms": new, "unfused_ms": unfused, "factor": new / unfused,
+            "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / new}
+    xg = x.detach().requires_grad_(True)
+
+    def both():
+        torch.autograd.grad(block(xg), [xg] + weights, dy)
+    unfused_both = device_ms(both)
+    unfused_bwd = unfused_both - line[f"fwd_n{256 * t}_rate0.1"][
+        "unfused_ms"]
+    flops, nbytes = bounds.conv_block_residual_bwd(256 * t, d, k, "bf16")
+    bound, by = bounds.bound_ms(flops, nbytes, "bf16")
+    new = device_ms(lambda: conv.backward_kernel(x, mask, *params, dy,
+                                                 *cfg))
+    line[f"bwd_n{256 * t}"] = {
+        "k8_ms": new, "unfused_ms": unfused_bwd,
+        "unfused_fwd_and_bwd_ms": unfused_both, "factor": new / unfused_bwd,
+        "bound_ms": bound, "bound_by": by, "share_of_bound": bound / new}
+    fwd_rec.update(
+        causal_device_ms=line[f"fwd_n{64 * t}_rate0.0"]["k8_ms"],
+        causal_library_ms=line[f"fwd_n{64 * t}_rate0.0"]["unfused_ms"],
+        causal_device_ms_n32512_rate01=line[f"fwd_n{256 * t}_rate0.1"][
+            "k8_ms"])
+    bwd_rec.update(causal_device_ms=new, causal_library_ms=unfused_bwd)
+    emit("k8_causal_device", **line,
+         how="card ms per call, calls back to back (device_ms); the "
+             "unfused causal block (LayerNorm, causal ConvolutionModule, "
+             "residual; no dropout) in the same call")
+
+
 def phase_k6_k7_device(ffn, lnmm, k6_recs, k7_recs) -> None:
     """K6 and K7 against the port's own unfused compositions in card time
     (``device_ms``), bf16, the phases' timed shapes: K7 at N = 8128, K = 768
@@ -2382,18 +2458,26 @@ def compare_nbest(card_lists, cpu_nbest):
     return same, ties, bad
 
 
-def ctc_greedy_check(dec, cpu_dec, feats, lens) -> dict:
+def ctc_greedy_check(dec, cpu_dec, feats, lens, **stream) -> dict:
     """CTC greedy card against CPU: a token list may differ only where
     each frame whose argmax differs has a CPU top-2 log-prob gap under
-    NEAR_TIE."""
+    NEAR_TIE. ``stream``: STREAM_KW for the simulated-streaming decode
+    (its chunk-by-chunk encode), else the full context."""
     from wenet_celoss_tpu_torch.decode.ctc_greedy import ctc_greedy_frames
+
+    def encode(d):
+        if stream:
+            return d.encode_ctc_streaming(
+                feats, lens, stream["decoding_chunk_size"],
+                stream["num_decoding_left_chunks"])
+        return d.encode_ctc(feats, lens)
     reset_counts()
-    card = dec.ctc_greedy_search(feats, lens)
+    card = dec.ctc_greedy_search(feats, lens, **stream)
     torch.cuda.synchronize()
     launches = read_counts()
-    cpu = cpu_dec.ctc_greedy_search(feats, lens)
-    _, c_mask, c_lp = dec.encode_ctc(feats, lens)
-    _, r_mask, r_lp = cpu_dec.encode_ctc(feats, lens)
+    cpu = cpu_dec.ctc_greedy_search(feats, lens, **stream)
+    _, c_mask, c_lp = encode(dec)
+    _, r_mask, r_lp = encode(cpu_dec)
     c_ids = ctc_greedy_frames(c_lp, c_mask).cpu()
     r_ids = ctc_greedy_frames(r_lp, r_mask)
     top2 = torch.topk(r_lp, 2, dim=-1).values
@@ -2582,7 +2666,8 @@ def phase_bench_modes(init_model, Decoder, conformer_rnnt_bias,
     return paths, to_profile
 
 
-def phase_modes_profile(name, dec, feats, lens, fn, timed_ms) -> None:
+def phase_modes_profile(name, dec, feats, lens, fn, timed_ms,
+                        prefix: str = "b3_") -> None:
     """One B3 batch under torch.profiler, run after every timing: the
     card's busy ms, its idle share of the unprofiled median, the kernels
     that take the most."""
@@ -2598,7 +2683,7 @@ def phase_modes_profile(name, dec, feats, lens, fn, timed_ms) -> None:
 
     def ms(*keys):
         return sum(v for k, v in by_name.items() if any(s in k for s in keys))
-    emit("profile", mode=f"b3_{name}", timed_ms=timed_ms,
+    emit("profile", mode=prefix + name, timed_ms=timed_ms,
          profiled_wall_ms=wall_ms, device_busy_ms=busy,
          idle_share=1.0 - busy / timed_ms,
          idle_share_profiled=1.0 - busy / wall_ms,
@@ -2606,6 +2691,148 @@ def phase_modes_profile(name, dec, feats, lens, fn, timed_ms) -> None:
          k4_ms=ms(*K4_FWD_KERNELS), k9_ms=ms(*K9_KERNELS),
          kernels=len(by_name),
          top=[{"kernel": k[:90], "ms": v} for k, v in top])
+
+
+# U2++ streaming decode: bench.py's streaming key (chunk 16, 4 left chunks).
+STREAM_KW = dict(simulate_streaming=True, decoding_chunk_size=16,
+                 num_decoding_left_chunks=4)
+U2PP_DECODER_K1 = 9   # a rescoring's teacher-forced decoders: 6 + 3 blocks
+
+
+def stream_chunks(frames: int) -> int:
+    """Chunk steps over ``frames`` input frames at chunk 16 through the
+    conv2d subsampling (rate 4, right context 6: stride 64, window 67;
+    frames after the last whole window are dropped)."""
+    from wenet_celoss_tpu_torch.decode.streaming import num_chunks
+    return num_chunks(frames, 4, 6, STREAM_KW["decoding_chunk_size"])
+
+
+def phase_stream_slice(init_model, Decoder, u2pp_conformer,
+                       slice_run) -> int:
+    """S2: the full-width fp32 U2++ conformer (seeded weights) decodes
+    S1's 16 WAVs chunk by chunk (STREAM_KW) through CTC greedy and
+    attention rescoring (beam 10, ctc 0.5, reverse 0.3) on the card, held
+    against the CPU by S1's flip rules; 24 K1 launches a chunk (every
+    count set to 0 just before the greedy decode, the stream_decode path,
+    and read just after), 9 more in the rescoring. The streamed encoder
+    output card against CPU. Then U2's contract on the card: with
+    ``static_chunk_size: 16`` the streamed output equals the chunk-masked
+    full forward on the valid frames within 1e-4 relative Frobenius, and
+    the masks are equal. Returns the stream_decode path's K1 launches."""
+    _, feats, lens = slice_run[:3]
+    cfg = u2pp_conformer()
+    model = init_model(cfg, seed=0)
+    dec = Decoder(model)
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu_model = init_model(cfg, device="cpu", seed=0)
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    cpu_dec = Decoder(cpu_model, device="cpu")
+    chunks = stream_chunks(feats.shape[1])
+    t0 = time.perf_counter()
+    greedy = ctc_greedy_check(dec, cpu_dec, feats, lens, **STREAM_KW)
+    greedy["seconds_card_and_cpu"] = time.perf_counter() - t0
+    want = {**NO_LAUNCHES, "k1": K1_PER_ENCODER_PASS * chunks}
+    check(greedy["launches"] == want, f"stream_slice ctc_greedy: launches "
+          f"{greedy['launches']}, want {want}")
+    kw = dict(beam=10, ctc_weight=0.5, reverse_weight=0.3, **STREAM_KW)
+    reset_counts()
+    card = dec.attention_rescoring(feats, lens, **kw)
+    torch.cuda.synchronize()
+    r_launches = read_counts()
+    cpu = cpu_dec.attention_rescoring_nbest(feats, lens, **kw)
+    same, ties, bad = compare_nbest(card, cpu)
+    rescoring = dict(identical_to_cpu=same, near_tie_flips=ties,
+                     other_diffs=bad, tokens=sum(map(len, card)),
+                     launches=r_launches, cpu_best_not_first=int(
+                         (torch.argmax(cpu["scores"], 1) != 0).sum()))
+    r_want = {**NO_LAUNCHES,
+              "k1": K1_PER_ENCODER_PASS * chunks + U2PP_DECODER_K1}
+    check(r_launches == r_want, f"stream_slice attention_rescoring: "
+          f"launches {r_launches}, want {r_want}")
+    for name, rec in (("ctc_greedy", greedy),
+                      ("attention_rescoring", rescoring)):
+        check(not rec["other_diffs"], f"stream_slice {name}: card and CPU "
+              f"differ away from a near tie: {rec['other_diffs']}")
+        check(rec["tokens"] > 0, f"stream_slice {name}: no token emitted")
+        emit("stream_slice", mode=name, model="u2pp_conformer",
+             dtype="float32", utterances=len(lens), chunks=chunks, **rec)
+    ys, mask, _ = dec.encode_ctc_streaming(feats, lens, 16, 4)
+    ys_cpu, mask_cpu, _ = cpu_dec.encode_ctc_streaming(feats, lens, 16, 4)
+    enc_err = float((ys.cpu() - ys_cpu)[mask_cpu].abs().max())
+    check(torch.equal(mask.cpu(), mask_cpu) and enc_err <= 1e-3,
+          f"stream_slice streamed encoder card vs CPU max abs {enc_err}")
+    cfg_s = copy.deepcopy(cfg)
+    cfg_s["encoder_conf"]["static_chunk_size"] = 16
+    dec_s = Decoder(init_model(cfg_s, seed=0))
+    ys, mask, lp = dec_s.encode_ctc_streaming(feats, lens, 16, 4)
+    full, full_mask, full_lp = dec_s.encode_ctc(feats, lens, 16, 4)
+    t_s = ys.shape[1]
+    rel = rel_fro(ys[mask], full[:, :t_s][mask])
+    rel_lp = rel_fro(lp[mask], full_lp[:, :t_s][mask])
+    same_mask = torch.equal(mask, full_mask[:, :t_s])
+    check(rel <= 1e-4 and same_mask, f"stream_slice U2 contract: streamed "
+          f"vs chunk-masked relative Frobenius {rel}, masks equal "
+          f"{same_mask}")
+    emit("stream_slice", mode="u2_contract", static_chunk_size=16,
+         left_chunks=4, frames_out=t_s, frames_full=int(full.shape[1]),
+         valid_frames=int(mask.sum()), rel_fro_encoder=rel,
+         rel_fro_ctc_log_probs=rel_lp, masks_equal=same_mask,
+         encoder_max_abs_card_vs_cpu=enc_err,
+         tolerance="relative Frobenius <= 1e-4 on the valid frames; "
+                   "card vs CPU max abs <= 1e-3")
+    return greedy["launches"]["k1"]
+
+
+def phase_bench_stream(init_model, Decoder, u2pp_conformer, b: int = 64,
+                       t: int = 512):
+    """B4: bench.py's streaming key: the U2++ conformer at vocab 1024,
+    bf16, B=64 × 512 random fbank frames, CTC greedy chunk by chunk
+    (STREAM_KW). K1 launches in one batch (every count set to 0 just
+    before it and read just after) must be 24 a chunk, 7 chunks; then the
+    median host ms of 5 synchronised batches with min and max, audio-s/s
+    as B1 counts it (B·T·10 ms), peak memory. Returns what
+    phase_modes_profile needs."""
+    cfg = u2pp_conformer(vocab_size=1024)
+    cfg["dtype"] = "bfloat16"
+    dec = Decoder(init_model(cfg, seed=0))
+    rng = np.random.default_rng(0)
+    feats = torch.as_tensor(rng.standard_normal((b, t, 80)),
+                            dtype=torch.float32, device="cuda")
+    lens = torch.full((b,), t, dtype=torch.long, device="cuda")
+
+    def fn(d, f, n):
+        return d.ctc_greedy_search(f, n, **STREAM_KW)
+    chunks = stream_chunks(t)
+    reset_counts()
+    t0 = time.perf_counter()
+    hyps = fn(dec, feats, lens)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    want = {**NO_LAUNCHES, "k1": K1_PER_ENCODER_PASS * chunks}
+    check(launches == want, f"bench_stream: launches {launches}, want "
+                            f"{want}")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(dec, feats, lens)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    fields = median_fields("stream_ctc_greedy", times, b * t * 0.01)
+    emit("bench_stream", model="u2pp_conformer", vocab=1024, batch=b,
+         frames=t, dtype="bfloat16", chunk=16, left_chunks=4,
+         chunks=chunks, frames_out=chunks * 16, frames_subsampled=
+         subsampled(t), iters=5, first_ms=first_ms, **fields,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+         launches_per_batch={k: n for k, n in launches.items() if n},
+         tokens_per_utt=sum(map(len, hyps)) / b,
+         timing="median host ms per batch, synchronised; audio-s/s "
+                "counts all B·T frames, as B1 does")
+    return ("stream_ctc_greedy", dec, feats, lens, fn,
+            fields["stream_ctc_greedy_ms_per_batch"])
 
 
 def no_dropout(cfg):
@@ -2667,13 +2894,16 @@ def float64_check(what, cpu, batch, train, names, card_g, cpu_g,
 
 def card_vs_cpu(what, init_model, cfg, train, model, batch, card,
                 loss_rtol: float = 1e-4, spread: bool = False,
-                start_state=None) -> dict:
+                start_state=None, gen_seed=None) -> dict:
     """The CPU's run of one gradient step of ``model`` (same weights, same
     batch) against the card's ``card`` = (grads, metrics): every loss term
     to ``loss_rtol`` relative, the gradient norm to 1e-4 relative, each
     parameter's gradient to 1e-3 relative Frobenius. The CPU's model
     starts from ``start_state`` (the card model's state before its step;
-    default its state now). A batch_norm model's running statistics after
+    default its state now) and its step generator from ``gen_seed`` (a
+    U2++ model draws its dynamic chunk from it: the card's step must have
+    used the same seed; the default is torch.Generator()'s own). A
+    batch_norm model's running statistics after
     both steps: each mean and variance to 1e-4 of its tensor's largest
     element.
 
@@ -2691,9 +2921,11 @@ def card_vs_cpu(what, init_model, cfg, train, model, batch, card,
         k: v.cpu() for k, v in model.state_dict().items()})
 
     def cpu_step():
+        gen = torch.Generator()
+        if gen_seed is not None:
+            gen.manual_seed(gen_seed)
         return train.make_grad_fn(cpu)(
-            train.TrainState(0, cpu, None), on(batch, "cpu"),
-            torch.Generator())
+            train.TrainState(0, cpu, None), on(batch, "cpu"), gen)
     cpu_g, cpu_m = cpu_step()
     fields = {}
     stats = [(n, b, cpu.get_buffer(n)) for n, b in model.named_buffers()
@@ -2787,26 +3019,38 @@ def postnorm_aed(conformer_ctc_aed):
 
 def phase_train_check(init_model, cfg, train, wavs, what="train_check",
                       model_name="conformer_ctc_aed",
-                      want=None, spread=False) -> None:
+                      want=None, spread=False, gen_seed=None) -> None:
     """One fp32 step of the full-width model of ``cfg``, dropout 0, on the
     card and on the CPU with the same weights and batch; every kernel's
-    launches as ``want``; ``spread`` as card_vs_cpu's."""
+    launches as ``want``; ``spread`` as card_vs_cpu's. ``gen_seed``: both
+    steps' generator seed (a dynamic-chunk model's chunk is its first
+    draw, reported as ``chunk_drawn``); default torch.Generator()'s."""
+    from wenet_celoss_tpu_torch.utils.mask import draw_dynamic_chunk
     cfg = no_dropout(cfg)
     batch = head(wavs, 16)
     model = init_model(cfg, seed=0)
+    seed = torch.Generator().initial_seed() if gen_seed is None \
+        else gen_seed
+    extra = {}
+    if model.encoder.use_dynamic_chunk:
+        t_sub = subsampled(int(batch["feat_lengths"].max()))
+        extra = {"gen_seed": seed, "encoder_frames": t_sub,
+                 "chunk_drawn": draw_dynamic_chunk(
+                     t_sub, model.encoder.use_dynamic_left_chunk,
+                     torch.Generator().manual_seed(seed))}
     reset_counts()
     card_g, card_m = train.make_grad_fn(model)(
         train.TrainState(0, model, None), on(batch, "cuda"),
-        torch.Generator())
+        torch.Generator().manual_seed(seed))
     torch.cuda.synchronize()
     launches = read_counts()
     check(launches == want, f"{what}: launches {launches}, want {want}")
     fields = card_vs_cpu(what, init_model, cfg, train, model, batch,
-                         (card_g, card_m), spread=spread)
+                         (card_g, card_m), spread=spread, gen_seed=seed)
     emit(what, model=model_name, dtype="float32",
          dropout=0.0, utterances=len(batch["feat_lengths"]),
          frames_max=int(batch["feat_lengths"].max()),
-         labels_max=int(batch["label_lengths"].max()), **fields,
+         labels_max=int(batch["label_lengths"].max()), **extra, **fields,
          launches=launches,
          tolerance="losses and gnorm 1e-4 relative; each gradient 1e-3 "
                    "relative Frobenius (fp32 sums in another order over "
@@ -2863,10 +3107,11 @@ def train_curve(what, init_model, train, cfg, batch, steps: int = 24,
 
 def phase_train(init_model, cfg, train, what="train",
                 model_name="conformer_ctc_aed", want=None, b: int = 256,
-                t: int = 512, u: int = 32):
-    """bf16, dropout 0.1, at bench.py's training shape. This is the
-    training path's run: every kernel count is set to 0 just before it and
-    read just after. Returns (what phase_train_profile needs, launches)."""
+                t: int = 512, u: int = 32, env=None):
+    """bf16, dropout 0.1, at bench.py's training shape, under the switches
+    ``env``. This is the training path's run: every kernel count is set
+    to 0 just before it and read just after. Returns (what
+    phase_train_profile needs, launches)."""
     warm, iters = 2, 5
     cfg["dtype"] = "bfloat16"
     v = cfg["output_dim"]
@@ -2880,10 +3125,12 @@ def phase_train(init_model, cfg, train, what="train",
                 "labels": rng.integers(1, v - 2, (b, u)),
                 "label_lengths": np.full((b,), u, np.int64)}, "cuda")
     gen = torch.Generator().manual_seed(0)
-    reset_counts()
-    state, losses, times, _, gnorm = timed_steps(step, state, batch, gen,
-                                                 warm, iters)
-    launches = read_counts()
+    env = env or {}
+    with routes(**env):
+        reset_counts()
+        state, losses, times, _, gnorm = timed_steps(step, state, batch,
+                                                     gen, warm, iters)
+        launches = read_counts()
     steps = warm + iters
     want = {k: n * steps for k, n in want.items()}
     check(launches == want, f"{what}: launches {launches} over {steps} "
@@ -2892,7 +3139,8 @@ def phase_train(init_model, cfg, train, what="train",
     med = sorted(times)[iters // 2]
     audio_s = b * t * 0.01
     emit(what, model=model_name, dtype="bfloat16", dropout=0.1,
-         batch=b, frames=t, labels=u, vocab=v, steps_timed=iters,
+         switches=env, batch=b, frames=t, labels=u, vocab=v,
+         steps_timed=iters,
          warmup_steps_run=warm, ms_per_step=med,
          ms_min_max=[min(times), max(times)], audio_s_per_s=audio_s / (
              med / 1e3), peak_mem_gib=torch.cuda.max_memory_allocated()
@@ -2930,16 +3178,22 @@ def profile_step(state, step, batch, gen):
 
 
 def phase_train_profile(state, step, batch, gen, timed_ms, mode="train",
-                        kernel="k1") -> None:
-    """One training step under torch.profiler, run after every timing.
-    ``kernel`` names what runs in ln_ffn_residual.cu's kernels on this
-    path: K1, or K6 on the post-norm model (which launches no K1)."""
-    wall_ms, busy_ms, by_name = profile_step(state, step, batch, gen)
+                        kernel="k1", env=None) -> None:
+    """One training step under torch.profiler (and the switches ``env``),
+    run after every timing. ``kernel`` names what runs in
+    ln_ffn_residual.cu's kernels on this path: K1, or K6 on the post-norm
+    model (which launches no K1)."""
+    with routes(**(env or {})):
+        wall_ms, busy_ms, by_name = profile_step(state, step, batch, gen)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     emit("profile", mode=mode, timed_ms=timed_ms,
          profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / timed_ms,
          idle_share_profiled=1.0 - busy_ms / wall_ms,
+         switches=env or {},
+         k8_ms=sum(v for k, v in by_name.items()
+                   if any(key in k for key in K8_FWD_KERNELS
+                          + K8_BWD_KERNELS)),
          **{f"{kernel}_fwd_ms": sum(v for k, v in by_name.items()
                                     if any(key in k
                                            for key in FFN_FWD_KERNELS)),
@@ -2974,6 +3228,11 @@ LNMM_PER_STEP = {**RNNT_PER_STEP, "k7": 30, "k7_bwd": 30}
 # The post-norm transformer CTC/AED: 12 encoder + 6 decoder FFNs through
 # K6 each way, no K1.
 POSTNORM_PER_STEP = {**NO_LAUNCHES, "k6": 18, "k6_bwd": 18}
+# The U2++ conformer: 24 encoder + 6 left + 3 right decoder FFN blocks
+# through K1 each way; under CONV_PALLAS=1 its 12 causal conv blocks
+# through K8 each way.
+U2PP_PER_STEP = {**NO_LAUNCHES, "k1": 33, "k1_bwd": 33}
+U2PP_CONV_PER_STEP = {**U2PP_PER_STEP, "k8": 12, "k8_bwd": 12}
 
 
 def reset_counts() -> None:
@@ -3282,6 +3541,19 @@ def phase_int64_sites(state, step, batch, gen, dropout, mode="rnnt_train",
               "intervals, so attributed_ms may read below the card's sum")
 
 
+def limited_chunk_seed(wavs) -> int:
+    """The first generator seed whose dynamic-chunk draw over T0's batch
+    (the first 16 WAVs) is a chunk, not the full context: T11-check then
+    holds the chunk mask, not the full one, card against CPU."""
+    from wenet_celoss_tpu_torch.utils.mask import draw_dynamic_chunk
+    t_sub = subsampled(int(head(wavs, 16)["feat_lengths"].max()))
+    seed = 0
+    while draw_dynamic_chunk(t_sub, False, torch.Generator().manual_seed(
+            seed))[0] >= t_sub:
+        seed += 1
+    return seed
+
+
 def kernel_line(name, source, replaces, by_path, record) -> dict:
     """One kernel's entry; ``factor`` is its time (card time where it has
     one) over its yardstick's, null without a yardstick."""
@@ -3298,7 +3570,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from wenet_celoss_tpu_torch.configs import (conformer_ctc_aed,
-                                                conformer_rnnt_bias)
+                                                conformer_rnnt_bias,
+                                                u2pp_conformer)
     from wenet_celoss_tpu_torch.decode.api import Decoder
     from wenet_celoss_tpu_torch.models.factory import init_model
     from wenet_celoss_tpu_torch.ops import (_build, bounds, conv, dropout,
@@ -3352,8 +3625,11 @@ def main() -> int:
     lnmm_bench = phase_bench_lnmm(init_model, Decoder, conformer_rnnt_bias,
                                   BENCH_BLANK_BIASES[0])
     phase_decode_modes(slice_run)
+    stream_decode = phase_stream_slice(init_model, Decoder, u2pp_conformer,
+                                       slice_run)
     b3_paths, b3_profile = phase_bench_modes(
         init_model, Decoder, conformer_rnnt_bias, BENCH_BLANK_BIASES[0])
+    b4_profile = phase_bench_stream(init_model, Decoder, u2pp_conformer)
     wavs, dropped = load_train_wavs()
     emit("train_wavs_loaded", utterances=len(wavs["feat_lengths"]),
          left_out_unalignable=dropped)
@@ -3363,6 +3639,10 @@ def main() -> int:
                       wavs, what="postnorm_train_check",
                       model_name="postnorm_transformer_aed",
                       want=POSTNORM_PER_STEP, spread=True)
+    phase_train_check(init_model, u2pp_conformer(), train, wavs,
+                      what="u2pp_train_check", model_name="u2pp_conformer",
+                      want=U2PP_PER_STEP,
+                      gen_seed=limited_chunk_seed(wavs))
     train_profile, t1 = phase_train(init_model, conformer_ctc_aed(), train,
                                     want=CTC_PER_STEP)
     phase_train_wavs(init_model, conformer_ctc_aed, train, wavs)
@@ -3397,6 +3677,12 @@ def main() -> int:
         init_model, postnorm_aed(conformer_ctc_aed), train,
         what="postnorm_train", model_name="postnorm_transformer_aed",
         want=POSTNORM_PER_STEP)
+    u2pp_profile, t11 = phase_train(
+        init_model, u2pp_conformer(), train, what="u2pp_train",
+        model_name="u2pp_conformer", want=U2PP_PER_STEP)
+    u2pp_conv_profile, t11_conv = phase_train(
+        init_model, u2pp_conformer(), train, what="u2pp_conv_train",
+        model_name="u2pp_conformer", want=U2PP_CONV_PER_STEP, env=CONV)
     phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train, wavs)
     phase_rnnt_train_wavs(init_model, bn_flagship, train, wavs,
                           what="bn_train_wavs")
@@ -3404,11 +3690,15 @@ def main() -> int:
         phase_profile(*args)
     for args in b3_profile:
         phase_modes_profile(*args)
+    phase_modes_profile(*b4_profile, prefix="b4_")
     for args in lnmm_bench:
         phase_profile(*args, env=LNMM)
     phase_train_profile(*train_profile)
     phase_train_profile(*postnorm_profile, mode="postnorm_train",
                         kernel="k6")
+    phase_train_profile(*u2pp_profile, mode="u2pp_train")
+    phase_train_profile(*u2pp_conv_profile, mode="u2pp_conv_train",
+                        env=CONV)
     phase_rnnt_profile(*rnnt_profile)
     phase_int64_sites(*rnnt_profile[:4], dropout)
     phase_rnnt_profile(*conv_profile, mode="conv_train", env=CONV)
@@ -3416,6 +3706,7 @@ def main() -> int:
     phase_rnnt_profile(*bn_profile, mode="bn_train")
     phase_rnnt_profile(*pallas_profile, mode="rnnt_pallas_train")
     phase_k8_device(conv, bounds, k8, k8_bwd)
+    phase_k8_causal_device(conv, bounds, k8, k8_bwd)
     phase_k6_k7_device(ffn, ln_matmul, (k6, k6_bwd), (k7, k7_bwd))
     paths = {"train": (t1, CTC_PER_STEP),
              "train_rnnt": (rnnt, RNNT_PER_STEP),
@@ -3424,15 +3715,18 @@ def main() -> int:
              "train_rnnt_pallas": (pallas, PALLAS_PER_STEP),
              "postnorm_train": (t9, POSTNORM_PER_STEP),
              "bn_train": (bn_run, RNNT_PER_STEP),
+             "u2pp_train": (t11, U2PP_PER_STEP),
+             "u2pp_conv_train": (t11_conv, U2PP_CONV_PER_STEP),
              **{"decode_" + n: v for n, v in b3_paths.items()}}
     idle = {path: sorted(k for k, n in want.items()
                          if n > 0 and launches[k] == 0)
             for path, (launches, want) in paths.items()}
     check(decode_launches > 0 and conv_decode > 0 and lnmm_decode > 0
-          and not any(idle.values()),
+          and stream_decode > 0 and not any(idle.values()),
           f"a kernel of a main path was not launched: decode "
           f"{decode_launches}, conv_decode {conv_decode}, lnmm_decode "
-          f"{lnmm_decode}, training paths {idle}")
+          f"{lnmm_decode}, stream_decode {stream_decode}, training paths "
+          f"{idle}")
 
     if failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(failures),
@@ -3448,7 +3742,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel_line("ln_ffn_residual", csrc + "ln_ffn_residual.cu",
                     tpu + "ffn_pallas.py:384",
-                    by_path("k1", decode=decode_launches), k1),
+                    by_path("k1", decode=decode_launches,
+                            stream_decode=stream_decode), k1),
         kernel_line("ln_ffn_residual_bwd", csrc + "ln_ffn_residual.cu",
                     tpu + "ffn_pallas.py:422", by_path("k1_bwd"), k1_bwd),
         kernel_line("streaming_joint_planes_fwd", csrc + "rnnt_joint.cu",

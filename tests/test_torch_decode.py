@@ -182,14 +182,18 @@ def test_transducer_rescorings_match_jax(mode):
 
 
 def test_streaming_requests_raise():
-    """Chunked and simulated-streaming encodes name the streaming slice."""
-    _, td = _decoders("ctc_aed")
+    """Simulated streaming of a non-causal conformer with a CNN module
+    raises, as in the JAX package; a chunked encode of a model without
+    ``static_chunk_size`` keeps the full context, as the JAX package's
+    does (U2++ streaming itself: ``tests/test_torch_streaming.py``)."""
+    jd, td = _decoders("ctc_aed")
     feats, lens, _, _ = _inputs()
-    with pytest.raises(NotImplementedError, match="streaming slice"):
+    with pytest.raises(NotImplementedError, match="causal"):
         td.ctc_greedy_search(feats, lens, simulate_streaming=True,
                              decoding_chunk_size=4)
-    with pytest.raises(NotImplementedError, match="streaming slice"):
-        td.ctc_greedy_search(feats, lens, decoding_chunk_size=4)
+    got = td.ctc_greedy_search(feats, lens, decoding_chunk_size=4)
+    assert got == td.ctc_greedy_search(feats, lens)
+    assert got == jd.ctc_greedy_search(feats, lens, decoding_chunk_size=4)
 
 
 def test_helpers():

@@ -194,3 +194,43 @@ def test_streaming_chunk_is_the_jax_models_field():
     tm = init_model(cfgs[1], device="cpu")
     assert jm.streaming_chunk == 16
     assert tm.streaming_chunk == jm.streaming_chunk
+
+
+@pytest.mark.parametrize("tiny", [True, False])
+def test_u2pp_conformer_builds(tiny):
+    """``u2pp_conformer()`` builds on the CPU, tiny and at full width
+    (d=256, 12 causal conformer blocks, dynamic chunk, 6 + 3 decoder
+    blocks): every conv module causal with K - 1 = 14 cached frames."""
+    cfg = configs.u2pp_conformer(tiny=tiny)
+    tm = init_model(cfg, device="cpu")
+    enc = tm.encoder
+    assert enc.use_dynamic_chunk and not enc.use_dynamic_left_chunk
+    assert enc.static_chunk_size == 0 and enc._conv_lorder() == 14
+    assert len(enc.layers) == (2 if tiny else 12)
+    assert all(layer.conv_module.causal for layer in enc.layers)
+    assert len(tm.decoder.right_decoder.decoders) == (1 if tiny else 3)
+    assert tm.reverse_weight == 0.3
+    cache = enc.init_cache(2, 64)
+    d = 64 if tiny else 256
+    assert cache["att"].shape == (len(enc.layers), 2, 2 if tiny else 4, 64,
+                                  2 * d // (2 if tiny else 4))
+    assert cache["cnn"].shape == (len(enc.layers), 2, 14, d)
+
+
+def test_bridge_maps_the_u2pp_tree_whole():
+    """Every leaf of the tiny JAX U2++ tree maps onto the port's model,
+    which takes it strictly, and no parameter of the port is left
+    unset."""
+    cfg = jax_configs.u2pp_conformer(tiny=True, vocab_size=VOCAB)
+    jm = jax_init_model(cfg)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            *init_example(cfg, frames=16, labels=2))
+    variables = _fill(shapes, seed=5)
+    sd = params_from_jax(variables)
+    assert len(jax.tree_util.tree_leaves(variables)) == len(sd)
+    tm = init_model(configs.u2pp_conformer(tiny=True, vocab_size=VOCAB),
+                    device="cpu")
+    assert set(sd) == set(tm.state_dict())
+    tm.load_state_dict(sd, strict=True)
+    for name, t in tm.state_dict().items():
+        assert torch.equal(t, sd[name]), name

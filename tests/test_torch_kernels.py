@@ -74,6 +74,31 @@ def test_kernel_matches_plain_version_on_card(dtype, kernel, d, f, n,
         assert float(err.norm() / want.float().norm()) <= 1e-2
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [16, 1024])
+def test_k1_forward_at_streaming_chunk_rows(dtype, n):
+    """K1's forward at the rows of one streaming chunk (16 output frames:
+    N = 16 for one utterance, 1024 for 64), swish, ff_scale 0.5, rate 0
+    as every FFN block of ``forward_with_cache`` runs it: one launch a
+    call, the same bits on a second call, and the plain version's values
+    (the tolerances of test_kernel_matches_plain_version_on_card)."""
+    dt = getattr(torch, dtype)
+    args, _ = _k1_args(n, dt, seed=n)
+    cfg = ("swish", 0.5, 1e-5, 0.0, 0.0, 0)
+    before = ffn.ln_ffn_residual.launches
+    got = ffn.ln_ffn_residual(*args, *cfg)
+    again = ffn.ln_ffn_residual(*args, *cfg)
+    want = ffn.ln_ffn_residual_ref(*args, *cfg)
+    torch.cuda.synchronize()
+    assert ffn.ln_ffn_residual.launches == before + 2
+    assert torch.equal(got, again)
+    err = got.float() - want.float()
+    if dt == torch.float32:
+        assert bool((err.abs() <= 1e-4 + 1e-4 * want.abs()).all())
+    else:
+        assert float(err.norm() / want.float().norm()) <= 1e-2
+
+
 def _k1_args(n, dt, seed=7, d=256, f=2048):
     rng = np.random.default_rng(seed)
 
@@ -550,7 +575,7 @@ def _conv_args(b, t, d, k, dt, seed):
 @pytest.mark.parametrize("dtype,b,t,d", [
     ("float32", 3, 45, 128), ("bfloat16", 3, 45, 256),
     ("bfloat16", 2, 300, 256), ("bfloat16", 2, 256, 256),
-    ("bfloat16", 3, 150, 256)])
+    ("bfloat16", 3, 150, 256), ("bfloat16", 256, 127, 256)])
 @pytest.mark.parametrize("causal,rate", [(False, 0.0), (False, 0.1),
                                          (True, 0.1)])
 def test_conv_block_kernels_match_plain_version_on_card(dtype, b, t, d,
@@ -560,8 +585,9 @@ def test_conv_block_kernels_match_plain_version_on_card(dtype, b, t, d,
     (fp32) or 2e-2 (bf16), on padded batches: fp32 at T = 45 (not a
     multiple of its 32-frame tile, K = 7 non-causal), bf16 (D = 256, K =
     15) at T = 45, 150, 256 and 300 (one, two and three 128-frame steps;
-    256 ends on a step without PW1 rows); the same bits on a second
-    backward."""
+    256 ends on a step without PW1 rows), and at the U2++ training
+    encoder's B = 256, T = 127 (causal there under ``CONV_PALLAS=1``);
+    the same bits on a second backward."""
     dt = getattr(torch, dtype)
     k = 15 if causal or dt == torch.bfloat16 else 7
     args, mask, dy = _conv_args(b, t, d, k, dt, 6)

@@ -4,9 +4,13 @@ attention beam, attention rescoring, RNN-T greedy (no context, or context
 under ``context_filter_state`` "on" or "off"), RNN-T beam (with or
 without a context list), and the two transducer/attention rescorings.
 
-Full context only: a chunked or simulated-streaming encode raises, as do
-the ``"exact"`` gating mode's host-driven backtracking; both come with
-later slices.
+Every CTC and attention mode takes the encode's keywords: the full
+context by default, a chunk mask with ``decoding_chunk_size`` (which, as
+in the JAX package, masks only a model with ``static_chunk_size``: a
+dynamic-chunk model decodes with the full context), and with
+``simulate_streaming=True`` the true chunk-by-chunk forward over bounded
+caches (``encode_ctc_streaming``). The ``"exact"`` gating mode's
+host-driven backtracking raises; it comes with a later slice.
 """
 
 from __future__ import annotations
@@ -18,8 +22,10 @@ import torch
 from wenet_celoss_tpu_torch.decode import (attention_beam, ctc_greedy,
                                            ctc_prefix_beam, rescoring,
                                            rnnt_beam, rnnt_greedy)
+from wenet_celoss_tpu_torch.decode.streaming import forward_chunk_by_chunk
 from wenet_celoss_tpu_torch.models.asr_model import ASRModel
 from wenet_celoss_tpu_torch.models.factory import resolve_device
+from wenet_celoss_tpu_torch.models.subsampling import subsampled_length
 from wenet_celoss_tpu_torch.models.transducer import Transducer
 
 
@@ -63,11 +69,38 @@ class Decoder:
         return self.model.encode_ctc(feats, feat_lens, decoding_chunk_size,
                                      num_decoding_left_chunks)
 
-    def encode_ctc_streaming(self, feats, feat_lens, decoding_chunk_size,
-                             num_decoding_left_chunks=-1):
-        raise NotImplementedError(
-            "simulated streaming (encode_ctc_streaming) comes with the "
-            "streaming slice (ROADMAP.md)")
+    @torch.no_grad()
+    def encode_ctc_streaming(self, feats, feat_lens,
+                             decoding_chunk_size: int,
+                             num_decoding_left_chunks: int = -1):
+        """Simulated streaming: the chunk-by-chunk forward with bounded
+        attention and conv caches → (encoder_out [B, T', D], mask [B, T'],
+        CTC log-probs [B, T', V]) over the frames of whole chunks (T' =
+        chunks × ``decoding_chunk_size``; frames after the last whole
+        window are dropped). The cache holds ``num_decoding_left_chunks``
+        chunks, 16 when that is 0 or negative (a bound the JAX package
+        sets where the reference grows its cache without one)."""
+        feats, feat_lens = self._inputs(feats, feat_lens)
+        model = self.model
+        enc = model.encoder
+        left = num_decoding_left_chunks if num_decoding_left_chunks > 0 \
+            else 16
+        cache = model.encoder_init_cache(feats.shape[0],
+                                         decoding_chunk_size * left)
+
+        def step(xs, c, valid):
+            ys, ctc_lp, c = model.encoder_forward_chunk_ctc(xs, c, valid)
+            return (ys, ctc_lp), c
+
+        total_out = subsampled_length(enc.input_layer, feat_lens)
+        (ys, ctc_lp), _ = forward_chunk_by_chunk(
+            step, cache, feats, enc.subsampling_rate, enc.right_context,
+            decoding_chunk_size, out_lens=total_out)
+        t_out = ys.shape[1]
+        out_lens = torch.clamp(total_out, max=t_out)
+        mask = (torch.arange(t_out, device=ys.device)[None, :]
+                < out_lens[:, None])
+        return ys, mask, ctc_lp
 
     def _encode(self, feats, feat_lens, simulate_streaming: bool = False,
                 decoding_chunk_size: int = -1,

@@ -1,8 +1,11 @@
 """Hybrid CTC + attention ASR model (port of
 ``wenet_celoss_tpu/models/asr_model.py``): the training forward
-(``__call__`` and ``_calc_att_loss``) and the full-context decode-support
-methods (``encode``, ``ctc_logprobs``, ``encode_ctc``, ``decoder_scores``,
-``decoder_one_step``); chunked encoding comes with the streaming slice.
+(``__call__`` and ``_calc_att_loss``; a dynamic-chunk encoder draws its
+chunk from the step's generator while the model trains) and the
+decode-support methods: ``encode`` and ``encode_ctc`` (full context, or a
+chunk mask), ``ctc_logprobs``, ``decoder_scores``, ``decoder_one_step``,
+and the streaming ones, ``encoder_init_cache``, ``encoder_forward_chunk``
+and ``encoder_forward_chunk_ctc``.
 
 loss = ctc_weight * ctc + (1 - ctc_weight) * att, where att mixes the
 left-to-right and (U2++) right-to-left decoders' label-smoothed losses by
@@ -53,7 +56,9 @@ class ASRModel(nn.Module):
                 gen: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """Training forward → {'loss', 'loss_att', 'loss_ctc', 'acc'}; with
-        ``gen`` every dropout runs (training), without it none does."""
+        ``gen`` every dropout runs (training), without it none does. A
+        ``use_dynamic_chunk`` encoder in training mode draws its chunk from
+        ``gen`` and raises without one."""
         encoder_out, enc_pad_mask = self.encoder(speech, speech_lengths, gen)
         encoder_lens = enc_pad_mask.sum(dim=1)
         zero = torch.zeros((), device=encoder_out.device)
@@ -95,15 +100,12 @@ class ASRModel(nn.Module):
     # ------------------------------------------------ decode support ---
     def encode(self, speech, speech_lengths, decoding_chunk_size: int = -1,
                num_decoding_left_chunks: int = -1):
-        """Full-context encoding, no dropout → (encoder_out [B, T', D],
-        pad_mask [B, T']). Both chunk arguments must be -1."""
-        if decoding_chunk_size != -1 or num_decoding_left_chunks != -1:
-            raise NotImplementedError(
-                f"decoding_chunk_size={decoding_chunk_size}, "
-                f"num_decoding_left_chunks={num_decoding_left_chunks}: "
-                "chunked encoding comes with the streaming slice "
-                "(ROADMAP.md)")
-        return self.encoder(speech, speech_lengths)
+        """Encoding without dropout → (encoder_out [B, T', D], pad_mask
+        [B, T']): the full context, or the chunk mask the arguments and
+        the encoder's ``static_chunk_size`` give (see
+        ``TransformerEncoder.forward``)."""
+        return self.encoder(speech, speech_lengths, None,
+                            decoding_chunk_size, num_decoding_left_chunks)
 
     def ctc_logprobs(self, encoder_out: torch.Tensor) -> torch.Tensor:
         return self.ctc.log_softmax(encoder_out)
@@ -134,3 +136,15 @@ class ASRModel(nn.Module):
                          pos: int) -> torch.Tensor:
         return self.decoder.forward_one_step(memory, memory_pad_mask,
                                              ys_buffer, pos)
+
+    # ------------------------------------------------ streaming -------
+    def encoder_init_cache(self, batch_size: int, required_cache_size: int):
+        return self.encoder.init_cache(batch_size, required_cache_size)
+
+    def encoder_forward_chunk(self, xs, cache, chunk_valid=None):
+        return self.encoder.forward_chunk(xs, cache, chunk_valid)
+
+    def encoder_forward_chunk_ctc(self, xs, cache, chunk_valid=None):
+        """One chunk → (encoder_out, its CTC log-probs, new cache)."""
+        ys, new_cache = self.encoder.forward_chunk(xs, cache, chunk_valid)
+        return ys, self.ctc.log_softmax(ys), new_cache

@@ -1,6 +1,6 @@
-"""Multi-head attention, full context (port of
-``wenet_celoss_tpu/models/attention.py``; the streaming KV cache comes
-with the streaming slice). Dropout on the attention probabilities runs
+"""Multi-head attention (port of ``wenet_celoss_tpu/models/attention.py``):
+full context, and the streaming step ``forward_with_cache`` over a
+fixed-size key/value ring. Dropout on the attention probabilities runs
 when the caller passes a generator (training). A pre-norm caller passes
 its LayerNorm as ``ln``: with ``LNMM_PALLAS`` at "1" or "attn" a
 self-attention's LayerNorm and merged QKV projection are one K7 launch
@@ -111,12 +111,41 @@ class MultiHeadedAttention(nn.Module):
         b = x.shape[0]
         return self.linear_out(x.transpose(1, 2).reshape(b, -1, self.n_feat))
 
+    def _scores(self, q, k, pos_emb):
+        """[B, H, Tq, Tk] scores of q [B, H, Tq, dk] against k."""
+        return torch.matmul(q, k.transpose(-2, -1)) / torch.sqrt(
+            torch.tensor(float(self.d_k), dtype=q.dtype))
+
     def forward(self, query, key, value, mask=None, pos_emb=None, gen=None,
                 ln=None):
         q, k, v = self.qkv(query, key, value, ln)
-        scores = torch.matmul(q, k.transpose(-2, -1)) / torch.sqrt(
-            torch.tensor(float(self.d_k), dtype=q.dtype))
-        return self._softmax_out(scores, mask, v, q.dtype, gen)
+        return self._softmax_out(self._scores(q, k, pos_emb), mask, v,
+                                 q.dtype, gen)
+
+    def forward_with_cache(self, query, key, value, cache_kv, cache_len,
+                           mask=None, pos_emb=None):
+        """One streaming step, no dropout, no fused pre-norm.
+
+        cache_kv [B, H, C, 2·dk]: the ring of past (k | v), oldest first;
+        slot i is valid iff i >= C - cache_len (an int).
+        mask: a boolean [B, 1|Tq, C + T] over (cache ++ new) keys, or
+        None; masked probabilities are zeroed after the softmax. pos_emb
+        (rel-pos only) spans the C + T keys. → (out [B, Tq, n_feat], the
+        ring slid to its last C entries, min(cache_len + T, C))."""
+        q, k, v = self.qkv(query, key, value)
+        c = cache_kv.shape[2]
+        k_cache, v_cache = torch.chunk(cache_kv.to(k.dtype), 2, dim=-1)
+        k_all = torch.cat([k_cache, k], dim=2)
+        v_all = torch.cat([v_cache, v], dim=2)
+        idx = torch.arange(c + k.shape[2], device=q.device)
+        keep = (idx >= c - cache_len)[None, None, :]
+        if mask is not None:
+            keep = keep & mask
+        out = self._softmax_out(self._scores(q, k_all, pos_emb), keep,
+                                v_all, q.dtype)
+        ring = torch.cat([k_all, v_all], dim=-1)
+        return out, ring[:, :, ring.shape[2] - c:], min(cache_len
+                                                        + k.shape[2], c)
 
 
 class RelPositionMultiHeadedAttention(MultiHeadedAttention):
@@ -129,10 +158,8 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         self.pos_bias_u = nn.Parameter(torch.zeros(n_head, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.zeros(n_head, self.d_k))
 
-    def forward(self, query, key, value, mask=None, pos_emb=None, gen=None,
-                ln=None):
+    def _scores(self, q, k, pos_emb):
         """pos_emb [1|B, Tk, n_feat] (a batch-1 table broadcasts)."""
-        q, k, v = self.qkv(query, key, value, ln)
         p = self.linear_pos(pos_emb)
         pb, pt = p.shape[0], p.shape[1]
         p = p.reshape(pb, pt, self.n_head, self.d_k).transpose(1, 2)
@@ -140,6 +167,5 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         q_v = q + self.pos_bias_v[None, :, None, :].to(q.dtype)
         matrix_ac = torch.matmul(q_u, k.transpose(-2, -1))
         matrix_bd = torch.matmul(q_v, p.transpose(-2, -1))
-        scores = (matrix_ac + matrix_bd) / torch.sqrt(
+        return (matrix_ac + matrix_bd) / torch.sqrt(
             torch.tensor(float(self.d_k), dtype=q.dtype))
-        return self._softmax_out(scores, mask, v, q.dtype, gen)

@@ -1,6 +1,7 @@
-"""Conformer convolution module, non-causal, full context (port of
-``wenet_celoss_tpu/models/convolution.py``; the causal cache comes with
-the streaming slice).
+"""Conformer convolution module (port of
+``wenet_celoss_tpu/models/convolution.py``): non-causal or causal, full
+context, and a causal module's streaming step over a cache of its last
+``kernel_size - 1`` input frames.
 
 pointwise conv1 → GLU → depthwise conv → norm (batch or layer) → swish →
 pointwise conv2, with the reference's masking: the RAW input is zeroed at
@@ -9,7 +10,8 @@ GLU(bias), not zero), the depthwise window pads with zeros in the
 post-GLU domain, and the OUTPUT is re-zeroed at pad frames. A caller
 passes its pre-norm as ``ln``: with ``LNMM_PALLAS`` at "1" or "conv" the
 LayerNorm, the input mask and pointwise conv1 are one K7 launch
-(``ops/ln_matmul.py``; a masked frame comes out as the bias, as above).
+(``ops/ln_matmul.py``; a masked frame comes out as the bias, as above,
+and a causal module's left pad enters as rows of the bias).
 """
 
 from __future__ import annotations
@@ -66,18 +68,26 @@ class BatchNorm(nn.Module):
 
 
 class ConvolutionModule(nn.Module):
+    """``causal``: the depthwise conv sees the ``lorder = K - 1`` frames
+    before each frame and none after it, the left pad made of zero frames
+    in the RAW domain (after the input mask, before pointwise conv1); a
+    causal module streams through :meth:`forward_with_cache`. It needs
+    ``layer_norm``: a causal ``batch_norm`` module raises, as in the JAX
+    package."""
 
     def __init__(self, channels: int, kernel_size: int = 15,
                  norm: str = "batch_norm", causal: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if causal:
-            raise NotImplementedError(
-                "the causal conv module comes with the streaming slice")
         if norm not in ("batch_norm", "layer_norm"):
             raise ValueError(f"unknown conv norm {norm!r}")
+        if causal and norm == "batch_norm":
+            raise ValueError("a causal conv module needs layer_norm, not "
+                             "batch_norm")
         self.kernel_size = kernel_size
         self.norm = norm
+        self.causal = causal
+        self.lorder = kernel_size - 1 if causal else 0
         self.compute_dtype = dtype
         self.pointwise_conv1 = Dense(channels, 2 * channels, dtype=dtype)
         # Depthwise conv over time, torch layout [C, 1, K].
@@ -103,21 +113,44 @@ class ConvolutionModule(nn.Module):
             h = lnmm.ln_matmul(x.reshape(bsz * t, c).to(cdt).contiguous(),
                                ln.weight, ln.bias, p1.weight.to(cdt),
                                p1.bias, mask, ln.eps).reshape(bsz, t, 2 * c)
+            if self.lorder:
+                # pointwise_conv1 of a zero frame is its bias, so the
+                # causal pad moves to the projection's output as bias rows.
+                pad = p1.bias.to(h.dtype).expand(bsz, self.lorder, 2 * c)
+                h = torch.cat([pad, h], dim=1)
         else:
             if ln is not None:
                 x = ln(x)
             if pad_mask is not None:
                 x = torch.where(pad_mask[..., None], x, torch.zeros_like(x))
+            if self.lorder:
+                x = F.pad(x, (0, 0, self.lorder, 0))
             h = self.pointwise_conv1(x)
+        y = self._body(h, 0 if self.causal else (self.kernel_size - 1) // 2)
+        if pad_mask is not None:
+            y = torch.where(pad_mask[..., None], y, torch.zeros_like(y))
+        return y
+
+    def _body(self, h: torch.Tensor, pad: int) -> torch.Tensor:
+        """GLU → depthwise conv (``pad`` zero frames each side, post-GLU)
+        → norm → swish → pointwise conv2."""
         h = F.glu(h, dim=-1)                                 # [B, T, C]
         cdt = self.compute_dtype or h.dtype
-        pad = (self.kernel_size - 1) // 2
         w = self.depthwise_conv
         y = F.conv1d(h.to(cdt).transpose(1, 2), w.weight.to(cdt),
                      w.bias.to(cdt), padding=pad,
                      groups=w.groups).transpose(1, 2)
         y = F.silu(self.norm_layer(y))
-        y = self.pointwise_conv2(y)
-        if pad_mask is not None:
-            y = torch.where(pad_mask[..., None], y, torch.zeros_like(y))
-        return y
+        return self.pointwise_conv2(y)
+
+    def forward_with_cache(self, x: torch.Tensor, cnn_cache: torch.Tensor):
+        """One streaming step of a causal module, no pad mask.
+
+        x [B, T, C] (already pre-normed); cnn_cache [B, lorder, C]: the
+        last ``lorder`` RAW input frames before x (zeros at the start, the
+        full forward's left pad). → (out [B, T, C], the new cache)."""
+        if not self.causal:
+            raise ValueError("only a causal conv module streams")
+        x_ext = torch.cat([cnn_cache.to(x.dtype), x], dim=1)
+        new_cache = x_ext[:, x_ext.shape[1] - self.lorder:]
+        return self._body(self.pointwise_conv1(x_ext), 0), new_cache

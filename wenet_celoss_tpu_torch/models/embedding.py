@@ -1,5 +1,7 @@
 """Positional encodings (port of ``wenet_celoss_tpu/models/embedding.py``),
-with their dropout when the caller passes a generator (training)."""
+with their dropout when the caller passes a generator (training), and the
+streaming ``offset``: a chunk's table continues from the frames before it
+(``pos_emb(offset, size)``)."""
 
 from __future__ import annotations
 
@@ -27,17 +29,22 @@ def sinusoid_table(positions: torch.Tensor, d_model: int) -> torch.Tensor:
 
 class RelPositionalEncoding(nn.Module):
     """Scales x by sqrt(d), then dropout, and returns the position table
-    separately, [1, T, d] in x's dtype. The streaming offset comes with the
-    streaming slice."""
+    separately, [1, T, d] in x's dtype, from position ``offset`` on."""
 
     def __init__(self, d_model: int, dropout_rate: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor, gen=None):
-        pos = torch.arange(x.shape[1], device=x.device)
-        pe = sinusoid_table(pos[None, :], self.d_model).to(x.dtype)
+    def pos_emb(self, offset: int, size: int, device=None) -> torch.Tensor:
+        """[1, size, d] fp32 table of positions offset .. offset+size-1
+        (negative positions too: a streaming chunk's rel-pos table starts
+        at offset - cache)."""
+        pos = torch.arange(offset, offset + size, device=device)
+        return sinusoid_table(pos[None, :], self.d_model)
+
+    def forward(self, x: torch.Tensor, gen=None, offset: int = 0):
+        pe = self.pos_emb(offset, x.shape[1], x.device).to(x.dtype)
         x = x * torch.tensor(self.d_model ** 0.5, dtype=x.dtype)
         return dropout(x, self.dropout_rate, gen), pe
 
@@ -45,8 +52,7 @@ class RelPositionalEncoding(nn.Module):
 class PositionalEncoding(RelPositionalEncoding):
     """Absolute encoding: ``dropout(x * sqrt(d) + pe)``, and the table."""
 
-    def forward(self, x: torch.Tensor, gen=None):
-        pos = torch.arange(x.shape[1], device=x.device)
-        pe = sinusoid_table(pos[None, :], self.d_model).to(x.dtype)
+    def forward(self, x: torch.Tensor, gen=None, offset: int = 0):
+        pe = self.pos_emb(offset, x.shape[1], x.device).to(x.dtype)
         x = x * torch.tensor(self.d_model ** 0.5, dtype=x.dtype) + pe
         return dropout(x, self.dropout_rate, gen), pe

@@ -1,7 +1,16 @@
-"""Transformer and conformer encoders, full context (port of
-``wenet_celoss_tpu/models/encoder.py``: cmvn → subsampling + positional
-encoding → N layers → LayerNorm with ``normalize_before``; chunked and
-streaming forwards come with the streaming slice)."""
+"""Transformer and conformer encoders (port of
+``wenet_celoss_tpu/models/encoder.py``): cmvn → subsampling + positional
+encoding → chunk mask → N layers → LayerNorm with ``normalize_before``.
+
+The self-attention mask is the full context, a static or decode-time
+chunk, or (``use_dynamic_chunk`` while the module trains) a chunk drawn
+from the step's generator (``utils/mask.py``). ``forward_chunk`` streams
+one chunk of features through fixed-size caches (``init_cache``): per
+layer a [B, H, C, 2·dk] key/value ring with its valid length and the
+causal conv module's last ``lorder`` input frames, and the position
+offset. U2's contract ties the two: the streamed output equals the
+chunk-masked full forward on the valid frames.
+"""
 
 from __future__ import annotations
 
@@ -19,7 +28,8 @@ from wenet_celoss_tpu_torch.models.encoder_layer import (
     ConformerEncoderLayer, TransformerEncoderLayer)
 from wenet_celoss_tpu_torch.models.layers import LayerNorm
 from wenet_celoss_tpu_torch.models.subsampling import Conv2dSubsampling4
-from wenet_celoss_tpu_torch.utils.mask import make_non_pad_mask
+from wenet_celoss_tpu_torch.utils.mask import (add_optional_chunk_mask,
+                                               make_non_pad_mask)
 
 
 class TransformerEncoder(nn.Module):
@@ -38,7 +48,10 @@ class TransformerEncoder(nn.Module):
                  dtype: Optional[torch.dtype] = None,
                  dropout_rate: float = 0.1,
                  positional_dropout_rate: float = 0.1,
-                 attention_dropout_rate: float = 0.0, **layer_conf):
+                 attention_dropout_rate: float = 0.0,
+                 static_chunk_size: int = 0,
+                 use_dynamic_chunk: bool = False,
+                 use_dynamic_left_chunk: bool = False, **layer_conf):
         super().__init__()
         pos_enc = pos_enc_layer_type or self.pos_enc_layer_type
         if input_layer != "conv2d" or pos_enc != self.pos_enc_layer_type:
@@ -48,6 +61,12 @@ class TransformerEncoder(nn.Module):
                 f"ported for {type(self).__name__}")
         self.input_layer = input_layer
         self.compute_dtype = dtype
+        self.output_size = output_size
+        self.attention_heads = attention_heads
+        self.num_blocks = num_blocks
+        self.static_chunk_size = static_chunk_size
+        self.use_dynamic_chunk = use_dynamic_chunk
+        self.use_dynamic_left_chunk = use_dynamic_left_chunk
         enc = (RelPositionalEncoding if pos_enc == "rel_pos"
                else PositionalEncoding)
         self.embed = Conv2dSubsampling4(
@@ -75,16 +94,39 @@ class TransformerEncoder(nn.Module):
     def _layer(*args, **kw) -> nn.Module:
         return TransformerEncoderLayer(*args, **kw)
 
+    @property
+    def subsampling_rate(self) -> int:
+        return self.embed.subsampling_rate
+
+    @property
+    def right_context(self) -> int:
+        return self.embed.right_context
+
+    def _conv_lorder(self) -> int:
+        return 0
+
     def forward(self, xs: torch.Tensor, xs_lens: torch.Tensor,
-                gen: Optional[torch.Generator] = None):
+                gen: Optional[torch.Generator] = None,
+                decoding_chunk_size: int = 0,
+                num_decoding_left_chunks: int = -1):
         """xs [B, T, F] features, xs_lens [B] → (ys [B, T', D],
         pad_mask [B, T'] True = valid). With ``gen`` (training) every
-        dropout runs, drawing its seed from it."""
+        dropout runs, drawing its seed from it. ``decoding_chunk_size``:
+        < 0 full context, > 0 a fixed chunk with
+        ``num_decoding_left_chunks``, 0 the model's own (a chunk drawn
+        from ``gen`` first when ``use_dynamic_chunk`` and the module
+        trains; else ``static_chunk_size``)."""
         if self.cmvn_mean is not None:
             xs = apply_cmvn(xs, self.cmvn_mean, self.cmvn_istd)
         xs, pos_emb, xs_lens = self.embed(xs, xs_lens, gen)
         pad_mask = make_non_pad_mask(xs_lens, xs.shape[1])
-        att_mask = pad_mask[:, None, :] & pad_mask[:, :, None]
+        att_mask = add_optional_chunk_mask(
+            pad_mask, use_dynamic_chunk=self.use_dynamic_chunk
+            and self.training,
+            use_dynamic_left_chunk=self.use_dynamic_left_chunk,
+            decoding_chunk_size=decoding_chunk_size,
+            static_chunk_size=self.static_chunk_size,
+            num_decoding_left_chunks=num_decoding_left_chunks, gen=gen)
         # The mask as an ADDITIVE bias, built once and shared by all layers.
         att_bias = torch.where(
             att_mask, 0.0, NEG_INF).to(self.compute_dtype or torch.float32)
@@ -93,6 +135,74 @@ class TransformerEncoder(nn.Module):
         if self.after_norm is not None:
             xs = self.after_norm(xs)
         return xs, pad_mask
+
+    # ---------------------------------------------------- streaming ---
+    def init_cache(self, batch_size: int, required_cache_size: int) -> dict:
+        """Zero caches for ``forward_chunk``, in the compute dtype: "att"
+        [L, B, H, C, 2·dk] with C = ``required_cache_size`` (clipped at 0)
+        and "att_len" 0 valid slots, "cnn" [L, B, lorder, D], "offset" 0
+        frames."""
+        dt = self.compute_dtype or torch.float32
+        dev = self.embed.out.weight.device
+        h = self.attention_heads
+        c = max(required_cache_size, 0)
+        return {
+            "att": torch.zeros(self.num_blocks, batch_size, h, c,
+                               2 * (self.output_size // h), dtype=dt,
+                               device=dev),
+            "att_len": 0,
+            "cnn": torch.zeros(self.num_blocks, batch_size,
+                               self._conv_lorder(), self.output_size,
+                               dtype=dt, device=dev),
+            "offset": 0,
+        }
+
+    @torch.no_grad()
+    def forward_chunk(self, xs: torch.Tensor, cache: dict,
+                      chunk_valid: Optional[torch.Tensor] = None):
+        """One streaming chunk: xs [B, window, F] raw features (with the
+        subsampling's right context) → (ys [B, chunk, D], new cache).
+
+        ``chunk_valid`` [B]: the valid output frames of this chunk per
+        utterance; keys past them are masked, so an utterance that ends
+        inside the chunk does not attend to the frames after its end."""
+        if self.cmvn_mean is not None:
+            xs = apply_cmvn(xs, self.cmvn_mean, self.cmvn_istd)
+        offset = cache["offset"]
+        b = xs.shape[0]
+        xs, _, _ = self.embed(
+            xs, torch.full((b,), xs.shape[1], device=xs.device), None,
+            offset)
+        t = xs.shape[1]
+        c = cache["att"].shape[3]
+        att_mask = None
+        if chunk_valid is not None:
+            cur_ok = (torch.arange(t, device=xs.device)[None, :]
+                      < chunk_valid[:, None])
+            att_mask = torch.cat([torch.ones(b, c, dtype=torch.bool,
+                                             device=xs.device), cur_ok],
+                                 dim=1)[:, None, :]   # [B, 1(q), C + T]
+        # The rel-pos table over (cache ++ chunk) keys.
+        pos_emb = self.embed.pos_enc.pos_emb(offset - c, c + t,
+                                             xs.device).to(xs.dtype)
+        new_att, new_cnn = [], []
+        new_len = att_len = cache["att_len"]
+        for i, layer in enumerate(self.layers):
+            xs, a, new_len, cnn = self._layer_with_cache(
+                layer, xs, cache["att"][i], att_len, cache["cnn"][i],
+                pos_emb, att_mask)
+            new_att.append(a)
+            new_cnn.append(cnn)
+        if self.after_norm is not None:
+            xs = self.after_norm(xs)
+        return xs, {"att": torch.stack(new_att), "att_len": new_len,
+                    "cnn": torch.stack(new_cnn), "offset": offset + t}
+
+    def _layer_with_cache(self, layer, xs, att_cache, att_len, cnn_cache,
+                          pos_emb, att_mask):
+        out, a, new_len = layer.forward_with_cache(xs, att_cache, att_len,
+                                                   att_mask, pos_emb)
+        return out, a, new_len, cnn_cache
 
 
 class ConformerEncoder(TransformerEncoder):
@@ -114,7 +224,23 @@ class ConformerEncoder(TransformerEncoder):
             activation=activation_type, use_cnn_module=use_cnn_module,
             cnn_module_kernel=cnn_module_kernel, causal=causal,
             cnn_module_norm=cnn_module_norm, **kw)
+        self.use_cnn_module = use_cnn_module
+        self.causal = causal
+        self.cnn_module_kernel = cnn_module_kernel
 
     @staticmethod
     def _layer(*args, normalize_before: bool, **kw) -> nn.Module:
         return ConformerEncoderLayer(*args, **kw)
+
+    def _conv_lorder(self) -> int:
+        return (self.cnn_module_kernel - 1
+                if self.use_cnn_module and self.causal else 0)
+
+    def _layer_with_cache(self, layer, xs, att_cache, att_len, cnn_cache,
+                          pos_emb, att_mask):
+        if self.use_cnn_module and not self.causal:
+            raise NotImplementedError(
+                "streaming a conformer with a CNN module requires "
+                "causal=True")
+        return layer.forward_with_cache(xs, att_cache, att_len, cnn_cache,
+                                        att_mask, pos_emb)

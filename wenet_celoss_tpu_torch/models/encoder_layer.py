@@ -1,5 +1,7 @@
 """Transformer and conformer encoder layers (port of
-``wenet_celoss_tpu/models/encoder_layer.py``, full context).
+``wenet_celoss_tpu/models/encoder_layer.py``): the full-context forward,
+and ``forward_with_cache``, one streaming chunk over the attention ring
+and the causal conv module's frame cache.
 
 Conformer: ½-FFN → MHSA → conv → ½-FFN → final LN (macaron), all
 pre-norm with residuals (the layer has no post-norm form). Transformer:
@@ -10,8 +12,8 @@ post-norm FFN one launch of ``ffn_fused`` (K6), and one launch of the
 backward kernel under autograd. With ``CONV_PALLAS=1`` in the environment
 (the JAX package's switch, read where it reads it; off by default) and a
 ``layer_norm`` conv module, the whole conv block (pre-LN, module, dropout,
-residual) is one launch of ``conv_block_residual`` (K8) and one of its
-backward; else, with ``LNMM_PALLAS`` at "1" or "conv", its pre-LN and
+residual) is one launch of ``conv_block_residual`` (K8, causal when the
+module is) and one of its backward; else, with ``LNMM_PALLAS`` at "1" or "conv", its pre-LN and
 pointwise conv1 are one launch of ``ln_matmul`` (K7), as are the
 self-attention's pre-LN and QKV projection with "1" or "attn". Dropout
 runs when the caller passes a generator; without one every layer is
@@ -119,6 +121,23 @@ class TransformerEncoderLayer(nn.Module):
         x = self.norm1(x + drop(self.self_attn(x, x, x, att_bias, gen=gen)))
         return self.norm2(x + drop(self.feed_forward(x, gen=gen)))
 
+    def forward_with_cache(self, x: torch.Tensor, att_cache: torch.Tensor,
+                           att_cache_len: int,
+                           att_mask: Optional[torch.Tensor] = None,
+                           pos_emb: Optional[torch.Tensor] = None):
+        """One streaming chunk, no dropout → (x, new att cache, its
+        valid length); see ``MultiHeadedAttention.forward_with_cache``."""
+        xn = self.norm1(x) if self.normalize_before else x
+        att, new_cache, new_len = self.self_attn.forward_with_cache(
+            xn, xn, xn, att_cache, att_cache_len, att_mask, pos_emb)
+        x = x + att
+        if self.normalize_before:
+            x = self.feed_forward(x, ln=self.norm2)
+        else:
+            x = self.norm1(x)
+            x = self.norm2(x + self.feed_forward(x))
+        return x, new_cache, new_len
+
 
 class ConformerEncoderLayer(nn.Module):
 
@@ -196,5 +215,30 @@ class ConformerEncoderLayer(nn.Module):
             self.norm_conv.bias, p1.weight.t().contiguous().to(cdt), p1.bias,
             cm.depthwise_conv.weight[:, 0, :].t().contiguous(),
             cm.depthwise_conv.bias, cm.norm_layer.weight, cm.norm_layer.bias,
-            p2.weight.t().contiguous().to(cdt), p2.bias, seed, False, rate,
-            self.norm_conv.eps)
+            p2.weight.t().contiguous().to(cdt), p2.bias, seed, cm.causal,
+            rate, self.norm_conv.eps)
+
+    def forward_with_cache(self, x: torch.Tensor, att_cache: torch.Tensor,
+                           att_cache_len: int, cnn_cache: torch.Tensor,
+                           att_mask: Optional[torch.Tensor] = None,
+                           pos_emb: Optional[torch.Tensor] = None):
+        """One streaming chunk, no dropout: the FFN blocks at rate 0 (K1
+        on the card), the attention over the cache ring (no K7), the
+        causal conv module on ``norm_conv(x)`` with its frame cache (no
+        K8) → (x, new att cache, its valid length, new cnn cache)."""
+        if self.feed_forward_macaron is not None:
+            x = self.feed_forward_macaron(x, ln=self.norm_ff_macaron,
+                                          ff_scale=self.ff_scale)
+        xn = self.norm_mha(x)
+        att, new_att, new_len = self.self_attn.forward_with_cache(
+            xn, xn, xn, att_cache, att_cache_len, att_mask, pos_emb)
+        x = x + att
+        new_cnn = cnn_cache
+        if self.conv_module is not None:
+            conv_out, new_cnn = self.conv_module.forward_with_cache(
+                self.norm_conv(x), cnn_cache)
+            x = x + conv_out
+        x = self.feed_forward(x, ln=self.norm_ff, ff_scale=self.ff_scale)
+        if self.conv_module is not None:
+            x = self.norm_final(x)
+        return x, new_att, new_len, new_cnn

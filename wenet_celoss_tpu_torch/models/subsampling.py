@@ -49,9 +49,11 @@ class Conv2dSubsampling4(nn.Module):
         self.pos_enc = pos_enc
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor, gen=None):
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor, gen=None,
+                offset: int = 0):
         """x [B, T, F] → (h [B, T', odim], pos_emb [1, T', odim],
-        lengths [B]); ``gen`` drives the positional dropout."""
+        lengths [B]); ``gen`` drives the positional dropout; ``offset``
+        is the position of the first output frame (a streaming chunk's)."""
         cdt = self.compute_dtype or x.dtype
         h = x.to(cdt)[:, None]                               # [B, 1, T, F]
         h = F.relu(F.conv2d(h, self.conv1.weight.to(cdt),
@@ -61,6 +63,6 @@ class Conv2dSubsampling4(nn.Module):
         b, c, t, f = h.shape
         # Flatten in (f, c) order, as the JAX package's NHWC layout does.
         h = self.out(h.permute(0, 2, 3, 1).reshape(b, t, f * c))
-        h, pos_emb = self.pos_enc(h, gen)
+        h, pos_emb = self.pos_enc(h, gen, offset)
         new_len = torch.clamp(subsampled_length("conv2d", lengths), max=t)
         return h, pos_emb, new_len

@@ -82,7 +82,9 @@ class Transducer(ASRModel):
                 context_n_valid=None, gen: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """Training forward → {'loss', 'loss_att', 'loss_ctc',
-        'loss_rnnt', 'hw_loss'}; with ``gen`` every dropout runs."""
+        'loss_rnnt', 'hw_loss'}; with ``gen`` every dropout runs, and a
+        ``use_dynamic_chunk`` encoder in training mode draws its chunk
+        from it (as ``ASRModel.forward``)."""
         if self.rnnt_impl not in ("streaming", *LOSSES):
             raise NotImplementedError(
                 f"rnnt_impl={self.rnnt_impl!r} is not ported (see "

@@ -17,7 +17,11 @@ step advances on a skipped update) do not compute the same thing:
 State is updated in place (the model holds the fp32 parameters; the
 optimizer's moments are fp32 tensors beside them), where the JAX package
 returns a new pytree. Dropout draws its seeds from the caller's
-``torch.Generator``; the compute dtype (bf16 or fp32) is the model's.
+``torch.Generator``, and so does a ``use_dynamic_chunk`` encoder (U2++)
+its chunk, first in each training forward (the JAX package splits its step
+key for the two); such a model raises when it trains without a generator.
+The generator is a CPU one, so a seed draws the same chunk on the CPU and
+on the card. The compute dtype (bf16 or fp32) is the model's.
 Reported ``gnorm`` is the pre-clip global norm.
 
 The gradient and training-step functions put the model in training mode
@@ -133,7 +137,7 @@ def make_grad_fn(model: nn.Module, accum_grad: int = 1):
     batch holds feats, feat_lengths, labels, label_lengths on the model's
     device and, for a transducer with hotwords, context_list,
     context_lengths and optionally hw_labels and context_n_valid;
-    ``gen`` is the dropout generator."""
+    ``gen`` is the step's generator (dropout seeds, the dynamic chunk)."""
 
     def grad_fn(state: TrainState, batch: Batch,
                 gen: Optional[torch.Generator]):
