@@ -67,6 +67,19 @@ Phases, in the order they run, each printing JSON lines:
             where the CPU's score gap between the two hypotheses is under
             1e-3 (CTC greedy: its frames' top-2 log-prob gap); the prefix
             beam's best score and emission times; each mode's launches;
+  recognize S3: the port's CLI (bin/recognize.main, in process) with S1's
+            model saved as a .pt, its config written by save_config, a
+            symbol table and a data.list of the 16 WAVs: all 8 modes with
+            S1's 8 hotwords (context mode 2) under "off",
+            rnnt_greedy_search (the one mode that reads the gating state)
+            under "on" and "exact", then mode 3 under "exact" (the
+            .gate_dist sidecar, which must differ only by a near tie),
+            each once on the card and once with --device cpu; each mode's
+            lines equal, or a flip under S1's rule (the first differing
+            decision's CPU top-2 gap, or the n-best score gap, under
+            1e-3); the backtracks of both runs; K1, K2, K4 and K9
+            launches against s3_want; read_audio on a FLAC (the decoder
+            built with this machine's g++);
   stream_slice  S2: the full-width U2++ conformer (fp32, seeded) decodes
             the same WAVs chunk by chunk (chunk 16, 4 left chunks) through
             CTC greedy and attention rescoring, card against CPU by S1's
@@ -108,6 +121,10 @@ Phases, in the order they run, each printing JSON lines:
             causal, 12 + 12 a step), timed;
   rnnt_train_wavs, bn_train_wavs  T5 and T10's curve: 24 flagship steps
             on the WAVs (the loss falls);
+  exact_bench  B5: bf16, B=16 × 512 random frames, blank bias +3.0, 8
+            hotwords: "exact" against "on" (median of 3), the search
+            loop's host reads an utterance, the card's busy ms and idle
+            share from one profile; at B=64 too when that fits 30 s;
   profile   each decode (B3's modes too) and training step under
             torch.profiler, last: the card's busy time, idle share and
             each kernel's time (K4's and K9's, and K7's and K8's on their
@@ -185,10 +202,14 @@ K8_BWD_STAGES = (("pass_a", ("conv16::clu<true>",), 1),
                  ("sums", ("conv16::sum_segs(",), 1))
 
 failures: list = []
+# When the script started: every phase line carries its seconds since
+# (``at_s``), so a run's lines show where its wall time went.
+STARTED = time.perf_counter()
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": time.perf_counter() - STARTED}), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -2435,11 +2456,13 @@ S1_MODES = (
          reverse_weight=0.3, context_list=h[0], context_lengths=h[1])))
 
 
-def compare_nbest(card_lists, cpu_nbest):
+def compare_nbest(card_lists, cpu_nbest, key=None):
     """Card top-1 token lists against the CPU's n-best. An utterance
     whose top-1 differs passes only where the card's hypothesis is in the
     CPU's n-best within NEAR_TIE of the CPU's best score; else it is a
-    fault (the card's hypothesis outside the CPU's n-best: gap inf)."""
+    fault (the card's hypothesis outside the CPU's n-best: gap inf).
+    ``key`` maps a CPU token list to the form of ``card_lists`` (the
+    CLI's text)."""
     toks = cpu_nbest["tokens"].cpu().tolist()
     lens = cpu_nbest["lens"].cpu().tolist()
     scores = cpu_nbest["scores"].cpu()
@@ -2447,6 +2470,8 @@ def compare_nbest(card_lists, cpu_nbest):
     same, ties, bad = 0, [], []
     for i, hyp in enumerate(card_lists):
         hyps = [row[:n] for row, n in zip(toks[i], lens[i])]
+        if key is not None:
+            hyps = [key(h) for h in hyps]
         if hyp == hyps[best[i]]:
             same += 1
             continue
@@ -2583,6 +2608,405 @@ def phase_decode_modes(slice_run) -> dict:
         check(rec["tokens"] > 0, f"decode_modes {name}: no token emitted")
         emit("decode_modes", mode=name, utterances=len(lens), dtype="float32",
              **rec)
+
+
+# S3: the recognize CLI on the card against the CPU. The CPU n-best of
+# each beam and rescoring mode at the CLI's default weights and beam 10,
+# to judge a line that differs: (decoder, feats, lens, ctx, ctx_lens).
+S3_STATES = ("off", "on", "exact")
+S3_NBEST = {
+    "attention": lambda d, f, l, c, cl: d.attention_nbest(f, l, beam=10),
+    "ctc_prefix_beam_search":
+        lambda d, f, l, c, cl: d.ctc_prefix_beam_search(f, l, beam=10)[1],
+    "attention_rescoring": lambda d, f, l, c, cl: d.attention_rescoring_nbest(
+        f, l, beam=10, ctc_weight=0.0, reverse_weight=0.0),
+    "rnnt_beam_search": lambda d, f, l, c, cl: d.rnnt_beam_search(
+        f, l, beam=10, ctc_weight=0.3, transducer_weight=1.0,
+        context_list=c, context_lengths=cl)[0],
+    "rnnt_beam_attn_rescoring": lambda d, f, l, c, cl: d.rnnt_beam_attn_nbest(
+        f, l, beam=10, attn_weight=1.0, transducer_weight=1.0,
+        search_ctc_weight=0.3, reverse_weight=0.0, context_list=c,
+        context_lengths=cl),
+    "ctc_beam_td_attn_rescoring":
+        lambda d, f, l, c, cl: d.ctc_beam_td_attn_nbest(
+            f, l, beam=10, ctc_weight=0.0, transducer_weight=1.0,
+            attn_weight=1.0, reverse_weight=0.0)}
+
+
+def s3_files(tmp: Path, init_model, conformer_rnnt_bias):
+    """S1's model (the full-width flagship in fp32, seed 0, blank bias
+    +3.0) saved with the port's save_checkpoint, its config with
+    save_config (plus a dataset_conf), a symbol table over its output_dim
+    (blank, the word boundary, the 26 letters, placeholders, <sos/eos>),
+    a data.list of the 16 test-clean WAVs under this checkout and S1's 8
+    hotwords → the CLI arguments shared by every S3 run."""
+    from wenet_celoss_tpu_torch.utils.checkpoint import save_checkpoint
+    from wenet_celoss_tpu_torch.utils.config import save_config
+    cfg = conformer_rnnt_bias()
+    vocab = cfg["output_dim"]
+    model = with_blank_bias(init_model(cfg, seed=0), SLICE_BLANK_BIAS)
+    save_checkpoint(model, str(tmp / "final.pt"))
+    cfg["dataset_conf"] = {
+        "resample_conf": {"resample_rate": 16000},
+        "fbank_conf": {"num_mel_bins": 80, "frame_shift": 10,
+                       "frame_length": 25, "dither": 0.1}}
+    save_config(cfg, str(tmp / "train.yaml"))
+    syms = ["<blank>", "▁"] + [chr(c) for c in range(65, 91)]
+    syms += [f"<t{i}>" for i in range(len(syms), vocab - 1)] + ["<sos/eos>"]
+    (tmp / "units.txt").write_text("".join(f"{sym} {i}\n"
+                                           for i, sym in enumerate(syms)),
+                                   encoding="utf8")
+    text = dict(line.split(" ", 1) for line in
+                (WAV_DIR.parent / "text").read_text().splitlines())
+    with open(tmp / "data.list", "w") as f:
+        for wav in sorted(WAV_DIR.glob("*.wav")):
+            f.write(json.dumps({"key": wav.stem, "wav": str(wav),
+                                "txt": text[wav.stem]}) + "\n")
+    ctx, ctx_lens = hotwords(vocab)
+    (tmp / "hotwords.txt").write_text("".join(
+        " ".join(map(str, row[:n])) + "\n"
+        for row, n in zip(ctx[1:].tolist(), ctx_lens[1:].tolist())))
+    return model, ["--config", str(tmp / "train.yaml"), "--test_data",
+                   str(tmp / "data.list"), "--checkpoint",
+                   str(tmp / "final.pt"), "--symbol_table",
+                   str(tmp / "units.txt"), "--batch_size", "16"]
+
+
+@contextlib.contextmanager
+def traced_exact(traces: list):
+    """Every "exact" search in the block records its decisions (gate,
+    token, top-2 gap) into a new list appended to ``traces``."""
+    from wenet_celoss_tpu_torch.decode import rnnt_greedy
+    search = rnnt_greedy.rnnt_gated_greedy_search_exact
+
+    def traced(*args, **kw):
+        traces.append([])
+        kw["trace"] = traces[-1]
+        return search(*args, **kw)
+    rnnt_greedy.rnnt_gated_greedy_search_exact = traced
+    try:
+        yield
+    finally:
+        rnnt_greedy.rnnt_gated_greedy_search_exact = search
+
+
+def run_cli(recognize, base, extra, out: Path, device: str):
+    """One in-process run of the port's CLI → ({file name: lines}, its
+    exact-search traces, seconds, launches on the card)."""
+    traces: list = []
+    argv = base + extra + ["--result_file", str(out / "text")]
+    if device == "cpu":
+        argv += ["--device", "cpu"]
+    reset_counts()
+    t0 = time.perf_counter()
+    with traced_exact(traces):
+        recognize.main(argv)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: n for k, n in read_counts().items() if n}
+    files = {p.name: p.read_text(encoding="utf8").splitlines()
+             for p in sorted(out.iterdir())}
+    return files, traces, seconds, launches
+
+
+def exact_diffs(card_traces, cpu_traces, utts):
+    """The S1 rule on the "exact" decisions: an utterance may differ only
+    where the first decision (gate, token) that differs had a CPU top-2
+    gap under NEAR_TIE."""
+    ties, bad = [], []
+    for i in utts:
+        a, b = card_traces[i], cpu_traces[i]
+        if [x[:2] for x in a] == [y[:2] for y in b]:
+            continue
+        k = next((j for j, (x, y) in enumerate(zip(a, b))
+                  if x[:2] != y[:2]), min(len(a), len(b)))
+        gap = b[k][2] if k < len(b) else float("inf")
+        (ties if gap < NEAR_TIE else bad).append(
+            {"utt": i, "decision": k, "cpu_top2_gap": gap})
+    return ties, bad
+
+
+class S3Judge:
+    """What judges a CLI line that differs between the card and the CPU:
+    the CLI's batch (the same Dataset), S1's checkpointed model on the
+    card and on the CPU, and the CPU's n-best or trace of each mode. Made
+    only when a line differs."""
+
+    def __init__(self, tmp: Path, recognize, Decoder, model, init_model,
+                 conformer_rnnt_bias):
+        from wenet_celoss_tpu_torch.data.dataset import Dataset
+        from wenet_celoss_tpu_torch.utils.config import load_config
+        from wenet_celoss_tpu_torch.utils.file_utils import \
+            read_symbol_table
+        table = read_symbol_table(str(tmp / "units.txt"))
+        self.id2sym = {v: k for k, v in table.items()}
+        conf = dict(recognize.eval_dataset_conf(
+            load_config(str(tmp / "train.yaml")), 16), context_mode=0)
+        (batch,) = list(Dataset("raw", str(tmp / "data.list"), table, conf,
+                                partition=False))
+        self.feats, self.lens = batch["feats"], batch["feat_lengths"]
+        self.ctx, self.ctx_lens = hotwords(model.vocab_size)
+        self.dec = Decoder(model)
+        cpu_model = init_model(conformer_rnnt_bias(), device="cpu", seed=0)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+        self.cpu_dec = Decoder(cpu_model, device="cpu")
+
+    def text(self, hyp):
+        from wenet_celoss_tpu_torch.bin.recognize import hyp_text
+        return hyp_text(hyp, self.id2sym)
+
+    def diffs(self, mode: str, state: str, card_lines, utts):
+        """(near-tie flips, other differences) of the utterances ``utts``
+        (indexes into the batch) of a mode's result file."""
+        if mode == "ctc_greedy_search":
+            rec = ctc_greedy_check(self.dec, self.cpu_dec, self.feats,
+                                   self.lens)
+            return ([d for d in rec["near_tie_flips"] if d["utt"] in utts],
+                    [d for d in rec["other_diffs"] if d["utt"] in utts])
+        if mode == "rnnt_greedy_search":
+            trace: list = []
+            kind = "gated_" + state
+            card = decode(self.dec, self.feats, self.lens, self.ctx,
+                          self.ctx_lens, kind)
+            cpu = decode(self.cpu_dec, self.feats, self.lens, self.ctx,
+                         self.ctx_lens, kind, trace)
+            _, ties, bad = compare(card, cpu, trace)
+            return ([d for d in ties if d["utt"] in utts],
+                    [d for d in bad if d["utt"] in utts])
+        nbest = S3_NBEST[mode](self.cpu_dec, self.feats, self.lens,
+                               self.ctx, self.ctx_lens)
+        texts = [line.split(" ", 1)[1] if " " in line else ""
+                 for line in card_lines]
+        _, ties, bad = compare_nbest(texts, nbest, key=self.text)
+        return ([d for d in ties if d["utt"] in utts],
+                [d for d in bad if d["utt"] in utts])
+
+
+def s3_want(modes, frames: int) -> dict:
+    """Launches of one CLI run over one batch: mode_want of each mode,
+    and 24 more K1 for rnnt_greedy_search's second encoder pass (the
+    empty hotword list)."""
+    want = dict(NO_LAUNCHES)
+    for mode in modes:
+        for k, n in mode_want(mode, frames, reverse=False).items():
+            want[k] += n
+        if mode == "rnnt_greedy_search":
+            want["k1"] += K1_PER_ENCODER_PASS
+    return {k: n for k, n in want.items() if n}
+
+
+def phase_recognize(init_model, Decoder, conformer_rnnt_bias) -> dict:
+    """S3: the port's CLI (bin/recognize.main, in process) decodes the 16
+    test-clean WAVs with S1's model from a .pt checkpoint, once on the
+    card and once with --device cpu: all 8 modes with S1's 8 hotwords
+    (context mode 2) under "off"; rnnt_greedy_search, the one mode that
+    reads the gating state, under "on" and "exact"; then context mode 3
+    under "exact" (rnnt_greedy_search and its .gate_dist sidecar). Each
+    mode's lines card against CPU: equal, or a flip under S1's rule (the
+    CPU's top-2 gap under NEAR_TIE at the first difference; the n-best
+    score gap for the beam modes). Counts are set to 0 before each card
+    run and read after, against s3_want. Returns the launches of the
+    card runs, by kernel."""
+    import logging
+    import tempfile
+    from wenet_celoss_tpu_torch.bin import recognize
+    logging.basicConfig(level=logging.WARNING)
+    total = dict.fromkeys(NO_LAUNCHES, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        model, base = s3_files(tmp, init_model, conformer_rnnt_bias)
+        hot = ["--context_list_file", str(tmp / "hotwords.txt")]
+        refs = [json.loads(line)["txt"] for line in
+                (tmp / "data.list").read_text().splitlines()]
+        judge = None
+        frames = None
+        runs = [(f"mode2_{state}", recognize.MODES if state == "off"
+                 else ["rnnt_greedy_search"], "2", state)
+                for state in S3_STATES]
+        runs.append(("mode3_exact", ["rnnt_greedy_search"], "3", "exact"))
+        for name, modes, context_mode, state in runs:
+            extra = hot + ["--mode", ",".join(modes), "--context_mode",
+                           context_mode, "--context_filter_state", state]
+            card = run_cli(recognize, base, extra, tmp / name / "card",
+                           "cuda")
+            cpu = run_cli(recognize, base, extra, tmp / name / "cpu", "cpu")
+            if frames is None:
+                judge = S3Judge(tmp, recognize, Decoder, model, init_model,
+                                conformer_rnnt_bias)
+                frames = subsampled(judge.feats.shape[1])
+            want = s3_want(modes, frames)
+            check(card[3] == want, f"recognize {name}: launches {card[3]}, "
+                                   f"want {want}")
+            for k, n in card[3].items():
+                total[k] += n
+            backtracks = [sum(sum(tok == -1 for _, tok, _ in u) for u in t)
+                          for t in (card[1], cpu[1])]
+            for fname in sorted(cpu[0]):
+                a, b = card[0][fname], cpu[0][fname]
+                mode = fname.rsplit(".", 1)[-1] if "." in fname \
+                    else modes[0]
+                check(len(a) == len(b) == 16 or fname.endswith("gate_dist"),
+                      f"recognize {name} {fname}: {len(a)} card lines, "
+                      f"{len(b)} CPU lines")
+                utts = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+                ties, bad = [], []
+                if fname.endswith("gate_dist"):
+                    mode = "gate_dist"
+                    if utts:
+                        ties, bad = exact_diffs(card[1], cpu[1],
+                                                range(len(card[1])))
+                        if not ties and not bad:
+                            bad = [{"sidecar": a, "cpu": b,
+                                    "unexplained": True}]
+                elif utts and mode == "rnnt_greedy_search" \
+                        and state == "exact":
+                    ties, bad = exact_diffs(card[1], cpu[1], utts)
+                elif utts:
+                    ties, bad = judge.diffs(mode, state, a, utts)
+                    bad += [{"utt": i, "unjudged": True} for i in utts
+                            if i not in {d["utt"] for d in ties + bad}]
+                check(not bad, f"recognize {name} {mode}: card and CPU "
+                               f"differ away from a near tie: {bad}")
+                rec = dict(run=name, mode=mode, state=state,
+                           lines=len(a), identical_to_cpu=sum(
+                               x == y for x, y in zip(a, b)),
+                           near_tie_flips=ties, other_diffs=bad)
+                if mode == "rnnt_greedy_search":
+                    rec.update(utts_with_tokens=sum(len(x.split()) > 1
+                                                    for x in a))
+                    check(rec["utts_with_tokens"] > 0,
+                          f"recognize {name}: no token emitted")
+                if mode == "gate_dist":
+                    rec.update(card=a, cpu=b)
+                emit("recognize", **rec)
+            rec = dict(run=name, modes=len(modes), card_s=card[2],
+                       cpu_s=cpu[2], launches=card[3], want=want)
+            if state == "exact":
+                rec.update(backtracks_card=backtracks[0],
+                           backtracks_cpu=backtracks[1],
+                           exact_decisions=sum(map(len, card[1])),
+                           exact_tokens=sum(tok > 0 for u in card[1]
+                                            for _, tok, _ in u),
+                           encoder_frames=sum(subsampled(int(n))
+                                              for n in judge.lens),
+                           reference_chars=sum(map(len, refs)),
+                           reference_words=sum(len(r.split())
+                                               for r in refs))
+            emit("recognize", **rec)
+    emit("recognize", **flac_check())
+    return total
+
+
+def flac_check() -> dict:
+    """read_audio on a FLAC of the first test-clean WAV (made by
+    tools/flac_encode.py), against the WAV's samples: the FLAC decoder
+    (runtime/core/frontend/flac.cc) built with this machine's g++."""
+    from wenet_celoss_tpu_torch.data.flac import build
+    from wenet_celoss_tpu_torch.data.wav import read_audio, read_wav
+    sys.path.insert(0, str(ROOT / "tools"))
+    from flac_encode import encode_flac
+    wav = sorted(WAV_DIR.glob("*.wav"))[0]
+    x, sr = read_wav(str(wav))
+    t0 = time.perf_counter()
+    lib = build()
+    build_s = time.perf_counter() - t0
+    y, sr2 = read_audio(encode_flac(x.astype(np.int32), sr))
+    ok = sr2 == sr and np.array_equal(x, y)
+    check(ok, f"recognize flac: read_audio differs from the WAV's samples")
+    return dict(flac=wav.name, samples=len(x), identical=ok,
+                build_s=build_s, library=lib.name)
+
+
+def kineto_busy(prof):
+    """The card's busy ms (union of its intervals) and the interval count
+    from the profiler's raw records: building its event tree (``events()``)
+    took longer than the profiled run on "exact"'s ~10^6 small launches."""
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy, end = 0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e6, len(spans)
+
+
+def phase_exact_bench(init_model, Decoder, conformer_rnnt_bias) -> None:
+    """B5: "exact" against "on" on the same batch: the bf16 flagship, B =
+    16 × 512 random fbank frames, 8 random 4-token hotwords, blank bias
+    +3.0: ms a batch (median of 3 after one warm-up), the host reads of
+    the search loop an utterance (exact: one gate and one token read a
+    step; on: one a label-synchronous iteration), and the card's busy ms,
+    idle share and interval count from one profile (card intervals only,
+    read raw: kineto_busy). At B = 64 too, where four times B = 16's
+    exact median is under 30 s."""
+    from torch.profiler import ProfilerActivity, profile
+    for b in (16, 64):
+        model, dec, feats, lens, ctx, ctx_lens = bench_setup(
+            init_model, Decoder, conformer_rnnt_bias, SLICE_BLANK_BIAS, b,
+            512)
+        out = {"batch": b, "frames": 512, "dtype": "bfloat16",
+               "hotwords": 8, "blank_bias": SLICE_BLANK_BIAS,
+               "timing": "median host ms per batch of 3, synchronised",
+               "card": smi()}
+
+        def run(state):
+            return dec.rnnt_greedy_search(
+                feats, lens, context_list=ctx, context_lengths=ctx_lens,
+                context_filter_state=state)
+        for state in ("on", "exact"):
+            reads = {"n": 0}
+
+            def counted(fn):
+                def wrapper(*a, **k):
+                    reads["n"] += 1
+                    return fn(*a, **k)
+                return wrapper
+            names = (("hw_gate_step", "joint_step") if state == "exact"
+                     else ("predictor_step",))
+            for nm in names:
+                setattr(model, nm, counted(getattr(model, nm)))
+            hyps = run(state)
+            torch.cuda.synchronize()
+            for nm in names:
+                delattr(model, nm)
+            loop_reads = reads["n"] - (0 if state == "exact" else 1)
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(state)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            med = sorted(times)[1]
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run(state)
+                torch.cuda.synchronize()
+            busy, kernels = kineto_busy(prof)
+            out.update({
+                f"{state}_ms_per_batch": med,
+                f"{state}_ms_all": times,
+                f"{state}_loop_host_reads_per_utt": loop_reads / b,
+                f"{state}_tokens_per_utt": sum(map(len, hyps)) / b,
+                f"{state}_device_busy_ms": busy,
+                f"{state}_idle_share": 1.0 - busy / med,
+                f"{state}_card_intervals": kernels,
+                f"{state}_card_intervals_per_loop_read": kernels / loop_reads,
+                f"{state}_profile_s": time.perf_counter() - t0})
+            check(busy > 0, f"exact_bench B={b} {state}: the profile "
+                            "recorded no card time")
+        out["exact_over_on"] = out["exact_ms_per_batch"] / \
+            out["on_ms_per_batch"]
+        emit("exact_bench", **out)
+        del model, dec
+        if b == 16 and 4 * out["exact_ms_per_batch"] >= 30e3:
+            emit("exact_bench", batch=64, skipped=True,
+                 why="four times B=16's exact median is 30 s or more")
+            break
 
 
 # B3: the decode modes of bench.py's decode keys (and attention) at its
@@ -3233,6 +3657,10 @@ POSTNORM_PER_STEP = {**NO_LAUNCHES, "k6": 18, "k6_bwd": 18}
 # through K8 each way.
 U2PP_PER_STEP = {**NO_LAUNCHES, "k1": 33, "k1_bwd": 33}
 U2PP_CONV_PER_STEP = {**U2PP_PER_STEP, "k8": 12, "k8_bwd": 12}
+# The kernels S3's CLI runs must launch (K2, K4 and K9 through
+# ctc_beam_td_attn_rescoring's transducer_score); the exact counts are
+# s3_want's.
+RECOGNIZE_KERNELS = {**NO_LAUNCHES, "k1": 1, "k2": 1, "k4": 1, "k9": 1}
 
 
 def reset_counts() -> None:
@@ -3625,6 +4053,8 @@ def main() -> int:
     lnmm_bench = phase_bench_lnmm(init_model, Decoder, conformer_rnnt_bias,
                                   BENCH_BLANK_BIASES[0])
     phase_decode_modes(slice_run)
+    recognize_launches = phase_recognize(init_model, Decoder,
+                                         conformer_rnnt_bias)
     stream_decode = phase_stream_slice(init_model, Decoder, u2pp_conformer,
                                        slice_run)
     b3_paths, b3_profile = phase_bench_modes(
@@ -3686,6 +4116,7 @@ def main() -> int:
     phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train, wavs)
     phase_rnnt_train_wavs(init_model, bn_flagship, train, wavs,
                           what="bn_train_wavs")
+    phase_exact_bench(init_model, Decoder, conformer_rnnt_bias)
     for args in to_profile:
         phase_profile(*args)
     for args in b3_profile:
@@ -3717,6 +4148,7 @@ def main() -> int:
              "bn_train": (bn_run, RNNT_PER_STEP),
              "u2pp_train": (t11, U2PP_PER_STEP),
              "u2pp_conv_train": (t11_conv, U2PP_CONV_PER_STEP),
+             "recognize": (recognize_launches, RECOGNIZE_KERNELS),
              **{"decode_" + n: v for n, v in b3_paths.items()}}
     idle = {path: sorted(k for k, n in want.items()
                          if n > 0 and launches[k] == 0)

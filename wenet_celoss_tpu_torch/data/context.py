@@ -1,9 +1,8 @@
-"""Hotword lists and per-token hotword labels for training batches (the
-port of ``wenet_celoss_tpu/data/processor.py``: ``context_generate`` in
-its sampling mode 1, ``hw_label_generate`` with binary labels, and the
-context keys of its ``padding`` step). Pure Python and numpy. The other
-context modes, the rolling global list and per-phrase labels come with
-the data pipeline (``ROADMAP.md``)."""
+"""Hotword lists and per-token hotword labels for batches (the port of
+``wenet_celoss_tpu/data/processor.py``: ``context_generate`` in each
+context mode with the rolling global list ``ContextMaintainer``,
+``hw_label_generate`` with binary or per-phrase labels, and the context
+keys of its ``padding`` step). Pure Python and numpy."""
 
 from __future__ import annotations
 
@@ -45,20 +44,65 @@ def context_generate(labels: List[List[int]], bpe_start_ids: set,
     return [[0]] + context_list
 
 
+class ContextMaintainer:
+    """The rolling global hotword list of context mode 1: the newest
+    ``list_size`` phrases."""
+
+    def __init__(self, list_size: int = 30):
+        self.list_size = list_size
+        self.items: List[List[int]] = []
+
+    def add(self, add_list: List[List[int]]) -> List[List[int]]:
+        self.items.extend(add_list)
+        if len(self.items) > self.list_size:
+            self.items = self.items[len(self.items) - self.list_size:]
+        return self.items
+
+
+def batch_context_list(labels: List[List[int]], context_mode: int,
+                       bpe_start_ids: Optional[set] = None,
+                       file_list: Optional[List[List[int]]] = None,
+                       dict_entry: Optional[List[List[int]]] = None,
+                       context_len_min: int = 1, context_len_max: int = 4,
+                       maintainer: Optional[ContextMaintainer] = None,
+                       rng: Optional[random.Random] = None):
+    """A batch's hotword list in each context mode: 0 none (None); 1
+    spans sampled from the labels (:func:`context_generate`), rolled
+    through ``maintainer`` and read newest first when one is given; 2 and
+    3 the file's list; 4 the utterance's dict entry. Entry 0 is always
+    the "no hotword" phrase [0]."""
+    if context_mode == 0:
+        return None
+    if context_mode in (2, 3):
+        return [[0]] + [list(x) for x in (file_list or [])]
+    if context_mode == 4:
+        return [[0]] + [list(x) for x in (dict_entry or [])]
+    if context_mode != 1:
+        raise ValueError(f"unknown context_mode {context_mode}")
+    if bpe_start_ids is None:
+        raise ValueError("context mode 1 needs bpe_start_ids")
+    sampled = context_generate(labels, bpe_start_ids, context_len_min,
+                               context_len_max, rng)[1:]
+    if maintainer is not None:
+        sampled = list(maintainer.add(sampled))[::-1]
+    return [[0]] + sampled
+
+
 def hw_label_generate(labels: List[List[int]],
-                      context_list: List[List[int]]) -> List[List[int]]:
-    """Per-token hotword labels: 1 where a phrase of the list (past entry
-    0) matches the labels, the first match at each position winning,
-    else 0."""
+                      context_list: List[List[int]],
+                      num_labels: int = 2) -> List[List[int]]:
+    """Per-token hotword labels: where a phrase of the list (past entry
+    0) matches the labels, the first match at each position winning, 1
+    (``num_labels`` 2) or the phrase's index in the list; else 0."""
     hw_labels = []
     for y in labels:
         n = len(y)
         hw = [0] * n
         for i in range(n):
-            for phrase in context_list[1:]:
+            for j, phrase in enumerate(context_list[1:], 1):
                 length = len(phrase)
                 if i + length <= n and list(y[i:i + length]) == list(phrase):
-                    hw[i:i + length] = [1] * length
+                    hw[i:i + length] = [1 if num_labels == 2 else j] * length
                     break
         hw_labels.append(hw)
     return hw_labels

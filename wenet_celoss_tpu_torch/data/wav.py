@@ -1,8 +1,10 @@
-"""RIFF WAV reading in pure numpy (``read_wav``, copied from
+"""Audio reading (``read_wav`` and ``read_audio``, copied from
 ``wenet_celoss_tpu/data/wav.py``).
 
-PCM16/PCM32/float chunks, a header scan that skips non-data chunks, and
-int16-range float output (kaldi convention).
+``read_wav``: RIFF WAV in pure numpy, PCM16/PCM32/float chunks, a header
+scan that skips non-data chunks, and int16-range float output (kaldi
+convention). ``read_audio`` sniffs the format: FLAC (LibriSpeech ships
+.flac) goes to ``data/flac.py``, anything else to ``read_wav``.
 """
 
 from __future__ import annotations
@@ -72,3 +74,20 @@ def read_wav(source) -> Tuple[np.ndarray, int]:
             f.close()
         elif isinstance(source, (bytes, bytearray)):
             f.close()
+
+
+def read_audio(source) -> Tuple[np.ndarray, int]:
+    """RIFF/WAVE or FLAC, told apart by the ``fLaC`` magic; the return
+    contract of :func:`read_wav`. ``source``: path, file object or
+    bytes."""
+    if isinstance(source, (bytes, bytearray)):
+        data = source
+    elif hasattr(source, "read"):
+        data = source.read()
+    else:
+        with open(source, "rb") as f:
+            data = f.read()
+    if bytes(data[:4]) == b"fLaC":
+        from wenet_celoss_tpu_torch.data.flac import read_flac
+        return read_flac(data)
+    return read_wav(data)

@@ -1,22 +1,34 @@
 """Decode API, one call per decode mode (port of
 ``wenet_celoss_tpu/decode/api.py``): CTC greedy, CTC prefix beam,
-attention beam, attention rescoring, RNN-T greedy (no context, or context
-under ``context_filter_state`` "on" or "off"), RNN-T beam (with or
+attention beam, attention rescoring, RNN-T greedy, RNN-T beam (with or
 without a context list), and the two transducer/attention rescorings.
+
+RNN-T greedy with a context list runs under one of three gating states
+(``context_filter_state``), each with two encoder passes (one biased with
+the list, one with the empty list):
+- "off": every frame decodes on the biased streams; the gate of each
+  token's frame is still recorded;
+- "on": the per-frame gate chooses the stream, label-synchronously;
+- "exact": the backtracking repair loop, one utterance at a time with
+  host syncs at every step (``rnnt_greedy.rnnt_gated_greedy_search_exact``).
+``last_gates`` is then (gates [B, G], lens [B]): under "off" and "on" one
+gate per token (G = the token buffer, lens the token counts, tensors);
+under "exact" one gate per predictor step (numpy, zero-padded to the
+longest record, lens the record lengths).
 
 Every CTC and attention mode takes the encode's keywords: the full
 context by default, a chunk mask with ``decoding_chunk_size`` (which, as
 in the JAX package, masks only a model with ``static_chunk_size``: a
 dynamic-chunk model decodes with the full context), and with
 ``simulate_streaming=True`` the true chunk-by-chunk forward over bounded
-caches (``encode_ctc_streaming``). The ``"exact"`` gating mode's
-host-driven backtracking raises; it comes with a later slice.
+caches (``encode_ctc_streaming``).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Union
 
+import numpy as np
 import torch
 
 from wenet_celoss_tpu_torch.decode import (attention_beam, ctc_greedy,
@@ -193,7 +205,8 @@ class Decoder:
                            context_list=None, context_lengths=None,
                            context_filter_state: str = "off",
                            trace: Optional[list] = None):
-        """(tokens [B, U], lens [B], gates [B, U] or None).
+        """(tokens [B, U], lens [B], gates [B, U] or None); under "exact"
+        (token lists, None, None), with the gates in ``last_gates``.
 
         feats [B, T, F] float, feat_lens [B]; context_list [N, L] phrase
         ids padded with -1 (row 0 is the no-bias sentinel ``[0]``),
@@ -212,10 +225,13 @@ class Decoder:
                 blank=model.blank, n_steps=n_steps, trace=trace)
             return toks, lens, None
 
+        if context_filter_state == "exact":
+            return self._rnnt_exact(feats, feat_lens, context_list,
+                                    context_lengths, n_steps, trace)
         if context_filter_state not in ("on", "off"):
-            raise NotImplementedError(
-                f"context_filter_state={context_filter_state!r} is not "
-                "ported (the 'exact' backtracking mode comes later)")
+            raise ValueError(
+                f"context_filter_state={context_filter_state!r}: one of "
+                "'on', 'off', 'exact'")
         gate_on = context_filter_state == "on"
         bias_h = model.bias_hidden(self._tensor(context_list, torch.long),
                                    self._tensor(context_lengths, torch.long))
@@ -250,16 +266,64 @@ class Decoder:
                 bias_h_e, p),
             trace=trace)
 
+    @torch.no_grad()
+    def _rnnt_exact(self, feats, feat_lens, context_list, context_lengths,
+                    n_steps: int, trace: Optional[list]):
+        """The "exact" gating state: two encoder passes (the real list and
+        the empty list, sentinel [0]) over the batch, then the repair loop
+        one utterance at a time with batch-1 steps and the model's
+        ``loss_mode``. Sets ``last_gates`` and returns (token lists, None,
+        None). ``trace`` receives one list per utterance (see
+        ``rnnt_greedy.rnnt_gated_greedy_search_exact``)."""
+        model = self.model
+        b = feats.shape[0]
+        bias_h = model.bias_hidden(self._tensor(context_list, torch.long),
+                                   self._tensor(context_lengths, torch.long))
+        _, e_biased, e_bias, mask = model.encode_transducer(
+            feats, feat_lens, bias_h)
+        e_lens = mask.long().sum(dim=1).tolist()
+        bias_h_e = model.bias_hidden(
+            torch.zeros((1, 1), dtype=torch.long, device=self.device),
+            torch.ones((1,), dtype=torch.long, device=self.device))
+        _, e_empty, _, _ = model.encode_transducer(feats, feat_lens,
+                                                   bias_h_e)
+        all_hyps, all_gates = [], []
+        for i in range(b):
+            utt_trace = [] if trace is not None else None
+            hyps, gates = rnnt_greedy.rnnt_gated_greedy_search_exact(
+                model.predictor_step,
+                lambda p: model.predictor_bias_step(bias_h, p),
+                lambda p: model.predictor_bias_step(bias_h_e, p),
+                model.joint_step,
+                lambda e, p: model.hw_gate_step(e, p),
+                model.predictor_init_state(1), e_empty[i:i + 1],
+                e_biased[i:i + 1], e_bias[i:i + 1], e_lens[i],
+                blank=model.blank, n_steps=n_steps,
+                loss_mode=model.loss_mode, trace=utt_trace)
+            all_hyps.append(hyps)
+            all_gates.append(gates)
+            if trace is not None:
+                trace.append(utt_trace)
+        glens = np.array([len(g) for g in all_gates], np.int32)
+        gates_arr = np.zeros((b, max(int(glens.max(initial=0)), 1)),
+                             np.int32)
+        for i, g in enumerate(all_gates):
+            gates_arr[i, :len(g)] = g
+        self.last_gates = (gates_arr, glens)
+        return all_hyps, None, None
+
     def rnnt_greedy_search(self, feats, feat_lens, n_steps: int = 4,
                            context_list=None, context_lengths=None,
                            context_filter_state: str = "off",
                            trace: Optional[list] = None) -> List[List[int]]:
-        """Token lists per utterance; with context, the per-token gates go
-        to ``self.last_gates`` as (gates [B, U], lens [B])."""
+        """Token lists per utterance. With a context list, the gates go to
+        ``self.last_gates`` (see the module docstring for each state)."""
         toks, lens, gates = self.rnnt_greedy_arrays(
             feats, feat_lens, n_steps=n_steps, context_list=context_list,
             context_lengths=context_lengths,
             context_filter_state=context_filter_state, trace=trace)
+        if lens is None:   # "exact": ragged host lists, last_gates set
+            return toks
         if gates is not None:
             self.last_gates = (gates, lens)
         return rnnt_greedy.greedy_to_lists(toks, lens)

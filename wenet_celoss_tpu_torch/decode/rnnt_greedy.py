@@ -1,6 +1,8 @@
-"""Label-synchronous RNN-T greedy search, plain and hotword-gated (port of
+"""RNN-T greedy search, plain and hotword-gated (port of
 ``wenet_celoss_tpu/decode/rnnt_greedy.py``: ``rnnt_greedy_search_labelsync``,
-``rnnt_gated_greedy_search_labelsync`` and ``greedy_to_lists``).
+``rnnt_gated_greedy_search_labelsync``, ``rnnt_gated_greedy_search_exact``
+and ``greedy_to_lists``). The "exact" search is a frame-by-frame host loop
+over one utterance; the other two are label-synchronous.
 
 Between emissions the predictor state does not change, so one joint of
 EVERY frame against the current predictor state finds each row's next
@@ -157,6 +159,129 @@ def rnnt_gated_greedy_search_labelsync(
     return _labelsync_loop(predictor_step, frame_logits, init_state, t_max,
                            encoder_lens, blank, n_steps, u_max,
                            gate_all=gate_all, gate_gap=gate_gap, trace=trace)
+
+
+def rnnt_gated_greedy_search_exact(predictor_step: Callable,
+                                   predictor_bias_step: Callable,
+                                   predictor_bias_step_empty: Callable,
+                                   joint_step: Callable, gate_step: Callable,
+                                   init_state, encoder_out_empty,
+                                   encoder_out_biased, enc_bias,
+                                   encoder_len: int, blank: int = 0,
+                                   n_steps: int = 4, loss_mode: str = "pred",
+                                   trace: Optional[list] = None):
+    """The hotword-gated greedy decode with backtracking repair, one
+    utterance per call (batch 1 throughout), line for line with the JAX
+    package's function of the same name.
+
+    - Streams: under ``loss_mode`` "pred" a gate of 1 pairs the
+      real-list-biased encoder with the EMPTY-list-biased predictor and a
+      gate of 0 the other way round; under any other mode the streams stay
+      aligned (gate 1: both real-biased, gate 0: both empty-biased).
+    - Backtrack: when a gate-1 step follows a gate-0 step, the gate-0
+      step's token (if any), its record and its predictor input and state
+      are dropped, the loop rewinds to that step's frame (``last_t``) and
+      replays with the gate forced to 1 until it passes the frame where
+      the 1 appeared (``go_back_end``). ``per_frame_noblk`` may go
+      negative there, as in the JAX package.
+    - The gate record holds one entry per predictor step, not per token.
+
+    A host loop: each step reads its gate and token to the host. The
+    step callables must return new tensors: a state saved in
+    ``cache_list`` is restored several steps later. Returns (hyps, gates)
+    as Python lists.
+
+    ``trace``, when a list is passed, receives one (gate, token, gap) per
+    decision: the gate read (-1 where none was), the token (-1 where the
+    gate started a backtrack and no joint ran) and the smallest top-1
+    minus top-2 gap of the logits read (gate and joint).
+    """
+    dev = encoder_out_biased.device
+    t = 0
+    hyps: list = []
+    result: list = []
+    prev_out_nblk = True
+    per_frame_noblk = 0
+    go_back_flag = 0
+    go_back_end = -1
+    last_t = 0
+    cache = init_state
+    pred_input = torch.full((1,), blank, dtype=torch.long, device=dev)
+    no_pad = torch.zeros((1,), dtype=torch.long, device=dev)
+    cache_list: list = []
+    input_list: list = []
+    pred_sel = new_cache = None
+
+    while t < encoder_len:
+        step_gate, step_gap = -1, float("inf")
+        enc_t_empty = encoder_out_empty[:, t]
+        enc_t_biased = encoder_out_biased[:, t]
+        bias_t = enc_bias[:, t]
+        if prev_out_nblk:
+            pred_out_step, new_cache = predictor_step(pred_input, cache,
+                                                      no_pad)
+            cache_list.append(cache)
+            input_list.append(pred_input)
+            _, pred_bias_branch = predictor_bias_step(pred_out_step)
+            gate_logits = gate_step(bias_t, pred_bias_branch)
+            gate = int(torch.argmax(gate_logits, dim=-1)[0])
+            if trace is not None:
+                step_gate = gate
+                step_gap = float(_top2_gap(gate_logits)[0])
+            if go_back_flag == 0:
+                if gate == 0:
+                    result.append(0)
+                    last_t = t
+                else:
+                    if result and result[-1] == 0:
+                        if trace is not None:
+                            trace.append((gate, -1, step_gap))
+                        go_back_end = t
+                        t = last_t
+                        go_back_flag = 1
+                        result.pop()
+                        if hyps:
+                            hyps.pop()
+                        input_list.pop()
+                        per_frame_noblk -= 1
+                        cache_list.pop()
+                        cache = cache_list[-1]
+                        pred_input = input_list[-1]
+                        continue
+                    result.append(1)
+            else:
+                result.append(1)
+                if t >= go_back_end:
+                    go_back_flag = 0
+            if loss_mode == "pred":
+                if result[-1] == 1:
+                    pred_sel, _ = predictor_bias_step_empty(pred_out_step)
+                else:
+                    pred_sel, _ = predictor_bias_step(pred_out_step)
+            else:
+                if result[-1] == 1:
+                    pred_sel, _ = predictor_bias_step(pred_out_step)
+                else:
+                    pred_sel, _ = predictor_bias_step_empty(pred_out_step)
+
+        enc_sel = enc_t_biased if result[-1] == 1 else enc_t_empty
+        logits = joint_step(enc_sel, pred_sel)
+        tok = int(torch.argmax(logits, dim=-1)[0])
+        if trace is not None:
+            trace.append((step_gate, tok,
+                          min(step_gap, float(_top2_gap(logits)[0]))))
+        if tok != blank:
+            hyps.append(tok)
+            prev_out_nblk = True
+            per_frame_noblk += 1
+            pred_input = torch.full((1,), tok, dtype=torch.long, device=dev)
+            cache = new_cache
+        if tok == blank or per_frame_noblk >= n_steps:
+            if tok == blank:
+                prev_out_nblk = False
+            t += 1
+            per_frame_noblk = 0
+    return hyps, result
 
 
 def greedy_to_lists(tokens, lens) -> List[List[int]]:

@@ -196,6 +196,15 @@ class Transducer(ASRModel):
             bias_hidden, pred_out[:, None, :])
         return out[:, 0], pred_bias[:, 0]
 
+    def hw_gate_step(self, enc_bias_t: torch.Tensor,
+                     pred_bias_u: torch.Tensor) -> torch.Tensor:
+        """Per-step hotword-gate logits of the "exact" greedy decode:
+        enc bias at frame t [B, E] × pred bias at step u [B, E] →
+        [B, num_labels]."""
+        hw = self.context_bias.forward_hw_pred_both(enc_bias_t[:, None, :],
+                                                    pred_bias_u[:, None, :])
+        return hw[:, 0]
+
     def hw_gate_logits(self, enc_bias: torch.Tensor) -> torch.Tensor:
         """Per-frame hotword-gate logits [B, T, num_labels] from the
         encoder bias branch [B, T, E].
