@@ -121,6 +121,24 @@ Phases, in the order they run, each printing JSON lines:
             causal, 12 + 12 a step), timed;
   rnnt_train_wavs, bn_train_wavs  T5 and T10's curve: 24 flagship steps
             on the WAVs (the loss falls);
+  train_cli  T12: the train CLI (bin/train.main, in process) on the yaml
+            flagship as it stands plus two loader processes and a record a
+            batch: the 200 train-clean-100 WAVs, cv on the 16 dev-clean
+            WAVs, --cmvn from compute_cmvn_stats, 2 epochs, a step file
+            every step, --profile_dir: its epoch files, infos, links,
+            train.yaml, records and rnnt_impl ("scan"), its launches
+            against the counts derived from its batches (K1 30 + 30 and K4
+            1 + 1 a micro-batch, K1 30 and K4 1 a cv batch, no other);
+            average_model --num 2 and the recognize CLI on the average;
+            seconds an epoch, audio-s/s, the loader's start-up, the card's
+            busy time and idle share over epoch 0 from the trace;
+  train_cli_check  T12-check: the CLI on the card and with --device cpu,
+            16 WAVs, fp32, dropout 0, accum_grad 1, 1 epoch: records and
+            cv loss 1e-4, parameters 1e-3, running statistics 1e-4;
+  train_resume  T12-resume: the yaml flagship (bf16, dropout 0.1), 4
+            batches of 8 through the Executor: a run resumed from its
+            step_2.state in a model of another seed against the
+            uninterrupted run and two repeats of it;
   exact_bench  B5: bf16, B=16 × 512 random frames, blank bias +3.0, 8
             hotwords: "exact" against "on" (median of 3), the search
             loop's host reads an utterance, the card's busy ms and idle
@@ -1936,28 +1954,34 @@ def phase_lnmm_decode(slice_run, lnmm, conv) -> int:
     return total
 
 
+def card_intervals(prof) -> list:
+    """The card's intervals (kernels and copies) a profile recorded, as
+    (name, start ns, end ns), read from the profiler's raw records: its
+    event tree (``events()``) takes far longer to build than a profiled
+    decode or step takes to run."""
+    return [(e.name(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
 def device_events(prof) -> int:
     """How many card intervals (kernels and copies) a profile recorded."""
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return len(card_intervals(prof))
 
 
 def device_busy(prof):
     """The card's busy time (union of its kernel and copy intervals, ms)
     and the ms per kernel name, from a profiler run."""
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        by_name[e.name] = by_name.get(e.name, 0.0) + \
-            e.time_range.elapsed_us() / 1e3
-    busy, end = 0.0, float("-inf")
+    for name, start, stop in card_intervals(prof):
+        spans.append((start, stop))
+        by_name[name] = by_name.get(name, 0.0) + (stop - start) / 1e6
+    busy, end = 0, float("-inf")
     for start, stop in sorted(spans):
         if stop > end:
             busy += stop - max(start, end)
             end = stop
-    return busy / 1e3, by_name
+    return busy / 1e6, by_name
 
 
 def device_profile(fn, iters: int, want: int):
@@ -2063,12 +2087,10 @@ def stage_ms(fn, stages, iters: int = 10) -> dict:
     want = sum(n for *_, n in stages) * iters
     prof, complete = device_profile(fn, iters, want=want)
     spans = {name: [] for name, *_ in stages}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for kernel, start, stop in card_intervals(prof):
         for name, keys, _ in stages:
-            if all(k in e.name for k in keys):
-                spans[name].append(e.time_range.elapsed_us() / 1e3)
+            if all(k in kernel for k in keys):
+                spans[name].append((stop - start) / 1e6)
     out = {name + "_ms": (sum(spans[name]) / len(spans[name]) * n
                           if spans[name] else None)
            for name, _, n in stages}
@@ -2633,6 +2655,15 @@ S3_NBEST = {
             attn_weight=1.0, reverse_weight=0.0)}
 
 
+def write_units(path: Path, vocab: int) -> None:
+    """A symbol table of ``vocab`` entries: blank, the word boundary, the
+    26 letters, placeholders, <sos/eos> last."""
+    syms = ["<blank>", "▁"] + [chr(c) for c in range(65, 91)]
+    syms += [f"<t{i}>" for i in range(len(syms), vocab - 1)] + ["<sos/eos>"]
+    path.write_text("".join(f"{sym} {i}\n" for i, sym in enumerate(syms)),
+                    encoding="utf8")
+
+
 def s3_files(tmp: Path, init_model, conformer_rnnt_bias):
     """S1's model (the full-width flagship in fp32, seed 0, blank bias
     +3.0) saved with the port's save_checkpoint, its config with
@@ -2651,11 +2682,7 @@ def s3_files(tmp: Path, init_model, conformer_rnnt_bias):
         "fbank_conf": {"num_mel_bins": 80, "frame_shift": 10,
                        "frame_length": 25, "dither": 0.1}}
     save_config(cfg, str(tmp / "train.yaml"))
-    syms = ["<blank>", "▁"] + [chr(c) for c in range(65, 91)]
-    syms += [f"<t{i}>" for i in range(len(syms), vocab - 1)] + ["<sos/eos>"]
-    (tmp / "units.txt").write_text("".join(f"{sym} {i}\n"
-                                           for i, sym in enumerate(syms)),
-                                   encoding="utf8")
+    write_units(tmp / "units.txt", vocab)
     text = dict(line.split(" ", 1) for line in
                 (WAV_DIR.parent / "text").read_text().splitlines())
     with open(tmp / "data.list", "w") as f:
@@ -2919,30 +2946,16 @@ def flac_check() -> dict:
                 build_s=build_s, library=lib.name)
 
 
-def kineto_busy(prof):
-    """The card's busy ms (union of its intervals) and the interval count
-    from the profiler's raw records: building its event tree (``events()``)
-    took longer than the profiled run on "exact"'s ~10^6 small launches."""
-    spans = sorted((e.start_ns(), e.end_ns())
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == torch.autograd.DeviceType.CUDA)
-    busy, end = 0, float("-inf")
-    for start, stop in spans:
-        if stop > end:
-            busy += stop - max(start, end)
-            end = stop
-    return busy / 1e6, len(spans)
-
-
 def phase_exact_bench(init_model, Decoder, conformer_rnnt_bias) -> None:
     """B5: "exact" against "on" on the same batch: the bf16 flagship, B =
     16 × 512 random fbank frames, 8 random 4-token hotwords, blank bias
-    +3.0: ms a batch (median of 3 after one warm-up), the host reads of
-    the search loop an utterance (exact: one gate and one token read a
-    step; on: one a label-synchronous iteration), and the card's busy ms,
-    idle share and interval count from one profile (card intervals only,
-    read raw: kineto_busy). At B = 64 too, where four times B = 16's
-    exact median is under 30 s."""
+    +3.0: ms a batch, the host reads of the search loop an utterance
+    (exact: one gate and one token read a step; on: one a
+    label-synchronous iteration). "on": the median of 3 batches after the
+    counted one, and the card's busy ms, idle share and interval count
+    from one profile. "exact" (over 20 s a batch, host-bound): the counted
+    batch itself, synchronised, and no profile. At B = 64 too, where four
+    times B = 16's exact time is under 30 s."""
     from torch.profiler import ProfilerActivity, profile
     for b in (16, 64):
         model, dec, feats, lens, ctx, ctx_lens = bench_setup(
@@ -2950,7 +2963,9 @@ def phase_exact_bench(init_model, Decoder, conformer_rnnt_bias) -> None:
             512)
         out = {"batch": b, "frames": 512, "dtype": "bfloat16",
                "hotwords": 8, "blank_bias": SLICE_BLANK_BIAS,
-               "timing": "median host ms per batch of 3, synchronised",
+               "timing": "on: median host ms per batch of 3 after the "
+                         "counted one; exact: host ms of the counted "
+                         "batch; synchronised",
                "card": smi()}
 
         def run(state):
@@ -2969,11 +2984,20 @@ def phase_exact_bench(init_model, Decoder, conformer_rnnt_bias) -> None:
                      else ("predictor_step",))
             for nm in names:
                 setattr(model, nm, counted(getattr(model, nm)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             hyps = run(state)
             torch.cuda.synchronize()
+            times = [(time.perf_counter() - t0) * 1e3]
             for nm in names:
                 delattr(model, nm)
             loop_reads = reads["n"] - (0 if state == "exact" else 1)
+            out.update({
+                f"{state}_loop_host_reads_per_utt": loop_reads / b,
+                f"{state}_tokens_per_utt": sum(map(len, hyps)) / b})
+            if state == "exact":
+                out["exact_ms_per_batch"] = times[0]
+                continue
             times = []
             for _ in range(3):
                 torch.cuda.synchronize()
@@ -2986,26 +3010,25 @@ def phase_exact_bench(init_model, Decoder, conformer_rnnt_bias) -> None:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 run(state)
                 torch.cuda.synchronize()
-            busy, kernels = kineto_busy(prof)
+            busy = device_busy(prof)[0]
+            kernels = device_events(prof)
             out.update({
-                f"{state}_ms_per_batch": med,
-                f"{state}_ms_all": times,
-                f"{state}_loop_host_reads_per_utt": loop_reads / b,
-                f"{state}_tokens_per_utt": sum(map(len, hyps)) / b,
-                f"{state}_device_busy_ms": busy,
-                f"{state}_idle_share": 1.0 - busy / med,
-                f"{state}_card_intervals": kernels,
-                f"{state}_card_intervals_per_loop_read": kernels / loop_reads,
-                f"{state}_profile_s": time.perf_counter() - t0})
-            check(busy > 0, f"exact_bench B={b} {state}: the profile "
-                            "recorded no card time")
+                "on_ms_per_batch": med,
+                "on_ms_all": times,
+                "on_device_busy_ms": busy,
+                "on_idle_share": 1.0 - busy / med,
+                "on_card_intervals": kernels,
+                "on_card_intervals_per_loop_read": kernels / loop_reads,
+                "on_profile_s": time.perf_counter() - t0})
+            check(busy > 0, f"exact_bench B={b} on: the profile recorded "
+                            "no card time")
         out["exact_over_on"] = out["exact_ms_per_batch"] / \
             out["on_ms_per_batch"]
         emit("exact_bench", **out)
         del model, dec
         if b == 16 and 4 * out["exact_ms_per_batch"] >= 30e3:
             emit("exact_bench", batch=64, skipped=True,
-                 why="four times B=16's exact median is 30 s or more")
+                 why="four times B=16's exact time is 30 s or more")
             break
 
 
@@ -3663,6 +3686,27 @@ U2PP_CONV_PER_STEP = {**U2PP_PER_STEP, "k8": 12, "k8_bwd": 12}
 RECOGNIZE_KERNELS = {**NO_LAUNCHES, "k1": 1, "k2": 1, "k4": 1, "k9": 1}
 
 
+def register_counters() -> None:
+    """Each kernel wrapper's launch count under its key of NO_LAUNCHES."""
+    from wenet_celoss_tpu_torch.ops import (conv, ffn, ln_matmul, lstm,
+                                            rnnt_loss)
+    COUNTERS.update(
+        k1=(ffn.ln_ffn_residual, "launches"),
+        k1_bwd=(ffn.ln_ffn_residual, "bwd_launches"),
+        k2=(rnnt_loss.joint_planes, "launches"),
+        k3=(rnnt_loss.joint_planes_bwd, "launches"),
+        k4=(lstm.lstm2_seq, "launches"),
+        k4_bwd=(lstm.lstm2_seq, "bwd_launches"),
+        k6=(ffn.ffn_fused, "launches"),
+        k6_bwd=(ffn.ffn_fused, "bwd_launches"),
+        k7=(ln_matmul.ln_matmul, "launches"),
+        k7_bwd=(ln_matmul.ln_matmul, "bwd_launches"),
+        k8=(conv.conv_block_residual, "launches"),
+        k8_bwd=(conv.conv_block_residual, "bwd_launches"),
+        k9=(rnnt_loss.alpha_beta, "launches"))
+    assert set(COUNTERS) == set(NO_LAUNCHES)
+
+
 def reset_counts() -> None:
     for obj, attr in COUNTERS.values():
         setattr(obj, attr, 0)
@@ -3982,6 +4026,575 @@ def limited_chunk_seed(wavs) -> int:
     return seed
 
 
+# ------------------------------------------------- the train CLI (T12) ---
+FLAGSHIP_YAML = ROOT / "examples" / "librispeech" / "conf" / \
+    "conformer_rnnt_bias.yaml"
+DEV_DIR = DATA_DIR / "dev-clean"
+LOSS_KEYS = ("loss", "loss_rnnt", "loss_ctc", "loss_att", "hw_loss")
+RECORD_KEYS = {"epoch", "batch", "step", "lr", "audio_s_per_s"}
+# Per flagship micro-batch of the train CLI (the yaml's rnnt_impl is not
+# read, so the loss is "scan": the plain wavefront on the materialised
+# joint, no K9, K2 or K3): K1 30 each way, K4 1 each way; per cv batch the
+# forwards only.
+CLI_PER_BATCH = {**NO_LAUNCHES, "k1": 30, "k1_bwd": 30, "k4": 1,
+                 "k4_bwd": 1}
+CLI_PER_CV_BATCH = {**NO_LAUNCHES, "k1": 30, "k4": 1}
+
+
+def write_data_list(path: Path, part: Path, n: int = 0) -> list:
+    """data.list (paths under this checkout) and wav.scp beside it of the
+    first ``n`` (all with 0) WAVs of a committed part; returns the keys."""
+    text = dict(line.split(" ", 1) for line in
+                (part / "text").read_text().splitlines())
+    wavs = sorted((part / "wavs").glob("*.wav"))
+    wavs = wavs[:n] if n else wavs
+    with open(path, "w") as f, open(path.with_suffix(".scp"), "w") as g:
+        for wav in wavs:
+            f.write(json.dumps({"key": wav.stem, "wav": str(wav),
+                                "txt": text[wav.stem]}) + "\n")
+            g.write(f"{wav.stem} {wav}\n")
+    return [w.stem for w in wavs]
+
+
+@contextlib.contextmanager
+def wrapped(obj, name: str, make):
+    """``obj.name`` replaced by ``make(original)`` for the block."""
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def trace_busy(path: Path):
+    """The card's busy ms (union of its kernel, memcpy and memset
+    intervals) and the interval count in a torch.profiler chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in
+                   ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3, len(spans)
+
+
+class CliProbe:
+    """Records what one in-process train CLI run does: the built model,
+    the train loader, each train epoch's and cv pass's seconds (the card
+    synchronised) and each cv pass's batches."""
+
+    def __init__(self):
+        self.model = self.loader = None
+        self.epoch_s, self.cv_s, self.cv_batches, self.startup_s = \
+            [], [], [], []
+
+    @contextlib.contextmanager
+    def watch(self):
+        from wenet_celoss_tpu_torch.data import loader
+        from wenet_celoss_tpu_torch.models import factory
+        from wenet_celoss_tpu_torch.parallel import executor
+        probe = self
+
+        def init_model(orig):
+            def f(*a, **kw):
+                probe.model = orig(*a, **kw)
+                return probe.model
+            return f
+
+        def make_loader(orig):
+            def f(*a, **kw):
+                probe.loader = orig(*a, **kw)
+                return probe.loader
+            return f
+
+        def sync():
+            if probe.model is not None and \
+                    next(probe.model.parameters()).is_cuda:
+                torch.cuda.synchronize()
+
+        def train_epoch(orig):
+            def f(self, state, data, epoch=0):
+                sync()
+                t0 = time.perf_counter()
+                out = orig(self, state, data, epoch)
+                sync()
+                probe.epoch_s.append(time.perf_counter() - t0)
+                probe.startup_s.append(getattr(probe.loader, "startup_s",
+                                               None))
+                return out
+            return f
+
+        def cv(orig):
+            def f(self, state, data):
+                probe.cv_batches.append(0)
+
+                def counted():
+                    for b in data:
+                        probe.cv_batches[-1] += 1
+                        yield b
+                sync()
+                t0 = time.perf_counter()
+                out = orig(self, state, counted())
+                sync()
+                probe.cv_s.append(time.perf_counter() - t0)
+                return out
+            return f
+
+        with wrapped(factory, "init_model", init_model), \
+                wrapped(loader, "make_loader", make_loader), \
+                wrapped(executor.Executor, "train_epoch", train_epoch), \
+                wrapped(executor.Executor, "cv", cv):
+            yield self
+
+
+def cli_inputs(tmp: Path, n_train: int = 0) -> tuple:
+    """The train list (the first ``n_train`` train-clean-100 WAVs, all 200
+    with 0), the 16 dev-clean WAVs as the cv list, S3's 5002-symbol table
+    and the global CMVN of the train WAVs by the port's
+    compute_cmvn_stats → (shared CLI arguments, cv keys)."""
+    from wenet_celoss_tpu_torch.bin import compute_cmvn_stats
+    write_data_list(tmp / "train.list", TRAIN_DIR, n_train)
+    cv_keys = write_data_list(tmp / "cv.list", DEV_DIR)
+    write_units(tmp / "units.txt", 5002)
+    compute_cmvn_stats.main(["--train_config", str(FLAGSHIP_YAML),
+                             "--in_scp", str(tmp / "train.scp"),
+                             "--out_cmvn", str(tmp / "global_cmvn"),
+                             "--log_interval", "100000"])
+    return ["--train_data", str(tmp / "train.list"), "--cv_data",
+            str(tmp / "cv.list"), "--symbol_table", str(tmp / "units.txt"),
+            "--cmvn", str(tmp / "global_cmvn")], cv_keys
+
+
+def run_train_cli(train_cli, argv, probe=None):
+    """One in-process run of the port's train CLI; mode-1 hotword sampling
+    draws from the global ``random``, seeded here as for every run."""
+    import random
+    random.seed(0)
+    with (probe.watch() if probe else contextlib.nullcontext()):
+        train_cli.main(argv)
+
+
+def read_records(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def train_cli_child(argv: list, result: str) -> None:
+    """T12's run, in a process of its own that ``train_cli_process``
+    starts with ``python -c``: the train CLI in process under a CliProbe,
+    every launch count set to 0 just before it and read just after, into
+    the JSON file ``result``. The loader's spawned workers then import the
+    CLI's data modules only (a ``-c`` main module is not re-imported), not
+    this script and torch with it, as when a user runs ``python -m
+    wenet_celoss_tpu_torch.bin.train``."""
+    import logging
+    from wenet_celoss_tpu_torch.bin import train as train_cli
+    logging.basicConfig(level=logging.WARNING)
+    register_counters()
+    probe = CliProbe()
+    reset_counts()
+    t0 = time.perf_counter()
+    run_train_cli(train_cli, argv, probe)
+    if next(probe.model.parameters()).is_cuda:
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    Path(result).write_text(json.dumps(dict(
+        launches=read_counts(), run_s=run_s, epoch_s=probe.epoch_s,
+        cv_s=probe.cv_s, startup_s=probe.startup_s,
+        cv_batches=probe.cv_batches,
+        rnnt_impl=getattr(probe.model, "rnnt_impl", None))))
+
+
+def train_cli_process(argv: list, result: Path, timeout_s: int = 400):
+    """``train_cli_child(argv, result)`` in a new process (and session, so
+    that a run past ``timeout_s`` is killed with its loader workers) →
+    (the process's seconds, the child's JSON). Raises if the process fails
+    or runs past ``timeout_s``."""
+    import signal
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "chip_smoke.train_cli_child(json.loads(sys.argv[2]), sys.argv[3])")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, str(ROOT), json.dumps(argv),
+         str(result)], cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"train_cli: the CLI's process ran past "
+                           f"{timeout_s} s and was killed")
+    if proc.returncode != 0:
+        raise RuntimeError(f"train_cli: the CLI's process exited "
+                           f"{proc.returncode}: {err[-3000:]}")
+    return time.perf_counter() - t0, json.loads(result.read_text())
+
+
+def phase_train_cli() -> dict:
+    """T12: the port's train CLI on the yaml flagship as it stands (bf16,
+    batch_norm, dither 0.1, speed perturb, spec_aug, context mode 1,
+    dynamic batches of 6000 frames, accum_grad 4) plus two loader
+    processes and a record a batch: the 200 train-clean-100 WAVs, cv on
+    the 16 dev-clean WAVs, 2 epochs, --step_checkpoint_interval 1,
+    --profile_dir. One run, in a process of its own (``train_cli_process``:
+    its loader workers import no torch, as a user's do): its files, its
+    config, its records, its model's rnnt_impl and its launches against
+    the counts derived from its batches, its epochs' seconds and loader
+    start-up, and epoch 0's card busy time from the trace. Then
+    average_model --num 2 and the recognize CLI (rnnt_greedy_search) on
+    the average with the CLI's train.yaml. Returns the run's launches and
+    the derived counts."""
+    import tempfile
+    from wenet_celoss_tpu_torch.bin import average_model, recognize
+    from wenet_celoss_tpu_torch.utils import checkpoint as ckpt
+    from wenet_celoss_tpu_torch.utils.config import load_config, save_config
+    from wenet_celoss_tpu_torch.utils.scheduler import warmup_lr
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        base, cv_keys = cli_inputs(tmp)
+        cfg = load_config(str(FLAGSHIP_YAML))
+        cfg["dataset_conf"]["loader_processes"] = 2
+        cfg["log_interval"] = 1
+        save_config(cfg, str(tmp / "conf.yaml"))
+        out = tmp / "exp"
+        argv = ["--config", str(tmp / "conf.yaml"), "--model_dir", str(out),
+                "--num_epochs", "2", "--step_checkpoint_interval", "1",
+                "--profile_dir", str(tmp / "prof")] + base
+        torch.cuda.empty_cache()
+        process_s, child = train_cli_process(argv, tmp / "child.json")
+        launches = child["launches"]
+        recs = read_records(out / "metrics.jsonl")
+        per_epoch = [sum(r["epoch"] == e for r in recs) for e in (0, 1)]
+        want = {k: sum(per_epoch) * CLI_PER_BATCH[k]
+                + sum(child["cv_batches"]) * CLI_PER_CV_BATCH[k]
+                for k in NO_LAUNCHES}
+        check(launches == want, f"train_cli: launches {launches}, want "
+                                f"{want}")
+        check(child["rnnt_impl"] == "scan",
+              "train_cli: the built model's rnnt_impl is not scan")
+        schedule = warmup_lr(cfg["optim_conf"]["lr"],
+                             cfg["scheduler_conf"]["warmup_steps"])
+        infos = [ckpt.load_checkpoint_infos(str(out / f"{e}.pt"))
+                 for e in (0, 1)]
+        # A partial accumulation at an epoch's end is dropped.
+        steps_by_epoch = [sum(n // cfg["accum_grad"]
+                              for n in per_epoch[:e + 1]) for e in (0, 1)]
+        for e, info in enumerate(infos):
+            check((out / f"{e}.pt").exists() and info.get("epoch") == e
+                  and info.get("step") == steps_by_epoch[e]
+                  and np.isfinite(info.get("cv_loss", np.nan))
+                  and info.get("lr") == schedule(max(info["step"], 1)),
+                  f"train_cli: {e}.pt infos {info}")
+        check(os.readlink(out / "final.pt") == "1.pt",
+              "train_cli: final.pt does not link to 1.pt")
+        states = sorted(p.name for p in out.glob("step_*.state"))
+        check(states == [f"step_{n}.state" for n in
+                         range(1, steps_by_epoch[1] + 1)] and states,
+              f"train_cli: step files {states}")
+        written = dict(cfg, input_dim=80, output_dim=5002,
+                       cmvn_file=str(tmp / "global_cmvn"),
+                       is_json_cmvn=True)
+        written["dataset_conf"]["batch_conf"]["round_to"] = 1
+        check(load_config(str(out / "train.yaml")) == written,
+              "train_cli: train.yaml differs from the config it was given")
+        bad = [r for r in recs if not RECORD_KEYS | set(LOSS_KEYS) <= set(r)
+               or not all(np.isfinite(r[k]) for k in LOSS_KEYS)]
+        stepped = [r["batch"] for r in recs if "grad_norm" in r]
+        check(len(recs) == sum(per_epoch) and not bad
+              and len(stepped) == steps_by_epoch[1],
+              f"train_cli: {len(recs)} records, bad {bad[:2]}, "
+              f"{len(stepped)} with grad_norm")
+
+        t1 = time.perf_counter()
+        average_model.main(["--dst_model", str(out / "avg.pt"),
+                            "--src_path", str(out), "--num", "2"])
+        avg_from = ckpt.load_checkpoint_infos(str(out / "avg.pt")).get(
+            "averaged_from", [])
+        recognize.main(["--config", str(out / "train.yaml"), "--test_data",
+                        str(tmp / "cv.list"), "--checkpoint",
+                        str(out / "avg.pt"), "--symbol_table",
+                        str(tmp / "units.txt"), "--result_file",
+                        str(tmp / "rec" / "text"), "--mode",
+                        "rnnt_greedy_search", "--batch_size", "16"])
+        lines = (tmp / "rec" / "text").read_text().splitlines()
+        check(sorted(p.split()[0] for p in avg_from) ==
+              sorted(str(out / f"{e}.pt") for e in (0, 1)) and
+              sorted(line.split(" ", 1)[0] for line in lines) ==
+              sorted(cv_keys),
+              f"train_cli: average of {avg_from}, {len(lines)} recognize "
+              f"lines for {len(cv_keys)} dev-clean WAVs")
+        tools_s = time.perf_counter() - t1
+
+        epoch_s, startup_s = child["epoch_s"], child["startup_s"]
+        busy_ms, intervals = trace_busy(tmp / "prof" / "trace.json")
+        audio_s = [[r["audio_s_per_s"] for r in recs if r["epoch"] == e][-1]
+                   for e in (0, 1)]
+        emit("train_cli", model="conformer_rnnt_bias (yaml)",
+             dtype=cfg["dtype"], rnnt_impl=child["rnnt_impl"],
+             accum_grad=cfg["accum_grad"],
+             loader_processes=2, train_wavs=200, cv_wavs=len(cv_keys),
+             micro_batches_per_epoch=per_epoch,
+             cv_batches_per_epoch=child["cv_batches"],
+             optimizer_steps=steps_by_epoch[1],
+             process_s=process_s, run_s=child["run_s"], epoch_s=epoch_s,
+             cv_s=child["cv_s"], loader_startup_s=startup_s,
+             cli_audio_s_per_s_last_record=audio_s,
+             epoch0_busy_ms=busy_ms, epoch0_card_intervals=intervals,
+             epoch0_idle_share=1 - busy_ms / (1e3 * epoch_s[0]),
+             epoch0_idle_share_after_startup=1 - busy_ms / (
+                 1e3 * (epoch_s[0] - startup_s[0])),
+             epoch0_profiled=True, cv_loss=[i["cv_loss"] for i in infos],
+             first_loss=recs[0]["loss"], last_loss=recs[-1]["loss"],
+             launches=launches, want=want, avg_recognize_s=tools_s,
+             recognize_lines=len(lines), step_files=states)
+    return launches, want
+
+
+# Tensors of the flagship (batch_norm conv modules) whose gradient is 0 in
+# exact arithmetic: softmax ignores a shift shared by all keys, and the
+# batch norm cancels the depthwise conv's bias.
+ZERO_GRAD = ("linear_k.bias", "depthwise_conv.bias")
+
+
+def compare_first_step(names, card, cpu, tx) -> dict:
+    """T12-check's comparison of two runs' state after one optimizer step
+    from the same weights: ``card`` and ``cpu`` are (0.pt's state_dict,
+    step_1.state's payload). Adam's moments, tensor by tensor, to T3's
+    gradient bounds (mu is (1 - b1) times the clipped gradient, nu
+    (1 - b2) times its square): mu to 1e-3 relative Frobenius, nu to 2e-3;
+    a ZERO_GRAD tensor's mu to 1e-6 of the global norm of mu, its nu left
+    out (0.1 mu^2 at count 1). Each parameter to 1e-3 relative Frobenius
+    once the difference that the two sides' own moments give through
+    Adam's first update is taken out: a step moves an element by the
+    learning rate times mu_hat / (sqrt(nu_hat) + eps), about the rate
+    itself wherever the gradient is above eps, so a zero-initialised bias
+    whose gradient is at rounding level in places can land either side
+    of 0 on the two devices (the norm of the larger side is the scale).
+    The running statistics to 1e-4 of each
+    tensor's largest element. Returns the fields of the phase's line;
+    ``ok`` is False if any bound is broken."""
+    (card_p, card_s), (cpu_p, cpu_s) = card, cpu
+    mom = {side: {tag: dict(zip(names, st["opt"][tag]))
+                  for tag in ("mu", "nu")}
+           for side, st in (("card", card_s), ("cpu", cpu_s))}
+    g_mu = float(torch.linalg.vector_norm(torch.stack(
+        [m.norm() for m in mom["cpu"]["mu"].values()])))
+    lr = tx.schedule(0)
+
+    def update(side, k):
+        m_hat = mom[side]["mu"][k].double() / (1 - tx.b1)
+        v_hat = mom[side]["nu"][k].double() / (1 - tx.b2)
+        return lr * m_hat / (v_hat.sqrt() + tx.eps)
+
+    worst = {"mu": (0.0, None), "nu": (0.0, None), "param": (0.0, None),
+             "zero_grad_mu": (0.0, None)}
+
+    def note(tag, ratio, k):
+        if ratio > worst[tag][0]:
+            worst[tag] = (ratio, k)
+    for k in names:
+        a, b = mom["card"]["mu"][k], mom["cpu"]["mu"][k]
+        if k.endswith(ZERO_GRAD):
+            note("zero_grad_mu", float((a - b).norm()) / (1e-6 * g_mu), k)
+        else:
+            note("mu", rel_fro(a, b) / 1e-3, k)
+            note("nu", rel_fro(mom["card"]["nu"][k],
+                               mom["cpu"]["nu"][k]) / 2e-3, k)
+        # card - cpu = (p0 - lr u_card) - (p0 - lr u_cpu)
+        explained = update("cpu", k) - update("card", k)
+        rest = (card_p[k].double() - cpu_p[k].double()) - explained
+        size = max(float(card_p[k].norm()), float(cpu_p[k].norm()), 1e-30)
+        note("param", float(rest.norm()) / size / 1e-3, k)
+    stats = [k for k in cpu_p if k.endswith(("running_mean", "running_var"))]
+    stat_err = max(float((card_p[k] - cpu_p[k]).abs().max())
+                   / float(cpu_p[k].abs().max()) for k in stats)
+    raw = max((rel_fro(card_p[k], cpu_p[k]), k) for k in names)
+    ok = all(r <= 1.0 for r, _ in worst.values()) and stat_err <= 1e-4 \
+        and card_s["opt"]["count"] == cpu_s["opt"]["count"] == 1
+    fields = {f"worst_{tag}_over_limit": r for tag, (r, _) in worst.items()}
+    fields.update({f"worst_{tag}": k for tag, (_, k) in worst.items()})
+    return dict(ok=ok, **fields, tensors=len(names),
+                zero_grad_tensors=sum(k.endswith(ZERO_GRAD) for k in names),
+                mu_global_norm=g_mu, step_lr=lr,
+                worst_raw_param_rel_fro=raw[0], worst_raw_param=raw[1],
+                running_stats=len(stats), running_stats_max_rel=stat_err)
+
+
+def phase_train_cli_check() -> None:
+    """T12-check: the train CLI on the card and with --device cpu over the
+    first 16 train WAVs (one dynamic batch) and the 16 dev-clean WAVs,
+    dtype float32, every dropout rate 0, accum_grad 1 (so that the one
+    batch steps), 1 epoch, --step_checkpoint_interval 1; dither, speed
+    perturb and spec_aug on (numpy, the same draws on both). Each record's
+    loss terms and grad_norm within 1e-4 relative, the cv loss within
+    1e-4, and 0.pt and step_1.state as ``compare_first_step`` holds
+    them."""
+    import tempfile
+    from wenet_celoss_tpu_torch.bin import train as train_cli
+    from wenet_celoss_tpu_torch.parallel import train
+    from wenet_celoss_tpu_torch.utils import checkpoint as ckpt
+    from wenet_celoss_tpu_torch.utils.config import load_config, save_config
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        base, _ = cli_inputs(tmp, n_train=16)
+        cfg = no_dropout_rnnt(load_config(str(FLAGSHIP_YAML)))
+        cfg.update(dtype="float32", accum_grad=1, log_interval=1)
+        check(cfg["encoder_conf"]["cnn_module_norm"] == "batch_norm",
+              "train_cli_check: ZERO_GRAD assumes batch_norm conv modules")
+        save_config(cfg, str(tmp / "conf.yaml"))
+        runs, secs = {}, {}
+        probe = CliProbe()
+        for dev in ("cuda", "cpu"):
+            argv = ["--config", str(tmp / "conf.yaml"), "--model_dir",
+                    str(tmp / dev), "--num_epochs", "1",
+                    "--step_checkpoint_interval", "1"] + base
+            t0 = time.perf_counter()
+            run_train_cli(train_cli, argv + (["--device", "cpu"]
+                                             if dev == "cpu" else []),
+                          probe if dev == "cpu" else None)
+            secs[dev] = time.perf_counter() - t0
+            runs[dev] = (read_records(tmp / dev / "metrics.jsonl"),
+                         ckpt.load_checkpoint_infos(str(tmp / dev / "0.pt")),
+                         (ckpt.load_checkpoint(str(tmp / dev / "0.pt")),
+                          torch.load(tmp / dev / "step_1.state",
+                                     weights_only=True)))
+        (card_r, card_i, card_st), (cpu_r, cpu_i, cpu_st) = \
+            runs["cuda"], runs["cpu"]
+        rec_err = max((abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                       for a, b in zip(card_r, cpu_r)
+                       for k in LOSS_KEYS + ("grad_norm",)),
+                      default=float("inf"))
+        cv_err = abs(card_i["cv_loss"] - cpu_i["cv_loss"]) / abs(
+            cpu_i["cv_loss"])
+        names = [n for n, _ in probe.model.named_parameters()]
+        tx, _ = train.make_optimizer(cfg)
+        fields = compare_first_step(names, card_st, cpu_st, tx)
+        ok = fields.pop("ok")
+        check(len(card_r) == len(cpu_r) == 1 and
+              [set(r) for r in card_r] == [set(r) for r in cpu_r]
+              and "grad_norm" in card_r[0] and rec_err <= 1e-4
+              and cv_err <= 1e-4 and ok
+              and fields["running_stats"] == 24,
+              f"train_cli_check: records {rec_err}, cv {cv_err}, {fields}")
+        emit("train_cli_check", dtype="float32", dropout=0.0, accum_grad=1,
+             train_wavs=16, batches=len(card_r), records_max_rel=rec_err,
+             cv_loss_card=card_i["cv_loss"], cv_loss_cpu=cpu_i["cv_loss"],
+             cv_rel=cv_err, **fields, card_s=secs["cuda"], cpu_s=secs["cpu"],
+             tolerance="records and cv loss 1e-4 relative; Adam's mu 1e-3 "
+                       "and nu 2e-3 relative Frobenius (the key and "
+                       "batch-normed depthwise biases: mu 1e-6 of mu's "
+                       "global norm); parameters 1e-3 relative Frobenius "
+                       "after the difference of the two sides' Adam "
+                       "updates; running statistics 1e-4 of each "
+                       "tensor's largest element")
+
+
+def phase_train_resume() -> None:
+    """T12-resume: the yaml flagship at full width (bf16, dropout 0.1),
+    the port's Dataset over 32 train WAVs in static batches of 8 (4
+    batches), accum_grad 1, through the Executor. A trains all 4 batches,
+    A' and A'' repeat it; B trains 2 and writes step_2.state through its
+    checkpoint function; C, a model built with another seed, loads the
+    state and the generator and trains batches 2-3. Step, Adam count and
+    the generator state must equal A's; each parameter, moment and running
+    statistic of C may differ from A's by no more than a repeat of A does
+    (equal bits where the repeats are equal bitwise). Deterministic
+    algorithms are on for the phase (warn only)."""
+    import random
+    import tempfile
+    from wenet_celoss_tpu_torch.data.dataset import Dataset
+    from wenet_celoss_tpu_torch.models.factory import init_model
+    from wenet_celoss_tpu_torch.parallel import train
+    from wenet_celoss_tpu_torch.parallel.executor import Executor
+    from wenet_celoss_tpu_torch.utils import checkpoint as ckpt
+    from wenet_celoss_tpu_torch.utils.config import load_config
+    from wenet_celoss_tpu_torch.utils.file_utils import read_symbol_table
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_data_list(tmp / "train.list", TRAIN_DIR, 32)
+        write_units(tmp / "units.txt", 5002)
+        cfg = load_config(str(FLAGSHIP_YAML))
+        cfg.update(input_dim=80, output_dim=5002, accum_grad=1)
+        conf = dict(cfg["dataset_conf"],
+                    batch_conf={"batch_type": "static", "batch_size": 8})
+        random.seed(0)
+        batches = list(Dataset("raw", str(tmp / "train.list"),
+                               read_symbol_table(str(tmp / "units.txt")),
+                               conf, partition=False))
+        check(len(batches) == 4, f"train_resume: {len(batches)} batches")
+        path = str(tmp / "step_2.state")
+
+        def save(st, gen):
+            if st.step == 2:
+                ckpt.save_train_state(st, path, {"step": 2, "epoch": 0},
+                                      gen=gen)
+
+        def run(data, seed=0, resume=None, fn=None):
+            model = init_model(cfg, seed=seed)
+            tx, schedule = train.make_optimizer(cfg)
+            state = train.create_train_state(model, tx)
+            gen = torch.Generator().manual_seed(0)
+            if resume:
+                ckpt.load_train_state(state, resume, gen=gen)
+            ex = Executor(model, tx, schedule, gen=gen,
+                          checkpoint_every=1, checkpoint_fn=fn)
+            ex.step = state.step
+            state = ex.train_epoch(state, iter(data))
+            torch.cuda.synchronize()
+            out = state.state_dict()
+            out["gen"] = gen.get_state()
+            return out
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            t0 = time.perf_counter()
+            a = run(batches)
+            repeats = [run(batches), run(batches)]
+            run(batches[:2], fn=save)
+            ckpt.wait_pending()
+            c = run(batches[2:], seed=1, resume=path)
+            seconds = time.perf_counter() - t0
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+        def tensors(sd):
+            return {**{f"model.{k}": v for k, v in sd["model"].items()},
+                    **{f"mu.{i}": v for i, v in enumerate(sd["opt"]["mu"])},
+                    **{f"nu.{i}": v for i, v in enumerate(sd["opt"]["nu"])}}
+
+        ta, tc = tensors(a), tensors(c)
+        tr = [tensors(r) for r in repeats]
+        worse, spread, diff = [], {}, {}
+        for k, x in ta.items():
+            spread[k] = max(float((r[k].double() - x.double()).abs().max())
+                            for r in tr)
+            diff[k] = float((tc[k].double() - x.double()).abs().max())
+            same = all(torch.equal(r[k], x) for r in tr)
+            if (same and not torch.equal(tc[k], x)) or diff[k] > spread[k]:
+                worse.append((k, diff[k], spread[k]))
+        counters = (a["step"] == c["step"] == 4
+                    and a["opt"]["count"] == c["opt"]["count"] == 4
+                    and torch.equal(a["gen"], c["gen"]))
+        check(counters and not worse,
+              f"train_resume: counters equal {counters}, C beyond the "
+              f"repeats' spread in {len(worse)} tensors: {worse[:5]}")
+        emit("train_resume", dtype=cfg["dtype"], dropout=0.1, batches=4,
+             batch_size=8, tensors=len(ta),
+             repeats_bitwise_equal=sum(spread[k] == 0 for k in ta),
+             resumed_bitwise_equal=sum(diff[k] == 0 for k in ta),
+             max_repeat_diff=max(spread.values()),
+             max_resume_diff=max(diff.values()),
+             worst=sorted(worse, key=lambda w: -w[1])[:5],
+             counters_equal=counters, seconds=seconds)
+
+
 def kernel_line(name, source, replaces, by_path, record) -> dict:
     """One kernel's entry; ``factor`` is its time (card time where it has
     one) over its yardstick's, null without a yardstick."""
@@ -4006,21 +4619,7 @@ def main() -> int:
                                             ffn, ln_matmul, lstm, rnnt_loss)
     from wenet_celoss_tpu_torch.parallel import train
 
-    COUNTERS.update(
-        k1=(ffn.ln_ffn_residual, "launches"),
-        k1_bwd=(ffn.ln_ffn_residual, "bwd_launches"),
-        k2=(rnnt_loss.joint_planes, "launches"),
-        k3=(rnnt_loss.joint_planes_bwd, "launches"),
-        k4=(lstm.lstm2_seq, "launches"),
-        k4_bwd=(lstm.lstm2_seq, "bwd_launches"),
-        k6=(ffn.ffn_fused, "launches"),
-        k6_bwd=(ffn.ffn_fused, "bwd_launches"),
-        k7=(ln_matmul.ln_matmul, "launches"),
-        k7_bwd=(ln_matmul.ln_matmul, "bwd_launches"),
-        k8=(conv.conv_block_residual, "launches"),
-        k8_bwd=(conv.conv_block_residual, "bwd_launches"),
-        k9=(rnnt_loss.alpha_beta, "launches"))
-    assert set(COUNTERS) == set(NO_LAUNCHES)
+    register_counters()
     name = torch.cuda.get_device_name(0)
     card = smi()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
@@ -4116,6 +4715,9 @@ def main() -> int:
     phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train, wavs)
     phase_rnnt_train_wavs(init_model, bn_flagship, train, wavs,
                           what="bn_train_wavs")
+    train_cli = phase_train_cli()
+    phase_train_cli_check()
+    phase_train_resume()
     phase_exact_bench(init_model, Decoder, conformer_rnnt_bias)
     for args in to_profile:
         phase_profile(*args)
@@ -4149,6 +4751,7 @@ def main() -> int:
              "u2pp_train": (t11, U2PP_PER_STEP),
              "u2pp_conv_train": (t11_conv, U2PP_CONV_PER_STEP),
              "recognize": (recognize_launches, RECOGNIZE_KERNELS),
+             "train_cli": train_cli,
              **{"decode_" + n: v for n, v in b3_paths.items()}}
     idle = {path: sorted(k for k, n in want.items()
                          if n > 0 and launches[k] == 0)

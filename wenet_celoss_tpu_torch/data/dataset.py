@@ -67,11 +67,9 @@ class Dataset:
         if conf.get("resample", True):
             data = processor.resample(data, **conf.get("resample_conf", {}))
         feats_type = conf.get("feats_type", "fbank")
-        if feats_type != "fbank":
-            raise NotImplementedError(f"feats_type {feats_type!r} is not "
-                                      "ported (only fbank)")
-        feat_conf = conf.get("fbank_conf", {})
-        feat_one = processor.fbank_one
+        feat_conf = conf.get(f"{feats_type}_conf", {})
+        feat_one = {"fbank": processor.fbank_one,
+                    "mfcc": processor.mfcc_one}[feats_type]
         sp = conf.get("speed_perturb", False)
         sp_speeds = conf.get("speed_perturb_conf", {}).get(
             "speeds", [0.9, 1.0, 1.1])
@@ -84,9 +82,10 @@ class Dataset:
         if num_workers > 0:
             # Ordered thread map over the heavy numeric stages
             # (speed-perturb resample + fbank FFT/mel; numpy releases
-            # the GIL). Randomness is counter-based per sample: a
-            # generator seeded by (epoch, sample index) draws the same
-            # under any worker scheduling.
+            # the GIL). Randomness (speed, dither) is counter-based per
+            # sample: a generator seeded by (epoch, sample index) draws
+            # the same under any worker scheduling; the serial path
+            # draws from the epoch's generators.
             epoch = self.epoch
 
             def _featurize(pair):

@@ -6,8 +6,9 @@ Stages: ``url_opener`` and ``tar_file_and_group`` (shards), ``parse_raw``
 ``fbank_one`` on ``ops/fbank.py compute_fbank_np``, ``spec_aug``,
 ``spec_sub``, ``shuffle``, ``sort``, ``static_batch``, ``dynamic_batch``,
 ``padding`` (bucketed shapes; context modes 1-4 through
-``data/context.py``), ``parallel_map`` and ``prefetch``. fbank dither
-raises (``ops/fbank.py``), and there is no MFCC.
+``data/context.py``), ``parallel_map`` and ``prefetch``; ``fbank_one``
+with dither and ``mfcc_one`` on ``ops/fbank.py``'s host front end, the
+dither drawn from the caller's numpy generator.
 
 Sample dict keys: key, wav [S] float32 int16-range, sample_rate, txt,
 tokens, label (list[int]), feat [T, M].
@@ -30,7 +31,9 @@ from wenet_celoss_tpu_torch.data.context import (ContextMaintainer,
                                                  hw_label_generate)
 from wenet_celoss_tpu_torch.data.tokenizer import Tokenizer
 from wenet_celoss_tpu_torch.data.wav import read_audio
-from wenet_celoss_tpu_torch.ops.fbank import FbankConfig, compute_fbank_np
+from wenet_celoss_tpu_torch.ops.fbank import (FbankConfig, MfccConfig,
+                                              compute_fbank_np,
+                                              compute_mfcc_np)
 
 AUDIO_FORMAT = ("flac", "mp3", "m4a", "ogg", "opus", "wav", "wma")
 
@@ -454,14 +457,37 @@ def fbank_one(sample: Dict, num_mel_bins: int = 23, frame_length: int = 25,
               frame_shift: int = 10, dither: float = 0.0,
               np_rng: Optional[np.random.Generator] = None) -> Dict:
     """Single-sample fbank (the body of compute_fbank, exposed for
-    parallel_map). ``np_rng`` would draw the dither, which raises in
-    ``compute_fbank_np`` (a training-time augmentation, not ported)."""
+    parallel_map); ``np_rng`` draws the dither."""
     cfg = FbankConfig(sample_rate=sample["sample_rate"],
                       num_mel_bins=num_mel_bins,
                       frame_length_ms=frame_length,
                       frame_shift_ms=frame_shift, dither=dither)
-    sample["feat"] = compute_fbank_np(sample["wav"], cfg)
+    sample["feat"] = compute_fbank_np(
+        sample["wav"], cfg, np_rng if dither > 0 else None)
     return sample
+
+
+def mfcc_one(sample: Dict, num_mel_bins: int = 23, frame_length: int = 25,
+             frame_shift: int = 10, dither: float = 0.0, num_ceps: int = 40,
+             high_freq: float = 0.0, low_freq: float = 20.0,
+             np_rng: Optional[np.random.Generator] = None) -> Dict:
+    """Single-sample kaldi MFCC."""
+    cfg = MfccConfig(sample_rate=sample["sample_rate"],
+                     num_mel_bins=num_mel_bins,
+                     frame_length_ms=frame_length,
+                     frame_shift_ms=frame_shift, dither=dither,
+                     num_ceps=num_ceps, high_freq=high_freq,
+                     low_freq=low_freq)
+    sample["feat"] = compute_mfcc_np(
+        sample["wav"], cfg, np_rng if dither > 0 else None)
+    return sample
+
+
+def compute_mfcc(data: Iterable[Dict],
+                 np_rng: Optional[np.random.Generator] = None,
+                 **kwargs) -> Iterator[Dict]:
+    for sample in data:
+        yield mfcc_one(sample, np_rng=np_rng, **kwargs)
 
 
 def prefetch(data: Iterable, buffer_size: int = 2) -> Iterator:

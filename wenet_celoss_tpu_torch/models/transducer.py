@@ -10,8 +10,10 @@ When hotwords are given, the BIASED encoder output feeds the joint, the
 CTC head and the attention decoder; the ``pred`` mode's hotword head reads
 the UNBIASED predictor output. The RNN-T loss (``ops/rnnt_loss.py``) is
 chosen by ``rnnt_impl`` as in the JAX package: "streaming" (K2, K9 and K3
-on the card), or "scan", "fused" and "pallas" (K9 on the card) on the
-materialised joint (the factory maps ``fused_rnnt_loss`` to "fused").
+on the card), or on the materialised joint "scan" (the plain wavefront,
+autograd through it, as the JAX package's XLA scan; no kernel) and
+"fused" and "pallas" (K9 on the card) (the factory maps
+``fused_rnnt_loss`` to "fused").
 "pruned" is not ported (``ROADMAP.md``).
 """
 

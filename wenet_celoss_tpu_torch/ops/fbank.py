@@ -1,11 +1,13 @@
-"""Kaldi-compatible log-mel filterbank on the host, in numpy (copy of the
-numpy half of ``wenet_celoss_tpu/ops/fbank.py``: ``FbankConfig``,
-``num_frames``, ``_window``, ``mel_banks`` and ``compute_fbank_np``).
+"""Kaldi-compatible log-mel filterbank and MFCC on the host, in numpy
+(copy of the numpy half of ``wenet_celoss_tpu/ops/fbank.py``:
+``FbankConfig``, ``num_frames``, ``_window``, ``mel_banks``, the dither
+noise table, ``compute_fbank_np``, ``MfccConfig`` and ``compute_mfcc_np``).
 
 The DSP chain matches kaldi: snip_edges framing, dither, DC removal, 0.97
 preemphasis, povey window, pow2 rFFT, power spectrum, triangular mel bins
-with low=20Hz/high=nyquist, natural log with an eps floor. It is the front
-end for real requests; the on-device fbank comes with a later slice.
+with low=20Hz/high=nyquist, natural log with an eps floor; MFCC is the
+DCT-II of the log-mel energies, liftered. It is the front end for real
+requests and for training; the on-device fbank comes with a later slice.
 """
 
 from __future__ import annotations
@@ -109,16 +111,36 @@ except ImportError:  # pragma: no cover - image always has scipy
     _rfft_f32 = None
 
 
-def compute_fbank_np(wav: np.ndarray,
-                     cfg: FbankConfig = FbankConfig()) -> np.ndarray:
+_NOISE_TABLE_BITS = 22  # 4M floats, 16 MB, built once per process
+
+
+@lru_cache(maxsize=1)
+def _noise_table() -> np.ndarray:
+    """Shared gaussian table for dither noise. Drawing N(0, 1) per sample
+    costs more than the FFT; dither only decorrelates quantisation, so a
+    fixed-seed 4M-entry table is sliced at an offset drawn from the
+    caller's generator (deterministic per epoch and sample)."""
+    return np.random.default_rng(0x5EED_D17E).standard_normal(
+        1 << _NOISE_TABLE_BITS, dtype=np.float32)
+
+
+def _dither_noise(shape, rng: np.random.Generator) -> np.ndarray:
+    count = int(np.prod(shape))
+    table = _noise_table()
+    if count > table.size:  # an utterance past 4M frame samples
+        return rng.standard_normal(shape, dtype=np.float32)
+    off = int(rng.integers(0, table.size - count + 1))
+    return table[off:off + count].reshape(shape)
+
+
+def compute_fbank_np(wav: np.ndarray, cfg: FbankConfig = FbankConfig(),
+                     rng: np.random.Generator | None = None) -> np.ndarray:
     """Host-side (numpy) kaldi fbank, [S] int16-range samples → [T, M].
 
-    Framing is one sliding-window view + copy, the dc/preemphasis/window
-    chain runs in place on that copy, and the FFT is scipy's float32 rfft
-    where scipy is present. Dither, a training-time augmentation, comes
-    with the training data pipeline."""
-    if cfg.dither > 0.0:
-        raise NotImplementedError("fbank dither is not ported")
+    Framing is one sliding-window view + copy, the dither/dc/preemphasis/
+    window chain runs in place on that copy, and the FFT is scipy's
+    float32 rfft where scipy is present. Dither (``cfg.dither > 0``) is
+    drawn from ``rng``; without one there is none."""
     wav = np.asarray(wav, np.float32)
     n = int(num_frames(len(wav), cfg))
     if n <= 0:
@@ -126,6 +148,8 @@ def compute_fbank_np(wav: np.ndarray,
     shift, length = cfg.frame_shift, cfg.frame_length
     frames = np.ascontiguousarray(
         np.lib.stride_tricks.sliding_window_view(wav, length)[::shift][:n])
+    if cfg.dither > 0.0 and rng is not None:
+        frames += cfg.dither * _dither_noise(frames.shape, rng)
     if cfg.remove_dc_offset:
         frames -= frames.mean(axis=1, keepdims=True)
     if cfg.preemphasis > 0.0:
@@ -143,3 +167,40 @@ def compute_fbank_np(wav: np.ndarray,
     mel = power @ mel_banks(cfg).T
     return np.log(np.maximum(mel, np.finfo(np.float32).tiny)).astype(
         np.float32)
+
+
+@dataclass(frozen=True)
+class MfccConfig(FbankConfig):
+    """Kaldi MFCC on the mel chain: the DCT-II of the log-mel energies,
+    ``num_ceps`` coefficients (c0 the DCT coefficient, not log energy, as
+    torchaudio's kaldi.mfcc by default), then cepstral liftering."""
+    num_ceps: int = 13
+    cepstral_lifter: float = 22.0
+
+
+def _dct_matrix(num_ceps: int, num_bins: int) -> np.ndarray:
+    """Kaldi-style (orthonormal) DCT-II matrix [num_ceps, num_bins]."""
+    n = np.arange(num_bins)
+    mat = np.zeros((num_ceps, num_bins), dtype=np.float64)
+    mat[0] = math.sqrt(1.0 / num_bins)
+    for k in range(1, num_ceps):
+        mat[k] = math.sqrt(2.0 / num_bins) * np.cos(
+            math.pi / num_bins * (n + 0.5) * k)
+    return mat.astype(np.float32)
+
+
+def _lifter(cfg: MfccConfig) -> np.ndarray:
+    if cfg.cepstral_lifter == 0.0:
+        return np.ones(cfg.num_ceps, np.float32)
+    i = np.arange(cfg.num_ceps)
+    return (1.0 + 0.5 * cfg.cepstral_lifter * np.sin(
+        math.pi * i / cfg.cepstral_lifter)).astype(np.float32)
+
+
+def compute_mfcc_np(wav: np.ndarray, cfg: MfccConfig = MfccConfig(),
+                    rng: np.random.Generator | None = None) -> np.ndarray:
+    """Host-side MFCC: log-mel (the fbank chain) → DCT → lifter.
+    [S] → [T, num_ceps]."""
+    logmel = compute_fbank_np(wav, cfg, rng)
+    ceps = logmel @ _dct_matrix(cfg.num_ceps, cfg.num_mel_bins).T
+    return (ceps * _lifter(cfg)).astype(np.float32)

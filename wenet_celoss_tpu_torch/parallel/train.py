@@ -64,6 +64,38 @@ class TrainState:
     def params(self) -> List[torch.Tensor]:
         return list(self.model.parameters())
 
+    def state_dict(self) -> Dict:
+        """The whole state as CPU copies: ``step`` (batches that reached
+        the optimizer, skipped ones too), the model's ``state_dict``
+        (parameters and the batch norms' running statistics) and Adam's
+        ``count`` (applied updates; the learning rate reads it), ``mu``
+        and ``nu`` in parameter order."""
+        def cpu(t):
+            return t.detach().to("cpu", copy=True)
+        opt = self.opt_state
+        return {"step": int(self.step),
+                "model": {k: cpu(v) for k, v in
+                          self.model.state_dict().items()},
+                "opt": {"count": int(opt.count),
+                        "mu": [cpu(t) for t in opt.mu],
+                        "nu": [cpu(t) for t in opt.nu]}}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Dict) -> None:
+        """Restore :meth:`state_dict`'s output in place, onto the model's
+        device."""
+        self.model.load_state_dict(sd["model"])
+        opt = self.opt_state
+        for name in ("mu", "nu"):
+            dst, src = getattr(opt, name), sd["opt"][name]
+            if len(dst) != len(src):
+                raise ValueError(f"{name}: {len(src)} tensors in the state, "
+                                 f"{len(dst)} parameters in the model")
+            for d, v in zip(dst, src):
+                d.copy_(v)
+        opt.count = int(sd["opt"]["count"])
+        self.step = int(sd["step"])
+
 
 def global_norm(grads: Grads) -> torch.Tensor:
     """sqrt of the sum of squares of every element (fp32 scalar)."""

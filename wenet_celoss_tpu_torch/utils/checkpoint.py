@@ -1,5 +1,5 @@
-"""Checkpoints, read side (port of the loading half of
-``wenet_celoss_tpu/utils/checkpoint.py``) and the port's own format.
+"""Checkpoints: the JAX package's format read, the port's own written
+(port of ``wenet_celoss_tpu/utils/checkpoint.py``).
 
 - A JAX checkpoint (``<n>.ckpt``, ``final.ckpt``) is the flax parameter
   tree written by ``flax.serialization.to_bytes``: msgpack with flax's
@@ -10,24 +10,38 @@
   ``msgpack`` and no ``flax``, so :func:`msgpack_restore` decodes it with
   a reader of its own; ``utils/convert.py params_from_jax`` maps the tree
   onto the port's ``state_dict``.
-- The port's own format (extension ``.pt``) is ``torch.save`` of the
-  ``state_dict``.
+- The port's own epoch file (extension ``.pt``) is ``torch.save`` of the
+  ``state_dict``: parameters and the batch norms' running statistics
+  (a JAX epoch file holds ``params`` only).
+- A full-state file (``step_<n>.state``) is ``torch.save`` of
+  ``TrainState.state_dict()`` plus the executor's generator state, for a
+  kill and resume mid-epoch. It is written atomically (a tmp file, then
+  ``os.replace``) by a background thread; :func:`wait_pending` waits.
+- Each file has a sidecar of infos (epoch, step, cv_loss, lr, ...): the
+  path less a final ``.mspk`` or ``.state``, plus ``.yaml`` (``3.pt`` →
+  ``3.pt.yaml``, ``step_8.state`` → ``step_8.yaml``), the JAX package's
+  naming, written and read by ``utils/config.py`` (no PyYAML).
 
 A JAX checkpoint holds ``params`` only: a ``batch_norm`` model loaded from
 one keeps the running statistics it was built with, as the JAX CLI does
-(init, then the params replaced).
+(init, then the params replaced), and a model with a global CMVN keeps
+the statistics of its config's cmvn_file.
 """
 
 from __future__ import annotations
 
+import glob
 import os
+import re
 import struct
-from typing import Any, Dict
+import threading
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from wenet_celoss_tpu_torch.utils.config import dump_yaml, parse_yaml
 from wenet_celoss_tpu_torch.utils.convert import params_from_jax
 
 CHUNKED = "__msgpack_chunked_array__"
@@ -162,27 +176,175 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return params_from_jax({"params": _float_leaves(tree)})
 
 
-def save_checkpoint(model: nn.Module, path: str) -> None:
-    """The port's own format: ``torch.save`` of the ``state_dict`` (on the
-    CPU) at ``path`` (extension ``.pt``)."""
+def infos_path(path: str) -> str:
+    """The sidecar of infos beside a checkpoint (the JAX package's rule)."""
+    return re.sub(r"\.(mspk|state)$", "", str(path)) + ".yaml"
+
+
+def _write_infos(path: str, infos: Dict) -> None:
+    info = infos_path(path)
+    tmp = info + ".tmp"
+    with open(tmp, "w", encoding="utf8") as f:
+        f.write(dump_yaml(infos))
+    os.replace(tmp, info)
+
+
+def load_checkpoint_infos(path: str) -> Dict:
+    info = infos_path(path)
+    if os.path.exists(info):
+        with open(info, encoding="utf8") as f:
+            return parse_yaml(f.read()) or {}
+    return {}
+
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def save_checkpoint(model: Union[nn.Module, StateDict], path: str,
+                    infos: Optional[Dict] = None) -> None:
+    """The port's own format: ``torch.save`` of the ``state_dict`` (of a
+    model, or given) on the CPU at ``path`` (extension ``.pt``), and its
+    sidecar of ``infos``."""
     if not str(path).endswith(".pt"):
         raise ValueError(f"{path}: the port's checkpoints end in .pt")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-               path)
+    sd = model.state_dict() if isinstance(model, nn.Module) else model
+    torch.save({k: v.detach().cpu() for k, v in sd.items()}, path)
+    _write_infos(path, infos or {})
+
+
+_PENDING: List[threading.Thread] = []
+_FAILED: List[BaseException] = []
+
+
+def _atomic_save(payload: Dict, path: str, infos: Optional[Dict]) -> None:
+    try:
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        if infos is not None:
+            _write_infos(path, infos)
+    except BaseException as e:  # noqa: BLE001 - re-raised by wait_pending
+        _FAILED.append(e)
+
+
+def save_train_state(state, path: str, infos: Optional[Dict] = None,
+                     gen: Optional[torch.Generator] = None) -> None:
+    """Full-state checkpoint of a ``parallel/train.py`` ``TrainState``
+    (parameters, running statistics, Adam's count and moments, step) and
+    the state of ``gen``. The copy to the host is synchronous (training
+    goes on updating the tensors in place); the write runs in a
+    background thread (:func:`wait_pending` waits for it)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    payload = state.state_dict()
+    payload["gen"] = None if gen is None else gen.get_state()
+    t = threading.Thread(target=_atomic_save, args=(payload, path, infos),
+                         daemon=True)
+    t.start()
+    _PENDING.append(t)
+
+
+def wait_pending() -> None:
+    """Block until every background write has landed; raise the first
+    error a write met."""
+    while _PENDING:
+        _PENDING.pop().join()
+    if _FAILED:
+        err = _FAILED[0]
+        _FAILED.clear()
+        raise RuntimeError("a checkpoint write failed") from err
+
+
+def load_train_state(state, path: str,
+                     gen: Optional[torch.Generator] = None):
+    """Restore a file of :func:`save_train_state` into ``state`` (in
+    place, on its model's device) and ``gen``; returns ``state``."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    state.load_state_dict(payload)
+    if gen is not None:
+        if payload.get("gen") is None:
+            raise KeyError(f"{path}: no generator state")
+        gen.set_state(payload["gen"])
+    return state
+
+
+def _in_modules(key: str, modules: List[str]) -> bool:
+    return any(key.split(".")[0] == m or key.startswith(m) for m in modules)
+
+
+def filter_modules(sd: StateDict, modules: List[str]) -> StateDict:
+    """The entries of a ``state_dict`` under the top-level modules named
+    (a key's first component equal to one, or the key starting with it)."""
+    return {k: v for k, v in sd.items() if _in_modules(k, modules)}
+
+
+@torch.no_grad()
+def load_trained_modules(model: nn.Module, ckpt_path: str,
+                         modules: List[str]) -> None:
+    """Warm-start the listed modules of ``model`` from a checkpoint (JAX
+    or ``.pt``) in place; the rest keep their values."""
+    loaded = filter_modules(load_checkpoint(ckpt_path), modules)
+    own = model.state_dict()
+    for k, v in loaded.items():
+        if k in own:
+            own[k].copy_(v)
+
+
+def average_checkpoints(paths: List[str]) -> StateDict:
+    """The uniform average of the checkpoints' ``state_dict`` entries, in
+    float64, cast back to each entry's dtype in the first checkpoint."""
+    if not paths:
+        raise ValueError("no checkpoints to average")
+    acc = first = None
+    for p in paths:
+        sd = load_checkpoint(p)
+        if first is None:
+            first = sd
+            acc = {k: v.double() for k, v in sd.items()}
+        else:
+            for k in acc:
+                acc[k] += sd[k].double()
+    n = float(len(paths))
+    return {k: (acc[k] / n).to(first[k].dtype) for k in acc}
+
+
+def select_checkpoints(model_dir: str, num: int, val_best: bool = True,
+                       min_epoch: int = 0, max_epoch: int = 65536
+                       ) -> List[str]:
+    """Last-N, or N-best by the infos' ``cv_loss``, of the epoch files
+    ``<model_dir>/[0-9]*.pt`` with ``min_epoch <= epoch <= max_epoch``."""
+    infos = []
+    for p in glob.glob(os.path.join(model_dir, "[0-9]*.pt")):
+        meta = load_checkpoint_infos(p)
+        epoch = meta.get("epoch", -1)
+        if not (min_epoch <= epoch <= max_epoch):
+            continue
+        infos.append((p, meta.get("cv_loss", float("inf")), epoch))
+    if val_best:
+        infos.sort(key=lambda x: x[1])
+    else:
+        infos.sort(key=lambda x: -x[2])
+    return [p for p, _, _ in infos[:num]]
+
+
+# Buffers a JAX checkpoint (``params``) does not hold: the batch norms'
+# running statistics (its ``batch_stats``) and the global CMVN, which both
+# packages build from the config's cmvn_file.
+_NOT_IN_JAX = (".running_mean", ".running_var", "encoder.cmvn_mean",
+               "encoder.cmvn_istd")
 
 
 def load_into(model: nn.Module, path: str) -> None:
     """Load a checkpoint into ``model``. Every key of the checkpoint must
-    be the model's; a JAX checkpoint may lack only the batch norms'
-    running statistics (it holds ``params``, not ``batch_stats``)."""
+    be the model's, and a ``.pt`` must hold every key of the model; a JAX
+    checkpoint may lack only the running statistics and the CMVN
+    buffers, which keep the model's values."""
     state = load_checkpoint(path)
     dev = next(model.parameters()).device
     missing, unexpected = model.load_state_dict(
         {k: v.to(dev) for k, v in state.items()}, strict=False)
-    stats = [k for k in missing
-             if k.endswith((".running_mean", ".running_var"))]
-    if unexpected or len(stats) != len(missing) or (
-            stats and str(path).endswith(".pt")):
+    allowed = [k for k in missing if k.endswith(_NOT_IN_JAX)]
+    if unexpected or len(allowed) != len(missing) or (
+            missing and str(path).endswith(".pt")):
         raise KeyError(f"{path}: checkpoint does not match the model: "
                        f"missing {missing}, unexpected {unexpected}")
