@@ -5,7 +5,9 @@
 
 Phases, in the order they run, each printing JSON lines:
   env       torch and CUDA versions, the card's name and power limit;
-  build     every hand-written kernel, one nvcc per source, all at once;
+  build     every hand-written kernel, one nvcc per source, all at once,
+            and beside them decoder_main from runtime/core with g++ (one
+            process a source, then the link; no CMake);
   k1, k1_bwd  ln_ffn_residual forward and backward with dropout 0 and
             0.1 against its plain version (fp32, bf16, main-path and
             ragged shapes; the same bits on a second call), the weight
@@ -60,6 +62,10 @@ Phases, in the order they run, each printing JSON lines:
             (K8 first: 12 K7, 12 K8);
   bench     B1/B2: bf16 decode at B=64, T=512, two blank biases;
   bench_lnmm  B1-lnmm: B1 with LNMM_PALLAS unset and set in turns;
+  op_dispatch  B1 plain and S1 plain through the registered forward
+            operators and through the autograd.Function route they
+            replaced, in turns; K1 at N = 16 called back to back by both
+            routes and by the bare launch (µs a call);
   decode_modes  S1 for the CTC greedy, CTC prefix beam, attention beam,
             attention rescoring, RNN-T beam (plain and with the 8
             hotwords) and both transducer/attention rescorings (non-zero
@@ -86,6 +92,24 @@ Phases, in the order they run, each printing JSON lines:
             flip rules, 24 K1 launches a chunk (the stream_decode path);
             U2's contract: with static_chunk_size 16 the streamed encoder
             output equals the chunk-masked full forward (1e-4);
+  serve_u2pp  R1: the full-width U2++ conformer (fp32, chunk 16, 4 left)
+            behind the worker of bin/runtime_worker.py: a protocol client
+            streams the 16 WAVs as one stream through the card worker and
+            the --device cpu worker (each O reply and one R compared), the
+            F round trips and start-up; an in-process worker's launches
+            (24 K1 a chunk, N = 16) and one chunk under torch.profiler,
+            fp32 and bf16;
+  serve_rnnt  R2: the flagship (fp32, blank bias +3.0; the chunk-masked
+            prefix) the same way on the card: F, G, B and R round trips,
+            tokens an encoder frame, 24 K1 an F, the flush profiled;
+  serve_runs  decoder_main (built above) over the 16 WAVs, card worker
+            against CPU worker, equal result lines: R1 default (CTC
+            prefix beam and attention rescoring), R2 rnnt_greedy_search,
+            rnnt_beam_search (beam 4) and default; and bin/export.py on
+            the card on R1's model, fp32 and --quantize int8; all at once;
+  export    E1: each .pt2 loaded back and run on the card against the live
+            model's entry point, its K1 operator nodes counted (24, 24,
+            9), the bundle sizes and the int8 / fp32 ratio;
   bench_modes  B3: bench.py's decode keys ctc_greedy,
             attention_rescoring, rnnt_beam, ctc_beam_td_attn_rescoring
             (beams 10, 5, 10) and attention (beam 10) at B1's shape and
@@ -140,9 +164,10 @@ Phases, in the order they run, each printing JSON lines:
             step_2.state in a model of another seed against the
             uninterrupted run and two repeats of it;
   exact_bench  B5: bf16, B=16 × 512 random frames, blank bias +3.0, 8
-            hotwords: "exact" against "on" (median of 3), the search
-            loop's host reads an utterance, the card's busy ms and idle
-            share from one profile; at B=64 too when that fits 30 s;
+            hotwords: "on" (median of 3) against "exact" on the first two
+            utterances, ms an utterance, the search loop's host reads an
+            utterance, the card's busy ms and idle share of "on" from one
+            profile;
   profile   each decode (B3's modes too) and training step under
             torch.profiler, last: the card's busy time, idle share and
             each kernel's time (K4's and K9's, and K7's and K8's on their
@@ -163,15 +188,22 @@ Then the card's name and power limit, the kernels line, and the ok line.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
+import hashlib
 import json
 import os
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -2946,90 +2978,94 @@ def flac_check() -> dict:
                 build_s=build_s, library=lib.name)
 
 
+EXACT_UTTS = 2   # the "exact" batch: the first utterances of B5's batch
+
+
 def phase_exact_bench(init_model, Decoder, conformer_rnnt_bias) -> None:
-    """B5: "exact" against "on" on the same batch: the bf16 flagship, B =
-    16 × 512 random fbank frames, 8 random 4-token hotwords, blank bias
-    +3.0: ms a batch, the host reads of the search loop an utterance
+    """B5: "exact" against "on": the bf16 flagship, B = 16 × 512 random
+    fbank frames, 8 random 4-token hotwords, blank bias +3.0: ms a batch
+    and an utterance, the host reads of the search loop an utterance
     (exact: one gate and one token read a step; on: one a
     label-synchronous iteration). "on": the median of 3 batches after the
     counted one, and the card's busy ms, idle share and interval count
-    from one profile. "exact" (over 20 s a batch, host-bound): the counted
-    batch itself, synchronised, and no profile. At B = 64 too, where four
-    times B = 16's exact time is under 30 s."""
+    from one profile. "exact" (host-bound, one utterance at a time, ~1.7
+    s an utterance): the counted batch of the first EXACT_UTTS
+    utterances, synchronised, and no profile; it must emit tokens."""
     from torch.profiler import ProfilerActivity, profile
-    for b in (16, 64):
-        model, dec, feats, lens, ctx, ctx_lens = bench_setup(
-            init_model, Decoder, conformer_rnnt_bias, SLICE_BLANK_BIAS, b,
-            512)
-        out = {"batch": b, "frames": 512, "dtype": "bfloat16",
-               "hotwords": 8, "blank_bias": SLICE_BLANK_BIAS,
-               "timing": "on: median host ms per batch of 3 after the "
-                         "counted one; exact: host ms of the counted "
-                         "batch; synchronised",
-               "card": smi()}
+    b = 16
+    model, dec, feats, lens, ctx, ctx_lens = bench_setup(
+        init_model, Decoder, conformer_rnnt_bias, SLICE_BLANK_BIAS, b, 512)
+    out = {"batch": b, "exact_batch": EXACT_UTTS, "frames": 512,
+           "dtype": "bfloat16", "hotwords": 8,
+           "blank_bias": SLICE_BLANK_BIAS,
+           "timing": "on: median host ms per batch of 3 after the counted "
+                     "one; exact: host ms of the counted batch; "
+                     "synchronised",
+           "card": smi()}
 
-        def run(state):
-            return dec.rnnt_greedy_search(
-                feats, lens, context_list=ctx, context_lengths=ctx_lens,
-                context_filter_state=state)
-        for state in ("on", "exact"):
-            reads = {"n": 0}
+    def run(state):
+        n = EXACT_UTTS if state == "exact" else b
+        return dec.rnnt_greedy_search(
+            feats[:n], lens[:n], context_list=ctx, context_lengths=ctx_lens,
+            context_filter_state=state)
+    for state in ("on", "exact"):
+        n = EXACT_UTTS if state == "exact" else b
+        reads = {"n": 0}
 
-            def counted(fn):
-                def wrapper(*a, **k):
-                    reads["n"] += 1
-                    return fn(*a, **k)
-                return wrapper
-            names = (("hw_gate_step", "joint_step") if state == "exact"
-                     else ("predictor_step",))
-            for nm in names:
-                setattr(model, nm, counted(getattr(model, nm)))
+        def counted(fn):
+            def wrapper(*a, **k):
+                reads["n"] += 1
+                return fn(*a, **k)
+            return wrapper
+        names = (("hw_gate_step", "joint_step") if state == "exact"
+                 else ("predictor_step",))
+        for nm in names:
+            setattr(model, nm, counted(getattr(model, nm)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hyps = run(state)
+        torch.cuda.synchronize()
+        times = [(time.perf_counter() - t0) * 1e3]
+        for nm in names:
+            delattr(model, nm)
+        loop_reads = reads["n"] - (0 if state == "exact" else 1)
+        out.update({
+            f"{state}_loop_host_reads_per_utt": loop_reads / n,
+            f"{state}_tokens_per_utt": sum(map(len, hyps)) / n})
+        if state == "exact":
+            check(sum(map(len, hyps)) > 0, "exact_bench: the exact search "
+                                           "emitted no token")
+            out["exact_ms_per_batch"] = times[0]
+            out["exact_ms_per_utt"] = times[0] / n
+            continue
+        times = []
+        for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            hyps = run(state)
+            run(state)
             torch.cuda.synchronize()
-            times = [(time.perf_counter() - t0) * 1e3]
-            for nm in names:
-                delattr(model, nm)
-            loop_reads = reads["n"] - (0 if state == "exact" else 1)
-            out.update({
-                f"{state}_loop_host_reads_per_utt": loop_reads / b,
-                f"{state}_tokens_per_utt": sum(map(len, hyps)) / b})
-            if state == "exact":
-                out["exact_ms_per_batch"] = times[0]
-                continue
-            times = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                run(state)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            med = sorted(times)[1]
-            t0 = time.perf_counter()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                run(state)
-                torch.cuda.synchronize()
-            busy = device_busy(prof)[0]
-            kernels = device_events(prof)
-            out.update({
-                "on_ms_per_batch": med,
-                "on_ms_all": times,
-                "on_device_busy_ms": busy,
-                "on_idle_share": 1.0 - busy / med,
-                "on_card_intervals": kernels,
-                "on_card_intervals_per_loop_read": kernels / loop_reads,
-                "on_profile_s": time.perf_counter() - t0})
-            check(busy > 0, f"exact_bench B={b} on: the profile recorded "
-                            "no card time")
-        out["exact_over_on"] = out["exact_ms_per_batch"] / \
-            out["on_ms_per_batch"]
-        emit("exact_bench", **out)
-        del model, dec
-        if b == 16 and 4 * out["exact_ms_per_batch"] >= 30e3:
-            emit("exact_bench", batch=64, skipped=True,
-                 why="four times B=16's exact time is 30 s or more")
-            break
+            times.append((time.perf_counter() - t0) * 1e3)
+        med = sorted(times)[1]
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(state)
+            torch.cuda.synchronize()
+        busy = device_busy(prof)[0]
+        kernels = device_events(prof)
+        out.update({
+            "on_ms_per_batch": med,
+            "on_ms_per_utt": med / n,
+            "on_ms_all": times,
+            "on_device_busy_ms": busy,
+            "on_idle_share": 1.0 - busy / med,
+            "on_card_intervals": kernels,
+            "on_card_intervals_per_loop_read": kernels / loop_reads,
+            "on_profile_s": time.perf_counter() - t0})
+        check(busy > 0, f"exact_bench B={b} on: the profile recorded no "
+                        "card time")
+    out["exact_over_on_per_utt"] = out["exact_ms_per_utt"] / \
+        out["on_ms_per_utt"]
+    emit("exact_bench", **out)
 
 
 # B3: the decode modes of bench.py's decode keys (and attention) at its
@@ -3684,6 +3720,9 @@ U2PP_CONV_PER_STEP = {**U2PP_PER_STEP, "k8": 12, "k8_bwd": 12}
 # ctc_beam_td_attn_rescoring's transducer_score); the exact counts are
 # s3_want's.
 RECOGNIZE_KERNELS = {**NO_LAUNCHES, "k1": 1, "k2": 1, "k4": 1, "k9": 1}
+# The serving worker's chunks and the exported programs run K1 alone (the
+# exact counts are checked in their phases).
+SERVE_KERNELS = {**NO_LAUNCHES, "k1": 1}
 
 
 def register_counters() -> None:
@@ -4595,6 +4634,948 @@ def phase_train_resume() -> None:
              counters_equal=counters, seconds=seconds)
 
 
+@contextlib.contextmanager
+def autograd_function_route(ffn, lnmm, conv):
+    """The forward route the wrappers took before their registered
+    operators: each kernel through its ``autograd.Function``'s apply (no
+    gradient taken), to time the operators' dispatch against."""
+    routes_ = ((ffn, "ln_ffn_residual_fwd", ffn._LnFfnResidual.apply),
+               (ffn, "ffn_fused_fwd", ffn._FfnFused.apply),
+               (lnmm, "ln_matmul_fwd", lnmm._LnMatmul.apply),
+               (conv, "conv_block_fwd", conv._ConvBlockResidual.apply))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in routes_]
+    for mod, name, fn in routes_:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_op_dispatch(b1, slice_run, ffn, lnmm, conv) -> None:
+    """The registered operators' dispatch cost: B1 plain (bf16, B=64 ×
+    512) and S1 plain (fp32, the 16 WAVs) decoded through the operators
+    (the port's route) and through the autograd.Function route they
+    replaced, in turns in this one call: median host ms of 5 synchronised
+    decodes each, the K1 launches equal; and one K1 forward at a serving
+    chunk's N = 16 rows called 200 times back to back by each route and by
+    the bare launch (µs a call, synchronised at the end)."""
+    out = {"card": smi()}
+    for name, args in (("b1_plain", b1[:5]), ("s1_plain", slice_run[:5])):
+        times = {"operator": [], "function": []}
+        launches = {}
+        for _ in range(5):
+            for route in times:
+                ctx = (autograd_function_route(ffn, lnmm, conv)
+                       if route == "function" else contextlib.nullcontext())
+                with ctx:
+                    before = ffn.ln_ffn_residual.launches
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    decode(*args, "plain")
+                    torch.cuda.synchronize()
+                    times[route].append((time.perf_counter() - t0) * 1e3)
+                    launches[route] = ffn.ln_ffn_residual.launches - before
+        check(launches["operator"] == launches["function"]
+              == K1_PER_ENCODER_PASS, f"op_dispatch {name}: K1 launches "
+              f"{launches}, want {K1_PER_ENCODER_PASS} by both routes")
+        for route, ts in times.items():
+            ts = sorted(ts)
+            out[f"{name}_{route}_ms"] = ts[2]
+            out[f"{name}_{route}_ms_min_max"] = [ts[0], ts[-1]]
+    args = k1_inputs(16, torch.bfloat16, 5)[0]
+    cfg = ("swish", 0.5, 1e-5, 0.0, 0.0, 0)
+    for route in ("operator", "function", "bare_launch"):
+        fn = (ffn.forward_kernel if route == "bare_launch"
+              else ffn.ln_ffn_residual)
+        ctx = (autograd_function_route(ffn, lnmm, conv)
+               if route == "function" else contextlib.nullcontext())
+        with ctx, torch.no_grad():
+            for _ in range(20):
+                fn(*args, *cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn(*args, *cfg)
+            torch.cuda.synchronize()
+            out[f"k1_n16_{route}_us_per_call"] = \
+                (time.perf_counter() - t0) / 200 * 1e6
+    emit("op_dispatch", **out)
+
+
+# ------------------------------------------------------ serving, export ---
+# decoder_main and the wenet_tpu_core sources it links
+# (runtime/core/CMakeLists.txt), built without CMake.
+RUNTIME_CORE = ROOT / "runtime" / "core"
+DECODER_MAIN_SOURCES = ("bin/decoder_main.cc",
+                        "decoder/ctc_prefix_beam_search.cc",
+                        "decoder/wfst_beam_search.cc",
+                        "decoder/asr_decoder.cc", "frontend/flac.cc")
+SERVE_CHUNK, SERVE_LEFT = 16, 4
+# Frames a chunk consumes (chunk 16 × subsampling 4): each F of the
+# client's stream carries one chunk's worth.
+SERVE_PIECE = SERVE_CHUNK * 4
+SERVE_LOG_TOL = 1e-3    # an O reply, card against CPU, fp32, max abs
+SERVE_SCORE_RTOL = 1e-4  # an S reply, card against CPU, relative
+EXPORT_TOL = 1e-4       # a .pt2 against the live model on the card, max abs
+EXPORT_K1 = {"encoder_ctc": 24, "encoder_chunk_ctc": 24,
+             "decoder_scores": U2PP_DECODER_K1}
+# decoder_main's modes by served model (R1: the U2++ conformer, R2: the
+# flagship).
+SERVE_MODES = (("r1", "default"), ("r2", "rnnt_greedy_search"),
+               ("r2", "rnnt_beam_search"), ("r2", "default"))
+# Forwards the protocol between its stdin/stdout and the worker named by
+# its arguments, logging every request and reply (a u32 length, then the
+# bytes) to argv[1]: what decoder_main sent and got, for the comparison.
+TEE_WORKER = '''\
+import struct
+import subprocess
+import sys
+
+log = open(sys.argv[1], "wb")
+proc = subprocess.Popen(sys.argv[2:], stdin=subprocess.PIPE,
+                        stdout=subprocess.PIPE)
+src, dst, wout, win = (sys.stdin.buffer, sys.stdout.buffer, proc.stdout,
+                       proc.stdin)
+
+
+def take(f, n, out):
+    data = b""
+    while len(data) < n:
+        part = f.read(n - len(data))
+        if not part:
+            raise EOFError
+        data += part
+    out.append(data)
+    return data
+
+
+def u32(f, out):
+    return struct.unpack("<I", take(f, 4, out))[0]
+
+
+def request():
+    out = []
+    try:
+        tag = take(src, 1, out)
+    except EOFError:
+        return b""
+    if tag == b"I":
+        take(src, u32(src, out), out)
+    elif tag == b"F":
+        t, d = u32(src, out), u32(src, out)
+        take(src, 4 * t * d, out)
+    elif tag == b"B":
+        u32(src, out)
+    elif tag == b"R":
+        n = u32(src, out)
+        take(src, 4, out)
+        for _ in range(n):
+            take(src, 4 * u32(src, out), out)
+    return b"".join(out)
+
+
+def reply():
+    out = []
+    tag = take(wout, 1, out)
+    if tag == b"M":
+        take(wout, u32(wout, out), out)
+    elif tag == b"O":
+        t, v = u32(wout, out), u32(wout, out)
+        take(wout, 4 * t * v, out)
+    elif tag in (b"T", b"S"):
+        take(wout, 4 * u32(wout, out), out)
+    elif tag == b"N":
+        for _ in range(u32(wout, out)):
+            take(wout, 4 * u32(wout, out) + 4, out)
+    return b"".join(out)
+
+
+while True:
+    req = request()
+    if not req:
+        break
+    win.write(req)
+    win.flush()
+    if req == b"Q":
+        break
+    rep = reply()
+    dst.write(rep)
+    dst.flush()
+    for part in (req, rep):
+        log.write(struct.pack("<I", len(part)) + part)
+win.close()
+log.close()
+sys.exit(proc.wait())
+'''
+
+
+def host_cxx() -> str:
+    """The host C++ compiler that nvcc itself calls, found the way
+    ``ops/_build.py`` finds nvcc: on PATH, then its usual place."""
+    for cand in (shutil.which("g++"), "/usr/bin/g++"):
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError("no g++: decoder_main is built with the host C++ "
+                       "compiler that nvcc uses (put it on PATH)")
+
+
+class DecoderMainBuild:
+    """``decoder_main`` from the repo's sources: one ``g++ -std=c++17 -O2
+    -c`` a source, all started together at construction, then the link
+    with ``-lpthread`` in :meth:`wait`. The binary is
+    ``wenet_celoss_tpu_torch/_build/decoder_main-<hash>``, the hash of
+    runtime/core's sources and headers."""
+
+    def __init__(self):
+        from wenet_celoss_tpu_torch.ops._build import BUILD_DIR
+        h = hashlib.sha1()
+        for p in sorted(RUNTIME_CORE.rglob("*")):
+            if p.suffix in (".cc", ".h"):
+                h.update(str(p.relative_to(RUNTIME_CORE)).encode())
+                h.update(p.read_bytes())
+        self.out = BUILD_DIR / f"decoder_main-{h.hexdigest()[:12]}"
+        self.t0 = time.perf_counter()
+        self.procs = []
+        self.seconds = 0.0
+        if self.out.exists():
+            return
+        self.tmp = BUILD_DIR / f"decoder_main.{os.getpid()}.tmp"
+        self.tmp.mkdir(parents=True, exist_ok=True)
+        for src in DECODER_MAIN_SOURCES:
+            obj = self.tmp / (Path(src).stem + ".o")
+            self.procs.append((obj, subprocess.Popen(
+                [host_cxx(), "-std=c++17", "-O2", "-I", str(RUNTIME_CORE),
+                 "-c", str(RUNTIME_CORE / src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+
+    def wait(self) -> Path:
+        if self.procs:
+            logs = []
+            for _, proc in self.procs:
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    logs.append(log)
+            if logs:
+                raise RuntimeError("decoder_main build failed:\n"
+                                   + "\n".join(logs))
+            binary = self.tmp / "decoder_main"
+            res = subprocess.run(
+                [host_cxx(), "-O2", "-o", str(binary),
+                 *(str(obj) for obj, _ in self.procs), "-lpthread"],
+                capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError("decoder_main link failed:\n"
+                                   + res.stderr)
+            os.replace(binary, self.out)
+            shutil.rmtree(self.tmp)
+            self.procs = []
+            self.seconds = time.perf_counter() - self.t0
+        return self.out
+
+
+def serve_env(**extra) -> dict:
+    return dict(os.environ, PYTHONPATH=str(ROOT), **extra)
+
+
+def service_files(tmp: Path, cfg: dict, model) -> dict:
+    """A served model's files: its weights saved as a .pt, its config
+    (plus the 80-bin fbank) by save_config, the same config in bf16, a
+    symbol table over its vocabulary, and a wav.scp of the 16 WAVs."""
+    from wenet_celoss_tpu_torch.utils.checkpoint import save_checkpoint
+    from wenet_celoss_tpu_torch.utils.config import save_config
+    tmp.mkdir(parents=True, exist_ok=True)
+    save_checkpoint(model, str(tmp / "final.pt"))
+    cfg = dict(cfg, dataset_conf={"fbank_conf": {"num_mel_bins": 80}})
+    save_config(cfg, str(tmp / "train.yaml"))
+    save_config(dict(cfg, dtype="bfloat16"), str(tmp / "train_bf16.yaml"))
+    write_units(tmp / "units.txt", cfg["output_dim"])
+    (tmp / "wav.scp").write_text("".join(
+        f"{p.stem} {p}\n" for p in sorted(WAV_DIR.glob("*.wav"))))
+    return {"dir": tmp, "config": str(tmp / "train.yaml"),
+            "checkpoint": str(tmp / "final.pt")}
+
+
+def worker_cmd(files: dict, device: Optional[str] = None,
+               config: Optional[str] = None) -> list:
+    """The port's worker on ``files``: the card (no --device) or
+    ``device``."""
+    cmd = [sys.executable, "-m", "wenet_celoss_tpu_torch.bin.runtime_worker",
+           "--config", config or files["config"], "--checkpoint",
+           files["checkpoint"], "--chunk_size", str(SERVE_CHUNK),
+           "--num_left_chunks", str(SERVE_LEFT)]
+    return cmd + (["--device", device] if device else [])
+
+
+def in_process_worker(files: dict, config: Optional[str] = None):
+    from wenet_celoss_tpu_torch.bin import runtime_worker
+    return runtime_worker.Worker(argparse.Namespace(
+        config=config or files["config"], checkpoint=files["checkpoint"],
+        chunk_size=SERVE_CHUNK, num_left_chunks=SERVE_LEFT, device=None))
+
+
+class WorkerClient:
+    """A worker subprocess spoken to over its pipes, as the C++ side's
+    ``SubprocessAsrModel`` speaks to it. :meth:`start` sends the first
+    'I'; ``startup_s``: from the start of the process to that reply (the
+    model built and loaded)."""
+
+    def __init__(self, cmd: list, log: Path, **env):
+        self.t0 = time.perf_counter()
+        self.log = log
+        self.proc = subprocess.Popen(cmd, stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE,
+                                     stderr=open(log, "wb"),
+                                     env=serve_env(**env))
+
+    def start(self) -> "WorkerClient":
+        self.meta = self.request(b"I" + struct.pack("<I", 0))
+        self.startup_s = time.perf_counter() - self.t0
+        return self
+
+    def _read(self, n: int) -> bytes:
+        data = self.proc.stdout.read(n)
+        if len(data) != n:
+            raise RuntimeError(f"worker closed its pipe; its log:\n"
+                               f"{self.log.read_text()[-3000:]}")
+        return data
+
+    def _u32(self) -> int:
+        return struct.unpack("<I", self._read(4))[0]
+
+    def request(self, msg: bytes):
+        self.proc.stdin.write(msg)
+        self.proc.stdin.flush()
+        tag = self._read(1)
+        if tag == b"M":
+            return json.loads(self._read(self._u32()))
+        if tag == b"O":
+            t, v = self._u32(), self._u32()
+            return np.frombuffer(self._read(4 * t * v), "<f4").reshape(t, v)
+        if tag == b"T":
+            return np.frombuffer(self._read(4 * self._u32()), "<i4").tolist()
+        if tag == b"S":
+            return np.frombuffer(self._read(4 * self._u32()), "<f4")
+        if tag == b"N":
+            out = []
+            for _ in range(self._u32()):
+                toks = np.frombuffer(self._read(4 * self._u32()),
+                                     "<i4").tolist()
+                out.append((toks, struct.unpack("<f", self._read(4))[0]))
+            return out
+        raise RuntimeError(f"unknown reply tag {tag!r}")
+
+    def forward(self, feats: np.ndarray) -> np.ndarray:
+        feats = np.ascontiguousarray(feats, "<f4")
+        return self.request(b"F" + struct.pack("<II", *feats.shape)
+                            + feats.tobytes())
+
+    def rescore(self, hyps, rw: float) -> np.ndarray:
+        msg = b"R" + struct.pack("<If", len(hyps), rw)
+        for h in hyps:
+            msg += struct.pack("<I", len(h)) + np.asarray(h, "<i4").tobytes()
+        return self.request(msg)
+
+    def close(self) -> None:
+        self.proc.stdin.write(b"Q")
+        self.proc.stdin.close()
+        code = self.proc.wait(timeout=60)
+        if code != 0:
+            raise RuntimeError(f"worker exited {code}:\n"
+                               f"{self.log.read_text()[-3000:]}")
+
+
+def one_stream() -> np.ndarray:
+    """The 16 WAVs' fbank frames end to end, one stream."""
+    _, feats, lens = load_wavs()
+    return np.concatenate([f[:n] for f, n in zip(feats, lens)])
+
+
+def pieces(stream: np.ndarray):
+    """The stream in F requests of one chunk's frames, then the flush."""
+    return [stream[i:i + SERVE_PIECE]
+            for i in range(0, len(stream), SERVE_PIECE)] + [stream[:0]]
+
+
+def ms_stats(prefix: str, times) -> dict:
+    """Median, p90 and max of a request's round trips."""
+    times = sorted(times)
+    return {f"{prefix}_ms_median": times[len(times) // 2],
+            f"{prefix}_ms_p90": times[min(len(times) - 1,
+                                          int(0.9 * len(times)))],
+            f"{prefix}_ms_max": times[-1], f"{prefix}_requests": len(times)}
+
+
+def ctc_greedy_ids(log_probs: np.ndarray, blank: int = 0) -> list:
+    ids = log_probs.argmax(-1)
+    return [int(t) for i, t in enumerate(ids)
+            if t != blank and (i == 0 or t != ids[i - 1])]
+
+
+def chunk_profile(worker, feats, want_k1: int, prefix: str = "chunk"):
+    """One F request of the in-process worker: its synchronised host ms
+    (median of 5 replays from the same state), then one profiled replay:
+    the card's busy ms, idle share, K1's device ms and launches inside it,
+    and its three largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    state = copy.copy(worker.__dict__)
+
+    def replay():
+        worker.__dict__.update(copy.copy(state))
+        worker.encoder_outs = list(state["encoder_outs"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        worker.forward_chunk(feats)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    med = sorted(replay() for _ in range(5))[2]
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        replay()
+    k1 = read_counts()["k1"]
+    busy, by_name = device_busy(prof)
+    k1_ms = sum(ms for name, ms in by_name.items()
+                if any(key in name for key in FFN_FWD_KERNELS))
+    check(k1 == want_k1, f"{prefix} replay: {k1} K1 launches, want "
+                         f"{want_k1}")
+    check(busy > 0 and k1_ms > 0, f"{prefix} replay: the profile read "
+          f"busy {busy} ms, K1 {k1_ms} ms")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return {f"{prefix}_host_ms": med, f"{prefix}_busy_ms": busy,
+            f"{prefix}_idle_share": 1.0 - busy / med,
+            f"{prefix}_k1_device_ms": k1_ms,
+            f"{prefix}_k1_launches": k1,
+            f"{prefix}_card_intervals": device_events(prof),
+            f"{prefix}_top": [[name[:70], ms] for name, ms in top]}
+
+
+def start_services(init_model, u2pp_conformer, conformer_rnnt_bias,
+                   tmp: Path) -> dict:
+    """R1's and R2's served files (R1: the full-width U2++ conformer, fp32,
+    seed 0; R2: the full-width flagship, fp32, seed 0, S1's blank bias
+    +3.0), their protocol clients started together (R1 on the card and on
+    the CPU, R2 on the card; each one's start-up read by a thread of its
+    own), and, while those start, the in-process card workers (R1 in fp32
+    and in bf16, R2)."""
+    cfg1, cfg2 = u2pp_conformer(), conformer_rnnt_bias()
+    files = {"r1": service_files(tmp / "r1", cfg1, init_model(cfg1, seed=0)),
+             "r2": service_files(tmp / "r2", cfg2, with_blank_bias(
+                 init_model(cfg2, seed=0), SLICE_BLANK_BIAS))}
+    clients = {
+        "r1_card": WorkerClient(worker_cmd(files["r1"]), tmp / "r1c.log"),
+        "r1_cpu": WorkerClient(worker_cmd(files["r1"], "cpu"),
+                               tmp / "r1p.log", OMP_NUM_THREADS="2"),
+        "r2_card": WorkerClient(worker_cmd(files["r2"]), tmp / "r2c.log")}
+    threads = [threading.Thread(target=c.start) for c in clients.values()]
+    for th in threads:
+        th.start()
+    workers = {"r1": in_process_worker(files["r1"]),
+               "r1_bf16": in_process_worker(
+                   files["r1"], str(tmp / "r1" / "train_bf16.yaml")),
+               "r2": in_process_worker(files["r2"])}
+    for th in threads:
+        th.join()
+    for name, c in clients.items():
+        check(hasattr(c, "meta"), f"serve: the {name} worker did not start")
+    return {"files": files, "clients": clients, "workers": workers}
+
+
+def phase_serve_u2pp(svc: dict) -> dict:
+    """R1, timed part (chunk 16, 4 left chunks): the client streams the 16
+    WAVs' fbank as one stream, a chunk's frames an F, through the card
+    worker (its O replies and one R kept for ``r1_cpu_compare``): the F
+    round trips and start-up. Then the in-process card worker streams the
+    same F requests (every count set to 0 just before, read just after:
+    24 K1 launches a chunk, N = 16 rows), and one chunk is replayed under
+    torch.profiler, fp32 and (for comparison) the bf16 worker's. Returns
+    the launches."""
+    t_phase = time.perf_counter()
+    card = svc["clients"]["r1_card"]
+    stream = one_stream()
+    f_ms, outs = [], []
+    for piece in pieces(stream):
+        t0 = time.perf_counter()
+        outs.append(card.forward(piece))
+        f_ms.append((time.perf_counter() - t0) * 1e3)
+    ids = ctc_greedy_ids(np.concatenate(outs))
+    hyps = [ids, ids[:-1], ids[::2], []]
+    t0 = time.perf_counter()
+    s_card = card.rescore(hyps, 0.3)
+    r_ms = (time.perf_counter() - t0) * 1e3
+    card.close()
+    svc["r1_card_replies"] = (outs, hyps, s_card)
+    frames = sum(o.shape[0] for o in outs)
+    client_s = time.perf_counter() - t_phase
+
+    worker = svc["workers"]["r1"]
+    reps = pieces(stream)
+    reset_counts()
+    n_out = sum(worker.forward_chunk(p).shape[0] for p in reps[:-1])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    chunks = n_out // SERVE_CHUNK
+    want = {**NO_LAUNCHES, "k1": K1_PER_ENCODER_PASS * chunks}
+    check(launches == want, f"serve_u2pp in-process stream: launches "
+                            f"{launches}, want {want}")
+    # A whole piece after the stream: the buffer's 3 to 66 frames plus 64
+    # make one window, one chunk.
+    prof = chunk_profile(worker, stream[:SERVE_PIECE], K1_PER_ENCODER_PASS)
+    bf16 = svc["workers"]["r1_bf16"]
+    for p in reps[:4]:
+        bf16.forward_chunk(p)
+    prof.update(chunk_profile(bf16, stream[:SERVE_PIECE],
+                              K1_PER_ENCODER_PASS, prefix="bf16_chunk"))
+    emit("serve_u2pp", part="client", model="u2pp_conformer",
+         dtype="float32", chunk=SERVE_CHUNK, left_chunks=SERVE_LEFT,
+         stream_frames=len(stream), out_frames=frames,
+         worker_startup_s=card.startup_s,
+         **ms_stats("f_round_trip", f_ms), r_round_trip_ms=r_ms,
+         k1_launches_per_chunk=launches["k1"] / max(chunks, 1),
+         k1_rows_per_launch=SERVE_CHUNK, **prof, card=smi(),
+         client_s=client_s, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def r1_cpu_compare(svc: dict) -> None:
+    """R1's client, CPU side (untimed, while phase_serve_runs' processes
+    run): the same stream and R through the --device cpu worker (two CPU
+    threads), each O within SERVE_LOG_TOL of the card worker's, the S
+    scores within SERVE_SCORE_RTOL."""
+    cpu = svc["clients"]["r1_cpu"]
+    outs, hyps, s_card = svc["r1_card_replies"]
+    check(svc["clients"]["r1_card"].meta == cpu.meta,
+          f"serve_u2pp meta {svc['clients']['r1_card'].meta} != "
+          f"{cpu.meta}")
+    err = 0.0
+    for piece, got in zip(pieces(one_stream()), outs):
+        want = cpu.forward(piece)
+        check(got.shape == want.shape, f"serve_u2pp O shape {got.shape} "
+                                       f"!= {want.shape}")
+        if got.size:
+            err = max(err, float(np.abs(got - want).max()))
+    s_cpu = cpu.rescore(hyps, 0.3)
+    s_rel = float(np.max(np.abs(s_card - s_cpu)
+                         / np.maximum(np.abs(s_cpu), 1.0)))
+    cpu.close()
+    check(err <= SERVE_LOG_TOL and s_rel <= SERVE_SCORE_RTOL,
+          f"serve_u2pp client: O max abs {err}, S relative {s_rel}")
+    emit("serve_u2pp", part="client_card_vs_cpu",
+         o_max_abs_card_vs_cpu=err, s_max_rel_card_vs_cpu=s_rel,
+         tolerance=f"O max abs {SERVE_LOG_TOL}, S relative "
+                   f"{SERVE_SCORE_RTOL}", cpu_worker_startup_s=cpu.startup_s,
+         o_replies=len(outs))
+
+
+def phase_serve_rnnt(svc: dict) -> dict:
+    """R2, timed part: the flagship, whose non-causal conformer the worker
+    serves by the chunk-masked prefix. The client streams the WAVs as one
+    stream through the card worker (F then G a request, then B and R):
+    round trips, start-up, greedy tokens an encoder frame. The in-process
+    card worker: 24 K1 launches an F that runs the encoder (N = the
+    prefix's frames), the flush (the whole prefix) replayed under
+    torch.profiler. Returns the launches."""
+    t_phase = time.perf_counter()
+    card = svc["clients"]["r2_card"]
+    stream = one_stream()
+    f_ms, g_ms, frames, tokens = [], [], 0, 0
+    for piece in pieces(stream):
+        t0 = time.perf_counter()
+        out = card.forward(piece)
+        f_ms.append((time.perf_counter() - t0) * 1e3)
+        frames += out.shape[0]
+        t0 = time.perf_counter()
+        tokens += len(card.request(b"G"))
+        g_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    nbest = card.request(b"B" + struct.pack("<I", 4))
+    b_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    scores = card.rescore([h for h, _ in nbest], 0.0)
+    r_ms = (time.perf_counter() - t0) * 1e3
+    card.close()
+    check(len(nbest) > 0 and np.isfinite(scores).all(),
+          f"serve_rnnt client: n-best {len(nbest)}, scores {scores}")
+
+    worker = svc["workers"]["r2"]
+    reset_counts()
+    passes = 0
+    for piece in pieces(stream)[:-1]:
+        before = read_counts()["k1"]
+        worker.forward_chunk(piece)
+        passes += read_counts()["k1"] > before
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {**NO_LAUNCHES, "k1": K1_PER_ENCODER_PASS * passes}
+    check(launches == want, f"serve_rnnt in-process stream: launches "
+                            f"{launches}, want {want}")
+    prof = chunk_profile(worker, stream[:0], K1_PER_ENCODER_PASS,
+                         prefix="flush")
+    emit("serve_rnnt", part="client", model="conformer_rnnt_bias",
+         dtype="float32", blank_bias=SLICE_BLANK_BIAS, chunk=SERVE_CHUNK,
+         stream_frames=len(stream), encoder_frames=frames,
+         greedy_tokens=tokens, tokens_per_encoder_frame=tokens / frames,
+         n_steps_cap=4, worker_startup_s=card.startup_s,
+         **ms_stats("f_round_trip", f_ms), **ms_stats("g_round_trip", g_ms),
+         b_round_trip_ms=b_ms, r_round_trip_ms=r_ms, nbest=len(nbest),
+         encoder_passes=passes,
+         k1_launches_per_f=launches["k1"] / max(passes, 1),
+         flush_frames=len(stream), **prof, card=smi(),
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def tee_utterances(log: Path) -> list:
+    """A TEE_WORKER log split into utterances at each 'I' that F requests
+    follow: each one's O log-probs [T', V], R hypotheses and S scores."""
+    data, pos, msgs = log.read_bytes(), 0, []
+    while pos < len(data):
+        (n,) = struct.unpack("<I", data[pos:pos + 4])
+        msgs.append(data[pos + 4:pos + 4 + n])
+        pos += 4 + n
+    utts = []
+    for req, rep in zip(msgs[0::2], msgs[1::2]):
+        tag = req[:1]
+        if tag == b"I":
+            utts.append({"o": [], "hyps": [], "att": None})
+        elif tag == b"F":
+            t, v = struct.unpack("<II", rep[1:9])
+            utts[-1]["o"].append(np.frombuffer(rep[9:], "<f4").reshape(t, v))
+        elif tag == b"R":
+            (n,) = struct.unpack("<I", req[1:5])
+            at = 9
+            for _ in range(n):
+                (k,) = struct.unpack("<I", req[at:at + 4])
+                utts[-1]["hyps"].append(
+                    np.frombuffer(req[at + 4:at + 4 + 4 * k], "<i4").tolist())
+                at += 4 + 4 * k
+            utts[-1]["att"] = np.frombuffer(rep[5:], "<f4")
+    return [u for u in utts if u["o"]]
+
+
+CPP_LOG_ZERO = np.float32(-1e10)   # runtime/core/utils/utils.h kLogZero
+
+
+def _cpp_log_add(a, b):
+    """runtime/core/utils/utils.h LogAdd, in float32."""
+    if a < b:
+        a, b = b, a
+    if b <= CPP_LOG_ZERO:
+        return a
+    return np.float32(a + np.log1p(np.exp(np.float32(b - a))))
+
+
+def cpp_prefix_beam(logp: np.ndarray, beam: int = 10, blank: int = 0):
+    """decoder_main's CTC prefix beam search
+    (runtime/core/decoder/ctc_prefix_beam_search.cc, no context graph:
+    the top ``beam`` tokens a frame, the best ``beam`` prefixes kept) in
+    float32 on a worker's O log-probs → (the n-best [(prefix, score)]
+    best first, and per frame (its top-k tokens, the prefixes kept, the
+    margin at the top-k's edge, the margin at the beam's edge))."""
+    beams = [((), np.float32(0.0), CPP_LOG_ZERO)]   # prefix, lp_b, lp_t
+    trace = []
+    for row in logp.astype(np.float32):
+        order = np.argsort(-row, kind="stable")
+        top = order[:beam]
+        tok_margin = float(row[order[beam - 1]] - row[order[beam]])
+        nxt = {}
+        for prefix, pb, pt in beams:
+            total = _cpp_log_add(pb, pt)
+            last = prefix[-1] if prefix else -1
+            for tok in top.tolist():
+                lp = row[tok]
+                if tok == blank:
+                    e = nxt.setdefault(prefix, [CPP_LOG_ZERO, CPP_LOG_ZERO])
+                    e[0] = _cpp_log_add(e[0], np.float32(total + lp))
+                    continue
+                if tok == last:
+                    e = nxt.setdefault(prefix, [CPP_LOG_ZERO, CPP_LOG_ZERO])
+                    e[1] = _cpp_log_add(e[1], np.float32(pt + lp))
+                    src = pb
+                else:
+                    src = total
+                x = nxt.setdefault(prefix + (tok,),
+                                   [CPP_LOG_ZERO, CPP_LOG_ZERO])
+                x[1] = _cpp_log_add(x[1], np.float32(src + lp))
+        ranked = sorted(((_cpp_log_add(*v), p, v) for p, v in nxt.items()),
+                        key=lambda r: -r[0])
+        prune_margin = (float(ranked[beam - 1][0] - ranked[beam][0])
+                        if len(ranked) > beam else float("inf"))
+        beams = [(p, v[0], v[1]) for _, p, v in ranked[:beam]]
+        trace.append((frozenset(top.tolist()),
+                      frozenset(p for p, _, _ in beams), tok_margin,
+                      prune_margin))
+    return [(list(p), _cpp_log_add(pb, pt)) for p, pb, pt in beams], trace
+
+
+def near_tie(card_u, cpu_u, ctc_weight: float = 0.5) -> dict:
+    """Where decoder_main's default mode parted for one utterance between
+    the card's and the CPU's worker: its search redone on each worker's O
+    (``cpp_prefix_beam``, which must give each side's n-best as sent to
+    R), the first decision that differs (a frame's top-k tokens, the
+    prefixes a frame keeps, or the final ranking by attention score +
+    ctc_weight × prefix score), and the CPU search's margin there."""
+    card_nb, card_tr = cpp_prefix_beam(np.concatenate(card_u["o"]))
+    cpu_nb, cpu_tr = cpp_prefix_beam(np.concatenate(cpu_u["o"]))
+    rec = {"search_redone_matches": (
+        [p for p, _ in card_nb] == card_u["hyps"]
+        and [p for p, _ in cpu_nb] == cpu_u["hyps"])}
+    for t, (a, b) in enumerate(zip(card_tr, cpu_tr)):
+        if a[0] != b[0]:
+            return {**rec, "parts_at": f"frame {t}: top-k tokens",
+                    "cpu_margin": b[2]}
+        if a[1] != b[1]:
+            return {**rec, "parts_at": f"frame {t}: kept prefixes",
+                    "cpu_margin": b[3]}
+    totals = sorted((float(att) + ctc_weight * float(score)
+                     for (_, score), att in zip(cpu_nb, cpu_u["att"])),
+                    reverse=True)
+    return {**rec, "parts_at": "final ranking",
+            "cpu_margin": totals[0] - totals[1] if len(totals) > 1
+            else float("inf")}
+
+
+def decoder_main_diffs(card_lines, cpu_lines, logs, mode: str) -> list:
+    """Each differing result line with what the two workers answered for
+    it (the O difference, whether the n-best sent to R was the same) and,
+    in the default mode, ``near_tie``."""
+    card_u, cpu_u = (tee_utterances(log) for log in logs)
+    out = []
+    for i, (a, b) in enumerate(zip(card_lines, cpu_lines)):
+        if a == b:
+            continue
+        rec = {"card": a, "cpu": b}
+        if i < min(len(card_u), len(cpu_u)):
+            cu, pu = card_u[i], cpu_u[i]
+            o_card, o_cpu = np.concatenate(cu["o"]), np.concatenate(pu["o"])
+            rec["o_max_abs"] = (float(np.abs(o_card - o_cpu).max())
+                                if o_card.shape == o_cpu.shape else None)
+            rec["same_nbest"] = cu["hyps"] == pu["hyps"]
+            if mode == "default" and rec["o_max_abs"] is not None:
+                rec.update(near_tie(cu, pu))
+        out.append(rec)
+    return out
+
+
+def explained(diff: dict) -> bool:
+    """A differing line that S1's rule allows: the O replies within
+    SERVE_LOG_TOL, decoder_main's search redone to each side's n-best, and
+    a CPU margin under NEAR_TIE where the two searches part."""
+    return (diff.get("o_max_abs") is not None
+            and diff["o_max_abs"] <= SERVE_LOG_TOL
+            and diff.get("search_redone_matches", False)
+            and diff.get("cpu_margin", float("inf")) < NEAR_TIE)
+
+
+def phase_serve_runs(binary: Path, served: dict, tmp: Path, during,
+                     beside):
+    """R1's and R2's decoder_main runs, started together after the timed
+    parts: decoder_main over the 16 WAVs for each of SERVE_MODES with the
+    card worker (one CPU thread) and with the --device cpu worker (two),
+    each behind TEE_WORKER; ``during()`` (E1) runs in this process
+    meanwhile, and ``beside()`` (R1's CPU client) in a thread. The result lines must be equal card against CPU, or differ
+    only where S1's rule allows (``explained``: the CPU search's margin
+    under NEAR_TIE where the two searches part). Returns what ``during``
+    returns."""
+    t0 = time.perf_counter()
+    tee = tmp / "tee_worker.py"
+    tee.write_text(TEE_WORKER)
+    procs = {}
+    for model, mode in SERVE_MODES:
+        files = served[model]
+        extra = [] if mode == "default" else ["--mode", mode]
+        if mode == "rnnt_beam_search":
+            extra += ["--beam", "4"]
+        for side, dev, threads in (("card", None, "1"), ("cpu", "cpu", "2")):
+            log = tmp / f"{model}_{mode}_{side}.tee"
+            wcmd = [sys.executable, str(tee), str(log),
+                    *worker_cmd(files, dev)]
+            procs[(model, mode, side)] = subprocess.Popen(
+                [str(binary), "--wav_scp", str(files["dir"] / "wav.scp"),
+                 "--symbol_table", str(files["dir"] / "units.txt"),
+                 "--worker_cmd", " ".join(wcmd), "--chunk_size",
+                 str(SERVE_CHUNK), "--num_bins", "80", *extra],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=serve_env(OMP_NUM_THREADS=threads))
+    ended = {}
+
+    def wait(key, proc):   # each run's own end, its pipes drained
+        out, err = proc.communicate(timeout=900)
+        ended[key] = (out, err, time.perf_counter() - t0)
+    errors = []
+
+    def run_beside():
+        try:
+            beside()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+    waiters = [threading.Thread(target=wait, args=kv)
+               for kv in procs.items()] + [threading.Thread(target=run_beside)]
+    for th in waiters:
+        th.start()
+    result = during()
+    for th in waiters:
+        th.join()
+    if errors:
+        raise errors[0]
+    for key, proc in procs.items():
+        if key not in ended or proc.returncode != 0:
+            raise RuntimeError(f"decoder_main {key} exited "
+                               f"{proc.returncode}:\n"
+                               f"{ended.get(key, ('', ''))[1][-3000:]}")
+    for model, mode in SERVE_MODES:
+        card, cpu = (ended[(model, mode, side)][0].splitlines()
+                     for side in ("card", "cpu"))
+        same = sum(a == b for a, b in zip(card, cpu))
+        phase = "serve_u2pp" if model == "r1" else "serve_rnnt"
+        diffs = decoder_main_diffs(card, cpu, [
+            tmp / f"{model}_{mode}_{side}.tee" for side in ("card", "cpu")],
+            mode)
+        check(len(card) == len(cpu) == 16 and all(map(explained, diffs)),
+              f"{phase} decoder_main {mode}: {same} of {len(card)} lines "
+              f"equal card against CPU, a difference away from a near "
+              f"tie: {diffs}")
+        emit(phase, part="decoder_main", mode=mode, lines_equal=same,
+             lines=len(card), near_tie_flips=len(diffs), diffs=diffs,
+             symbols=sum(len("".join(line.split()[1:])) for line in card),
+             card_s=ended[(model, mode, "card")][2],
+             cpu_s=ended[(model, mode, "cpu")][2])
+    emit("serve_runs", seconds=time.perf_counter() - t0)
+    return result
+
+
+def phase_export(init_model, u2pp_conformer, files: dict, tmp: Path,
+                 dev: str = "cuda"):
+    """E1: bin/export.py on the card writes R1's bundle (fp32 in this
+    process, its stdout to stderr here; --quantize int8 beside it by
+    ``python -m``). Each .pt2 is loaded back
+    and run on the card against the live model's entry point on the same
+    inputs (the int8 programs against the model loaded from
+    params_int8.pt), within EXPORT_TOL; each graph's
+    wenet_torch::ln_ffn_residual_fwd nodes counted against EXPORT_K1. The
+    programs' runs are counted (every count set to 0 before the first,
+    read after the last). Seconds a bundle, sizes and the int8 / fp32
+    ratio. Returns the launches."""
+    from wenet_celoss_tpu_torch.bin import export
+    from wenet_celoss_tpu_torch.utils.checkpoint import load_into
+    from wenet_celoss_tpu_torch.utils.quantize import load_quantized
+    t_phase = time.perf_counter()
+    cfg = u2pp_conformer()
+    op = torch.ops.wenet_torch.ln_ffn_residual_fwd.default
+    rng = np.random.default_rng(11)
+    feat_dim, vocab = cfg["input_dim"], cfg["output_dim"]
+    feats = torch.as_tensor(rng.standard_normal((1, 2000, feat_dim)),
+                            dtype=torch.float32, device=dev)
+    lens = torch.tensor([1700], dtype=torch.int32, device=dev)
+    window = (SERVE_CHUNK - 1) * 4 + 6 + 1
+    xs = [torch.as_tensor(rng.standard_normal((1, window, feat_dim)),
+                          dtype=torch.float32, device=dev) for _ in range(2)]
+    n, u, t_sub = 10, 64, (2000 - 3) // 4
+    memory = torch.as_tensor(rng.standard_normal(
+        (n, t_sub, cfg["encoder_conf"]["output_size"])),
+        dtype=torch.float32, device=dev)
+    mask = torch.arange(t_sub, device=dev)[None] < torch.as_tensor(
+        rng.integers(100, t_sub, (n, 1)), device=dev)
+    hyps = torch.as_tensor(rng.integers(1, vocab - 2, (n, u + 1)),
+                           dtype=torch.int32, device=dev)
+    hyps[:, 0] = cfg["output_dim"] - 1
+    hlens = torch.as_tensor(rng.integers(2, u + 2, (n,)), dtype=torch.int32,
+                            device=dev)
+    dec_args = (memory, mask, hyps, hlens, hyps.flip(1).contiguous())
+    out = {"card": smi()}
+    launches = dict(NO_LAUNCHES)
+    argv = {quant: ["--config", files["config"], "--checkpoint",
+                    files["checkpoint"], "--output_dir",
+                    str(tmp / "e1" / quant), "--chunk_size",
+                    str(SERVE_CHUNK), "--num_left_chunks", str(SERVE_LEFT),
+                    "--quantize", quant, "--device", dev]
+            for quant in ("none", "int8")}
+    # The int8 bundle by `python -m` beside the fp32 one in this process.
+    t0 = time.perf_counter()
+    int8 = subprocess.Popen(
+        [sys.executable, "-m", "wenet_celoss_tpu_torch.bin.export",
+         *argv["int8"]], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=serve_env())
+    int8_end = []
+    waiter = threading.Thread(target=lambda: int8_end.append(
+        (int8.communicate(timeout=600), time.perf_counter() - t0)))
+    waiter.start()
+    live = init_model(cfg, seed=1, device=dev)
+    for quant in ("none", "int8"):
+        out_dir = tmp / "e1" / quant
+        if quant == "none":
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                export.main(argv[quant])
+            out["none_export_s"] = time.perf_counter() - t0
+        else:
+            waiter.join()
+            (_, err), seconds = int8_end[0]
+            if int8.returncode != 0:
+                raise RuntimeError(f"export --quantize int8 exited "
+                                   f"{int8.returncode}:\n{err[-3000:]}")
+            out["int8_export_s"] = seconds
+        manifest = (out_dir / "manifest.yaml").read_text()
+        params = "params.pt" if quant == "none" else "params_int8.pt"
+        check(f"quantize: {quant}" in manifest and params in manifest,
+              f"export {quant}: manifest {manifest!r}")
+        if quant == "none":
+            load_into(live, str(out_dir / params))
+        else:
+            live.load_state_dict(load_quantized(str(out_dir / params)))
+        out[f"{quant}_params_bytes"] = (out_dir / params).stat().st_size
+        progs = {name: torch.export.load(str(out_dir / f"{name}.pt2"))
+                 for name in EXPORT_K1}
+        for name, prog in progs.items():
+            nodes = sum(nd.target is op for nd in prog.graph.nodes)
+            out[f"{quant}_{name}_k1_nodes"] = nodes
+            out[f"{quant}_{name}_bytes"] = \
+                (out_dir / f"{name}.pt2").stat().st_size
+            check(nodes == EXPORT_K1[name], f"export {quant} {name}: "
+                  f"{nodes} K1 nodes, want {EXPORT_K1[name]}")
+        mods = {name: prog.module() for name, prog in progs.items()}
+        cache = live.encoder_init_cache(1, SERVE_CHUNK * SERVE_LEFT)
+        tcache = export.tensor_cache(cache)
+        with torch.no_grad():
+            want = [live.encode_ctc(feats, lens)]
+            for x in xs:
+                ys, lp, cache = live.encoder_forward_chunk_ctc(x, cache)
+                want.append((ys, lp))
+            want.append(live.decoder_scores(*dec_args, 1.0))
+            reset_counts()
+            got = [mods["encoder_ctc"](feats, lens)]
+            for x in xs:
+                ys, lp, tcache = mods["encoder_chunk_ctc"](x, tcache)
+                got.append((ys, lp))
+            got.append(mods["decoder_scores"](*dec_args))
+            torch.cuda.synchronize()
+            counts = read_counts()
+        for k in launches:
+            launches[k] += counts[k]
+        errs = []
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                if a.dtype == torch.bool:
+                    errs.append(0.0 if torch.equal(a, b) else float("inf"))
+                else:
+                    errs.append(float((a.float() - b.float()).abs().max()))
+        out[f"{quant}_max_abs_vs_live"] = max(errs)
+        check(max(errs) <= EXPORT_TOL, f"export {quant}: .pt2 against the "
+              f"live model max abs {max(errs)}")
+        want_k1 = {**NO_LAUNCHES, "k1": sum(EXPORT_K1.values())
+                   + EXPORT_K1["encoder_chunk_ctc"]}
+        check(counts == want_k1, f"export {quant}: launches {counts}, want "
+                                 f"{want_k1}")
+        del progs, mods
+    out["int8_over_fp32_params"] = (out["int8_params_bytes"]
+                                    / out["none_params_bytes"])
+    emit("export", model="u2pp_conformer", tolerance=f"max abs "
+         f"{EXPORT_TOL}", seconds=time.perf_counter() - t_phase, **out)
+    return launches
+
+
+
 def kernel_line(name, source, replaces, by_path, record) -> dict:
     """One kernel's entry; ``factor`` is its time (card time where it has
     one) over its yardstick's, null without a yardstick."""
@@ -4627,10 +5608,14 @@ def main() -> int:
          peaks="H100 SXM data sheet at 700 W; this card: " + card)
 
     t0 = time.perf_counter()
+    decoder_main_build = DecoderMainBuild()   # g++ beside the nvcc runs
     _build.build_all(["ln_ffn_residual", "rnnt_joint", "lstm2_seq",
                       "rnnt_lattice", "conv_block", "ln_matmul"])
+    decoder_main = decoder_main_build.wait()
     emit("build", seconds=time.perf_counter() - t0,
-         per_source=_build.build_seconds)
+         per_source=_build.build_seconds,
+         decoder_main=str(decoder_main.relative_to(ROOT)),
+         decoder_main_s=decoder_main_build.seconds)
 
     k1 = phase_k1(ffn, bounds)
     k1_bwd = phase_k1_bwd(ffn, bounds, dropout)
@@ -4651,11 +5636,27 @@ def main() -> int:
                                   ffn, bias)
     lnmm_bench = phase_bench_lnmm(init_model, Decoder, conformer_rnnt_bias,
                                   BENCH_BLANK_BIASES[0])
+    phase_op_dispatch(to_profile[0], slice_run, ffn, ln_matmul, conv)
     phase_decode_modes(slice_run)
     recognize_launches = phase_recognize(init_model, Decoder,
                                          conformer_rnnt_bias)
     stream_decode = phase_stream_slice(init_model, Decoder, u2pp_conformer,
                                        slice_run)
+    with tempfile.TemporaryDirectory() as serve_tmp:
+        serve_tmp = Path(serve_tmp)
+        t_serve = time.perf_counter()
+        svc = start_services(init_model, u2pp_conformer,
+                             conformer_rnnt_bias, serve_tmp)
+        emit("serve_start", seconds=time.perf_counter() - t_serve)
+        serve_u2pp = phase_serve_u2pp(svc)
+        serve_rnnt = phase_serve_rnnt(svc)
+        del svc["workers"]
+        export_run = phase_serve_runs(
+            decoder_main, svc["files"], serve_tmp,
+            lambda: phase_export(init_model, u2pp_conformer,
+                                 svc["files"]["r1"], serve_tmp),
+            lambda: r1_cpu_compare(svc))
+        emit("serve_all", seconds=time.perf_counter() - t_serve)
     b3_paths, b3_profile = phase_bench_modes(
         init_model, Decoder, conformer_rnnt_bias, BENCH_BLANK_BIASES[0])
     b4_profile = phase_bench_stream(init_model, Decoder, u2pp_conformer)
@@ -4752,6 +5753,9 @@ def main() -> int:
              "u2pp_conv_train": (t11_conv, U2PP_CONV_PER_STEP),
              "recognize": (recognize_launches, RECOGNIZE_KERNELS),
              "train_cli": train_cli,
+             "serve_u2pp": (serve_u2pp, SERVE_KERNELS),
+             "serve_rnnt": (serve_rnnt, SERVE_KERNELS),
+             "export": (export_run, SERVE_KERNELS),
              **{"decode_" + n: v for n, v in b3_paths.items()}}
     idle = {path: sorted(k for k, n in want.items()
                          if n > 0 and launches[k] == 0)

@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``wenet_celoss_tpu_torch`` and
-nothing in ``chip_smoke.py`` imports jax, flax or the JAX package (only
-the tests import both)."""
+nothing in ``chip_smoke.py`` imports jax, flax, optax or the JAX package
+(only the tests import both). The serving and export modules import no
+yaml or msgpack (the machine with the card has neither), and only the
+gRPC front end imports grpc."""
 
 import ast
 import pathlib
@@ -9,7 +11,11 @@ import re
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|wenet_celoss_tpu)(\.|$)")
+FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax|wenet_celoss_tpu)(\.|$)")
+HOST_ONLY = re.compile(r"^(yaml|msgpack)(\.|$)")
+GRPC = re.compile(r"^grpc(\.|$)")
+SERVING = ("bin/runtime_worker.py", "bin/export.py", "bin/grpc_server.py",
+           "utils/quantize.py", "decode/rnnt_greedy.py")
 FILES = sorted((ROOT / "wenet_celoss_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -33,3 +39,17 @@ def test_forbidden_pattern_matches_whole_names_only():
     assert FORBIDDEN.match("jax")
     assert not FORBIDDEN.match("wenet_celoss_tpu_torch.ops")
     assert not FORBIDDEN.match("jaxtyping")
+
+
+@pytest.mark.parametrize("rel", SERVING)
+def test_serving_modules_import_no_yaml_or_msgpack(rel):
+    mods = list(_imported_modules(ROOT / "wenet_celoss_tpu_torch" / rel))
+    bad = [m for m in mods if FORBIDDEN.match(m) or HOST_ONLY.match(m)]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_only_the_grpc_front_end_imports_grpc():
+    users = [str(p.relative_to(ROOT)) for p in FILES
+             if any(GRPC.match(m) for m in _imported_modules(p))]
+    assert users == ["wenet_celoss_tpu_torch/bin/grpc_server.py"]
+    assert FORBIDDEN.match("optax") and not GRPC.match("grpcio_tools_x")

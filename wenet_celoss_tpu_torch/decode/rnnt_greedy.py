@@ -1,8 +1,9 @@
 """RNN-T greedy search, plain and hotword-gated (port of
 ``wenet_celoss_tpu/decode/rnnt_greedy.py``: ``rnnt_greedy_search_labelsync``,
-``rnnt_gated_greedy_search_labelsync``, ``rnnt_gated_greedy_search_exact``
-and ``greedy_to_lists``). The "exact" search is a frame-by-frame host loop
-over one utterance; the other two are label-synchronous.
+``rnnt_gated_greedy_search_labelsync``, ``rnnt_gated_greedy_search_exact``,
+``rnnt_greedy_chunk`` and ``greedy_to_lists``). The "exact" search and the
+serving worker's ``rnnt_greedy_chunk`` are frame-by-frame host loops; the
+other two are label-synchronous.
 
 Between emissions the predictor state does not change, so one joint of
 EVERY frame against the current predictor state finds each row's next
@@ -282,6 +283,44 @@ def rnnt_gated_greedy_search_exact(predictor_step: Callable,
             t += 1
             per_frame_noblk = 0
     return hyps, result
+
+
+def rnnt_greedy_chunk(predictor_step: Callable, joint_step: Callable,
+                      carry, encoder_chunk: torch.Tensor, blank: int = 0,
+                      n_steps: int = 4):
+    """Greedy-decode one encoder chunk [B, Tc, E], resuming from ``carry``
+    = (pred_out [B, P], predictor state) → (tokens [B, Tc·n_steps], lens
+    [B], new carry): the streaming building block of the serving worker.
+
+    Frame by frame, up to ``n_steps`` emissions a frame, each as the JAX
+    package orders it: the joint's argmax, then ``do = alive & tok !=
+    blank & cnt < u_cap``, then the predictor step with padding ``~do``
+    (the padding freezes a row's state), then pred_out kept where no token
+    was emitted. A frame's loop stops once no row emits: the steps it
+    skips would change nothing."""
+    pred_out, state = carry
+    b, t_c, _ = encoder_chunk.shape
+    dev = encoder_chunk.device
+    u_cap = t_c * n_steps
+    buf = torch.zeros((b, u_cap), dtype=torch.long, device=dev)
+    cnt = torch.zeros((b,), dtype=torch.long, device=dev)
+    rows = torch.arange(b, device=dev)
+    for t in range(t_c):
+        enc_t = encoder_chunk[:, t]
+        alive = torch.ones((b,), dtype=torch.bool, device=dev)
+        for _ in range(n_steps):
+            tok = torch.argmax(joint_step(enc_t, pred_out), dim=-1)
+            do = alive & (tok != blank) & (cnt < u_cap)
+            if not bool(do.any()):
+                break
+            pos = torch.clamp(cnt, max=u_cap - 1)
+            buf[rows, pos] = torch.where(do, tok, buf[rows, pos])
+            cnt = cnt + do.long()
+            new_pred, state = predictor_step(tok, state, (~do).long())
+            keep = do[:, None].to(pred_out.dtype)
+            pred_out = new_pred * keep + pred_out * (1 - keep)
+            alive = do
+    return buf, cnt, (pred_out, state)
 
 
 def greedy_to_lists(tokens, lens) -> List[List[int]]:

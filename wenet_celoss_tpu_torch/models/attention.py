@@ -127,7 +127,7 @@ class MultiHeadedAttention(nn.Module):
         """One streaming step, no dropout, no fused pre-norm.
 
         cache_kv [B, H, C, 2·dk]: the ring of past (k | v), oldest first;
-        slot i is valid iff i >= C - cache_len (an int).
+        slot i is valid iff i >= C - cache_len (an int, or a 0-d tensor).
         mask: a boolean [B, 1|Tq, C + T] over (cache ++ new) keys, or
         None; masked probabilities are zeroed after the softmax. pos_emb
         (rel-pos only) spans the C + T keys. → (out [B, Tq, n_feat], the
@@ -144,8 +144,11 @@ class MultiHeadedAttention(nn.Module):
         out = self._softmax_out(self._scores(q, k_all, pos_emb), keep,
                                 v_all, q.dtype)
         ring = torch.cat([k_all, v_all], dim=-1)
-        return out, ring[:, :, ring.shape[2] - c:], min(cache_len
-                                                        + k.shape[2], c)
+        new_len = cache_len + k.shape[2]
+        # cache_len is an int, or a 0-d tensor in an exported chunk step.
+        new_len = (new_len.clamp(max=c) if torch.is_tensor(new_len)
+                   else min(new_len, c))
+        return out, ring[:, :, ring.shape[2] - c:], new_len
 
 
 class RelPositionMultiHeadedAttention(MultiHeadedAttention):

@@ -39,8 +39,9 @@ class RelPositionalEncoding(nn.Module):
     def pos_emb(self, offset: int, size: int, device=None) -> torch.Tensor:
         """[1, size, d] fp32 table of positions offset .. offset+size-1
         (negative positions too: a streaming chunk's rel-pos table starts
-        at offset - cache)."""
-        pos = torch.arange(offset, offset + size, device=device)
+        at offset - cache). ``offset`` may be a 0-d tensor (an exported
+        chunk step takes it as an input)."""
+        pos = torch.arange(size, device=device) + offset
         return sinusoid_table(pos[None, :], self.d_model)
 
     def forward(self, x: torch.Tensor, gen=None, offset: int = 0):

@@ -102,6 +102,12 @@ class TransformerEncoder(nn.Module):
     def right_context(self) -> int:
         return self.embed.right_context
 
+    @property
+    def streamable(self) -> bool:
+        """Whether ``forward_chunk`` can serve this encoder (a non-causal
+        conv module has no cache form)."""
+        return True
+
     def _conv_lorder(self) -> int:
         return 0
 
@@ -232,13 +238,17 @@ class ConformerEncoder(TransformerEncoder):
     def _layer(*args, normalize_before: bool, **kw) -> nn.Module:
         return ConformerEncoderLayer(*args, **kw)
 
+    @property
+    def streamable(self) -> bool:
+        return self.causal or not self.use_cnn_module
+
     def _conv_lorder(self) -> int:
         return (self.cnn_module_kernel - 1
                 if self.use_cnn_module and self.causal else 0)
 
     def _layer_with_cache(self, layer, xs, att_cache, att_len, cnn_cache,
                           pos_emb, att_mask):
-        if self.use_cnn_module and not self.causal:
+        if not self.streamable:
             raise NotImplementedError(
                 "streaming a conformer with a CNN module requires "
                 "causal=True")

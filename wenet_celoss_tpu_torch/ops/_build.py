@@ -6,6 +6,8 @@ first use (the hash is of the source and ``csrc/*.cuh``, so an edited
 source or header rebuilds), and
 the library is loaded once per process. ``build_all`` starts one ``nvcc``
 per source, all at once. Nothing here runs at import time.
+``wants_autograd`` picks a wrapper's route: its ``autograd.Function``
+when a gradient will be taken, else its registered forward operator.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -73,6 +77,13 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return {name: _target(name) for name in names}
+
+
+def wants_autograd(*tensors) -> bool:
+    """Whether a wrapper must take its ``autograd.Function`` (a gradient
+    will be taken through it) rather than its forward operator."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def load_library(name: str) -> ctypes.CDLL:

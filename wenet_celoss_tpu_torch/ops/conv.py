@@ -11,6 +11,8 @@ forward and backward launch the hand-written kernels of
 ``conv16``, D = 256 and K = 15 only; fp32: the plain-FMA kernels); on CPU
 tensors they run ``conv_block_residual_ref``, the plain PyTorch version
 with the kernel's rounding points (the backward by autograd through it).
+Without a gradient to take, the wrapper calls the registered forward
+operator ``wenet_torch::conv_block_fwd`` (what an exported program holds).
 
 Padding is the module's (``models/convolution.py``): a causal block
 left-pads K - 1 frames in the raw domain before PW1 (those frames carry
@@ -33,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from wenet_celoss_tpu_torch.ops import dropout as drop
-from wenet_celoss_tpu_torch.ops._build import load_library
+from wenet_celoss_tpu_torch.ops._build import load_library, wants_autograd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Channel counts the fp32 kernels take: a multiple of 64 (the
@@ -239,13 +241,42 @@ def conv_block_residual(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2,
     """x + drop(PW2(silu(LN2(DW(GLU(PW1(mask * LN1(x)))))))) * mask, with
     the output dropout ``rate`` in [0, 1) drawn from ``seed``. A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel (and, under
-    autograd, the backward kernels) or raises."""
+    autograd, the backward kernels) or raises. Without a gradient to take
+    it runs the operator ``wenet_torch::conv_block_fwd``."""
     drop.threshold(rate)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    return _ConvBlockResidual.apply(x, mask, g1, b1, w1, bw1, w_dw, b_dw,
-                                    g2, b2, w2, bw2, int(seed), bool(causal),
-                                    float(rate), float(eps))
+    args = (x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2,
+            int(seed), bool(causal), float(rate), float(eps))
+    if wants_autograd(x, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2):
+        return _ConvBlockResidual.apply(*args)
+    return conv_block_fwd(*args)
+
+
+@torch.library.custom_op("wenet_torch::conv_block_fwd", mutates_args=(),
+                         device_types="cpu")
+def conv_block_fwd(x: torch.Tensor, mask: torch.Tensor, g1: torch.Tensor,
+                   b1: torch.Tensor, w1: torch.Tensor, bw1: torch.Tensor,
+                   w_dw: torch.Tensor, b_dw: torch.Tensor, g2: torch.Tensor,
+                   b2: torch.Tensor, w2: torch.Tensor, bw2: torch.Tensor,
+                   seed: int, causal: bool, rate: float,
+                   eps: float) -> torch.Tensor:
+    """K8's forward as a registered operator: the plain version on the
+    CPU, the kernel on the card."""
+    return conv_block_residual_ref(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2,
+                                   b2, w2, bw2, seed, causal, rate, eps)
+
+
+@conv_block_fwd.register_kernel("cuda")
+def _(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2, seed, causal,
+      rate, eps):
+    return forward_kernel(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2,
+                          bw2, seed, causal, rate, eps)
+
+
+@conv_block_fwd.register_fake
+def _(x, *args):
+    return torch.empty_like(x)
 
 
 conv_block_residual.launches = 0

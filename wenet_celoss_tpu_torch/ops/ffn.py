@@ -13,8 +13,12 @@ backwards launch the hand-written kernels in ``csrc/ln_ffn_residual.cu``
 (K6 is those kernels with no LayerNorm and no residual); on CPU tensors
 they run ``ln_ffn_residual_ref`` and ``ffn_fused_ref``, the plain PyTorch
 versions with the same rounding points and masks (the backwards by
-autograd through them). Weights are in ``torch.nn.Linear`` layout: w1
-[F, D], w2 [D, F].
+autograd through them). Where no gradient will be taken (decoding, an
+exported program) the wrappers call the registered forward operators
+``wenet_torch::ln_ffn_residual_fwd`` and ``wenet_torch::ffn_fused_fwd``
+instead: the plain version on the CPU, the same forward launch on the
+card, and a fake implementation that ``torch.export`` traces. Weights are
+in ``torch.nn.Linear`` layout: w1 [F, D], w2 [D, F].
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import ctypes
 import torch
 
 from wenet_celoss_tpu_torch.ops import dropout as drop
-from wenet_celoss_tpu_torch.ops._build import load_library
+from wenet_celoss_tpu_torch.ops._build import load_library, wants_autograd
 
 _ACTS = {"relu": 0, "swish": 1}
 # F-tile of the kernel per compute dtype (F must be a multiple of it).
@@ -246,6 +250,31 @@ class _LnFfnResidual(torch.autograd.Function):
         return (*grads, None, None, None, None, None, None)
 
 
+@torch.library.custom_op("wenet_torch::ln_ffn_residual_fwd", mutates_args=(),
+                         device_types="cpu")
+def ln_ffn_residual_fwd(x2: torch.Tensor, g: torch.Tensor, bl: torch.Tensor,
+                        w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                        b2: torch.Tensor, activation: str, ff_scale: float,
+                        eps: float, rate1: float, rate2: float,
+                        seed: int) -> torch.Tensor:
+    """K1's forward as a registered operator (what an exported graph
+    holds): the plain version on the CPU, the kernel on the card."""
+    return ln_ffn_residual_ref(x2, g, bl, w1, b1, w2, b2, activation,
+                               ff_scale, eps, rate1, rate2, seed)
+
+
+@ln_ffn_residual_fwd.register_kernel("cuda")
+def _(x2, g, bl, w1, b1, w2, b2, activation, ff_scale, eps, rate1, rate2,
+      seed):
+    return forward_kernel(x2, g, bl, w1, b1, w2, b2, activation, ff_scale,
+                          eps, rate1, rate2, seed)
+
+
+@ln_ffn_residual_fwd.register_fake
+def _(x2, *args):
+    return torch.empty_like(x2)
+
+
 def ln_ffn_residual(x2, g, bl, w1, b1, w2, b2, activation: str,
                     ff_scale: float = 1.0, eps: float = 1e-5,
                     rate1: float = 0.0, rate2: float = 0.0, seed: int = 0):
@@ -255,14 +284,17 @@ def ln_ffn_residual(x2, g, bl, w1, b1, w2, b2, activation: str,
     w2 [D, F] in x2's dtype; rate1 on the hidden and rate2 on the FFN
     output, both in [0, 1), masks drawn from ``seed``. A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel (and, under
-    autograd, the backward kernels) or raises."""
+    autograd, the backward kernels) or raises. Without a gradient to take
+    it runs the operator ``wenet_torch::ln_ffn_residual_fwd``."""
     drop.threshold(rate1)
     drop.threshold(rate2)
     if x2.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x2.device}")
-    return _LnFfnResidual.apply(x2, g, bl, w1, b1, w2, b2, activation,
-                                float(ff_scale), float(eps), float(rate1),
-                                float(rate2), int(seed))
+    args = (x2, g, bl, w1, b1, w2, b2, activation, float(ff_scale),
+            float(eps), float(rate1), float(rate2), int(seed))
+    if wants_autograd(x2, g, bl, w1, b1, w2, b2):
+        return _LnFfnResidual.apply(*args)
+    return ln_ffn_residual_fwd(*args)
 
 
 ln_ffn_residual.launches = 0
@@ -355,6 +387,26 @@ class _FfnFused(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+@torch.library.custom_op("wenet_torch::ffn_fused_fwd", mutates_args=(),
+                         device_types="cpu")
+def ffn_fused_fwd(x2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                  w2: torch.Tensor, b2: torch.Tensor, activation: str,
+                  rate: float, seed: int) -> torch.Tensor:
+    """K6's forward as a registered operator: the plain version on the
+    CPU, the kernel on the card."""
+    return ffn_fused_ref(x2, w1, b1, w2, b2, activation, rate, seed)
+
+
+@ffn_fused_fwd.register_kernel("cuda")
+def _(x2, w1, b1, w2, b2, activation, rate, seed):
+    return ffn_forward_kernel(x2, w1, b1, w2, b2, activation, rate, seed)
+
+
+@ffn_fused_fwd.register_fake
+def _(x2, *args):
+    return torch.empty_like(x2)
+
+
 def ffn_fused(x2, w1, b1, w2, b2, activation: str, rate: float = 0.0,
               seed: int = 0):
     """drop(act(x2 @ w1^T + b1)) @ w2^T + b2.
@@ -362,12 +414,16 @@ def ffn_fused(x2, w1, b1, w2, b2, activation: str, rate: float = 0.0,
     x2 [N, D] float32 or bfloat16; w1 [F, D] and w2 [D, F] in x2's dtype;
     b1, b2 float32; ``rate`` in [0, 1) on the hidden, its mask drawn from
     ``seed``. A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel (and, under autograd, the backward kernels) or raises."""
+    the kernel (and, under autograd, the backward kernels) or raises.
+    Without a gradient to take it runs the operator
+    ``wenet_torch::ffn_fused_fwd``."""
     drop.threshold(rate)
     if x2.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x2.device}")
-    return _FfnFused.apply(x2, w1, b1, w2, b2, activation, float(rate),
-                           int(seed))
+    args = (x2, w1, b1, w2, b2, activation, float(rate), int(seed))
+    if wants_autograd(x2, w1, b1, w2, b2):
+        return _FfnFused.apply(*args)
+    return ffn_fused_fwd(*args)
 
 
 ffn_fused.launches = 0

@@ -10,7 +10,9 @@ when ``LNMM_PALLAS`` routes them (:func:`enabled`). It is a
 does; the backward recomputes the LayerNorm. On CUDA tensors its forward
 and backward launch the hand-written kernels of ``csrc/ln_matmul.cu``; on
 CPU tensors they run ``ln_matmul_ref``, the plain PyTorch version with the
-kernel's rounding points (the backward by autograd through it).
+kernel's rounding points (the backward by autograd through it). Without a
+gradient to take, the wrapper calls the registered forward operator
+``wenet_torch::ln_matmul_fwd`` (what an exported program holds).
 
 x [N, D] in the compute dtype; w [K, D] (``torch.nn.Linear`` layout) in
 x's dtype; g, bl [D], b [K] and the row mask [N] (or None) fp32. The mask
@@ -26,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from wenet_celoss_tpu_torch.ops._build import load_library
+from wenet_celoss_tpu_torch.ops._build import load_library, wants_autograd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 D_MULTIPLE, K_MULTIPLE, MAX_D = 16, 64, 512
@@ -203,14 +205,37 @@ class _LnMatmul(torch.autograd.Function):
         return (*grads, None, None)
 
 
+@torch.library.custom_op("wenet_torch::ln_matmul_fwd", mutates_args=(),
+                         device_types="cpu")
+def ln_matmul_fwd(x: torch.Tensor, g: torch.Tensor, bl: torch.Tensor,
+                  w: torch.Tensor, b: torch.Tensor,
+                  mask: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+    """K7's forward as a registered operator: the plain version on the
+    CPU, the kernel on the card."""
+    return ln_matmul_ref(x, g, bl, w, b, mask, eps)
+
+
+@ln_matmul_fwd.register_kernel("cuda")
+def _(x, g, bl, w, b, mask, eps):
+    return forward_kernel(x, g, bl, w, b, mask, eps)
+
+
+@ln_matmul_fwd.register_fake
+def _(x, g, bl, w, b, mask, eps):
+    return x.new_empty(x.shape[0], w.shape[0])
+
+
 def ln_matmul(x, g, bl, w, b, mask: Optional[torch.Tensor] = None,
               eps: float = 1e-5):
     """(LN(x) * mask) @ w^T + b, [N, K] in x's dtype. A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel (and, under
-    autograd, the backward kernels) or raises."""
+    autograd, the backward kernels) or raises. Without a gradient to take
+    it runs the operator ``wenet_torch::ln_matmul_fwd``."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    return _LnMatmul.apply(x, g, bl, w, b, mask, float(eps))
+    if wants_autograd(x, g, bl, w, b):
+        return _LnMatmul.apply(x, g, bl, w, b, mask, float(eps))
+    return ln_matmul_fwd(x, g, bl, w, b, mask, float(eps))
 
 
 ln_matmul.launches = 0

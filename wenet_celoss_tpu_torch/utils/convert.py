@@ -17,6 +17,9 @@ module) and inverts the layout facts of
   layout.
 
 Every leaf must match a rule below; anything else raises.
+``jax_channel_axis`` reads the same rules backwards: which axis of a port
+tensor the last axis of its JAX leaf lands on (``utils/quantize.py``
+takes its per-channel scales over that axis).
 """
 
 from __future__ import annotations
@@ -161,3 +164,51 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         out.update(_lstm(prefix, leaves))
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
             for k, v in out.items()}
+
+
+def _port_rules():
+    """The rules' torch prefix templates as patterns over port keys (each
+    back-reference replaced by its group of the JAX path pattern), with
+    their kinds."""
+    out = []
+    for pattern, template, kind in _RULES:
+        groups = re.findall(r"\(([^()]*)\)", pattern)
+        parts = re.split(r"\\(\d)", template)
+        pat = "".join(f"(?:{groups[int(p) - 1]})" if i % 2 else re.escape(p)
+                      for i, p in enumerate(parts))
+        out.append((re.compile(pat + r"\.(.+)"), kind))
+    return out
+
+
+def jax_channel_axis(key: str, ndim: int) -> int:
+    """The axis of the port tensor ``key`` (``ndim`` axes) that the last
+    axis of its JAX leaf maps onto under :func:`params_from_jax`: a probe
+    whose values count along the JAX leaf's last axis goes through the
+    leaf's transform, and the axis along which the result varies is the
+    one. Raises KeyError on a key no rule maps."""
+    for pat, kind in _port_rules():
+        m = pat.fullmatch(key)
+        if m is None:
+            continue
+        leaf = m.group(1)
+        if kind == "lstm":
+            # Per-gate kernels [E, H] and [H, H], the bias [H]: E=2, H=3.
+            probe = {f"{s}{g}/kernel": np.broadcast_to(
+                np.arange(3), (2 if s == "i" else 3, 3))
+                for s in "ih" for g in _GATES}
+            probe.update({f"h{g}/bias": np.arange(3) for g in _GATES})
+            out = _lstm("", probe).get(f".{leaf}")
+        else:
+            fns = dict(_LEAVES[kind].values())
+            if leaf not in fns:
+                continue
+            fn = fns[leaf] or (lambda a: a)
+            shape = tuple(range(2, 2 + ndim))
+            out = fn(np.broadcast_to(np.arange(shape[-1]), shape))
+        if out is None or out.ndim != ndim:
+            continue
+        varies = [a for a in range(ndim)
+                  if np.any(np.diff(out, axis=a) != 0)]
+        if len(varies) == 1:
+            return varies[0]
+    raise KeyError(f"{key}: no rule maps this port tensor")
