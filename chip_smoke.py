@@ -7,7 +7,9 @@ Phases, in the order they run, each printing JSON lines:
   env       torch and CUDA versions, the card's name and power limit;
   build     every hand-written kernel, one nvcc per source, all at once,
             and beside them decoder_main from runtime/core with g++ (one
-            process a source, then the link; no CMake);
+            process a source, then the link; no CMake); then S3's CPU side
+            starts in a process of its own (s3_setup: the recognize CLI's
+            runs with --device cpu, read by the recognize phase);
   k1, k1_bwd  ln_ffn_residual forward and backward with dropout 0 and
             0.1 against its plain version (fp32, bf16, main-path and
             ragged shapes; the same bits on a second call), the weight
@@ -49,6 +51,12 @@ Phases, in the order they run, each printing JSON lines:
             residual) the same way, relu and swish, dropout 0 and 0.1; the
             mask's bits (every hidden column) and keep rate in fp32 and
             bf16; the bf16 backward split by pass;
+  row_base  K1/K6, K4 and K8 as the second of two ranks calls them (a
+            nonzero global row base, K4 also the whole batch; D1's fp32
+            and D2's bf16 rows): every forward mask bit-equal to the plain
+            mask at the global indices, the backwards against autograd
+            through the plain version at the same base and away from it
+            at the rank's local indices;
   slice     S1: the flagship (full width, seeded random weights) decodes
             the 16 committed test-clean WAVs through init_model →
             Decoder.rnnt_greedy_search, no context and 8 hotwords gated
@@ -73,19 +81,6 @@ Phases, in the order they run, each printing JSON lines:
             where the CPU's score gap between the two hypotheses is under
             1e-3 (CTC greedy: its frames' top-2 log-prob gap); the prefix
             beam's best score and emission times; each mode's launches;
-  recognize S3: the port's CLI (bin/recognize.main, in process) with S1's
-            model saved as a .pt, its config written by save_config, a
-            symbol table and a data.list of the 16 WAVs: all 8 modes with
-            S1's 8 hotwords (context mode 2) under "off",
-            rnnt_greedy_search (the one mode that reads the gating state)
-            under "on" and "exact", then mode 3 under "exact" (the
-            .gate_dist sidecar, which must differ only by a near tie),
-            each once on the card and once with --device cpu; each mode's
-            lines equal, or a flip under S1's rule (the first differing
-            decision's CPU top-2 gap, or the n-best score gap, under
-            1e-3); the backtracks of both runs; K1, K2, K4 and K9
-            launches against s3_want; read_audio on a FLAC (the decoder
-            built with this machine's g++);
   stream_slice  S2: the full-width U2++ conformer (fp32, seeded) decodes
             the same WAVs chunk by chunk (chunk 16, 4 left chunks) through
             CTC greedy and attention rescoring, card against CPU by S1's
@@ -118,6 +113,36 @@ Phases, in the order they run, each printing JSON lines:
   bench_stream  B4: bench.py's streaming key, the U2++ model at vocab
             1024, bf16, B=64 × 512 frames, 7 chunks, 168 K1 launches a
             batch, timed;
+  recognize S3: the port's CLI (bin/recognize.main, in process) with S1's
+            model saved as a .pt, its config written by save_config, a
+            symbol table and a data.list of the 16 WAVs: all 8 modes with
+            S1's 8 hotwords (context mode 2) under "off",
+            rnnt_greedy_search (the one mode that reads the gating state)
+            under "on" and "exact", then mode 3 under "exact" (the
+            .gate_dist sidecar, which must differ only by a near tie),
+            each once on the card and once with --device cpu (the CPU
+            runs in the process s3_setup started); each mode's
+            lines equal, or a flip under S1's rule (the first differing
+            decision's CPU top-2 gap, or the n-best score gap, under
+            1e-3); the backtracks of both runs; K1, K2, K4 and K9
+            launches against s3_want; read_audio on a FLAC (the decoder
+            built with this machine's g++);
+  d1, d2, d3, d4, dist  scale-out over two rank processes (both on cuda:0
+            over gloo on a one-card machine: the code path, not a
+            speed-up; one started pair runs all four, ``dist_ranks``):
+            D1 the full-width batch_norm flagship, fp32, dropout 0.1, T3's
+            16 WAVs split 8 + 8, one step over the group against the
+            one-process card step on the whole batch (loss terms, T3's
+            gradient bounds, running statistics; the ranks bit for bit
+            after Adam; K1, K2, K3, K4 and K9 a rank as one step's), again
+            over nccl with one rank a card where there are two cards; D2
+            T4's bf16 point split 128 + 128, ms a step on each rank, the
+            gradient all-reduce's ms, the card's idle share; D3 the
+            recognize CLI with --sharded on S3's inputs in three modes,
+            byte-equal to S3's card files, rank 1 writing nothing; D4 the
+            train CLI with --distributed on T12's lists for one epoch
+            (accum_grad 1): both ranks stop at the same joined batch count,
+            bit for bit equal, launches as derived, only rank 0 writes;
   train_check, train, train_wavs  T0-T2: conformer_ctc_aed, one fp32 step
             card against CPU, bf16 steps at B=256 T=512 U=32 timed, 24
             steps on the committed train-clean-100 WAVs (the loss falls);
@@ -413,18 +438,21 @@ def k1_inputs(n: int, dtype, seed: int, d: int = 256, f: int = 2048):
 
 
 def kernel_keep_rates(ffn, dropout, rate: float = 0.1, seed: int = 99,
-                      n: int = 256 * 127, d: int = 256, f: int = 2048):
+                      n: int = 256 * 127, d: int = 256, f: int = 2048,
+                      row_base: int = 0):
     """The keep rate of each mask as the forward kernel draws it, fp32 and
     bf16, and whether each bit equals the plain mask function's. With
     W1 = 0, b1 = 2 (relu) and W2 the identity on the hidden columns
     [k D, k D + D), the output is y = x + drop2(drop1(2) + b2) there, so
     y == x exactly where a mask dropped. k walks all F / D column groups,
-    so every hidden bit is compared; the output mask is read with k = 0."""
+    so every hidden bit is compared; the output mask is read with k = 0.
+    ``row_base``: the rows are rows [row_base, row_base + n) of a larger
+    batch, whose mask they must draw."""
     x32 = torch.randn(n, d, generator=torch.Generator().manual_seed(1)).cuda()
     ones, zeros = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
     b1 = torch.full((f,), 2.0, device="cuda")
     thresh = dropout.threshold(rate)[0]
-    rows = torch.arange(n, device="cuda")[:, None]
+    rows = row_base + torch.arange(n, device="cuda")[:, None]
     cols = torch.arange(d, device="cuda")[None, :]
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -440,7 +468,8 @@ def kernel_keep_rates(ffn, dropout, rate: float = 0.1, seed: int = 99,
                 w2 = torch.zeros(d, f, device="cuda", dtype=dtype)
                 w2[:, k * d:(k + 1) * d] = eye
                 y = ffn.forward_kernel(x, ones, zeros, w1, b1, w2, b2,
-                                       "relu", 1.0, 1e-5, *rates, seed)
+                                       "relu", 1.0, 1e-5, *rates, seed,
+                                       row_base)
                 kept = y != x
                 off = k * d if name == "hidden" else 0
                 plain = dropout.keep_mask(seed, stream,
@@ -1208,19 +1237,22 @@ def conv_inputs(b, t, d, k, dtype, seed):
 
 
 def conv_keep_rate(conv, dropout, rate=0.1, seed=77, b=256, t=127, d=256,
-                   k=15) -> dict:
+                   k=15, dtype=torch.float32, row_base: int = 0) -> dict:
     """The keep rate of K8's output mask as the forward kernel draws it
     and whether it equals the plain mask function bit for bit: with
     W2 = 0 and bw2 = 1 the block adds drop(1) * mask, so y != x exactly
-    where the mask kept a valid frame's channel."""
-    x, mask, params, _ = conv_inputs(b, t, d, k, torch.float32, seed=5)
+    where the mask kept a valid frame's channel. ``row_base``: the
+    utterances are rows [row_base, row_base + b) of a larger batch."""
+    x, mask, params, _ = conv_inputs(b, t, d, k, dtype, seed=5)
     params = list(params)
     params[8] = torch.zeros_like(params[8])
     params[9] = torch.ones_like(params[9])
-    y = conv.forward_kernel(x, mask, *params, seed, False, rate, 1e-5)
+    y = conv.forward_kernel(x, mask, *params, seed, False, rate, 1e-5,
+                            row_base)
     valid = mask.bool()[..., None].expand(b, t, d)
     kept = (y != x)[valid]
-    index = torch.arange(b * t * d, device="cuda").reshape(b, t, d)
+    index = row_base * t * d + torch.arange(
+        b * t * d, device="cuda").reshape(b, t, d)
     plain = dropout.keep_mask(seed, dropout.STREAM_CONV_OUT, index,
                               dropout.threshold(rate)[0])[valid]
     return {"keep_rate": float(kept.double().mean()), "draws": kept.numel(),
@@ -1542,21 +1574,21 @@ def k6_inputs(n, act, dtype, seed, eps=1e-4):
 
 
 def k6_keep_rate(ffn, dropout, dtype, rate=0.1, seed=99, n=256 * 127,
-                 d=256, f=2048) -> dict:
+                 d=256, f=2048, row_base: int = 0) -> dict:
     """The hidden mask's keep rate as K6's forward kernel draws it and
     whether each bit equals the plain mask function's: with W1 = 0,
     b1 = 2 (relu), W2 the identity on the hidden columns [k D, k D + D)
     and b2 = 0, y != 0 exactly where the mask kept one of those columns;
     k walks all F / D column groups. The backward's mask: with W2 = [I | 0]
     and dy = 1, db1 is each of the first D columns' kept count times
-    1/keep."""
+    1/keep. ``row_base`` as in kernel_keep_rates."""
     x = torch.randn(n, d, generator=torch.Generator().manual_seed(1)).cuda()
     x = x.to(dtype)
     w1 = torch.zeros(f, d, device="cuda", dtype=dtype)
     b1 = torch.full((f,), 2.0, device="cuda")
     b2 = torch.zeros(d, device="cuda")
     thresh, scale = dropout.threshold(rate)
-    index = (torch.arange(n, device="cuda")[:, None] * f
+    index = ((row_base + torch.arange(n, device="cuda")[:, None]) * f
              + torch.arange(f, device="cuda")[None, :])
     plain = dropout.keep_mask(seed, dropout.STREAM_FFN_HIDDEN, index, thresh)
     kept_n, equal = 0, True
@@ -1564,13 +1596,13 @@ def k6_keep_rate(ffn, dropout, dtype, rate=0.1, seed=99, n=256 * 127,
         w2 = torch.zeros(d, f, device="cuda", dtype=dtype)
         w2[:, k * d:(k + 1) * d] = torch.eye(d, device="cuda", dtype=dtype)
         kept = ffn.ffn_forward_kernel(x, w1, b1, w2, b2, "relu", rate,
-                                      seed) != 0
+                                      seed, row_base) != 0
         equal = equal and bool(torch.equal(kept, plain[:, k * d:(k + 1) * d]))
         kept_n += int(kept.sum())
     w2 = torch.zeros(d, f, device="cuda", dtype=dtype)
     w2[:, :d] = torch.eye(d, device="cuda", dtype=dtype)
     _, _, db1, _, _ = ffn.ffn_backward_kernel(
-        x, torch.ones_like(x), w1, b1, w2, b2, "relu", rate, seed)
+        x, torch.ones_like(x), w1, b1, w2, b2, "relu", rate, seed, row_base)
     counts = torch.round(db1[:d].double() / scale)
     return {"keep_rate": kept_n / plain.numel(), "draws": plain.numel(),
             "column_groups": f // d, "equals_plain_mask": equal,
@@ -1675,6 +1707,101 @@ def phase_k6(ffn, bounds, dropout) -> tuple:
                        "columns (db1 * keep, rounded) equal to the plain "
                        "mask's")
     return rec_f, rec_b
+
+
+# The rows a second rank holds at D1's and D2's splits: K1/K6's rows of
+# the encoder (B utterances of 127 frames), K4's and K8's utterances, and
+# the whole batch K4's step-major index counts.
+ROW_BASE_CASES = (  # (name, rows, row base, whole batch, dtype)
+    ("d1_fp32", 8, 8, 16, torch.float32),
+    ("d2_bf16", 128, 128, 256, torch.bfloat16),
+)
+
+
+def row_base_grads(name, got, want, local, limit) -> dict:
+    """The kernel's gradients against autograd through the plain version
+    at the same row base (relative Frobenius <= ``limit``), and the plain
+    version at row base 0 (the rank's own indices) away from them: a
+    backward that drew its masks at local indices fails the first."""
+    errs = {n: rel_fro(a, r) for n, a, r in zip(name, got, want)}
+    apart = max(rel_fro(a, r) for a, r in zip(got, local))
+    ok = all(e <= limit for e in errs.values()) and apart > 10 * limit
+    return {"rel_fro": errs, "rel_fro_to_local_indices": apart, "ok": ok}
+
+
+def phase_row_base(ffn, lstm, conv, dropout) -> None:
+    """K1/K6, K4 and K8 as the second of two ranks calls them: its rows
+    start at a nonzero global row base (K4 also takes the whole batch),
+    so its masks must be the whole batch's rows. The forward masks bit
+    for bit against the plain mask function at the global indices (K1:
+    kernel_keep_rates, K6: k6_keep_rate with its backward's mask counts,
+    K4: the mask its forward saves, K8: conv_keep_rate); the backwards
+    against autograd through the plain version at the same base, and
+    away from the plain version at the rank's local indices."""
+    seed = 4243
+    for name, b, base, whole, dtype in ROW_BASE_CASES:
+        dt = str(dtype).split(".")[-1]
+        limit = 1e-4 if dtype == torch.float32 else 2e-2
+        n, nb = b * 127, base * 127
+        keep = kernel_keep_rates(ffn, dropout, n=n, row_base=nb)
+        k6 = k6_keep_rate(ffn, dropout, dtype, n=n, row_base=nb)
+        args, dy = k1_inputs(n, dtype, seed=n + 1)
+        cfg = ("swish", 0.5, 1e-5, 0.1, 0.1, seed)
+        got = ffn.backward_kernel(args[0], dy, *args[1:], *cfg, nb)
+        k1 = row_base_grads(K1_GRADS[1:], got, ffn.backward_ref(
+            args[0], dy, *args[1:], *cfg, nb), ffn.backward_ref(
+            args[0], dy, *args[1:], *cfg, 0), max(limit, 1e-3))
+        x6, dy6 = k6_inputs(n, "swish", dtype, seed=n + 2)
+        got6 = ffn.ffn_backward_kernel(x6[0], dy6, *x6[1:], "swish", 0.1,
+                                       seed, nb)
+        k6b = row_base_grads(("dx", "dw1", "db1", "dw2", "db2"), got6,
+                             ffn.ffn_backward_ref(x6[0], dy6, *x6[1:],
+                                                  "swish", 0.1, seed, nb),
+                             ffn.ffn_backward_ref(x6[0], dy6, *x6[1:],
+                                                  "swish", 0.1, seed, 0),
+                             max(limit, 1e-3))
+        largs, ldy = lstm_inputs(b, 33, 256, dtype, seed=b + 7)
+        _, saved = lstm.forward_kernel(*largs, 0.1, seed, save=True,
+                                       row_base=base, global_b=whole)
+        lkeep = saved[3] != 0
+        lplain = dropout.keep_mask(
+            seed, dropout.STREAM_LSTM_INTER,
+            (torch.arange(33, device="cuda")[None, :, None] * whole
+             + base + torch.arange(b, device="cuda")[:, None, None]) * 256
+            + torch.arange(256, device="cuda")[None, None, :],
+            dropout.threshold(0.1)[0])
+        k4 = row_base_grads(
+            K4_GRADS, lstm.backward_kernel(ldy, *largs, saved, 0.1, seed,
+                                           row_base=base, global_b=whole),
+            lstm.backward_ref(ldy, *largs, 0.1, seed, base, whole),
+            lstm.backward_ref(ldy, *largs, 0.1, seed), limit)
+        k4["mask_equals_plain"] = bool(torch.equal(lkeep, lplain))
+        cb = min(b, 32)
+        k8 = conv_keep_rate(conv, dropout, b=cb, dtype=dtype, row_base=cb)
+        x, mask, params, cdy = conv_inputs(cb, 127, 256, 15, dtype, seed=3)
+        ccfg = (seed, False, 0.1, 1e-5)
+        k8b = row_base_grads(
+            K8_OUTS[1:], conv.backward_kernel(x, mask, *params, cdy, *ccfg,
+                                              cb),
+            conv.backward_ref(x, mask, *params, cdy, *ccfg, cb),
+            conv.backward_ref(x, mask, *params, cdy, *ccfg, 0), limit)
+        torch.cuda.synchronize()
+        ok = (all(r["equals_plain_mask"] for r in keep.values())
+              and k6["equals_plain_mask"] and k6["bwd_counts_equal_plain"]
+              and k4["mask_equals_plain"] and k8["equals_plain_mask"]
+              and k1["ok"] and k6b["ok"] and k4["ok"] and k8b["ok"])
+        check(ok, f"row_base {name}: K1 {keep} {k1}, K6 {k6} {k6b}, K4 "
+                  f"{k4}, K8 {k8} {k8b}")
+        emit("row_base", case=name, dtype=dt, rows=b, row_base=base,
+             whole_batch=whole, k1_rows=n, k1_row_base=nb, ok=ok,
+             k1_masks=keep, k1_bwd=k1, k6_mask=k6, k6_bwd=k6b, k4_bwd=k4,
+             k8_mask=k8, k8_rows=cb, k8_row_base=cb, k8_bwd=k8b,
+             tolerance="forward masks bit-equal to the plain mask at the "
+                       "global indices; backwards relative Frobenius <= "
+                       f"{max(limit, 1e-3)} (K1, K6) and {limit} (K4, K8) "
+                       "against the plain version at the same base, and "
+                       "over 10 times that from the plain version at the "
+                       "rank's own indices")
 
 
 def load_wavs():
@@ -2856,7 +2983,79 @@ def s3_want(modes, frames: int) -> dict:
     return {k: n for k, n in want.items() if n}
 
 
-def phase_recognize(init_model, Decoder, conformer_rnnt_bias) -> dict:
+def s3_runs(recognize) -> list:
+    """S3's CLI runs: (name, modes, context mode, gating state)."""
+    runs = [(f"mode2_{state}", recognize.MODES if state == "off"
+             else ["rnnt_greedy_search"], "2", state)
+            for state in S3_STATES]
+    runs.append(("mode3_exact", ["rnnt_greedy_search"], "3", "exact"))
+    return runs
+
+
+def s3_extra(s3: dict, modes, context_mode: str, state: str) -> list:
+    return s3["hot"] + ["--mode", ",".join(modes), "--context_mode",
+                        context_mode, "--context_filter_state", state]
+
+
+S3_CPU_THREADS = 4   # of the card machine's 8 cores, beside the phases
+
+
+def s3_setup(work: Path, init_model, conformer_rnnt_bias) -> dict:
+    """S3's inputs (``s3_files`` in ``work/s3``), and its CPU side started
+    at once in a process of its own (``s3_cpu_child``), so that the
+    full-width model's CPU decodes run while the card phases before S3
+    do; ``phase_recognize`` reads its results."""
+    tmp = work / "s3"
+    tmp.mkdir()
+    model, base = s3_files(tmp, init_model, conformer_rnnt_bias)
+    s3 = {"dir": tmp, "model": model, "base": base,
+          "hot": ["--context_list_file", str(tmp / "hotwords.txt")]}
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "chip_smoke.s3_cpu_child(json.loads(sys.argv[2]))")
+    spec = {"dir": str(tmp), "base": base, "hot": s3["hot"]}
+    s3["cpu_proc"] = subprocess.Popen(
+        [sys.executable, "-c", code, str(ROOT), json.dumps(spec)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    s3["cpu_started"] = time.perf_counter()
+    return s3
+
+
+def s3_cpu_child(spec: dict) -> None:
+    """S3's CLI runs with --device cpu (each in process, as ``run_cli``
+    runs them), their exact-search traces and seconds into
+    ``<dir>/cpu.json``, their files under ``<dir>/<run>/cpu``."""
+    import logging
+    from wenet_celoss_tpu_torch.bin import recognize
+    logging.basicConfig(level=logging.WARNING)
+    torch.set_num_threads(S3_CPU_THREADS)
+    register_counters()
+    tmp = Path(spec["dir"])
+    out = {}
+    for name, modes, context_mode, state in s3_runs(recognize):
+        _, traces, seconds, _ = run_cli(
+            recognize, spec["base"], s3_extra(spec, modes, context_mode,
+                                              state),
+            tmp / name / "cpu", "cpu")
+        out[name] = {"traces": traces, "seconds": seconds}
+    (tmp / "cpu.json").write_text(json.dumps(out))
+
+
+def s3_cpu_results(s3: dict) -> dict:
+    """The CPU side's results: waits for its process; raises if it
+    failed."""
+    _, err = s3["cpu_proc"].communicate(timeout=900)
+    if s3["cpu_proc"].returncode != 0:
+        raise RuntimeError(f"recognize: the CPU side's process exited "
+                           f"{s3['cpu_proc'].returncode}: {err[-3000:]}")
+    emit("recognize_cpu_side", seconds_since_start=time.perf_counter()
+         - s3["cpu_started"], threads=S3_CPU_THREADS)
+    return json.loads((s3["dir"] / "cpu.json").read_text())
+
+
+def phase_recognize(init_model, Decoder, conformer_rnnt_bias,
+                    s3: dict) -> dict:
     """S3: the port's CLI (bin/recognize.main, in process) decodes the 16
     test-clean WAVs with S1's model from a .pt checkpoint, once on the
     card and once with --device cpu: all 8 modes with S1's 8 hotwords
@@ -2869,28 +3068,27 @@ def phase_recognize(init_model, Decoder, conformer_rnnt_bias) -> dict:
     run and read after, against s3_want. Returns the launches of the
     card runs, by kernel."""
     import logging
-    import tempfile
     from wenet_celoss_tpu_torch.bin import recognize
     logging.basicConfig(level=logging.WARNING)
     total = dict.fromkeys(NO_LAUNCHES, 0)
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        model, base = s3_files(tmp, init_model, conformer_rnnt_bias)
-        hot = ["--context_list_file", str(tmp / "hotwords.txt")]
+    with contextlib.nullcontext(s3["dir"]) as tmp:
+        model, base = s3["model"], s3["base"]
         refs = [json.loads(line)["txt"] for line in
                 (tmp / "data.list").read_text().splitlines()]
         judge = None
         frames = None
-        runs = [(f"mode2_{state}", recognize.MODES if state == "off"
-                 else ["rnnt_greedy_search"], "2", state)
-                for state in S3_STATES]
-        runs.append(("mode3_exact", ["rnnt_greedy_search"], "3", "exact"))
-        for name, modes, context_mode, state in runs:
-            extra = hot + ["--mode", ",".join(modes), "--context_mode",
-                           context_mode, "--context_filter_state", state]
+        cpu_runs = None
+        for name, modes, context_mode, state in s3_runs(recognize):
+            extra = s3_extra(s3, modes, context_mode, state)
             card = run_cli(recognize, base, extra, tmp / name / "card",
                            "cuda")
-            cpu = run_cli(recognize, base, extra, tmp / name / "cpu", "cpu")
+            # traces as the CPU side's come back through JSON
+            card = (card[0], json.loads(json.dumps(card[1])), *card[2:])
+            if cpu_runs is None:
+                cpu_runs = s3_cpu_results(s3)
+            cpu = ({p.name: p.read_text(encoding="utf8").splitlines()
+                    for p in sorted((tmp / name / "cpu").iterdir())},
+                   cpu_runs[name]["traces"], cpu_runs[name]["seconds"], {})
             if frames is None:
                 judge = S3Judge(tmp, recognize, Decoder, model, init_model,
                                 conformer_rnnt_bias)
@@ -4191,6 +4389,15 @@ class CliProbe:
             yield self
 
 
+def t12_inputs(tmp: Path) -> tuple:
+    """T12's and D4's inputs in ``tmp``: cli_inputs over all 200 train
+    WAVs and T12's config as ``conf.yaml``."""
+    from wenet_celoss_tpu_torch.utils.config import save_config
+    inputs = cli_inputs(tmp)
+    save_config(load_t12_config(), str(tmp / "conf.yaml"))
+    return inputs
+
+
 def cli_inputs(tmp: Path, n_train: int = 0) -> tuple:
     """The train list (the first ``n_train`` train-clean-100 WAVs, all 200
     with 0), the 16 dev-clean WAVs as the cv list, S3's 5002-symbol table
@@ -4222,14 +4429,15 @@ def read_records(path: Path) -> list:
     return [json.loads(line) for line in path.read_text().splitlines()]
 
 
-def train_cli_child(argv: list, result: str) -> None:
+def train_cli_child(argv: list, result: str, with_sha: bool = False) -> None:
     """T12's run, in a process of its own that ``train_cli_process``
     starts with ``python -c``: the train CLI in process under a CliProbe,
     every launch count set to 0 just before it and read just after, into
     the JSON file ``result``. The loader's spawned workers then import the
     CLI's data modules only (a ``-c`` main module is not re-imported), not
     this script and torch with it, as when a user runs ``python -m
-    wenet_celoss_tpu_torch.bin.train``."""
+    wenet_celoss_tpu_torch.bin.train``. ``with_sha``: the JSON also holds
+    the trained model's ``state_sha``."""
     import logging
     from wenet_celoss_tpu_torch.bin import train as train_cli
     logging.basicConfig(level=logging.WARNING)
@@ -4245,7 +4453,8 @@ def train_cli_child(argv: list, result: str) -> None:
         launches=read_counts(), run_s=run_s, epoch_s=probe.epoch_s,
         cv_s=probe.cv_s, startup_s=probe.startup_s,
         cv_batches=probe.cv_batches,
-        rnnt_impl=getattr(probe.model, "rnnt_impl", None))))
+        rnnt_impl=getattr(probe.model, "rnnt_impl", None),
+        model_sha=state_sha(probe.model) if with_sha else None)))
 
 
 def train_cli_process(argv: list, result: Path, timeout_s: int = 400):
@@ -4276,7 +4485,7 @@ def train_cli_process(argv: list, result: Path, timeout_s: int = 400):
     return time.perf_counter() - t0, json.loads(result.read_text())
 
 
-def phase_train_cli() -> dict:
+def phase_train_cli(t12_dir: Path, t12) -> dict:
     """T12: the port's train CLI on the yaml flagship as it stands (bf16,
     batch_norm, dither 0.1, speed perturb, spec_aug, context mode 1,
     dynamic batches of 6000 frames, accum_grad 4) plus two loader
@@ -4289,19 +4498,15 @@ def phase_train_cli() -> dict:
     start-up, and epoch 0's card busy time from the trace. Then
     average_model --num 2 and the recognize CLI (rnnt_greedy_search) on
     the average with the CLI's train.yaml. Returns the run's launches and
-    the derived counts."""
-    import tempfile
+    the derived counts. Its inputs (``t12_inputs``, in ``t12_dir``) are
+    D4's too."""
     from wenet_celoss_tpu_torch.bin import average_model, recognize
     from wenet_celoss_tpu_torch.utils import checkpoint as ckpt
-    from wenet_celoss_tpu_torch.utils.config import load_config, save_config
+    from wenet_celoss_tpu_torch.utils.config import load_config
     from wenet_celoss_tpu_torch.utils.scheduler import warmup_lr
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        base, cv_keys = cli_inputs(tmp)
-        cfg = load_config(str(FLAGSHIP_YAML))
-        cfg["dataset_conf"]["loader_processes"] = 2
-        cfg["log_interval"] = 1
-        save_config(cfg, str(tmp / "conf.yaml"))
+    with contextlib.nullcontext(t12_dir) as tmp:
+        base, cv_keys = t12
+        cfg = load_t12_config()
         out = tmp / "exp"
         argv = ["--config", str(tmp / "conf.yaml"), "--model_dir", str(out),
                 "--num_epochs", "2", "--step_checkpoint_interval", "1",
@@ -5576,6 +5781,445 @@ def phase_export(init_model, u2pp_conformer, files: dict, tmp: Path,
 
 
 
+# ------------------------------------------------------ scale-out (D) ---
+D_RANKS = 2
+# D3's modes: a subset of S3's "mode2_off" run (context mode 2, "off"),
+# whose card files it must equal byte for byte.
+D3_MODES = ("ctc_greedy_search", "rnnt_greedy_search", "attention_rescoring")
+
+
+def state_sha(module) -> str:
+    """sha256 over every parameter's and buffer's bytes, in state_dict
+    order (ranks holding the same state bit for bit hash alike)."""
+    h = hashlib.sha256()
+    for k, v in module.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().reshape(-1).cpu().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def d1_config(conformer_rnnt_bias):
+    """D1's model: the full-width flagship with the yaml's batch_norm conv
+    module, fp32, every dropout rate 0.1 (the config's own)."""
+    return batch_norm_flagship(conformer_rnnt_bias)()
+
+
+def d2_batch(v: int, b: int = 256, t: int = 512, u: int = 32):
+    """T4's batch (phase_rnnt_train's, the same seed) as numpy arrays."""
+    rng = np.random.default_rng(0)
+    return {"feats": rng.standard_normal((b, t, 80)).astype(np.float32),
+            "feat_lengths": np.full((b,), t, np.int64),
+            "labels": rng.integers(1, v - 2, (b, u)),
+            "label_lengths": np.full((b,), u, np.int64),
+            "context_list": rng.integers(1, v - 2, (8, 4)),
+            "context_lengths": np.full((8,), 4, np.int64),
+            "hw_labels": rng.integers(0, 2, (b, u))}
+
+
+def rank_batch(batch: dict, ctx, device) -> dict:
+    """This rank's part of a whole batch at the step's agreed shape, on
+    ``device``."""
+    from wenet_celoss_tpu_torch.parallel import dist
+    part = dist.agree_shapes(dist.split_batch(batch, ctx.rank, ctx.world),
+                             ctx)
+    return on({k: v for k, v in part.items() if k != "keys"}, device)
+
+
+def d1_rank(ctx, spec: dict) -> dict:
+    """D1 on one rank: one fp32 gradient step of the full-width batch_norm
+    flagship on its half of T3's batch over the group (dropout 0.1, the
+    generator seeded as the one-process step's), the gradients averaged
+    over the ranks (timed), one Adam update; rank 0 saves the averaged
+    gradients and the running statistics for the parent."""
+    from wenet_celoss_tpu_torch.configs import conformer_rnnt_bias
+    from wenet_celoss_tpu_torch.models.factory import init_model
+    from wenet_celoss_tpu_torch.parallel import dist, train
+    cfg = d1_config(conformer_rnnt_bias)
+    model = init_model(cfg, device=ctx.device, seed=0)
+    init_sha = state_sha(model)
+    tx, _ = train.make_optimizer(cfg)
+    state = train.create_train_state(model, tx)
+    whole = dict(np.load(spec["d1_batch"]))
+    batch = rank_batch(whole, ctx, ctx.device)
+    gen = torch.Generator().manual_seed(0)
+    reset_counts()
+    grads, metrics = train.make_grad_fn(model, group=ctx)(state, batch, gen)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    t0 = time.perf_counter()
+    avg = dist.all_reduce_mean_(grads, ctx)
+    torch.cuda.synchronize()
+    allreduce_ms = (time.perf_counter() - t0) * 1e3
+    state, gnorm = train.make_apply_fn(tx)(state, avg)
+    if ctx.rank == 0:
+        torch.save({"grads": [g.cpu() for g in avg],
+                    "buffers": {k: v.cpu() for k, v in
+                                model.named_buffers()}}, spec["d1_out"])
+    return dict(init_sha=init_sha, sha=state_sha(model), launches=launches,
+                metrics={k: float(v) for k, v in metrics.items()},
+                gnorm=float(gnorm), rows=len(batch["feat_lengths"]),
+                allreduce_ms=allreduce_ms)
+
+
+def d2_rank(ctx, spec: dict) -> dict:
+    """D2 on one rank: T4's bf16 point (B = 256 × 512 frames, 32 labels, 8
+    hotwords, dropout 0.1) split 128 + 128 over the group: 2 warm-up and
+    5 timed synchronised steps, the gradient all-reduce alone (3 calls on
+    the step's gradient shapes), one profiled step (this rank's card busy
+    time)."""
+    from wenet_celoss_tpu_torch.configs import conformer_rnnt_bias
+    from wenet_celoss_tpu_torch.models.factory import init_model
+    from wenet_celoss_tpu_torch.parallel import dist, train
+    cfg = conformer_rnnt_bias()
+    cfg["dtype"] = "bfloat16"
+    model = init_model(cfg, device=ctx.device, seed=0)
+    tx, _ = train.make_optimizer(cfg)
+    state = train.create_train_state(model, tx)
+    step = train.make_train_step(model, tx, group=ctx)
+    batch = rank_batch(d2_batch(cfg["output_dim"]), ctx, ctx.device)
+    gen = torch.Generator().manual_seed(0)
+    reset_counts()
+    state, losses, times, _, gnorm = timed_steps(step, state, batch, gen)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grads = [torch.zeros_like(p) for p in state.params]
+    ar = []
+    for _ in range(3):
+        dist.barrier(ctx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce_mean_(grads, ctx)
+        torch.cuda.synchronize()
+        ar.append((time.perf_counter() - t0) * 1e3)
+    dist.barrier(ctx)
+    wall_ms, busy_ms, _ = profile_step(state, step, batch, gen)
+    launches = read_counts()
+    return dict(rows=len(batch["feat_lengths"]), ms_per_step=sorted(
+        times)[len(times) // 2], ms_min_max=[min(times), max(times)],
+        allreduce_ms=sorted(ar)[1], allreduce_mb=sum(
+            g.numel() for g in grads) * 4 / 2**20, losses=losses,
+        gnorm=float(gnorm), profiled_wall_ms=wall_ms,
+        profiled_busy_ms=busy_ms, peak_mem_gib=peak, launches=launches,
+        steps=len(losses) + 1)
+
+
+def d3_rank(ctx, spec: dict) -> dict:
+    """D3 on one rank: the recognize CLI with --sharded on S3's inputs
+    (the 16 test-clean WAVs, S1's checkpoint and hotwords, context mode 2,
+    "off") in D3_MODES; only rank 0 writes."""
+    from wenet_celoss_tpu_torch.bin import recognize
+    out = Path(spec["d3_out"]) / f"rank{ctx.rank}" / "text"
+    reset_counts()
+    t0 = time.perf_counter()
+    recognize.main(spec["d3_argv"] + [
+        "--result_file", str(out), "--sharded", "--dist_backend",
+        ctx.backend, "--device", str(ctx.device)])
+    torch.cuda.synchronize()
+    return dict(seconds=time.perf_counter() - t0, launches=read_counts(),
+                wrote=out.parent.exists())
+
+
+def dist_rank_child(spec_path: str, rank: int) -> None:
+    """One rank of the D phases, in a process of its own that
+    ``dist_ranks`` starts with ``python -c``: D1, D2 and D3 over a gloo
+    (or nccl) group, then D4 (the train CLI joins a group of its own);
+    the results into this rank's JSON file."""
+    import logging
+    from wenet_celoss_tpu_torch.parallel import dist
+    logging.basicConfig(level=logging.WARNING)
+    spec = json.loads(Path(spec_path).read_text())
+    register_counters()
+    ctx = dist.init_distributed(spec["backend"], spec["init"],
+                                device=spec["devices"][rank], rank=rank,
+                                world_size=D_RANKS)
+    out = {}
+    for name, fn in (("d1", d1_rank), ("d2", d2_rank), ("d3", d3_rank)):
+        if name in spec["phases"]:
+            t0 = time.perf_counter()
+            out[name] = fn(ctx, spec)
+            out[name]["phase_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    if "d3" not in spec["phases"]:   # recognize shut the group down
+        dist.barrier(ctx)
+        dist.shutdown()
+    if "d4" in spec["phases"]:
+        result = Path(spec["d4_out"]) / f"rank{rank}.json"
+        argv = spec["d4_argv"] + [
+            "--model_dir", str(Path(spec["d4_out"]) / f"exp_rank{rank}"),
+            "--distributed", "--dist_backend", spec["backend"],
+            "--device", spec["devices"][rank], "--ddp.init_method",
+            spec["init"] + "_d4"]
+        train_cli_child(argv, str(result), with_sha=True)
+        out["d4"] = json.loads(result.read_text())
+    Path(spec["out"].format(rank=rank)).write_text(json.dumps(out))
+
+
+def dist_ranks(spec: dict, tmp: Path, timeout_s: int = 400) -> list:
+    """``dist_rank_child`` on D_RANKS processes started at once (torchrun's
+    environment, a ``file://`` rendezvous under ``tmp``) → each rank's
+    results. Raises if a rank fails or runs past ``timeout_s``; every
+    rank's process group (with its loader workers) is killed then."""
+    import signal
+    spec = dict(spec, init=f"file://{tmp}/rendezvous",
+                out=str(tmp / "rank{rank}.json"))
+    (tmp / "spec.json").write_text(json.dumps(spec))
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "chip_smoke.dist_rank_child(sys.argv[2], int(sys.argv[3]))")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(ROOT), str(tmp / "spec.json"),
+         str(r)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT), RANK=str(r),
+                 WORLD_SIZE=str(D_RANKS), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True) for r in range(D_RANKS)]
+    deadline = time.perf_counter() + timeout_s
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(
+                timeout=max(deadline - time.perf_counter(), 1))[1])
+    except subprocess.TimeoutExpired:
+        errs.append(f"ran past {timeout_s} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError(f"dist ranks {bad} failed: " + " | ".join(
+            e[-2000:] for e in errs if e))
+    return [json.loads(Path(spec["out"].format(rank=r)).read_text())
+            for r in range(D_RANKS)]
+
+
+def grad_errors(names, got, want, gnorm) -> dict:
+    """T3's gradient bounds: each tensor within 1e-3 relative Frobenius
+    (the norm floored at 1e-6 * gnorm for the key biases, whose exact
+    gradient is 0), a batch-normed depthwise bias (also 0 exactly) under
+    1e-6 * gnorm on both sides → {"worst": (name, error over its limit),
+    "bad": [(name, error), ...]}."""
+    worst, bad = ("", 0.0), []
+    for name, a, b in zip(names, got, want):
+        a, b = a.double(), b.double()
+        if name.endswith("depthwise_conv.bias"):
+            err = max(float(a.abs().max()), float(b.abs().max()))
+            limit = 1e-6 * gnorm
+        else:
+            floor = 1e-6 * gnorm if name.endswith("linear_k.bias") else 0.0
+            err = float((a - b).norm()) / max(float(b.norm()), floor, 1e-30)
+            limit = 1e-3
+        if err / limit > worst[1]:
+            worst = (name, err / limit)
+        if not err <= limit:
+            bad.append((name, err))
+    return {"worst": worst, "bad": bad}
+
+
+def phase_dist(init_model, conformer_rnnt_bias, train, wavs, s3: dict,
+               t12, work: Path) -> dict:
+    """D1-D4, the data-parallel path over D_RANKS processes: both ranks on
+    cuda:0 over gloo on a one-card machine (two ranks sharing a card
+    measure the code path, not a speed-up), one rank a card otherwise.
+    D1 against the one-process card step here first; then every rank
+    runs D1, D2, D3 and D4 (``dist_rank_child``); with two cards or more,
+    D1 again over nccl. Returns {path: (launches, want)} for the kernels
+    line."""
+    tmp = work / "dist"
+    tmp.mkdir()
+    # D1's one-process reference on the card: the whole of T3's batch.
+    cfg = d1_config(conformer_rnnt_bias)
+    batch = with_hotwords(head(wavs, 16))
+    np.savez(tmp / "d1_batch.npz", **batch)
+    model = init_model(cfg, seed=0)
+    init_sha = state_sha(model)
+    reset_counts()
+    grads, metrics = train.make_grad_fn(model)(
+        train.TrainState(0, model, None), on(batch, "cuda"),
+        torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    one_launches = read_counts()
+    names = [n for n, _ in model.named_parameters()]
+    want_g = [g.cpu() for g in grads]
+    want_buf = {k: v.cpu() for k, v in model.named_buffers()}
+    gnorm = float(torch.linalg.vector_norm(torch.stack(
+        [g.double().norm() for g in want_g])))
+    want_m = {k: float(v) for k, v in metrics.items()}
+    del model, grads, metrics
+    torch.cuda.empty_cache()
+
+    d3_argv = s3["base"] + s3["hot"] + [
+        "--mode", ",".join(D3_MODES), "--context_mode", "2",
+        "--context_filter_state", "off"]
+    t12_base, _ = t12
+    t12_cfg = work / "t12" / "conf.yaml"
+    # accum_grad 1: each joined micro-batch is an optimizer step, so that
+    # the epoch's steps all-reduce gradients (T12's 4 would leave its ~3
+    # micro-batches a rank without a step).
+    d4_argv = ["--config", str(t12_cfg), "--num_epochs", "1",
+               "--override_config", "accum_grad 1"] + t12_base
+    spec = dict(backend="gloo", devices=["cuda:0"] * D_RANKS,
+                phases=["d1", "d2", "d3", "d4"],
+                d1_batch=str(tmp / "d1_batch.npz"),
+                d1_out=str(tmp / "d1_grads.pt"), d3_argv=d3_argv,
+                d3_out=str(tmp / "d3"), d4_argv=d4_argv,
+                d4_out=str(tmp / "d4"))
+    (tmp / "d4").mkdir()
+    t0 = time.perf_counter()
+    ranks = dist_ranks(spec, tmp)
+    spawn_s = time.perf_counter() - t0
+    d1_check(ranks, tmp, names, want_g, want_buf, want_m, gnorm, init_sha,
+             one_launches, backend="gloo",
+             nccl="not run: one card" if torch.cuda.device_count() < 2
+             else "below")
+    if torch.cuda.device_count() >= 2:
+        nccl_tmp = work / "dist_nccl"
+        nccl_tmp.mkdir()
+        nranks = dist_ranks(dict(spec, backend="nccl", phases=["d1"],
+                                 devices=[f"cuda:{r}" for r in
+                                          range(D_RANKS)],
+                                 d1_out=str(nccl_tmp / "d1_grads.pt")),
+                            nccl_tmp)
+        d1_check(nranks, nccl_tmp, names, want_g, want_buf, want_m, gnorm,
+                 init_sha, one_launches, backend="nccl",
+                 nccl="one rank a card")
+    d2 = [r["d2"] for r in ranks]
+    want2 = {k: n * d2[0]["steps"] for k, n in RNNT_PER_STEP.items()}
+    check(all(r["launches"] == want2 for r in d2) and all(
+        np.isfinite(r["losses"]).all() for r in d2),
+        f"d2: launches {[r['launches'] for r in d2]}, want {want2}; "
+        f"losses {[r['losses'] for r in d2]}")
+    step_ms = max(r["ms_per_step"] for r in d2)
+    emit("d2", label="two ranks on one card (gloo, the gradients staged "
+                     "through the host): the code path, not a speed-up",
+         model="conformer_rnnt_bias", dtype="bfloat16", rows_per_rank=[
+             r["rows"] for r in d2], frames=512, labels=32, dropout=0.1,
+         ms_per_step_by_rank=[r["ms_per_step"] for r in d2],
+         ms_min_max_by_rank=[r["ms_min_max"] for r in d2],
+         allreduce_ms_by_rank=[r["allreduce_ms"] for r in d2],
+         allreduce_mib=d2[0]["allreduce_mb"],
+         audio_s_per_s_both_ranks=256 * 512 * 0.01 / (step_ms / 1e3),
+         profiled_wall_ms_by_rank=[r["profiled_wall_ms"] for r in d2],
+         profiled_busy_ms_by_rank=[r["profiled_busy_ms"] for r in d2],
+         card_idle_share=max(0.0, 1 - sum(r["profiled_busy_ms"] for r in d2)
+                             / step_ms),
+         idle_share_how="1 - (both ranks' card busy ms in one profiled "
+                        "step) / the slower rank's median ms a step (the "
+                        "profiler slows the step it watches); the two "
+                        "processes' kernels may overlap on the card",
+         peak_mem_gib_by_rank=[r["peak_mem_gib"] for r in d2],
+         launches=d2[0]["launches"], want=want2, phase_s=[
+             r["phase_s"] for r in d2])
+
+    d3 = [r["d3"] for r in ranks]
+    got_dir = tmp / "d3" / "rank0"
+    card_dir = s3["dir"] / "mode2_off" / "card"
+    same = {m: (got_dir / f"text.{m}").read_bytes()
+            == (card_dir / f"text.{m}").read_bytes() for m in D3_MODES}
+    check(all(same.values()) and d3[0]["wrote"] and not d3[1]["wrote"],
+          f"d3: files equal to S3's card run {same}; rank 1 wrote "
+          f"{d3[1]['wrote']}")
+    emit("d3", modes=list(D3_MODES), context_mode=2, state="off",
+         utterances=16, byte_equal_to_s3_card=same,
+         rank1_wrote_nothing=not d3[1]["wrote"],
+         seconds_by_rank=[r["seconds"] for r in d3],
+         launches_by_rank=[r["launches"] for r in d3])
+
+    d4 = [r["d4"] for r in ranks]
+    out = tmp / "d4" / "exp_rank0"
+    recs = read_records(out / "metrics.jsonl")
+    batches = [r["launches"]["k1_bwd"] // CLI_PER_BATCH["k1_bwd"]
+               for r in d4]
+    want4 = [{k: batches[i] * CLI_PER_BATCH[k]
+              + sum(d4[i]["cv_batches"]) * CLI_PER_CV_BATCH[k]
+              for k in NO_LAUNCHES} for i in range(D_RANKS)]
+    info = ckpt_infos(out / "0.pt")
+    steps = batches[0]   # accum_grad 1
+    ok = (batches[0] == batches[1] == len(recs) > 0
+          and all(d4[i]["launches"] == want4[i] for i in range(D_RANKS))
+          and d4[0]["model_sha"] == d4[1]["model_sha"]
+          and not (tmp / "d4" / "exp_rank1").exists()
+          and info.get("step") == steps and os.readlink(
+              out / "final.pt") == "0.pt")
+    check(ok, f"d4: batches {batches}, records {len(recs)}, launches "
+              f"{[r['launches'] for r in d4]}, want {want4}, shas equal "
+              f"{d4[0]['model_sha'] == d4[1]['model_sha']}, infos {info}")
+    emit("d4", model="conformer_rnnt_bias (yaml)", epochs=1,
+         train_wavs=200, ranks=D_RANKS, backend="gloo",
+         batches_per_rank=batches, optimizer_steps=steps,
+         cv_batches_by_rank=[r["cv_batches"] for r in d4],
+         epoch_s_by_rank=[r["epoch_s"] for r in d4],
+         loader_startup_s_by_rank=[r["startup_s"] for r in d4],
+         ranks_bitwise_equal=d4[0]["model_sha"] == d4[1]["model_sha"],
+         rank1_wrote_nothing=not (tmp / "d4" / "exp_rank1").exists(),
+         first_loss=recs[0]["loss"], last_loss=recs[-1]["loss"],
+         launches=d4[0]["launches"], want=want4[0])
+    emit("dist", spawn_s=spawn_s, ranks=D_RANKS,
+         cards=torch.cuda.device_count())
+    return {"d1": (ranks[0]["d1"]["launches"], RNNT_PER_STEP),
+            "d2": (d2[0]["launches"], RNNT_PER_STEP),
+            "d4": (d4[0]["launches"], CLI_PER_BATCH)}
+
+
+def d1_check(ranks, tmp, names, want_g, want_buf, want_m, gnorm, init_sha,
+             one_launches, backend, nccl) -> None:
+    """D1's checks against the one-process card step: the ranks' mean
+    loss terms (1e-5 relative), their averaged gradients (T3's bounds),
+    the running statistics after the step (1e-4 of each tensor's
+    largest element), the ranks bitwise equal after the Adam update, and
+    each rank's launches one step's."""
+    d1 = [r["d1"] for r in ranks]
+    saved = torch.load(tmp / "d1_grads.pt", weights_only=False)
+    errs = grad_errors(names, saved["grads"], want_g, gnorm)
+    loss_err = {k: abs(d1[0]["metrics"][k] - want_m[k])
+                / max(abs(want_m[k]), 1e-30) for k in LOSS_KEYS}
+    buf_err = {k: float((saved["buffers"][k] - v).abs().max()
+                        / max(float(v.abs().max()), 1e-30))
+               for k, v in want_buf.items() if "running" in k}
+    ok = (not errs["bad"] and all(e <= 1e-5 for e in loss_err.values())
+          and all(e <= 1e-4 for e in buf_err.values())
+          and d1[0]["sha"] == d1[1]["sha"]
+          and d1[0]["init_sha"] == d1[1]["init_sha"] == init_sha
+          and d1[0]["metrics"] == d1[1]["metrics"]
+          and all(r["launches"] == RNNT_PER_STEP for r in d1)
+          and one_launches == RNNT_PER_STEP)
+    check(ok, f"d1 {backend}: gradients {errs}, losses {loss_err}, "
+              f"running statistics {buf_err}, ranks equal "
+              f"{d1[0]['sha'] == d1[1]['sha']}, launches "
+              f"{[r['launches'] for r in d1]} / {one_launches}")
+    emit("d1", backend=backend, nccl=nccl, ranks=D_RANKS,
+         model="conformer_rnnt_bias (batch_norm)", dtype="float32",
+         dropout=0.1, rows_per_rank=[r["rows"] for r in d1], ok=ok,
+         worst_grad=errs["worst"], loss_rel_err=loss_err,
+         worst_running_stat=max(buf_err.values()),
+         ranks_bitwise_equal=d1[0]["sha"] == d1[1]["sha"],
+         launches_by_rank=[r["launches"] for r in d1],
+         one_process_launches=one_launches,
+         allreduce_ms_by_rank=[r["allreduce_ms"] for r in d1],
+         phase_s=[r["phase_s"] for r in d1],
+         tolerance="against the one-process card step on the whole batch "
+                   "(same weights, dropout seeds and masks): loss terms "
+                   "1e-5 relative; each gradient 1e-3 relative Frobenius "
+                   "(T3's, with its floors for the key and depthwise "
+                   "biases); running statistics 1e-4 of each tensor's "
+                   "largest element; the ranks' state after Adam bit for "
+                   "bit")
+
+
+def load_t12_config():
+    from wenet_celoss_tpu_torch.utils.config import load_config
+    cfg = load_config(str(FLAGSHIP_YAML))
+    cfg["dataset_conf"]["loader_processes"] = 2
+    cfg["log_interval"] = 1
+    return cfg
+
+
+def ckpt_infos(path: Path) -> dict:
+    from wenet_celoss_tpu_torch.utils import checkpoint as ckpt
+    return ckpt.load_checkpoint_infos(str(path))
+
+
 def kernel_line(name, source, replaces, by_path, record) -> dict:
     """One kernel's entry; ``factor`` is its time (card time where it has
     one) over its yardstick's, null without a yardstick."""
@@ -5590,6 +6234,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        return run(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run(work: Path) -> int:
+    """Every phase, with ``work`` as the scratch directory (removed after
+    the run); see the module docstring."""
     sys.path.insert(0, str(ROOT))
     from wenet_celoss_tpu_torch.configs import (conformer_ctc_aed,
                                                 conformer_rnnt_bias,
@@ -5616,6 +6270,26 @@ def main() -> int:
          per_source=_build.build_seconds,
          decoder_main=str(decoder_main.relative_to(ROOT)),
          decoder_main_s=decoder_main_build.seconds)
+    s3 = s3_setup(work, init_model, conformer_rnnt_bias)
+    try:
+        return run_phases(work, s3, decoder_main, name, card)
+    finally:
+        if s3["cpu_proc"].poll() is None:
+            s3["cpu_proc"].kill()
+            s3["cpu_proc"].communicate()
+
+
+def run_phases(work: Path, s3: dict, decoder_main: Path, name: str,
+               card: str) -> int:
+    """The phases after the build, S3's CPU side already running."""
+    from wenet_celoss_tpu_torch.configs import (conformer_ctc_aed,
+                                                conformer_rnnt_bias,
+                                                u2pp_conformer)
+    from wenet_celoss_tpu_torch.decode.api import Decoder
+    from wenet_celoss_tpu_torch.models.factory import init_model
+    from wenet_celoss_tpu_torch.ops import (bounds, conv, dropout, ffn,
+                                            ln_matmul, lstm, rnnt_loss)
+    from wenet_celoss_tpu_torch.parallel import train
 
     k1 = phase_k1(ffn, bounds)
     k1_bwd = phase_k1_bwd(ffn, bounds, dropout)
@@ -5626,6 +6300,7 @@ def main() -> int:
     k8, k8_bwd = phase_k8(conv, bounds, dropout)
     k7, k7_bwd = phase_k7(ln_matmul, bounds)
     k6, k6_bwd = phase_k6(ffn, bounds, dropout)
+    phase_row_base(ffn, lstm, conv, dropout)
     decode_launches, slice_run = phase_slice(init_model, Decoder,
                                              conformer_rnnt_bias, ffn)
     conv_decode = phase_conv_decode(slice_run, conv)
@@ -5638,8 +6313,6 @@ def main() -> int:
                                   BENCH_BLANK_BIASES[0])
     phase_op_dispatch(to_profile[0], slice_run, ffn, ln_matmul, conv)
     phase_decode_modes(slice_run)
-    recognize_launches = phase_recognize(init_model, Decoder,
-                                         conformer_rnnt_bias)
     stream_decode = phase_stream_slice(init_model, Decoder, u2pp_conformer,
                                        slice_run)
     with tempfile.TemporaryDirectory() as serve_tmp:
@@ -5660,9 +6333,18 @@ def main() -> int:
     b3_paths, b3_profile = phase_bench_modes(
         init_model, Decoder, conformer_rnnt_bias, BENCH_BLANK_BIASES[0])
     b4_profile = phase_bench_stream(init_model, Decoder, u2pp_conformer)
+    # S3 this late: its CPU side, started after the build, has run beside
+    # every phase before it.
+    recognize_launches = phase_recognize(init_model, Decoder,
+                                         conformer_rnnt_bias, s3)
     wavs, dropped = load_train_wavs()
     emit("train_wavs_loaded", utterances=len(wavs["feat_lengths"]),
          left_out_unalignable=dropped)
+    t12_dir = work / "t12"
+    t12_dir.mkdir()
+    t12 = t12_inputs(t12_dir)
+    dist_paths = phase_dist(init_model, conformer_rnnt_bias, train, wavs, s3,
+                            t12, work)
     phase_train_check(init_model, conformer_ctc_aed(), train, wavs,
                       want=CTC_PER_STEP)
     phase_train_check(init_model, postnorm_aed(conformer_ctc_aed), train,
@@ -5716,7 +6398,7 @@ def main() -> int:
     phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train, wavs)
     phase_rnnt_train_wavs(init_model, bn_flagship, train, wavs,
                           what="bn_train_wavs")
-    train_cli = phase_train_cli()
+    train_cli = phase_train_cli(t12_dir, t12)
     phase_train_cli_check()
     phase_train_resume()
     phase_exact_bench(init_model, Decoder, conformer_rnnt_bias)
@@ -5756,7 +6438,8 @@ def main() -> int:
              "serve_u2pp": (serve_u2pp, SERVE_KERNELS),
              "serve_rnnt": (serve_rnnt, SERVE_KERNELS),
              "export": (export_run, SERVE_KERNELS),
-             **{"decode_" + n: v for n, v in b3_paths.items()}}
+             **{"decode_" + n: v for n, v in b3_paths.items()},
+             **{"dist_" + n: v for n, v in dist_paths.items()}}
     idle = {path: sorted(k for k, n in want.items()
                          if n > 0 and launches[k] == 0)
             for path, (launches, want) in paths.items()}

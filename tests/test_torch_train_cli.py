@@ -276,10 +276,13 @@ def test_train_cli_runs_without_yaml_msgpack_flax(inputs):
 
 
 @pytest.mark.parametrize("flag", [["--model_parallel", "2"],
-                                  ["--distributed"]])
+                                  ["--distributed", "--model_parallel", "2"]])
 def test_scale_out_flags_raise(inputs, flag):
+    """Tensor parallelism is not ported (data parallelism is:
+    tests/test_torch_dist_cli.py): it raises before any process group or
+    file, with or without --distributed."""
     tmp, args, init, _ = inputs
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 9b"):
         train.main(args + ["--model_dir", str(tmp / "never"), "--device",
                            "cpu"] + flag)
     assert not (tmp / "never").exists()

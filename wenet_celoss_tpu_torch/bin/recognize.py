@@ -23,6 +23,13 @@ runs code) and decodes each batch with its first utterance's list.
 Runs on the card; ``--device cpu`` runs the plain PyTorch versions on
 the CPU. The yaml's top-level ``rnnt_impl`` is not read, as in the JAX
 package's factory.
+
+``--sharded`` decodes every batch split over the ranks of a process
+group (``decode/sharded.py``; the processes torchrun starts, as the
+train CLI's ``--distributed`` joins them): every rank reads the same
+list, decodes its share and receives every result; rank 0 alone writes
+the result files and the ``.gate_dist`` sidecar. ``"exact"`` gating runs
+the whole batch on every rank.
 """
 
 from __future__ import annotations
@@ -82,8 +89,15 @@ def get_args(argv: Optional[List[str]] = None):
                              "'exact': the backtracking repair loop, one "
                              "utterance at a time")
     parser.add_argument("--sharded", action="store_true",
-                        help="SPMD batch decode over several cards: not "
-                             "ported, raises")
+                        help="decode each batch split over the ranks torchrun "
+                             "starts, results all-gathered")
+    parser.add_argument("--dist_backend", default=None,
+                        choices=["nccl", "gloo"],
+                        help="--sharded's backend (default: nccl on the "
+                             "card, gloo on the CPU)")
+    parser.add_argument("--ddp.init_method", dest="init_method",
+                        default=None,
+                        help="--sharded's init method (default env://)")
     parser.add_argument("--device", default=None,
                         help="torch device; the card by default, 'cpu' "
                              "for the plain PyTorch versions")
@@ -123,11 +137,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded (SPMD decode over several cards) is not ported: "
-            "ROADMAP.md Queue A item 9, scale-out")
-
     from wenet_celoss_tpu_torch.data.dataset import Dataset
     from wenet_celoss_tpu_torch.decode.api import Decoder
     from wenet_celoss_tpu_torch.models.factory import (init_model,
@@ -139,7 +148,15 @@ def main(argv: Optional[List[str]] = None) -> None:
         read_non_lang_symbols, read_symbol_table)
     from wenet_celoss_tpu_torch.utils.wer import edit_distance
 
-    device = resolve_device(args.device)
+    group = None
+    if args.sharded:
+        from wenet_celoss_tpu_torch.parallel import dist
+        group = dist.init_distributed(args.dist_backend, args.init_method,
+                                      device=args.device)
+        device = group.device
+    else:
+        device = resolve_device(args.device)
+    writer = group is None or group.rank == 0
     modes = [m.strip() for m in args.mode.split(",") if m.strip()]
     for m in modes:
         if m not in MODES:
@@ -187,8 +204,20 @@ def main(argv: Optional[List[str]] = None) -> None:
     model = init_model(configs, device=device)
     load_into(model, args.checkpoint)
     decoder = Decoder(model, device=device)
+    if group is not None:
+        from wenet_celoss_tpu_torch.decode.sharded import ShardedDecoder
+        logging.info("sharded decode over %d ranks (results all-gathered)",
+                     group.world)
+        decoder = ShardedDecoder(model, group)   # every mode of MODES
+        if ("rnnt_greedy_search" in modes
+                and args.context_filter_state == "exact"):
+            logging.warning(
+                "--sharded: context_filter_state=exact is a host-driven "
+                "per-utterance repair loop; running it on the whole batch "
+                "on every rank")
 
-    os.makedirs(os.path.dirname(args.result_file) or ".", exist_ok=True)
+    if writer:
+        os.makedirs(os.path.dirname(args.result_file) or ".", exist_ok=True)
     gate_dists = []
 
     def decode_batch(mode, feats, feat_lens, ctx, ctx_lens, kw):
@@ -237,7 +266,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         return args.result_file if len(modes) == 1 \
             else f"{args.result_file}.{mode}"
 
-    fouts = {m: open(out_path(m), "w", encoding="utf8") for m in modes}
+    fouts = {m: open(out_path(m), "w", encoding="utf8") for m in modes} \
+        if writer else {}
     try:
         for batch in iter(dataset):
             feats = torch.as_tensor(batch["feats"], device=device)
@@ -260,7 +290,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                 for key, hyp in zip(batch["keys"], hyps):
                     content = hyp_text(hyp, id2sym)
                     logging.info("[%s] %s %s", mode, key, content)
-                    fouts[mode].write(f"{key} {content}\n")
+                    if writer:
+                        fouts[mode].write(f"{key} {content}\n")
                 # The hotword-gate edit distance sidecar.
                 if (mode == "rnnt_greedy_search"
                         and decoder.last_gates is not None
@@ -274,9 +305,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     finally:
         for f in fouts.values():
             f.close()
-    if gate_dists:
+    if gate_dists and writer:
         with open(args.result_file + ".gate_dist", "w") as f:
             f.write(f"<result>{sum(gate_dists)}\n")
+    if group is not None:
+        dist.barrier(group)
+        dist.shutdown()
 
 
 if __name__ == "__main__":

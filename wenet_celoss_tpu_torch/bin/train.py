@@ -24,15 +24,33 @@ and step, as the JAX CLI does. ``--enc_init`` loads the modules of
 ``--enc_init_mods`` from a checkpoint.
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch versions on the
-CPU. ``--model_parallel`` above 1 and ``--distributed`` raise: scale-out
-is not ported. The yaml's top-level ``rnnt_impl`` is not read, as in the
-JAX package's factory. Reads YAML and checkpoints with the port's own
+CPU. The yaml's top-level ``rnnt_impl`` is not read, as in the JAX
+package's factory. Reads YAML and checkpoints with the port's own
 readers (no PyYAML, msgpack or flax).
+
+``--distributed`` trains data-parallel over the processes torchrun
+starts (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``, or ``--ddp.init_method``), one rank a process, over
+``--dist_backend`` (nccl on the card, gloo on the CPU by default); each
+rank runs on ``cuda:<LOCAL_RANK>`` unless ``--device`` names one (two
+ranks may share a card over gloo):
+
+    torchrun --nproc_per_node 2 -m wenet_celoss_tpu_torch.bin.train \
+        --distributed --dist_backend gloo --device cpu ...
+
+The training list is partitioned by rank, dynamic batches round to the
+world size, rank 0's parameters are broadcast once, every step runs over
+the group (``parallel/dist.py``, ``parallel/executor.py``) and every rank
+stops an epoch at the shortest rank's batch count. Only rank 0 writes
+train.yaml, metrics, step and epoch checkpoints and ``final.pt``, as the
+JAX CLI does. ``--model_parallel`` above 1 (tensor parallelism) raises:
+ROADMAP.md Queue A item 9b.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import logging
@@ -61,7 +79,7 @@ def get_args(argv: Optional[List[str]] = None):
                              "optimizer steps (mid-epoch kill/resume)")
     parser.add_argument("--model_parallel", type=int, default=1,
                         help="tensor parallel over cards: not ported, "
-                             "raises above 1")
+                             "raises above 1 (ROADMAP.md item 9b)")
     parser.add_argument("--metrics_file", default=None,
                         help="per-logged-step metrics JSONL (default "
                              "<model_dir>/metrics.jsonl)")
@@ -69,7 +87,15 @@ def get_args(argv: Optional[List[str]] = None):
                         help="write a torch.profiler trace of the first "
                              "train epoch to <dir>/trace.json")
     parser.add_argument("--distributed", action="store_true",
-                        help="several processes: not ported, raises")
+                        help="data parallel over the processes torchrun "
+                             "starts (one rank a process)")
+    parser.add_argument("--dist_backend", default=None,
+                        choices=["nccl", "gloo"],
+                        help="process group backend (default: nccl on the "
+                             "card, gloo on the CPU)")
+    parser.add_argument("--ddp.init_method", dest="init_method",
+                        default=None,
+                        help="process group init method (default env://)")
     parser.add_argument("--enc_init", default=None,
                         help="pretrained model for partial warm start")
     parser.add_argument("--enc_init_mods", default="encoder.",
@@ -89,16 +115,17 @@ def main(argv: Optional[List[str]] = None) -> None:
     # torch.
     import torch
 
-    if args.model_parallel > 1 or args.distributed:
+    if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model_parallel > 1 and --distributed (training over several "
-            "cards or processes) are not ported: ROADMAP.md Queue A item 9, "
-            "scale-out")
+            "--model_parallel > 1 (tensor parallelism: the FFN, attention, "
+            "joint and vocabulary projections split over cards) is not "
+            "ported: ROADMAP.md Queue A item 9b")
 
     from wenet_celoss_tpu_torch.data.dataset import Dataset
     from wenet_celoss_tpu_torch.data.loader import make_loader
     from wenet_celoss_tpu_torch.models.factory import (init_model,
                                                        resolve_device)
+    from wenet_celoss_tpu_torch.parallel import dist
     from wenet_celoss_tpu_torch.parallel import train as T
     from wenet_celoss_tpu_torch.parallel.executor import Executor
     from wenet_celoss_tpu_torch.utils import checkpoint as ckpt
@@ -108,7 +135,17 @@ def main(argv: Optional[List[str]] = None) -> None:
     from wenet_celoss_tpu_torch.utils.file_utils import (
         read_non_lang_symbols, read_symbol_table)
 
-    device = resolve_device(args.device)
+    group = None
+    if args.distributed:
+        group = dist.init_distributed(args.dist_backend, args.init_method,
+                                      device=args.device)
+        device = group.device
+        logging.info("rank %d of %d on %s over %s", group.rank, group.world,
+                     device, group.backend)
+    else:
+        device = resolve_device(args.device)
+    rank = group.rank if group is not None else 0
+    world_size = group.world if group is not None else 1
     configs = load_config(args.config)
     if args.override_config:
         configs = override_config(configs, args.override_config)
@@ -119,17 +156,18 @@ def main(argv: Optional[List[str]] = None) -> None:
     cv_conf = copy.deepcopy(train_conf)
     cv_conf.update(speed_perturb=False, spec_aug=False, spec_sub=False,
                    shuffle=False)
-    # The JAX CLI rounds dynamic batches to its data-parallel width (one
-    # replica here) and writes it into train.yaml; Dataset does not read it.
+    # The JAX CLI rounds dynamic batches to its data-parallel width and
+    # writes it into train.yaml; Dataset does not read it.
     bc = train_conf.setdefault("batch_conf", {})
     if bc.get("batch_type", "static") == "dynamic":
-        bc["round_to"] = 1
+        bc["round_to"] = world_size
 
     train_dataset = make_loader(args.data_type, args.train_data,
                                 symbol_table, train_conf,
                                 bpe_model=args.bpe_model,
                                 non_lang_syms=non_lang_syms,
-                                partition=True, rank=0, world_size=1)
+                                partition=True, rank=rank,
+                                world_size=world_size)
     cv_dataset = Dataset(args.data_type, args.cv_data, symbol_table,
                          cv_conf, args.bpe_model, non_lang_syms,
                          partition=False)
@@ -141,8 +179,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     configs["output_dim"] = len(symbol_table)
     configs["cmvn_file"] = args.cmvn
     configs["is_json_cmvn"] = True
-    os.makedirs(args.model_dir, exist_ok=True)
-    save_config(configs, os.path.join(args.model_dir, "train.yaml"))
+    if rank == 0:
+        os.makedirs(args.model_dir, exist_ok=True)
+        save_config(configs, os.path.join(args.model_dir, "train.yaml"))
 
     model = init_model(configs, device=device, seed=777)
     tx, schedule = T.make_optimizer(configs)
@@ -164,6 +203,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     elif args.enc_init:
         mods = [m.rstrip(".") for m in args.enc_init_mods.split(",")]
         ckpt.load_trained_modules(model, args.enc_init, mods)
+    if group is not None:
+        dist.broadcast_module_(model, group)
 
     epoch_holder = [start_epoch]
 
@@ -175,20 +216,23 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     metrics_path = args.metrics_file or os.path.join(args.model_dir,
                                                      "metrics.jsonl")
-    os.makedirs(os.path.dirname(metrics_path) or ".", exist_ok=True)
+    if rank == 0:
+        os.makedirs(os.path.dirname(metrics_path) or ".", exist_ok=True)
     num_epochs = args.num_epochs or configs.get("max_epoch", 100)
     final_epoch = None
-    with open(metrics_path, "a", buffering=1) as metrics_f:
+    with (open(metrics_path, "a", buffering=1) if rank == 0
+          else contextlib.nullcontext()) as metrics_f:
         executor = Executor(
             model, tx, schedule, accum_grad=configs.get("accum_grad", 1),
             log_interval=configs.get("log_interval", 100), gen=gen,
             checkpoint_every=args.step_checkpoint_interval,
             checkpoint_fn=step_checkpoint,
-            metrics_writer=lambda rec: metrics_f.write(json.dumps(rec)
-                                                       + "\n"))
+            metrics_writer=(lambda rec: metrics_f.write(json.dumps(rec)
+                                                        + "\n"))
+            if rank == 0 else None, group=group)
         executor.step = state.step
         prof = None
-        if args.profile_dir:
+        if args.profile_dir and rank == 0:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -216,18 +260,23 @@ def main(argv: Optional[List[str]] = None) -> None:
             logging.info("Epoch %d CV", epoch)
             cv_loss = executor.cv(state, iter(cv_dataset))
             logging.info("Epoch %d CV loss %.4f", epoch, cv_loss)
-            ckpt.save_checkpoint(
-                model, os.path.join(args.model_dir, f"{epoch}.pt"),
-                {"epoch": epoch, "cv_loss": float(cv_loss),
-                 "step": int(state.step),
-                 "lr": float(schedule(max(int(state.step), 1)))})
+            if rank == 0:
+                ckpt.save_checkpoint(
+                    model, os.path.join(args.model_dir, f"{epoch}.pt"),
+                    {"epoch": epoch, "cv_loss": float(cv_loss),
+                     "step": int(state.step),
+                     "lr": float(schedule(max(int(state.step), 1)))})
             final_epoch = epoch
     ckpt.wait_pending()
-    if final_epoch is not None:
+    if final_epoch is not None and rank == 0:
         final = os.path.join(args.model_dir, "final.pt")
         if os.path.islink(final) or os.path.exists(final):
             os.remove(final)
         os.symlink(f"{final_epoch}.pt", final)
+    if group is not None:
+        # Every file rank 0 wrote is complete before any rank returns.
+        dist.barrier(group)
+        dist.shutdown()
 
 
 if __name__ == "__main__":

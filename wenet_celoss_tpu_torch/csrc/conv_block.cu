@@ -646,7 +646,7 @@ Args make_args(const void* x, const void* mask, const void* g1,
                const void* wdw, const void* bdw, const void* g2,
                const void* b2, const void* w2, const void* bw2, int B, int T,
                int D, int K, int causal, float eps, unsigned key, int thresh,
-               float scale) {
+               float scale, unsigned row_base) {
   Args a;
   a.x = x;
   a.mask = static_cast<const float*>(mask);
@@ -668,7 +668,8 @@ Args make_args(const void* x, const void* mask, const void* g1,
   a.lo = causal ? K - 1 : (K - 1) / 2;
   a.lp = causal ? K - 1 : 0;
   a.eps = eps;
-  a.dp = tile::make_drop(key, thresh, scale);
+  // A process's rows start at row_base of the step's whole batch.
+  a.dp = tile::make_drop(key, thresh, scale, row_base * (unsigned)T * D);
   return a;
 }
 
@@ -2190,19 +2191,22 @@ cudaError_t bwd(const Args& a, const void* dy, void* dx, float* const* g,
 extern "C" {
 
 // dtype 0 = fp32, 1 = bf16 (conv16: D = 256, K = 15). Shape and alignment checks are the caller's
-// (ops/conv.py); thresh >= 65536 turns the mask off. Returns a cudaError_t
-// code; 0 is success.
+// (ops/conv.py); thresh >= 65536 turns the mask off; row_base is the first
+// of this process's rows in the step's whole batch (0 for a batch of its
+// own). Returns a cudaError_t code; 0 is success.
 int conv_block_fwd(int dtype, const void* x, const void* mask, const void* g1,
                    const void* b1, const void* w1, const void* bw1,
                    const void* wdw, const void* bdw, const void* g2,
                    const void* b2, const void* w2, const void* bw2, void* y,
                    int B, int T, int D, int K, int causal, float eps,
-                   unsigned key, int thresh, float scale, void* stream) {
+                   unsigned key, int thresh, float scale, unsigned row_base,
+                   void* stream) {
   if (dtype == 1 ? !conv16::shape_ok(D, K)
                  : !shape_ok(D, K, causal) || !fits<float>(D, K))
     return (int)cudaErrorInvalidValue;
   const Args a = make_args(x, mask, g1, b1, w1, bw1, wdw, bdw, g2, b2, w2,
-                           bw2, B, T, D, K, causal, eps, key, thresh, scale);
+                           bw2, B, T, D, K, causal, eps, key, thresh, scale,
+                           row_base);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return (int)conv16::fwd(a, y, s);
   return (int)fwd<float>(a, y, s);
@@ -2234,11 +2238,12 @@ int conv_block_bwd(int dtype, const void* x, const void* mask,
                    float* dbdw, float* dg2, float* db2, float* dw2,
                    float* dbw2, void* ws, int B, int T, int D, int K,
                    int causal, float eps, unsigned key, int thresh,
-                   float scale, void* stream) {
+                   float scale, unsigned row_base, void* stream) {
   if (conv_block_bwd_workspace(dtype, B, T, D, K, causal) == 0)
     return (int)cudaErrorInvalidValue;
   const Args a = make_args(x, mask, g1, b1, w1, bw1, wdw, bdw, g2, b2, w2,
-                           bw2, B, T, D, K, causal, eps, key, thresh, scale);
+                           bw2, B, T, D, K, causal, eps, key, thresh, scale,
+                           row_base);
   float* const g[10] = {dg1, db1, dw1, dbw1, dwdw, dbdw, dg2, db2, dw2, dbw2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned char* w = static_cast<unsigned char*>(ws);

@@ -129,11 +129,14 @@ constexpr int kKeepAll = 65536;      // dropout threshold meaning "no mask"
 constexpr int kBwdRows = 32;  // fp32: rows per pass-A block and pass-B chunk
 constexpr int kBwdFtB = 32;   // fp32: F columns a pass-B block owns
 
-// One dropout stream: keep iff (hash32(index ^ key) & 0xFFFF) < thresh.
+// One dropout stream: keep iff (hash32((index + base) ^ key) & 0xFFFF) <
+// thresh; base is the first row of this process's rows in the step's
+// whole batch times the row's width (0 for a batch of its own).
 struct Drop {
   uint32_t key;
   int thresh;
   float scale;
+  uint32_t base;
 };
 
 __device__ __forceinline__ uint32_t hash32(uint32_t x) {
@@ -150,7 +153,7 @@ __device__ __forceinline__ uint32_t hash32(uint32_t x) {
 __device__ __forceinline__ float drop(const Drop& dp, uint32_t index,
                                       float v) {
   if (dp.thresh >= kKeepAll) return v;
-  return (hash32(index ^ dp.key) & 0xFFFFu) < (uint32_t)dp.thresh
+  return (hash32((index + dp.base) ^ dp.key) & 0xFFFFu) < (uint32_t)dp.thresh
              ? v * dp.scale
              : 0.0f;
 }
@@ -404,7 +407,7 @@ __device__ __forceinline__ uint32_t keep_bits(const Drop& dp,
   uint32_t bits = 0;
 #pragma unroll
   for (int i = 0; i < COUNT; ++i)
-    bits |= (uint32_t)((hash32(index[i] ^ dp.key) & 0xFFFFu) <
+    bits |= (uint32_t)((hash32((index[i] + dp.base) ^ dp.key) & 0xFFFFu) <
                        (uint32_t)dp.thresh) << i;
   return bits;
 }
@@ -1675,11 +1678,12 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-Drop make_drop(unsigned key, int thresh, float scale) {
+Drop make_drop(unsigned key, int thresh, float scale, unsigned base) {
   Drop dp;
   dp.key = key;
   dp.thresh = thresh;
   dp.scale = scale;
+  dp.base = base;
   return dp;
 }
 
@@ -2002,20 +2006,21 @@ int ln_ffn_residual_fwd(int dtype, const void* x, const void* g,
                         int f, float ff_scale, float eps, int act,
                         unsigned key1, int thresh1, float scale1,
                         unsigned key2, int thresh2, float scale2,
-                        void* stream) {
+                        unsigned row_base, void* stream) {
   return launch_fwd(dtype, x, g, bl, w1, b1, w2, b2, y, n, d, f, ff_scale,
-                    eps, act, make_drop(key1, thresh1, scale1),
-                    make_drop(key2, thresh2, scale2), stream);
+                    eps, act, make_drop(key1, thresh1, scale1, row_base * f),
+                    make_drop(key2, thresh2, scale2, row_base * d), stream);
 }
 
 // ffn_fused's forward: drop1(act(x W1^T + b1)) W2^T + b2.
 int ffn_fused_fwd(int dtype, const void* x, const void* w1, const void* b1,
                   const void* w2, const void* b2, void* y, int n, int d,
                   int f, int act, unsigned key1, int thresh1, float scale1,
-                  void* stream) {
+                  unsigned row_base, void* stream) {
   return launch_fwd(dtype, x, nullptr, nullptr, w1, b1, w2, b2, y, n, d, f,
-                    1.0f, 0.0f, act, make_drop(key1, thresh1, scale1),
-                    make_drop(0u, kKeepAll, 1.0f), stream);
+                    1.0f, 0.0f, act,
+                    make_drop(key1, thresh1, scale1, row_base * f),
+                    make_drop(0u, kKeepAll, 1.0f, 0u), stream);
 }
 
 // fp32 workspace the backward needs (floats), or 0 when its layouts do not
@@ -2040,11 +2045,13 @@ int ln_ffn_residual_bwd(int dtype, const void* x, const void* dy,
                         int f,
                         float ff_scale, float eps, int act, unsigned key1,
                         int thresh1, float scale1, unsigned key2,
-                        int thresh2, float scale2, void* stream) {
+                        int thresh2, float scale2, unsigned row_base,
+                        void* stream) {
   return launch_bwd_any(dtype, x, dy, g, bl, w1, b1, w2, dx, dg, dbl, dw1,
                         db1, dw2, db2, ws, rows_buf, n, d, f, ff_scale, eps,
-                        act, make_drop(key1, thresh1, scale1),
-                        make_drop(key2, thresh2, scale2), stream);
+                        act, make_drop(key1, thresh1, scale1, row_base * f),
+                        make_drop(key2, thresh2, scale2, row_base * d),
+                        stream);
 }
 
 // ffn_fused's backward: dx in the compute dtype; dw1 [F, D], db1, dw2
@@ -2053,12 +2060,12 @@ int ffn_fused_bwd(int dtype, const void* x, const void* dy, const void* w1,
                   const void* b1, const void* w2, void* dx, float* dw1,
                   float* db1, float* dw2, float* db2, float* ws, int n, int d,
                   int f, int act, unsigned key1, int thresh1, float scale1,
-                  void* stream) {
+                  unsigned row_base, void* stream) {
   return launch_bwd_any(dtype, x, dy, nullptr, nullptr, w1, b1, w2, dx,
                         nullptr, nullptr, dw1, db1, dw2, db2, ws, nullptr, n,
                         d, f, 1.0f, 0.0f, act,
-                        make_drop(key1, thresh1, scale1),
-                        make_drop(0u, kKeepAll, 1.0f), stream);
+                        make_drop(key1, thresh1, scale1, row_base * f),
+                        make_drop(0u, kKeepAll, 1.0f, 0u), stream);
 }
 
 }  // extern "C"

@@ -16,7 +16,9 @@
 //
 // Dropout: a mask bit is a pure function of (key, (t*B + b)*H + j) (stream
 // 3 of ops/dropout.py), so forward, backward and the plain version draw
-// the same mask whatever the batch blocking.
+// the same mask whatever the batch blocking. B and b are the step's whole
+// batch and a row of it: a process holding rows [row_base, row_base + b)
+// of a global_b-row batch draws that batch's mask (global_b 0: its own).
 //
 // What bounds it: the op count is 3 GEMMs of [B, H] x [H, 4H] a step each
 // way (plus the weight gradients), and the bytes are the inputs, outputs
@@ -197,7 +199,8 @@ lstm2_fwd(const T* __restrict__ xw1, const T* __restrict__ wh1,
         c1[i] = c;
         h1[r * L.ldh + j] = from_f<T>(hn);
         const T dv = from_f<T>(
-            drop(dp, ((uint32_t)t * b_count + b) * (uint32_t)h + j, hn));
+            drop(dp, ((uint32_t)t * dp.rows + dp.row0 + b) * (uint32_t)h + j,
+                 hn));
         d[r * L.ldh + j] = dv;
         if (save) {
           cs[bt * h + j] = c;
@@ -349,7 +352,8 @@ lstm2_bwd_steps(const T* __restrict__ dy, const T* __restrict__ wh1,
         const float ct = cs[bt * h + j];
         const float cp = t > 0 ? cs[(bt - 1) * h + j] : 0.0f;
         const float dht =
-            drop(dp, ((uint32_t)t * b_count + b) * (uint32_t)h + j, gd[q]) +
+            drop(dp, ((uint32_t)t * dp.rows + dp.row0 + b) * (uint32_t)h + j,
+                 gd[q]) +
             dh1[q];
         const float tc = tanhf(ct);
         const float dct = dc1[q] + dht * s.o * (1.0f - tc * tc);
@@ -763,7 +767,8 @@ fwd_rec(const __grid_constant__ CUtensorMap w_map,
         *reinterpret_cast<uint32_t*>(smem + R::O_Y + o16) =
             pack_bf16(hv[2 * q], hv[2 * q + 1]);
       } else {
-        const uint32_t ix = ((uint32_t)s * nb + b0 + row) * (uint32_t)H +
+        const uint32_t ix = ((uint32_t)s * dp.rows + dp.row0 + b0 + row) *
+                                (uint32_t)H +
                             k * NU + u;
         *reinterpret_cast<uint32_t*>(smem + R::O_Y + o16) =
             pack_bf16(drop_nb(dp, ix, hv[2 * q]),
@@ -934,7 +939,8 @@ bwd_rec(const __grid_constant__ CUtensorMap w_map,
       } else {
         gv = *reinterpret_cast<const float2*>(smem + R::B_IN + 5 * R::T32 +
                                               o32);
-        const uint32_t ix = ((uint32_t)t * nb + b0 + row) * (uint32_t)H +
+        const uint32_t ix = ((uint32_t)t * dp.rows + dp.row0 + b0 + row) *
+                                (uint32_t)H +
                             k * NU + u;
         gv = make_float2(drop_nb(dp, ix, gv.x), drop_nb(dp, ix + 1, gv.y));
       }
@@ -1462,10 +1468,11 @@ int lstm2_seq_fwd(int dtype, const void* xw1, const void* wh1,
                   const void* wi2, const float* bh2, const void* wh2, void* y,
                   float* zs, float* cs, void* hs, void* ds, float* ws, int b,
                   int u, int h, unsigned key, int thresh, float scale,
-                  void* stream) {
+                  unsigned row_base, int global_b, void* stream) {
   if (!fits_dtype(dtype, h)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Drop dp = make_drop(key, thresh, scale);
+  const Drop dp = make_drop(key, thresh, scale, 0u,
+                            (unsigned)(global_b > 0 ? global_b : b), row_base);
   if (dtype == 0)
     return (int)launch_fwd_f32(
         static_cast<const float*>(xw1), static_cast<const float*>(wh1),
@@ -1498,10 +1505,12 @@ int lstm2_seq_bwd(int dtype, const void* dy, const void* wh1, const void* wi2,
                   const void* wh2, const float* zs, const float* cs,
                   const void* hs, const void* ds, void* dxw1, float* dw,
                   float* dbh2, float* ws, void* dz2c, int b, int u, int h,
-                  unsigned key, int thresh, float scale, void* stream) {
+                  unsigned key, int thresh, float scale, unsigned row_base,
+                  int global_b, void* stream) {
   if (!fits_dtype(dtype, h)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Drop dp = make_drop(key, thresh, scale);
+  const Drop dp = make_drop(key, thresh, scale, 0u,
+                            (unsigned)(global_b > 0 ? global_b : b), row_base);
   if (dtype == 0)
     return (int)launch_bwd_f32(
         static_cast<const float*>(dy), static_cast<const float*>(wh1),

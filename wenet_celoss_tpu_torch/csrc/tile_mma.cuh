@@ -59,17 +59,24 @@ __device__ __forceinline__ uint32_t hash32(uint32_t x) {
   return x;
 }
 
-// One dropout stream: keep iff (hash32(index ^ key) & 0xFFFF) < thresh.
+// One dropout stream: keep iff (hash32((index + base) ^ key) & 0xFFFF) <
+// thresh. A process that holds rows of a larger batch draws the whole
+// batch's mask: base shifts a row-major index by its first row times the
+// row's width. K4 draws at (t * rows + row0 + b) * H + j instead: rows is
+// the whole batch and row0 the process's first row (base stays 0).
 struct Drop {
   uint32_t key;
   int thresh;
   float scale;
+  uint32_t base;
+  uint32_t rows;
+  uint32_t row0;
 };
 
 __device__ __forceinline__ float drop(const Drop& dp, uint32_t index,
                                       float v) {
   if (dp.thresh >= kKeepAll) return v;
-  return (hash32(index ^ dp.key) & 0xFFFFu) < (uint32_t)dp.thresh
+  return (hash32((index + dp.base) ^ dp.key) & 0xFFFFu) < (uint32_t)dp.thresh
              ? v * dp.scale
              : 0.0f;
 }
@@ -155,11 +162,16 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-inline Drop make_drop(unsigned key, int thresh, float scale) {
+inline Drop make_drop(unsigned key, int thresh, float scale,
+                      unsigned base = 0, unsigned rows = 0,
+                      unsigned row0 = 0) {
   Drop dp;
   dp.key = key;
   dp.thresh = thresh;
   dp.scale = scale;
+  dp.base = base;
+  dp.rows = rows;
+  dp.row0 = row0;
   return dp;
 }
 

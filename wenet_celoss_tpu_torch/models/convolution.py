@@ -24,6 +24,36 @@ import torch.nn.functional as F
 
 from wenet_celoss_tpu_torch.models.layers import Dense, LayerNorm
 from wenet_celoss_tpu_torch.ops import ln_matmul as lnmm
+from wenet_celoss_tpu_torch.parallel import dist
+
+
+class _SyncStats(torch.autograd.Function):
+    """(mean, E[x²]) over every leading position of every rank's x: one
+    all-reduce of [Σx, Σx², count] forward, and one of the two
+    statistics' gradients backward (each rank's loss reads the shared
+    statistics, so x's gradient takes every rank's)."""
+
+    @staticmethod
+    def forward(ctx, xf, group):
+        dims = tuple(range(xf.dim() - 1))
+        c = xf.shape[-1]
+        local = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                           xf.new_full((1,), xf.numel() // c)])
+        tot = dist.all_reduce_sum(local, group)
+        n = tot[-1]
+        ctx.save_for_backward(xf, n)
+        ctx.group = group
+        return tot[:c] / n, tot[c:2 * c] / n
+
+    @staticmethod
+    def backward(ctx, g_mean, g_msq):
+        xf, n = ctx.saved_tensors
+        g_mean = torch.zeros_like(n.expand(xf.shape[-1])) if g_mean is None \
+            else g_mean
+        g_msq = torch.zeros_like(g_mean) if g_msq is None else g_msq
+        g = dist.all_reduce_sum(torch.cat([g_mean, g_msq]), ctx.group)
+        c = xf.shape[-1]
+        return (g[:c] + 2.0 * xf * g[c:]) / n, None
 
 
 class BatchNorm(nn.Module):
@@ -39,7 +69,13 @@ class BatchNorm(nn.Module):
     0, the gradient flowing through both; then, once per call and outside
     autograd, ``running = momentum * running + (1 - momentum) * batch``
     with the biased variance (``nn.BatchNorm1d`` keeps an unbiased one and
-    weights the other way). Evaluation: the running statistics."""
+    weights the other way). Evaluation: the running statistics.
+
+    Inside ``parallel/dist.py step_shard`` the statistics are the whole
+    step batch's, over every rank's positions (``_SyncStats``), so every
+    rank normalises alike and keeps equal running statistics; this is
+    not ``nn.SyncBatchNorm``, whose running variance and momentum are
+    torch's."""
 
     def __init__(self, size: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -53,9 +89,13 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dims)
-            var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+            group = dist.active()
+            if group is None:
+                dims = tuple(range(x.dim() - 1))
+                mean, msq = xf.mean(dims), (xf * xf).mean(dims)
+            else:
+                mean, msq = _SyncStats.apply(xf, group)
+            var = torch.clamp_min(msq - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

@@ -36,7 +36,7 @@ from wenet_celoss_tpu_torch.models.attention import (
 from wenet_celoss_tpu_torch.models.convolution import ConvolutionModule
 from wenet_celoss_tpu_torch.models.layers import Dense, LayerNorm
 from wenet_celoss_tpu_torch.ops.conv import conv_block_residual
-from wenet_celoss_tpu_torch.ops.dropout import draw_seed, dropout
+from wenet_celoss_tpu_torch.ops.dropout import draw_seed, dropout, row_base
 from wenet_celoss_tpu_torch.ops.ffn import ffn_fused, ln_ffn_residual
 
 
@@ -74,13 +74,13 @@ class PositionwiseFeedForward(nn.Module):
             y = ffn_fused(x.reshape(b * t, d).to(cdt).contiguous(),
                           self.w_1.weight.to(cdt), self.w_1.bias,
                           self.w_2.weight.to(cdt), self.w_2.bias,
-                          self.activation, rate, seed)
+                          self.activation, rate, seed, row_base(b * t))
             return y.reshape(b, t, d)
         y = ln_ffn_residual(
             x.reshape(b * t, d).to(cdt).contiguous(), ln.weight, ln.bias,
             self.w_1.weight.to(cdt), self.w_1.bias, self.w_2.weight.to(cdt),
             self.w_2.bias, self.activation, ff_scale, ln.eps, rate, rate,
-            seed)
+            seed, row_base(b * t))
         return y.reshape(b, t, d)
 
 
@@ -216,7 +216,7 @@ class ConformerEncoderLayer(nn.Module):
             cm.depthwise_conv.weight[:, 0, :].t().contiguous(),
             cm.depthwise_conv.bias, cm.norm_layer.weight, cm.norm_layer.bias,
             p2.weight.t().contiguous().to(cdt), p2.bias, seed, cm.causal,
-            rate, self.norm_conv.eps)
+            rate, self.norm_conv.eps, row_base(b))
 
     def forward_with_cache(self, x: torch.Tensor, att_cache: torch.Tensor,
                            att_cache_len: int, cnn_cache: torch.Tensor,

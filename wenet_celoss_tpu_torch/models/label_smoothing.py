@@ -9,6 +9,7 @@ import math
 
 import torch
 
+from wenet_celoss_tpu_torch.parallel.dist import token_denominator
 from wenet_celoss_tpu_torch.utils.common import IGNORE_ID, acc_dtype
 
 
@@ -18,7 +19,8 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
                          ignore_id: int = IGNORE_ID) -> torch.Tensor:
     """logits [B, U, V]; targets [B, U] padded with ``ignore_id`` → scalar
     sum over tokens of KL(p || softmax(logits)), divided by the batch size
-    (default) or the token count."""
+    (default) or the token count (in a step split over processes, the
+    whole batch's count over the ranks: ``parallel/dist.py``)."""
     v = logits.shape[-1]
     confidence = 1.0 - smoothing
     low = smoothing / (v - 1)
@@ -30,5 +32,6 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
     logq_tgt = torch.gather(logq, -1, tgt[..., None])[..., 0]
     ce = -(confidence * logq_tgt + low * (logq.sum(-1) - logq_tgt))
     kl = (ce + p_logp) * mask
-    denom = mask.sum() if normalize_length else targets.shape[0]
-    return kl.sum() / max(int(denom), 1)
+    if normalize_length:
+        return kl.sum() / token_denominator(mask.sum())
+    return kl.sum() / max(int(targets.shape[0]), 1)

@@ -75,8 +75,10 @@ class RNNPredictor(nn.Module):
                        l1.wh.bias).to(cdt)
         rate = self.dropout if gen is not None else 0.0
         seed = drop.draw_seed(gen) if rate > 0.0 else 0
+        b = xw1.shape[0]
+        part, parts = drop.current_part()
         return lstm2_seq(xw1, l1.wh.weight, l2.wi.weight, l2.wh.bias,
-                         l2.wh.weight, rate, seed)
+                         l2.wh.weight, rate, seed, part * b, parts * b)
 
     def _run_layers(self, x: torch.Tensor, state: Dict[str, torch.Tensor],
                     gen: Optional[torch.Generator] = None):

@@ -20,7 +20,8 @@ GLU(bw1), not zero), a non-causal one zero-pads (K - 1) / 2 frames on each
 side after the GLU. LN1's output is zeroed at pad frames, the block's
 output again before the residual, and the residual adds the unmasked x.
 The dropout mask is stream ``STREAM_CONV_OUT`` of ``ops/dropout.py`` at
-index (b * T + t) * D + c.
+index ((row_base + b) * T + t) * D + c: ``row_base`` is the first global
+row of x when a step's batch is split over processes (0 otherwise).
 
 Layouts are the JAX package's: x [B, T, D] in the compute dtype, mask
 [B, T], w1 [D, 2D] and w2 [D, D] in the compute dtype, w_dw [K, D], the
@@ -57,7 +58,8 @@ def _ln(x, g, b, eps):
 
 def conv_block_residual_ref(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2,
                             w2, bw2, seed: int = 0, causal: bool = False,
-                            rate: float = 0.0, eps: float = 1e-5):
+                            rate: float = 0.0, eps: float = 1e-5,
+                            row_base: int = 0):
     """Plain version. LN1 in fp32, masked, cast to x's dtype; PW1 with the
     cast operands, fp32 accumulation and the fp32 bias; GLU, the depthwise
     taps (summed in tap order), LN2 and silu in fp32; silu's output cast
@@ -82,7 +84,8 @@ def conv_block_residual_ref(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2,
     y1 = _ln(y0 + b_dw, g2, b2, eps)
     z = (y1 * torch.sigmoid(y1)).to(cdt)
     v = (z.to(af) @ w2.to(af) + bw2) * m
-    return (xf + drop.apply_mask(v, seed, drop.STREAM_CONV_OUT, rate)).to(cdt)
+    return (xf + drop.apply_mask(v, seed, drop.STREAM_CONV_OUT, rate,
+                                 offset=row_base * t * d)).to(cdt)
 
 
 _PARAMS = ("g1", "b1", "w1", "bw1", "w_dw", "b_dw", "g2", "b2", "w2", "bw2")
@@ -130,13 +133,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _masks(seed: int, rate: float):
+def _masks(seed: int, rate: float, row_base: int):
+    """(key, threshold, scale, first global row) for the kernels."""
+    if row_base < 0:
+        raise ValueError(f"row_base {row_base} < 0")
     thresh, scale = drop.threshold(rate)
-    return [drop.stream_key(seed, drop.STREAM_CONV_OUT), thresh, scale]
+    return [drop.stream_key(seed, drop.STREAM_CONV_OUT), thresh, scale,
+            int(row_base) & drop.M32]
 
 
 def forward_kernel(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2,
-                   seed, causal, rate, eps):
+                   seed, causal, rate, eps, row_base=0):
     """Launch the forward kernel on CUDA tensors (no autograd)."""
     params = (g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2)
     check_args(x, mask, *params, causal=causal)
@@ -147,7 +154,7 @@ def forward_kernel(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2,
     rc = _lib().conv_block_fwd(
         _DTYPES[x.dtype], x.data_ptr(), mask.data_ptr(),
         *(p.data_ptr() for p in params), y.data_ptr(), bsz, t, d,
-        w_dw.shape[0], int(causal), float(eps), *_masks(seed, rate),
+        w_dw.shape[0], int(causal), float(eps), *_masks(seed, rate, row_base),
         _stream(x))
     if rc != 0:
         raise RuntimeError(f"conv_block kernel launch failed: cudaError {rc}"
@@ -158,7 +165,7 @@ def forward_kernel(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2,
 
 
 def backward_kernel(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2,
-                    dy, seed, causal, rate, eps):
+                    dy, seed, causal, rate, eps, row_base=0):
     """Launch the backward kernels on CUDA tensors → (dx in x's dtype, and
     dg1, db1, dw1, dbw1, dw_dw, db_dw, dg2, db2, dw2, dbw2 in fp32, views
     of one buffer in that order)."""
@@ -187,7 +194,7 @@ def backward_kernel(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2,
         code, x.data_ptr(), mask.data_ptr(),
         *(p.data_ptr() for p in params), dy.data_ptr(), dx.data_ptr(),
         *(g.data_ptr() for g in grads), ws.data_ptr(), bsz, t, d, k,
-        int(causal), float(eps), *_masks(seed, rate), _stream(x))
+        int(causal), float(eps), *_masks(seed, rate, row_base), _stream(x))
     if rc != 0:
         raise RuntimeError(f"conv_block backward kernel launch failed: "
                            f"cudaError {rc}")
@@ -196,14 +203,14 @@ def backward_kernel(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2,
 
 
 def backward_ref(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2, dy,
-                 seed, causal, rate, eps):
+                 seed, causal, rate, eps, row_base=0):
     """The plain backward: the plain forward's vector-Jacobian product by
     autograd → (dx, the ten parameter gradients)."""
     with torch.enable_grad():
         ins = [p.detach().requires_grad_(True)
                for p in (x, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2)]
         y = conv_block_residual_ref(ins[0], mask, *ins[1:], seed, causal,
-                                    rate, eps)
+                                    rate, eps, row_base)
         return torch.autograd.grad(y, ins, dy)
 
 
@@ -211,14 +218,14 @@ class _ConvBlockResidual(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2,
-                seed, causal, rate, eps):
-        ctx.cfg = (seed, causal, rate, eps)
+                seed, causal, rate, eps, row_base):
+        ctx.cfg = (seed, causal, rate, eps, row_base)
         ctx.save_for_backward(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2,
                               w2, bw2)
         fn = conv_block_residual_ref if x.device.type == "cpu" \
             else forward_kernel
         return fn(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2,
-                  seed, causal, rate, eps)
+                  seed, causal, rate, eps, row_base)
 
     @staticmethod
     def backward(ctx, dy):
@@ -232,14 +239,16 @@ class _ConvBlockResidual(torch.autograd.Function):
             # Each gradient in its input's dtype, as the Pallas VJP returns.
             grads = [g.to(t.dtype) for g, t in
                      zip(grads, (x,) + saved[2:])]
-        return (grads[0], None, *grads[1:], None, None, None, None)
+        return (grads[0], None, *grads[1:], None, None, None, None, None)
 
 
 def conv_block_residual(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2,
                         bw2, seed: int = 0, causal: bool = False,
-                        rate: float = 0.0, eps: float = 1e-5):
+                        rate: float = 0.0, eps: float = 1e-5,
+                        row_base: int = 0):
     """x + drop(PW2(silu(LN2(DW(GLU(PW1(mask * LN1(x)))))))) * mask, with
-    the output dropout ``rate`` in [0, 1) drawn from ``seed``. A CPU tensor
+    the output dropout ``rate`` in [0, 1) drawn from ``seed`` at x's rows
+    counted from ``row_base`` (the module docstring). A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel (and, under
     autograd, the backward kernels) or raises. Without a gradient to take
     it runs the operator ``wenet_torch::conv_block_fwd``."""
@@ -247,7 +256,7 @@ def conv_block_residual(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2,
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     args = (x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2,
-            int(seed), bool(causal), float(rate), float(eps))
+            int(seed), bool(causal), float(rate), float(eps), int(row_base))
     if wants_autograd(x, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2):
         return _ConvBlockResidual.apply(*args)
     return conv_block_fwd(*args)
@@ -259,19 +268,22 @@ def conv_block_fwd(x: torch.Tensor, mask: torch.Tensor, g1: torch.Tensor,
                    b1: torch.Tensor, w1: torch.Tensor, bw1: torch.Tensor,
                    w_dw: torch.Tensor, b_dw: torch.Tensor, g2: torch.Tensor,
                    b2: torch.Tensor, w2: torch.Tensor, bw2: torch.Tensor,
-                   seed: int, causal: bool, rate: float,
-                   eps: float) -> torch.Tensor:
+                   seed: int, causal: bool, rate: float, eps: float,
+                   row_base: int = 0) -> torch.Tensor:
     """K8's forward as a registered operator: the plain version on the
     CPU, the kernel on the card."""
     return conv_block_residual_ref(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2,
-                                   b2, w2, bw2, seed, causal, rate, eps)
+                                   b2, w2, bw2, seed, causal, rate, eps,
+                                   row_base)
 
 
+# row_base keeps its default here: the dispatcher leaves out an argument
+# that equals the schema's default.
 @conv_block_fwd.register_kernel("cuda")
 def _(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2, bw2, seed, causal,
-      rate, eps):
+      rate, eps, row_base=0):
     return forward_kernel(x, mask, g1, b1, w1, bw1, w_dw, b_dw, g2, b2, w2,
-                          bw2, seed, causal, rate, eps)
+                          bw2, seed, causal, rate, eps, row_base)
 
 
 @conv_block_fwd.register_fake
@@ -289,11 +301,11 @@ def _lib() -> ctypes.CDLL:
         p, i, u, fl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                        ctypes.c_float)
         lib.conv_block_fwd.argtypes = (
-            [i] + [p] * 13 + [i] * 5 + [fl, u, i, fl, p])
+            [i] + [p] * 13 + [i] * 5 + [fl, u, i, fl, u, p])
         lib.conv_block_fwd.restype = i
         lib.conv_block_bwd_workspace.argtypes = [i] * 6
         lib.conv_block_bwd_workspace.restype = ctypes.c_longlong
         lib.conv_block_bwd.argtypes = (
-            [i] + [p] * 25 + [i] * 5 + [fl, u, i, fl, p])
+            [i] + [p] * 25 + [i] * 5 + [fl, u, i, fl, u, p])
         lib.conv_block_bwd.restype = i
     return lib

@@ -20,11 +20,20 @@ low half, as a uint32 multiply in CUDA does.
 
 Seeds come from the train step's explicit ``torch.Generator`` (a CPU
 generator: drawing a seed never waits for the card).
+
+A step split over several processes (``parallel/dist.py``) draws the
+masks of the whole batch: each process holds part ``p`` of ``parts``
+equal parts of it along the batch axis, and every site draws at the
+indices its rows have in the whole batch's tensor. ``batch_part`` sets
+the part for a step; ``dropout`` shifts a batch-major tensor's indices by
+``p * numel``, and the kernels take the first global row (K4 also the
+whole batch, its index being step-major).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -89,6 +98,35 @@ def apply_mask(x: torch.Tensor, seed: int, stream: int,
                                                     device=x.device))
 
 
+_PART = (0, 1)   # (this process's part, parts) of the step's batch
+
+
+@contextlib.contextmanager
+def batch_part(part: int, parts: int) -> Iterator[None]:
+    """Within the block, the batch every site sees is part ``part`` of
+    ``parts`` equal parts of the step's batch (batch axis first)."""
+    global _PART
+    if not 0 <= part < parts:
+        raise ValueError(f"part {part} of {parts}")
+    old, _PART = _PART, (int(part), int(parts))
+    try:
+        yield
+    finally:
+        _PART = old
+
+
+def current_part() -> Tuple[int, int]:
+    """(part, parts) of the step's batch this process holds ((0, 1): the
+    whole batch)."""
+    return _PART
+
+
+def row_base(rows: int) -> int:
+    """The first global row of a batch-major tensor with ``rows`` local
+    rows (``part * rows``)."""
+    return _PART[0] * int(rows)
+
+
 def draw_seed(generator: torch.Generator) -> int:
     """A 29-bit seed from the caller's (CPU) generator."""
     return int(torch.randint(0, 1 << 29, (), generator=generator))
@@ -96,8 +134,10 @@ def draw_seed(generator: torch.Generator) -> int:
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Training dropout for every site outside K1; the identity when
-    ``generator`` is None (deterministic) or ``rate`` is 0."""
+    """Training dropout for every site outside the kernels; the identity
+    when ``generator`` is None (deterministic) or ``rate`` is 0. ``x`` is
+    batch-major: its mask is its rows' part of the whole batch's."""
     if generator is None or rate == 0.0:
         return x
-    return apply_mask(x, draw_seed(generator), STREAM_PLAIN, rate)
+    return apply_mask(x, draw_seed(generator), STREAM_PLAIN, rate,
+                      offset=row_base(x.numel()))

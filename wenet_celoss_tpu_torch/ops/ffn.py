@@ -18,7 +18,10 @@ exported program) the wrappers call the registered forward operators
 ``wenet_torch::ln_ffn_residual_fwd`` and ``wenet_torch::ffn_fused_fwd``
 instead: the plain version on the CPU, the same forward launch on the
 card, and a fake implementation that ``torch.export`` traces. Weights are
-in ``torch.nn.Linear`` layout: w1 [F, D], w2 [D, F].
+in ``torch.nn.Linear`` layout: w1 [F, D], w2 [D, F]. ``row_base`` is the
+first global row of x2's rows when a step's batch is split over
+processes (``ops/dropout.py batch_part``): the masks are drawn at
+``(row_base + row) * ncols + col``, the rows' part of the whole batch's.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ def _act(name: str, z: torch.Tensor) -> torch.Tensor:
 def ln_ffn_residual_ref(x2, g, bl, w1, b1, w2, b2, activation: str,
                         ff_scale: float = 1.0, eps: float = 1e-5,
                         rate1: float = 0.0, rate2: float = 0.0,
-                        seed: int = 0):
+                        seed: int = 0, row_base: int = 0):
     """Plain version:
     x2 + ff_scale * drop2(drop1(act(LN(x2) @ w1^T + b1)) @ w2^T + b2).
 
@@ -67,26 +70,29 @@ def ln_ffn_residual_ref(x2, g, bl, w1, b1, w2, b2, activation: str,
     xn = (xc * torch.rsqrt(var + eps) * g + bl).to(cdt)
     z1 = xn.to(af) @ w1.to(cdt).to(af).t() + b1
     h = drop.apply_mask(_act(activation, z1), seed,
-                        drop.STREAM_FFN_HIDDEN, rate1).to(cdt)
+                        drop.STREAM_FFN_HIDDEN, rate1,
+                        offset=row_base * w1.shape[0]).to(cdt)
     y2 = drop.apply_mask(h.to(af) @ w2.to(cdt).to(af).t() + b2, seed,
-                         drop.STREAM_FFN_OUT, rate2)
+                         drop.STREAM_FFN_OUT, rate2,
+                         offset=row_base * x2.shape[1])
     return (xf + ff_scale * y2).to(cdt)
 
 
 def ffn_fused_ref(x2, w1, b1, w2, b2, activation: str, rate: float = 0.0,
-                  seed: int = 0):
+                  seed: int = 0, row_base: int = 0):
     """Plain version: drop(act(x2 @ w1^T + b1)) @ w2^T + b2.
 
     Each matmul takes operands in x2's dtype and accumulates in fp32; the
     activation and the dropout run in fp32 and the hidden is cast to x2's
     dtype before the second matmul, as the Pallas kernel does; the output
     is cast once. The mask is stream ``STREAM_FFN_HIDDEN`` at index
-    ``row * F + col``, K1's hidden mask."""
+    ``(row_base + row) * F + col``, K1's hidden mask."""
     cdt = x2.dtype
     af = torch.promote_types(cdt, torch.float32)   # fp64 stays fp64
     z1 = x2.to(af) @ w1.to(cdt).to(af).t() + b1
     h = drop.apply_mask(_act(activation, z1), seed,
-                        drop.STREAM_FFN_HIDDEN, rate).to(cdt)
+                        drop.STREAM_FFN_HIDDEN, rate,
+                        offset=row_base * w1.shape[0]).to(cdt)
     return (h.to(af) @ w2.to(cdt).to(af).t() + b2).to(cdt)
 
 
@@ -145,12 +151,20 @@ def _masks(seed: int, rate1: float, rate2: float):
     return out
 
 
+def _row_base(row_base: int) -> int:
+    """The first global row as the kernels' 32-bit argument (their
+    indices wrap mod 2^32, as the plain versions' do)."""
+    if row_base < 0:
+        raise ValueError(f"row_base {row_base} < 0")
+    return int(row_base) & drop.M32
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def forward_kernel(x2, g, bl, w1, b1, w2, b2, activation, ff_scale, eps,
-                   rate1, rate2, seed):
+                   rate1, rate2, seed, row_base=0):
     """Launch the forward kernel on CUDA tensors (no autograd)."""
     check_args(x2, g, bl, w1, b1, w2, b2, activation)
     y = torch.empty_like(x2)
@@ -162,7 +176,7 @@ def forward_kernel(x2, g, bl, w1, b1, w2, b2, activation, ff_scale, eps,
         bl.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), y.data_ptr(), n, d, w1.shape[0], float(ff_scale),
         float(eps), _ACTS[activation], *_masks(seed, rate1, rate2),
-        _stream(x2))
+        _row_base(row_base), _stream(x2))
     if rc != 0:
         raise RuntimeError(f"ln_ffn_residual kernel launch failed: "
                            f"cudaError {rc}")
@@ -171,7 +185,7 @@ def forward_kernel(x2, g, bl, w1, b1, w2, b2, activation, ff_scale, eps,
 
 
 def backward_kernel(x2, dy, g, bl, w1, b1, w2, b2, activation, ff_scale,
-                    eps, rate1, rate2, seed):
+                    eps, rate1, rate2, seed, row_base=0):
     """Launch the backward kernels on CUDA tensors → (dx, dg, dbl, dw1,
     db1, dw2, db2): dx in x2's dtype, the weight gradients in fp32 (b2 is
     checked, not read)."""
@@ -203,7 +217,7 @@ def backward_kernel(x2, dy, g, bl, w1, b1, w2, b2, activation, ff_scale,
         dw2.data_ptr(), db2.data_ptr(), ws.data_ptr(), rows.data_ptr(),
         n, d, f,
         float(ff_scale), float(eps), _ACTS[activation],
-        *_masks(seed, rate1, rate2), _stream(x2))
+        *_masks(seed, rate1, rate2), _row_base(row_base), _stream(x2))
     if rc != 0:
         raise RuntimeError(f"ln_ffn_residual backward kernel launch "
                            f"failed: cudaError {rc}")
@@ -212,14 +226,14 @@ def backward_kernel(x2, dy, g, bl, w1, b1, w2, b2, activation, ff_scale,
 
 
 def backward_ref(x2, dy, g, bl, w1, b1, w2, b2, activation, ff_scale, eps,
-                 rate1, rate2, seed):
+                 rate1, rate2, seed, row_base=0):
     """The plain backward: recompute the plain forward from x2 and take
     its vector-Jacobian product by autograd (what the CPU path runs)."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True)
                for t in (x2, g, bl, w1, b1, w2, b2)]
         y = ln_ffn_residual_ref(*ins, activation, ff_scale, eps, rate1,
-                                rate2, seed)
+                                rate2, seed, row_base)
         return torch.autograd.grad(y, ins, dy)
 
 
@@ -227,8 +241,8 @@ class _LnFfnResidual(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2, g, bl, w1, b1, w2, b2, activation, ff_scale, eps,
-                rate1, rate2, seed):
-        cfg = (activation, ff_scale, eps, rate1, rate2, seed)
+                rate1, rate2, seed, row_base):
+        cfg = (activation, ff_scale, eps, rate1, rate2, seed, row_base)
         ctx.cfg = cfg
         ctx.save_for_backward(x2, g, bl, w1, b1, w2, b2)
         if x2.device.type == "cpu":
@@ -247,7 +261,7 @@ class _LnFfnResidual(torch.autograd.Function):
             # Each gradient in its input's dtype, as the Pallas VJP returns.
             grads = [gr.to(t.dtype) for gr, t in
                      zip(grads, (x2, g, bl, w1, b1, w2, b2))]
-        return (*grads, None, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 @torch.library.custom_op("wenet_torch::ln_ffn_residual_fwd", mutates_args=(),
@@ -256,18 +270,20 @@ def ln_ffn_residual_fwd(x2: torch.Tensor, g: torch.Tensor, bl: torch.Tensor,
                         w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                         b2: torch.Tensor, activation: str, ff_scale: float,
                         eps: float, rate1: float, rate2: float,
-                        seed: int) -> torch.Tensor:
+                        seed: int, row_base: int = 0) -> torch.Tensor:
     """K1's forward as a registered operator (what an exported graph
     holds): the plain version on the CPU, the kernel on the card."""
     return ln_ffn_residual_ref(x2, g, bl, w1, b1, w2, b2, activation,
-                               ff_scale, eps, rate1, rate2, seed)
+                               ff_scale, eps, rate1, rate2, seed, row_base)
 
 
+# row_base keeps its default here (and in ffn_fused_fwd's): the
+# dispatcher leaves out an argument that equals the schema's default.
 @ln_ffn_residual_fwd.register_kernel("cuda")
 def _(x2, g, bl, w1, b1, w2, b2, activation, ff_scale, eps, rate1, rate2,
-      seed):
+      seed, row_base=0):
     return forward_kernel(x2, g, bl, w1, b1, w2, b2, activation, ff_scale,
-                          eps, rate1, rate2, seed)
+                          eps, rate1, rate2, seed, row_base)
 
 
 @ln_ffn_residual_fwd.register_fake
@@ -277,12 +293,14 @@ def _(x2, *args):
 
 def ln_ffn_residual(x2, g, bl, w1, b1, w2, b2, activation: str,
                     ff_scale: float = 1.0, eps: float = 1e-5,
-                    rate1: float = 0.0, rate2: float = 0.0, seed: int = 0):
+                    rate1: float = 0.0, rate2: float = 0.0, seed: int = 0,
+                    row_base: int = 0):
     """x2 + ff_scale * drop2(drop1(act(LN(x2) @ w1^T + b1)) @ w2^T + b2).
 
     x2 [N, D] float32 or bfloat16; g, bl, b1, b2 float32; w1 [F, D] and
     w2 [D, F] in x2's dtype; rate1 on the hidden and rate2 on the FFN
-    output, both in [0, 1), masks drawn from ``seed``. A CPU tensor takes
+    output, both in [0, 1), masks drawn from ``seed`` at x2's rows counted
+    from ``row_base`` (the module docstring). A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel (and, under
     autograd, the backward kernels) or raises. Without a gradient to take
     it runs the operator ``wenet_torch::ln_ffn_residual_fwd``."""
@@ -291,7 +309,7 @@ def ln_ffn_residual(x2, g, bl, w1, b1, w2, b2, activation: str,
     if x2.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x2.device}")
     args = (x2, g, bl, w1, b1, w2, b2, activation, float(ff_scale),
-            float(eps), float(rate1), float(rate2), int(seed))
+            float(eps), float(rate1), float(rate2), int(seed), int(row_base))
     if wants_autograd(x2, g, bl, w1, b1, w2, b2):
         return _LnFfnResidual.apply(*args)
     return ln_ffn_residual_fwd(*args)
@@ -301,7 +319,8 @@ ln_ffn_residual.launches = 0
 ln_ffn_residual.bwd_launches = 0
 
 
-def ffn_forward_kernel(x2, w1, b1, w2, b2, activation, rate, seed):
+def ffn_forward_kernel(x2, w1, b1, w2, b2, activation, rate, seed,
+                       row_base=0):
     """Launch ffn_fused's forward kernel on CUDA tensors (no autograd)."""
     check_args(x2, None, None, w1, b1, w2, b2, activation)
     y = torch.empty_like(x2)
@@ -312,14 +331,15 @@ def ffn_forward_kernel(x2, w1, b1, w2, b2, activation, rate, seed):
         1 if x2.dtype == torch.bfloat16 else 0, x2.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         y.data_ptr(), n, d, w1.shape[0], _ACTS[activation],
-        *_masks(seed, rate, 0.0)[:3], _stream(x2))
+        *_masks(seed, rate, 0.0)[:3], _row_base(row_base), _stream(x2))
     if rc != 0:
         raise RuntimeError(f"ffn_fused kernel launch failed: cudaError {rc}")
     ffn_fused.launches += 1
     return y
 
 
-def ffn_backward_kernel(x2, dy, w1, b1, w2, b2, activation, rate, seed):
+def ffn_backward_kernel(x2, dy, w1, b1, w2, b2, activation, rate, seed,
+                        row_base=0):
     """Launch ffn_fused's backward kernels on CUDA tensors → (dx, dw1,
     db1, dw2, db2): dx in x2's dtype, the weight gradients in fp32 (b2 is
     checked, not read)."""
@@ -347,7 +367,8 @@ def ffn_backward_kernel(x2, dy, w1, b1, w2, b2, activation, rate, seed):
         dtype, x2.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
         dw2.data_ptr(), db2.data_ptr(), ws.data_ptr(), n, d, f,
-        _ACTS[activation], *_masks(seed, rate, 0.0)[:3], _stream(x2))
+        _ACTS[activation], *_masks(seed, rate, 0.0)[:3],
+        _row_base(row_base), _stream(x2))
     if rc != 0:
         raise RuntimeError(f"ffn_fused backward kernel launch failed: "
                            f"cudaError {rc}")
@@ -355,21 +376,22 @@ def ffn_backward_kernel(x2, dy, w1, b1, w2, b2, activation, rate, seed):
     return dx, dw1, db1, dw2, db2
 
 
-def ffn_backward_ref(x2, dy, w1, b1, w2, b2, activation, rate, seed):
+def ffn_backward_ref(x2, dy, w1, b1, w2, b2, activation, rate, seed,
+                     row_base=0):
     """ffn_fused's plain backward: the plain forward's vector-Jacobian
     product by autograd (what the CPU path runs)."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True)
                for t in (x2, w1, b1, w2, b2)]
-        y = ffn_fused_ref(*ins, activation, rate, seed)
+        y = ffn_fused_ref(*ins, activation, rate, seed, row_base)
         return torch.autograd.grad(y, ins, dy)
 
 
 class _FfnFused(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x2, w1, b1, w2, b2, activation, rate, seed):
-        ctx.cfg = (activation, rate, seed)
+    def forward(ctx, x2, w1, b1, w2, b2, activation, rate, seed, row_base):
+        ctx.cfg = (activation, rate, seed, row_base)
         ctx.save_for_backward(x2, w1, b1, w2, b2)
         if x2.device.type == "cpu":
             return ffn_fused_ref(x2, w1, b1, w2, b2, *ctx.cfg)
@@ -384,22 +406,24 @@ class _FfnFused(torch.autograd.Function):
         else:
             grads = ffn_backward_kernel(saved[0], dy, *saved[1:], *ctx.cfg)
             grads = [gr.to(t.dtype) for gr, t in zip(grads, saved)]
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 @torch.library.custom_op("wenet_torch::ffn_fused_fwd", mutates_args=(),
                          device_types="cpu")
 def ffn_fused_fwd(x2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                   w2: torch.Tensor, b2: torch.Tensor, activation: str,
-                  rate: float, seed: int) -> torch.Tensor:
+                  rate: float, seed: int, row_base: int = 0) -> torch.Tensor:
     """K6's forward as a registered operator: the plain version on the
     CPU, the kernel on the card."""
-    return ffn_fused_ref(x2, w1, b1, w2, b2, activation, rate, seed)
+    return ffn_fused_ref(x2, w1, b1, w2, b2, activation, rate, seed,
+                         row_base)
 
 
 @ffn_fused_fwd.register_kernel("cuda")
-def _(x2, w1, b1, w2, b2, activation, rate, seed):
-    return ffn_forward_kernel(x2, w1, b1, w2, b2, activation, rate, seed)
+def _(x2, w1, b1, w2, b2, activation, rate, seed, row_base=0):
+    return ffn_forward_kernel(x2, w1, b1, w2, b2, activation, rate, seed,
+                              row_base)
 
 
 @ffn_fused_fwd.register_fake
@@ -408,19 +432,21 @@ def _(x2, *args):
 
 
 def ffn_fused(x2, w1, b1, w2, b2, activation: str, rate: float = 0.0,
-              seed: int = 0):
+              seed: int = 0, row_base: int = 0):
     """drop(act(x2 @ w1^T + b1)) @ w2^T + b2.
 
     x2 [N, D] float32 or bfloat16; w1 [F, D] and w2 [D, F] in x2's dtype;
     b1, b2 float32; ``rate`` in [0, 1) on the hidden, its mask drawn from
-    ``seed``. A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel (and, under autograd, the backward kernels) or raises.
+    ``seed`` at x2's rows counted from ``row_base``. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel (and, under
+    autograd, the backward kernels) or raises.
     Without a gradient to take it runs the operator
     ``wenet_torch::ffn_fused_fwd``."""
     drop.threshold(rate)
     if x2.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x2.device}")
-    args = (x2, w1, b1, w2, b2, activation, float(rate), int(seed))
+    args = (x2, w1, b1, w2, b2, activation, float(rate), int(seed),
+            int(row_base))
     if wants_autograd(x2, w1, b1, w2, b2):
         return _FfnFused.apply(*args)
     return ffn_fused_fwd(*args)
@@ -443,7 +469,7 @@ def _lib() -> ctypes.CDLL:
     if lib.ln_ffn_residual_fwd.argtypes is None:
         p, i, u, fl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                        ctypes.c_float)
-        masks = [u, i, fl, u, i, fl]
+        masks = [u, i, fl, u, i, fl, u]   # two streams and the row base
         lib.ln_ffn_residual_fwd.argtypes = (
             [i] + [p] * 8 + [i] * 3 + [fl] * 2 + [i] + masks + [p])
         lib.ln_ffn_residual_fwd.restype = i
@@ -454,11 +480,12 @@ def _lib() -> ctypes.CDLL:
         lib.ln_ffn_residual_bwd.argtypes = (
             [i] + [p] * 16 + [i] * 3 + [fl] * 2 + [i] + masks + [p])
         lib.ln_ffn_residual_bwd.restype = i
-        lib.ffn_fused_fwd.argtypes = [i] + [p] * 6 + [i] * 4 + masks[:3] + [p]
+        lib.ffn_fused_fwd.argtypes = ([i] + [p] * 6 + [i] * 4 + masks[:3]
+                                      + [u, p])
         lib.ffn_fused_fwd.restype = i
         lib.ffn_fused_bwd_workspace.argtypes = [i] * 4
         lib.ffn_fused_bwd_workspace.restype = ctypes.c_longlong
         lib.ffn_fused_bwd.argtypes = (
-            [i] + [p] * 11 + [i] * 4 + masks[:3] + [p])
+            [i] + [p] * 11 + [i] * 4 + masks[:3] + [u, p])
         lib.ffn_fused_bwd.restype = i
     return lib

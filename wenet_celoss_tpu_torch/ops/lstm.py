@@ -3,7 +3,9 @@
 ``lstm2_seq`` is the port of ``wenet_celoss_tpu/ops/lstm_pallas.py::
 lstm2_seq``, forward and backward, with the inter-layer dropout (mask
 stream ``STREAM_LSTM_INTER`` of ``ops/dropout.py``, drawn at index
-``(t * B + b) * H + j``). It is a ``torch.autograd.Function``: on CUDA
+``(t * B + b) * H + j``; when a step's batch is split over processes, B
+is the whole batch, ``global_b``, and b counts from the process's first
+global row, ``row_base``). It is a ``torch.autograd.Function``: on CUDA
 tensors its forward and backward launch the hand-written kernels in
 ``csrc/lstm2_seq.cu``; on CPU tensors they run ``lstm2_seq_ref``, the
 plain PyTorch version with the same rounding points and mask (the
@@ -39,7 +41,8 @@ BF16_WIDTHS = (64, 128, 256)   # the widths the bf16 kernels take
 
 
 def lstm2_seq_ref(xw1, wh1, wi2, bh2, wh2, rate: float = 0.0,
-                  seed: int = 0) -> torch.Tensor:
+                  seed: int = 0, row_base: int = 0,
+                  global_b: int = 0) -> torch.Tensor:
     """Plain version: [B, U, 4H] → layer 2's h [B, U, H] in xw1's dtype.
 
     h is carried in the compute dtype, c and the gates in fp32; each
@@ -50,6 +53,7 @@ def lstm2_seq_ref(xw1, wh1, wi2, bh2, wh2, rate: float = 0.0,
     af = torch.promote_types(cdt, torch.float32)
     b, u, g4 = xw1.shape
     h = g4 // 4
+    gb = global_b or b
     w1, w2i, w2h = (w.to(cdt).to(af).t() for w in (wh1, wi2, wh2))
     h1 = h2 = torch.zeros(b, h, dtype=cdt, device=xw1.device)
     c1 = c2 = torch.zeros(b, h, dtype=af, device=xw1.device)
@@ -59,7 +63,7 @@ def lstm2_seq_ref(xw1, wh1, wi2, bh2, wh2, rate: float = 0.0,
         c1, h1n = _cell(z1, c1)
         h1 = h1n.to(cdt)
         d = drop.apply_mask(h1n, seed, drop.STREAM_LSTM_INTER, rate,
-                            offset=t * b * h).to(cdt)
+                            offset=(t * gb + row_base) * h).to(cdt)
         z2 = bh2.to(af) + d.to(af) @ w2i + h2.to(af) @ w2h
         c2, h2n = _cell(z2, c2)
         h2 = h2n.to(cdt)
@@ -116,9 +120,15 @@ def _operands(xw1, wh1, wi2, bh2, wh2):
     return xw1, ws, bh2.float().contiguous()
 
 
-def _mask_args(rate: float, seed: int):
+def _mask_args(rate: float, seed: int, row_base: int, global_b: int, b: int):
+    """(key, threshold, scale, first global row, whole batch) for the
+    kernels; global_b 0 is the local batch."""
+    if row_base < 0 or (global_b and global_b < row_base + b):
+        raise ValueError(f"rows [{row_base}, {row_base + b}) are not rows "
+                         f"of a {global_b}-row batch")
     thresh, scale = drop.threshold(rate)
-    return [drop.stream_key(seed, drop.STREAM_LSTM_INTER), thresh, scale]
+    return [drop.stream_key(seed, drop.STREAM_LSTM_INTER), thresh, scale,
+            int(row_base) & drop.M32, int(global_b)]
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -126,7 +136,7 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def forward_kernel(xw1, wh1, wi2, bh2, wh2, rate=0.0, seed=0,
-                   save: bool = False):
+                   save: bool = False, row_base: int = 0, global_b: int = 0):
     """Launch the forward kernels → (y, saved states or None).
 
     The saved states are zs [2, B, U, 4H] and cs [2, B, U, H] in fp32,
@@ -155,7 +165,7 @@ def forward_kernel(xw1, wh1, wi2, bh2, wh2, rate=0.0, seed=0,
             _DTYPES[dt], xw1.data_ptr(), w1.data_ptr(), w2i.data_ptr(),
             bh2.data_ptr(), w2h.data_ptr(), y.data_ptr(), *ptrs,
             ds.data_ptr(), ws.data_ptr() if ws.numel() else None, b, u, h,
-            *_mask_args(rate, seed), _stream(xw1))
+            *_mask_args(rate, seed, row_base, global_b, b), _stream(xw1))
         if rc != 0:
             raise RuntimeError(f"lstm2_seq kernel launch failed: "
                                f"cudaError {rc}")
@@ -163,7 +173,8 @@ def forward_kernel(xw1, wh1, wi2, bh2, wh2, rate=0.0, seed=0,
     return y, saved
 
 
-def backward_kernel(dy, xw1, wh1, wi2, bh2, wh2, saved, rate=0.0, seed=0):
+def backward_kernel(dy, xw1, wh1, wi2, bh2, wh2, saved, rate=0.0, seed=0,
+                    row_base: int = 0, global_b: int = 0):
     """Launch the backward kernels → (dxw1 in xw1's dtype, dwh1, dwi2,
     dbh2, dwh2 in fp32)."""
     on_card(xw1, wh1, wi2, bh2, wh2)
@@ -189,7 +200,7 @@ def backward_kernel(dy, xw1, wh1, wi2, bh2, wh2, saved, rate=0.0, seed=0):
             w2h.data_ptr(), zs.data_ptr(), cs.data_ptr(), hs.data_ptr(),
             ds.data_ptr(), dxw1.data_ptr(), dw.data_ptr(), dbh2.data_ptr(),
             ws.data_ptr(), dz2c.data_ptr(), b, u, h,
-            *_mask_args(rate, seed), _stream(xw1))
+            *_mask_args(rate, seed, row_base, global_b, b), _stream(xw1))
         if rc != 0:
             raise RuntimeError(f"lstm2_seq backward kernel launch failed: "
                                f"cudaError {rc}")
@@ -197,25 +208,30 @@ def backward_kernel(dy, xw1, wh1, wi2, bh2, wh2, saved, rate=0.0, seed=0):
     return dxw1, dw[0], dw[1], dbh2, dw[2]
 
 
-def backward_ref(dy, xw1, wh1, wi2, bh2, wh2, rate=0.0, seed=0):
+def backward_ref(dy, xw1, wh1, wi2, bh2, wh2, rate=0.0, seed=0, row_base=0,
+                 global_b=0):
     """The plain backward: autograd through the plain forward."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True)
                for t in (xw1, wh1, wi2, bh2, wh2)]
-        y = lstm2_seq_ref(*ins, rate=rate, seed=seed)
+        y = lstm2_seq_ref(*ins, rate=rate, seed=seed, row_base=row_base,
+                          global_b=global_b)
         return torch.autograd.grad(y, ins, dy)
 
 
 class _Lstm2Seq(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, xw1, wh1, wi2, bh2, wh2, rate, seed):
-        ctx.cfg = (rate, seed)
+    def forward(ctx, xw1, wh1, wi2, bh2, wh2, rate, seed, row_base,
+                global_b):
+        ctx.cfg = (rate, seed, row_base, global_b)
         if xw1.device.type == "cpu":
             ctx.save_for_backward(xw1, wh1, wi2, bh2, wh2)
-            return lstm2_seq_ref(xw1, wh1, wi2, bh2, wh2, rate, seed)
+            return lstm2_seq_ref(xw1, wh1, wi2, bh2, wh2, rate, seed,
+                                 row_base, global_b)
         y, saved = forward_kernel(xw1, wh1, wi2, bh2, wh2, rate, seed,
-                                  save=any(ctx.needs_input_grad))
+                                  save=any(ctx.needs_input_grad),
+                                  row_base=row_base, global_b=global_b)
         ctx.save_for_backward(xw1, wh1, wi2, bh2, wh2,
                               *(saved if saved is not None else ()))
         return y
@@ -231,21 +247,25 @@ class _Lstm2Seq(torch.autograd.Function):
                                     *ctx.cfg)
             grads = [g.to(t.dtype) for g, t in
                      zip(grads, (xw1, wh1, wi2, bh2, wh2))]
-        return (*grads, None, None)
+        return (*grads, None, None, None, None)
 
 
-def lstm2_seq(xw1, wh1, wi2, bh2, wh2, rate: float = 0.0, seed: int = 0):
+def lstm2_seq(xw1, wh1, wi2, bh2, wh2, rate: float = 0.0, seed: int = 0,
+              row_base: int = 0, global_b: int = 0):
     """Two stacked LSTM layers from a zero state → layer 2's h [B, U, H].
 
     xw1 [B, U, 4H] (float32 or bfloat16, the compute dtype); wh1, wi2,
     wh2 [4H, H] and bh2 [4H] (any float dtype; cast inside); inter-layer
-    dropout ``rate`` in [0, 1) with masks drawn from ``seed``. A CPU tensor
+    dropout ``rate`` in [0, 1) with masks drawn from ``seed`` at rows
+    ``row_base`` onward of a ``global_b``-row batch (0: xw1's own batch;
+    the module docstring). A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel (and,
     under autograd, the backward kernels) or raises."""
     drop.threshold(rate)
     if xw1.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {xw1.device}")
-    return _Lstm2Seq.apply(xw1, wh1, wi2, bh2, wh2, float(rate), int(seed))
+    return _Lstm2Seq.apply(xw1, wh1, wi2, bh2, wh2, float(rate), int(seed),
+                           int(row_base), int(global_b))
 
 
 lstm2_seq.launches = 0
@@ -261,10 +281,12 @@ def _lib() -> ctypes.CDLL:
         lib.lstm2_seq_fits.restype = i
         lib.lstm2_seq_fwd_workspace.argtypes = [i] * 4
         lib.lstm2_seq_fwd_workspace.restype = ctypes.c_longlong
-        lib.lstm2_seq_fwd.argtypes = [i] + [p] * 11 + [i] * 3 + [u, i, fl, p]
+        lib.lstm2_seq_fwd.argtypes = ([i] + [p] * 11 + [i] * 3
+                                      + [u, i, fl, u, i, p])
         lib.lstm2_seq_fwd.restype = i
         lib.lstm2_seq_bwd_workspace.argtypes = [i] * 4
         lib.lstm2_seq_bwd_workspace.restype = ctypes.c_longlong
-        lib.lstm2_seq_bwd.argtypes = [i] + [p] * 13 + [i] * 3 + [u, i, fl, p]
+        lib.lstm2_seq_bwd.argtypes = ([i] + [p] * 13 + [i] * 3
+                                      + [u, i, fl, u, i, p])
         lib.lstm2_seq_bwd.restype = i
     return lib

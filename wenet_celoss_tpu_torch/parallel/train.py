@@ -30,6 +30,16 @@ running statistics (the JAX package's ``TrainState.batch_stats``) are the
 model's buffers: each training forward advances them, on every
 micro-batch and on a step whose norm is not finite too, as the JAX
 package's executor and ``train_step`` do.
+
+Data parallel (``group``, a ``parallel/dist.py DistContext``): each rank
+runs the forward and backward on its part of the step's batch inside
+``dist.step_shard`` (the whole batch's dropout masks, batch-norm
+statistics and token counts), the metrics are averaged over the ranks,
+and before the norm the (accumulated) gradients are all-reduced in one
+flat buffer in parameter order, summed and divided by the world size.
+Clipping, the non-finite skip and Adam then see the same gradient on
+every rank, so the parameters stay equal bit for bit. Every rank seeds
+its generator alike, so the dropout seeds and the dynamic chunk agree.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from wenet_celoss_tpu_torch.parallel import dist
 from wenet_celoss_tpu_torch.utils.scheduler import warmup_lr
 
 Batch = Dict[str, torch.Tensor]
@@ -162,34 +173,47 @@ def _forward(model: nn.Module, batch: Batch,
     return model(*args, gen=gen)
 
 
-def make_grad_fn(model: nn.Module, accum_grad: int = 1):
+def make_grad_fn(model: nn.Module, accum_grad: int = 1,
+                 group: Optional[dist.DistContext] = None):
     """(state, batch, gen) → (grads, metrics): the gradients of
     ``loss / accum_grad`` in parameter order (zeros for a parameter the
     loss does not reach, as JAX gives), and the detached loss dict. The
     batch holds feats, feat_lengths, labels, label_lengths on the model's
     device and, for a transducer with hotwords, context_list,
     context_lengths and optionally hw_labels and context_n_valid;
-    ``gen`` is the step's generator (dropout seeds, the dynamic chunk)."""
+    ``gen`` is the step's generator (dropout seeds, the dynamic chunk).
+    With ``group`` the batch is this rank's part of the step's batch (the
+    module docstring): the gradients stay this rank's, the metrics are
+    the means over the ranks."""
 
     def grad_fn(state: TrainState, batch: Batch,
                 gen: Optional[torch.Generator]):
         state.model.train()
         params = state.params
-        metrics = _forward(state.model, batch, gen)
-        grads = torch.autograd.grad(metrics["loss"] / accum_grad, params,
-                                    allow_unused=True)
+        with dist.step_shard(group):
+            metrics = _forward(state.model, batch, gen)
+            grads = torch.autograd.grad(metrics["loss"] / accum_grad,
+                                        params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]
-        return grads, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if group is not None and group.world > 1:
+            names = sorted(metrics)
+            metrics = dict(zip(names, dist.all_reduce_mean_(
+                [metrics[k] for k in names], group)))
+        return grads, metrics
 
     return grad_fn
 
 
-def make_apply_fn(tx: ClippedAdam):
+def make_apply_fn(tx: ClippedAdam, group: Optional[dist.DistContext] = None):
     """(state, grads) → (state, pre-clip gnorm); a non-finite norm leaves
-    parameters and optimizer state as they were."""
+    parameters and optimizer state as they were. With ``group`` the
+    gradients are first averaged over the ranks."""
 
     def apply_fn(state: TrainState, grads: Grads):
+        if group is not None and group.world > 1:
+            grads = dist.all_reduce_mean_(list(grads), group)
         gnorm = global_norm(grads)
         if math.isfinite(float(gnorm)):
             tx.apply(grads, gnorm, state.opt_state, state.params)
@@ -199,11 +223,12 @@ def make_apply_fn(tx: ClippedAdam):
     return apply_fn
 
 
-def make_train_step(model: nn.Module, tx: ClippedAdam, accum_grad: int = 1):
+def make_train_step(model: nn.Module, tx: ClippedAdam, accum_grad: int = 1,
+                    group: Optional[dist.DistContext] = None):
     """(state, batch, gen) → (state, metrics, gnorm): gradient, clip and
-    update in one call."""
-    grad_fn = make_grad_fn(model, accum_grad)
-    apply_fn = make_apply_fn(tx)
+    update in one call (over the ranks of ``group``, if given)."""
+    grad_fn = make_grad_fn(model, accum_grad, group)
+    apply_fn = make_apply_fn(tx, group)
 
     def train_step(state: TrainState, batch: Batch,
                    gen: Optional[torch.Generator]):
