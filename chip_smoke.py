@@ -164,6 +164,24 @@ Phases, in the order they run, each printing JSON lines:
             T7, T8, T10, T6: the flagship in bf16 with dropout 0.1 timed
             (B=256; B=64 for pallas, whose [B, T', U+1, V] logits
             materialise), launches per step (T10: batch_norm, K8 0);
+  v_kernels  K1 in fp32 at the context towers' shapes (the transformer
+            extractor's F = 1024 over 8 phrases x 5 rows, the transformer
+            bias encoder's F = 512 over 10 slots), forward and backward,
+            and K9 under rnnt_loss_simple at V1's step shape (B=64,
+            T'=86, U1=33, V=5002), the loss and the am and lm gradients,
+            against their plain versions on the card; the pruned
+            lattice's ms and card intervals at V1's shape;
+  v1, v2, v3  the model variants of the JAX factory at the flagship's
+            widths (VARIANTS): V1 conv2d6 + rel_pos, transformer
+            extractor and bias encoder, embedding predictor, "pruned",
+            concat_after decoder; V2 the transformer encoder with conv2d8,
+            no_pos and concat_after, the LSTM extractor, a GRU predictor;
+            V3 a linear front end with abs_pos, the conv predictor. Each:
+            one fp32 step on 4 of S1's WAVs (word labels, hotwords),
+            card against CPU with T3's bounds; the gated greedy and the
+            RNN-T beam over S1's 16 WAVs, card against CPU by S1's rules;
+            two bf16 steps at B=64 x 512 frames (V3 256), the second
+            timed; every step's launches against variant_want;
   postnorm_train  T9: the post-norm model at T1's point, timed;
   u2pp_train, u2pp_conv_train  T11, T11-conv: the U2++ conformer at T1's
             point with its dynamic chunk, and under CONV_PALLAS=1 (K8
@@ -173,12 +191,12 @@ Phases, in the order they run, each printing JSON lines:
   train_cli  T12: the train CLI (bin/train.main, in process) on the yaml
             flagship as it stands plus two loader processes and a record a
             batch: the 200 train-clean-100 WAVs, cv on the 16 dev-clean
-            WAVs, --cmvn from compute_cmvn_stats, 2 epochs, a step file
+            WAVs, --cmvn from compute_cmvn_stats, 1 epoch, a step file
             every step, --profile_dir: its epoch files, infos, links,
             train.yaml, records and rnnt_impl ("scan"), its launches
             against the counts derived from its batches (K1 30 + 30 and K4
             1 + 1 a micro-batch, K1 30 and K4 1 a cv batch, no other);
-            average_model --num 2 and the recognize CLI on the average;
+            average_model --num 1 and the recognize CLI on the average;
             seconds an epoch, audio-s/s, the loader's start-up, the card's
             busy time and idle share over epoch 0 from the trace;
   train_cli_check  T12-check: the CLI on the card and with --device cpu,
@@ -3960,18 +3978,19 @@ SPACE_ID = 1   # " " sorts first among the characters of the text
 CHAR_VOCAB = 32
 
 
-def with_hotwords(batch, seed: int = 0, extra_slots: int = 2):
+def with_hotwords(batch, seed: int = 0, extra_slots: int = 2,
+                  starts=frozenset({SPACE_ID})):
     """The batch with hotwords sampled from its own transcripts (words
     start at the space token) and per-token hw labels, built by the
     port's data/context.py, plus ``extra_slots`` empty phrase slots past
-    ``context_n_valid``."""
+    ``context_n_valid``; ``starts``: the token ids that begin a word."""
     import random
 
     from wenet_celoss_tpu_torch.data.context import (context_batch,
                                                      context_generate)
     seqs = [[int(t) for t in y[:n]] for y, n in
             zip(batch["labels"], batch["label_lengths"])]
-    ctx = context_generate(seqs, bpe_start_ids={SPACE_ID},
+    ctx = context_generate(seqs, bpe_start_ids=set(starts),
                            rng=random.Random(seed))
     return {**batch, **context_batch(seqs, ctx,
                                      max_phrases=len(ctx) + extra_slots)}
@@ -4047,15 +4066,16 @@ def phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs,
 def phase_rnnt_train(init_model, conformer_rnnt_bias, train, b: int = 256,
                      t: int = 512, u: int = 32, what="rnnt_train",
                      impl="streaming", env=None, want=RNNT_PER_STEP,
+                     steps=(2, 5), model_name="conformer_rnnt_bias",
                      **extra):
     """The flagship's training path in bf16 with dropout 0.1 at bench.py's
     training shape (B cut for the materialised joint of ``impl`` pallas)
     with 8 hotwords of 4 tokens and random hw labels, under the switches
     ``env``. This is that path's run: every kernel count is set to 0 just
-    before it and read just after. Returns (what the profile needs,
-    launches)."""
+    before it and read just after. ``steps``: (warm-up, timed) steps.
+    Returns (what the profile needs, launches)."""
     env = env or {}
-    warm, iters = 2, 5
+    warm, iters = steps
     held = torch.cuda.memory_allocated()   # earlier phases' live tensors
     cfg = conformer_rnnt_bias()
     cfg["dtype"] = "bfloat16"
@@ -4085,7 +4105,7 @@ def phase_rnnt_train(init_model, conformer_rnnt_bias, train, b: int = 256,
                             f"steps, want {want}")
     check(all(np.isfinite(losses)), f"{what}: losses {losses}")
     med = sorted(times)[iters // 2]
-    emit(what, model="conformer_rnnt_bias", dtype="bfloat16",
+    emit(what, model=model_name, dtype="bfloat16",
          rnnt_impl=impl, switches=env, **extra,
          dropout=0.1, batch=b, frames=t, labels=u, vocab=v, hotwords=8,
          steps_timed=iters, warmup_steps_run=warm, ms_per_step=med,
@@ -4098,6 +4118,259 @@ def phase_rnnt_train(init_model, conformer_rnnt_bias, train, b: int = 256,
          last_terms={k: float(x) for k, x in m.items()},
          timing="median host ms per step, synchronised")
     return (state, step, batch, gen, med), launches
+
+
+# ------------------------------------------------- V1-V3: model variants ---
+# Every model the JAX factory builds, at the flagship's widths (d=256, 12
+# blocks, vocab 5002, join 512, embed 256): other front ends and position
+# encodings, concat_after, the embedding / GRU / conv predictors, the LSTM
+# and transformer context towers, the pruned loss. (name, overrides of
+# configs.conformer_rnnt_bias(), frames of the timed bf16 steps.)
+def _v1(cfg):
+    cfg["encoder_conf"].update(input_layer="conv2d6",
+                               pos_enc_layer_type="rel_pos")
+    cfg["context_conf"].update(context_extractor="transformer",
+                               bias_encoder_type="transformer")
+    cfg["predictor"] = "embedding"
+    cfg["model_conf"]["rnnt_impl"] = "pruned"
+    cfg["decoder_conf"]["concat_after"] = True
+
+
+def _v2(cfg):
+    cfg["encoder"] = "transformer"
+    cfg["encoder_conf"].update(input_layer="conv2d8",
+                               pos_enc_layer_type="no_pos",
+                               concat_after=True)
+    cfg["context_conf"]["context_extractor"] = "LSTM"
+    cfg["predictor_conf"]["rnn_type"] = "gru"
+    cfg["model_conf"]["rnnt_impl"] = "streaming"
+
+
+def _v3(cfg):
+    cfg["encoder_conf"].update(input_layer="linear",
+                               pos_enc_layer_type="abs_pos")
+    cfg["predictor"] = "conv"
+    cfg["model_conf"]["rnnt_impl"] = "streaming"
+
+
+# A linear front end keeps every frame (T' = T): V3's steps take 256.
+VARIANTS = (("v1", _v1, 512), ("v2", _v2, 512), ("v3", _v3, 256))
+
+
+def variant_config(conformer_rnnt_bias, overrides):
+    def cfg():
+        c = conformer_rnnt_bias()
+        c["encoder_conf"].update(output_size=256, num_blocks=12)
+        c["output_dim"] = 5002
+        c["joint_conf"]["join_dim"] = 512
+        c["predictor_conf"]["embed_size"] = 256
+        overrides(c)
+        return c
+    return cfg
+
+
+def variant_want(cfg) -> dict:
+    """One training step's launches, derived from the config: K1 (and its
+    backward) once a pre-norm FFN block (two a macaron conformer layer,
+    one a transformer or decoder layer, one a block of the transformer
+    extractor's 3 and of the transformer bias encoder's ``num_block``);
+    the streaming loss one K2, K3 and K9; "pruned" one K9 (its simple
+    loss); K4 only for a 2-layer LSTM predictor."""
+    enc, dec = cfg["encoder_conf"], cfg["decoder_conf"]
+    ctx, pred = cfg["context_conf"], cfg["predictor_conf"]
+    k1 = enc["num_blocks"] * (2 if cfg.get("encoder") == "conformer" and
+                              enc.get("macaron_style", True) else 1)
+    k1 += dec["num_blocks"]
+    if cfg["model_conf"].get("reverse_weight", 0.0) > 0:
+        k1 += dec.get("r_num_blocks", 0)
+    k1 += 3 if ctx["context_extractor"] == "transformer" else 0
+    k1 += ctx["num_block"] if ctx["bias_encoder_type"] == "transformer" \
+        else 0
+    impl = cfg["model_conf"]["rnnt_impl"]
+    lstm = int(cfg.get("predictor", "rnn") == "rnn" and
+               pred.get("rnn_type", "lstm") == "lstm" and
+               pred.get("num_layers", 2) == 2)
+    stream = int(impl == "streaming")
+    return {**NO_LAUNCHES, "k1": k1, "k1_bwd": k1, "k2": stream,
+            "k3": stream, "k9": 1, "k4": lstm, "k4_bwd": lstm}
+
+
+def s1_word_batch(n: int):
+    """The first n of S1's WAVs with their transcripts as word ids (1..,
+    in sorted word order): a few labels an utterance, so that CTC can
+    align them after the x8 front end too."""
+    names, feats, lens = load_wavs()
+    text = dict(line.rstrip("\n").split(" ", 1) for line in
+                (WAV_DIR.parent / "text").read_text().splitlines())
+    words = sorted({w for t in text.values() for w in t.split()})
+    ids = {w: i + 1 for i, w in enumerate(words)}
+    labels = [[ids[w] for w in text[nm[:-4]].split()] for nm in names[:n]]
+    batch = pad_batch([f[:m] for f, m in zip(feats[:n], lens[:n])], labels)
+    return batch, set(ids.values())
+
+
+def phase_variant_kernels(ffn, rnnt) -> None:
+    """K1 in fp32 at the context towers' shapes (the transformer
+    extractor's D=256, F=1024 over 8 phrases x (4 + CLS) rows, relu; the
+    transformer bias encoder's F=512 over 10 phrase slots), forward and
+    backward against the plain version (K1_GRADS, phase_k1_bwd's fp32
+    rules); and K9 under the simple loss at V1's bf16 step shape (B=64,
+    T'=86, U1=33, V=5002): the loss and the gradients of am and lm (K9's
+    alpha and beta, the occupancy gradient) against autograd through the
+    plain alpha_scan, both on the card."""
+    for n, f in ((8 * 5, 1024), (10, 512)):
+        args, dy = k1_inputs(n, torch.float32, seed=n, f=f)
+        cfg = ("relu", 1.0, 1e-5, 0.0, 0.0, 0)
+        ins = [a.detach().requires_grad_(True) for a in args]
+        y = ffn.ln_ffn_residual(*ins, *cfg)
+        got = torch.autograd.grad(y, ins, dy)
+        want = (ffn.ln_ffn_residual_ref(*args, *cfg),
+                *ffn.backward_ref(args[0], dy, *args[1:], *cfg))
+        rows = relu_kink_free_rows(args)
+        errs, ok = {}, True
+        for name, a, b in zip(K1_GRADS, (y.detach(), *got), want):
+            err = a.float() - b.float()
+            rel = float(err.norm() / b.float().norm())
+            if name in ("y", "dx"):
+                bad = err.abs() > 1e-4 + 1e-4 * b.float().abs()
+                good = not bool((bad[rows] if name == "dx" else bad).any())
+            else:
+                good = rel <= 1e-2
+            errs[name] = {"max_abs": float(err.abs().max()), "rel_fro": rel,
+                          "ok": good}
+            ok = ok and good
+        check(ok, f"v_kernels k1 n={n} f={f}: {errs}")
+        emit("v_kernels", kernel="k1", n=n, d=256, f=f, dtype="float32",
+             ok=ok, errors=errs, tolerance="y, dx: max abs <= 1e-4 + "
+             "1e-4*|ref| (dx over rows away from relu's kink); weight "
+             "gradients relative Frobenius <= 1e-2")
+    g = torch.Generator().manual_seed(86)
+    b, t, u1, v = 64, 86, 33, 5002
+    am = (2 * torch.randn(b, t, v, generator=g)).cuda().requires_grad_()
+    lm = (2 * torch.randn(b, u1, v, generator=g)).cuda().requires_grad_()
+    labels = torch.randint(1, v, (b, u1 - 1), generator=g).cuda()
+    il = torch.randint(t // 2, t + 1, (b,), generator=g).cuda()
+    ll = torch.randint(0, u1, (b,), generator=g).cuda()
+    launches = rnnt.alpha_beta.launches
+    loss = rnnt.rnnt_loss_simple(am, lm, labels, il, ll)
+    got = torch.autograd.grad(loss.sum(), (am, lm))
+    k9 = rnnt.alpha_beta.launches - launches
+    blank_lp, emit_lp = rnnt.factored_planes(am, lm, labels, 0)
+    alpha = rnnt.alpha_scan(blank_lp, emit_lp)
+    rows = torch.arange(b, device="cuda")
+    ref = -(alpha[rows, il - 1, ll] + blank_lp[rows, il - 1, ll])
+    want = torch.autograd.grad(ref.sum(), (am, lm))
+    loss_rel = float(((loss - ref).abs() / ref.abs()).max().detach())
+    grads = {n: float((a - r).norm() / r.norm())
+             for n, a, r in zip(("am", "lm"), got, want)}
+    ok = loss_rel <= 1e-5 and max(grads.values()) <= 1e-3 and k9 == 1
+    check(ok, f"v_kernels k9 simple loss: loss rel {loss_rel}, grads "
+              f"{grads}, K9 launches {k9}")
+    emit("v_kernels", kernel="k9", use="rnnt_loss_simple", B=b, T=t, U1=u1,
+         V=v, ok=ok, loss_max_rel=loss_rel, grad_rel_fro=grads,
+         k9_launches=k9, tolerance="loss 1e-5 relative, gradients 1e-3 "
+         "relative Frobenius (T3's gradient bound) against autograd "
+         "through alpha_scan")
+    # The pruned lattice (plain torch, no kernel of its own) at V1's step:
+    # its window joint [B, T', S, V] in bf16, forward and backward.
+    s_range = 5
+    ranges = rnnt.get_rnnt_prune_ranges(am.detach(), lm.detach(), labels,
+                                        il, ll, s_range)
+    logits = (2 * torch.randn(b, t, s_range, v, generator=g)).to(
+        torch.bfloat16).cuda().requires_grad_()
+
+    def pruned():
+        loss = rnnt.rnnt_loss_pruned(logits, ranges, labels, il, ll)
+        return torch.autograd.grad(loss.sum(), logits)
+    ms = cuda_ms(pruned, iters=5, warmup=2)
+    prof, _ = device_profile(pruned, 1, 1)
+    busy, _ = device_busy(prof)
+    emit("v_kernels", what="rnnt_loss_pruned", B=b, T=t, S=s_range, V=v,
+         dtype="bfloat16", ms_fwd_bwd=ms, card_intervals=device_events(prof),
+         card_busy_ms=busy, idle_share=1.0 - busy / ms,
+         timing="CUDA events over 5 forward + backward calls; card "
+                "intervals and busy ms from one profiled call")
+
+
+def phase_variant(name, overrides, frames, init_model, conformer_rnnt_bias,
+                  train, Decoder) -> tuple:
+    """One of V1-V3 (see VARIANTS): one fp32 step on 4 of S1's WAVs with
+    hotwords and dropout 0, card against CPU with T3's bounds; two bf16
+    steps at B=64 x ``frames`` with dropout 0.1, the second timed; the
+    gated ("on") greedy and the RNN-T beam (beam 4) decodes of S1's 16
+    WAVs (blank bias +3.0, as S1), card against CPU by S1's flip rules.
+    Each
+    training run's launches against variant_want. Returns the bf16 run's
+    (launches, want) and what its profile needs."""
+    t0 = time.perf_counter()
+    cfg_fn = variant_config(conformer_rnnt_bias, overrides)
+    want = variant_want(cfg_fn())
+    impl = cfg_fn()["model_conf"]["rnnt_impl"]
+    cfg = no_dropout_rnnt(cfg_fn())
+    batch4, starts = s1_word_batch(4)
+    batch = with_hotwords(batch4, starts=starts)
+    model = init_model(cfg, seed=0)
+    start = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    reset_counts()
+    card = train.make_grad_fn(model)(train.TrainState(0, model, None),
+                                     on(batch, "cuda"), torch.Generator())
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches == want, f"{name} fp32 step: launches {launches}, want "
+                            f"{want}")
+    fields = card_vs_cpu(f"{name}_check", init_model, cfg, train, model,
+                         batch, card, start_state=start)
+    t_check = time.perf_counter() - t0
+    emit(f"{name}_check", dtype="float32", rnnt_impl=impl, dropout=0.0,
+         utterances=4, labels=batch["label_lengths"].tolist(),
+         phrases=int(batch["context_n_valid"]), **fields,
+         launches=launches, seconds=t_check,
+         tolerance="losses 1e-4 relative, gnorm 1e-4; each gradient 1e-3 "
+                   "relative Frobenius (floor 1e-6 * gnorm)")
+
+    _, feats, lens = load_wavs()
+    ctx, ctx_lens = hotwords(cfg["output_dim"])
+    with_blank_bias(model, SLICE_BLANK_BIAS)
+    cpu_model = init_model(cfg, device="cpu", seed=0)
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    dec, cpu_dec = Decoder(model), Decoder(cpu_model, device="cpu")
+    decodes = {}
+    reset_counts()
+    t1 = time.perf_counter()
+    g_card = decode(dec, feats, lens, ctx, ctx_lens, "gated_on")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    b_card, _, _ = dec.rnnt_beam_search(feats, lens, beam=4)
+    torch.cuda.synchronize()
+    decode_ms = {"gated_on": (t2 - t1) * 1e3,
+                 "rnnt_beam": (time.perf_counter() - t2) * 1e3}
+    decode_launches = read_counts()
+    trace: list = []
+    g_cpu = decode(cpu_dec, feats, lens, ctx, ctx_lens, "gated_on", trace)
+    b_cpu, _, _ = cpu_dec.rnnt_beam_search(feats, lens, beam=4)
+    for mode, (same, ties, bad), toks in (
+            ("gated_on", compare(g_card, g_cpu, trace), g_card[0]),
+            ("rnnt_beam", compare_nbest(dec.rnnt_beam_to_lists(b_card),
+                                        b_cpu), dec.rnnt_beam_to_lists(
+                                            b_card))):
+        check(not bad, f"{name} {mode}: card and CPU differ away from a "
+                       f"near tie: {bad}")
+        check(sum(map(len, toks)) > 0, f"{name} {mode}: no token emitted")
+        decodes[mode] = dict(identical_to_cpu=same, near_tie_flips=ties,
+                             tokens=sum(map(len, toks)),
+                             card_ms=decode_ms[mode])
+    del dec, cpu_dec, cpu_model, model
+
+    cfg_bf16 = variant_config(conformer_rnnt_bias, overrides)
+    run, launches = phase_rnnt_train(
+        init_model, cfg_bf16, train, b=64, t=frames, what=f"{name}_train",
+        impl=impl, want=want, steps=(1, 1), model_name=name)
+    emit(name, seconds=time.perf_counter() - t0, check_seconds=t_check,
+         decode_launches=decode_launches,
+         decodes=decodes, train_ms_per_step=run[-1], frames=frames,
+         blank_bias=SLICE_BLANK_BIAS, utterances_decoded=len(lens))
+    return (launches, want), run
 
 
 def phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train,
@@ -4485,21 +4758,26 @@ def train_cli_process(argv: list, result: Path, timeout_s: int = 400):
     return time.perf_counter() - t0, json.loads(result.read_text())
 
 
+# T12's epochs: one since PR 20 (two before), to keep the whole script
+# inside its time budget.
+T12_EPOCHS = 1
+
+
 def phase_train_cli(t12_dir: Path, t12) -> dict:
     """T12: the port's train CLI on the yaml flagship as it stands (bf16,
     batch_norm, dither 0.1, speed perturb, spec_aug, context mode 1,
     dynamic batches of 6000 frames, accum_grad 4) plus two loader
     processes and a record a batch: the 200 train-clean-100 WAVs, cv on
-    the 16 dev-clean WAVs, 2 epochs, --step_checkpoint_interval 1,
-    --profile_dir. One run, in a process of its own (``train_cli_process``:
-    its loader workers import no torch, as a user's do): its files, its
-    config, its records, its model's rnnt_impl and its launches against
-    the counts derived from its batches, its epochs' seconds and loader
-    start-up, and epoch 0's card busy time from the trace. Then
-    average_model --num 2 and the recognize CLI (rnnt_greedy_search) on
-    the average with the CLI's train.yaml. Returns the run's launches and
-    the derived counts. Its inputs (``t12_inputs``, in ``t12_dir``) are
-    D4's too."""
+    the 16 dev-clean WAVs, T12_EPOCHS epochs, --step_checkpoint_interval
+    1, --profile_dir. One run, in a process of its own
+    (``train_cli_process``: its loader workers import no torch, as a
+    user's do): its files, its config, its records, its model's rnnt_impl
+    and its launches against the counts derived from its batches, its
+    epochs' seconds and loader start-up, and epoch 0's card busy time
+    from the trace. Then average_model --num T12_EPOCHS and the recognize
+    CLI (rnnt_greedy_search) on the average with the CLI's train.yaml.
+    Returns the run's launches and the derived counts. Its inputs
+    (``t12_inputs``, in ``t12_dir``) are D4's too."""
     from wenet_celoss_tpu_torch.bin import average_model, recognize
     from wenet_celoss_tpu_torch.utils import checkpoint as ckpt
     from wenet_celoss_tpu_torch.utils.config import load_config
@@ -4509,13 +4787,15 @@ def phase_train_cli(t12_dir: Path, t12) -> dict:
         cfg = load_t12_config()
         out = tmp / "exp"
         argv = ["--config", str(tmp / "conf.yaml"), "--model_dir", str(out),
-                "--num_epochs", "2", "--step_checkpoint_interval", "1",
+                "--num_epochs", str(T12_EPOCHS),
+                "--step_checkpoint_interval", "1",
                 "--profile_dir", str(tmp / "prof")] + base
         torch.cuda.empty_cache()
         process_s, child = train_cli_process(argv, tmp / "child.json")
         launches = child["launches"]
         recs = read_records(out / "metrics.jsonl")
-        per_epoch = [sum(r["epoch"] == e for r in recs) for e in (0, 1)]
+        epochs = range(T12_EPOCHS)
+        per_epoch = [sum(r["epoch"] == e for r in recs) for e in epochs]
         want = {k: sum(per_epoch) * CLI_PER_BATCH[k]
                 + sum(child["cv_batches"]) * CLI_PER_CV_BATCH[k]
                 for k in NO_LAUNCHES}
@@ -4526,21 +4806,22 @@ def phase_train_cli(t12_dir: Path, t12) -> dict:
         schedule = warmup_lr(cfg["optim_conf"]["lr"],
                              cfg["scheduler_conf"]["warmup_steps"])
         infos = [ckpt.load_checkpoint_infos(str(out / f"{e}.pt"))
-                 for e in (0, 1)]
+                 for e in epochs]
         # A partial accumulation at an epoch's end is dropped.
         steps_by_epoch = [sum(n // cfg["accum_grad"]
-                              for n in per_epoch[:e + 1]) for e in (0, 1)]
+                              for n in per_epoch[:e + 1]) for e in epochs]
         for e, info in enumerate(infos):
             check((out / f"{e}.pt").exists() and info.get("epoch") == e
                   and info.get("step") == steps_by_epoch[e]
                   and np.isfinite(info.get("cv_loss", np.nan))
                   and info.get("lr") == schedule(max(info["step"], 1)),
                   f"train_cli: {e}.pt infos {info}")
-        check(os.readlink(out / "final.pt") == "1.pt",
-              "train_cli: final.pt does not link to 1.pt")
+        last = f"{T12_EPOCHS - 1}.pt"
+        check(os.readlink(out / "final.pt") == last,
+              f"train_cli: final.pt does not link to {last}")
         states = sorted(p.name for p in out.glob("step_*.state"))
         check(states == [f"step_{n}.state" for n in
-                         range(1, steps_by_epoch[1] + 1)] and states,
+                         range(1, steps_by_epoch[-1] + 1)] and states,
               f"train_cli: step files {states}")
         written = dict(cfg, input_dim=80, output_dim=5002,
                        cmvn_file=str(tmp / "global_cmvn"),
@@ -4552,13 +4833,14 @@ def phase_train_cli(t12_dir: Path, t12) -> dict:
                or not all(np.isfinite(r[k]) for k in LOSS_KEYS)]
         stepped = [r["batch"] for r in recs if "grad_norm" in r]
         check(len(recs) == sum(per_epoch) and not bad
-              and len(stepped) == steps_by_epoch[1],
+              and len(stepped) == steps_by_epoch[-1],
               f"train_cli: {len(recs)} records, bad {bad[:2]}, "
               f"{len(stepped)} with grad_norm")
 
         t1 = time.perf_counter()
         average_model.main(["--dst_model", str(out / "avg.pt"),
-                            "--src_path", str(out), "--num", "2"])
+                            "--src_path", str(out), "--num",
+                            str(T12_EPOCHS)])
         avg_from = ckpt.load_checkpoint_infos(str(out / "avg.pt")).get(
             "averaged_from", [])
         recognize.main(["--config", str(out / "train.yaml"), "--test_data",
@@ -4569,7 +4851,7 @@ def phase_train_cli(t12_dir: Path, t12) -> dict:
                         "rnnt_greedy_search", "--batch_size", "16"])
         lines = (tmp / "rec" / "text").read_text().splitlines()
         check(sorted(p.split()[0] for p in avg_from) ==
-              sorted(str(out / f"{e}.pt") for e in (0, 1)) and
+              sorted(str(out / f"{e}.pt") for e in epochs) and
               sorted(line.split(" ", 1)[0] for line in lines) ==
               sorted(cv_keys),
               f"train_cli: average of {avg_from}, {len(lines)} recognize "
@@ -4579,14 +4861,14 @@ def phase_train_cli(t12_dir: Path, t12) -> dict:
         epoch_s, startup_s = child["epoch_s"], child["startup_s"]
         busy_ms, intervals = trace_busy(tmp / "prof" / "trace.json")
         audio_s = [[r["audio_s_per_s"] for r in recs if r["epoch"] == e][-1]
-                   for e in (0, 1)]
+                   for e in epochs]
         emit("train_cli", model="conformer_rnnt_bias (yaml)",
              dtype=cfg["dtype"], rnnt_impl=child["rnnt_impl"],
              accum_grad=cfg["accum_grad"],
              loader_processes=2, train_wavs=200, cv_wavs=len(cv_keys),
              micro_batches_per_epoch=per_epoch,
              cv_batches_per_epoch=child["cv_batches"],
-             optimizer_steps=steps_by_epoch[1],
+             epochs=T12_EPOCHS, optimizer_steps=steps_by_epoch[-1],
              process_s=process_s, run_s=child["run_s"], epoch_s=epoch_s,
              cv_s=child["cv_s"], loader_startup_s=startup_s,
              cli_audio_s_per_s_last_record=audio_s,
@@ -6385,6 +6667,12 @@ def run_phases(work: Path, s3: dict, decoder_main: Path, name: str,
     pallas_profile, pallas = phase_rnnt_train(
         init_model, conformer_rnnt_bias, train, b=64,
         what="rnnt_pallas_train", impl="pallas", want=PALLAS_PER_STEP)
+    t_v = time.perf_counter()
+    phase_variant_kernels(ffn, rnnt_loss)
+    variant_runs = {v: phase_variant(v, overrides, frames, init_model,
+                                     conformer_rnnt_bias, train, Decoder)
+                    for v, overrides, frames in VARIANTS}
+    emit("variants", seconds=time.perf_counter() - t_v)
     postnorm_profile, t9 = phase_train(
         init_model, postnorm_aed(conformer_ctc_aed), train,
         what="postnorm_train", model_name="postnorm_transformer_aed",
@@ -6421,6 +6709,8 @@ def run_phases(work: Path, s3: dict, decoder_main: Path, name: str,
     phase_rnnt_profile(*lnmm_profile, mode="lnmm_train", env=LNMM)
     phase_rnnt_profile(*bn_profile, mode="bn_train")
     phase_rnnt_profile(*pallas_profile, mode="rnnt_pallas_train")
+    for v, (_, run) in variant_runs.items():
+        phase_train_profile(*run, mode=f"{v}_train")
     phase_k8_device(conv, bounds, k8, k8_bwd)
     phase_k8_causal_device(conv, bounds, k8, k8_bwd)
     phase_k6_k7_device(ffn, ln_matmul, (k6, k6_bwd), (k7, k7_bwd))
@@ -6439,6 +6729,7 @@ def run_phases(work: Path, s3: dict, decoder_main: Path, name: str,
              "serve_rnnt": (serve_rnnt, SERVE_KERNELS),
              "export": (export_run, SERVE_KERNELS),
              **{"decode_" + n: v for n, v in b3_paths.items()},
+             **{n + "_train": v[0] for n, v in variant_runs.items()},
              **{"dist_" + n: v for n, v in dist_paths.items()}}
     idle = {path: sorted(k for k, n in want.items()
                          if n > 0 and launches[k] == 0)

@@ -839,3 +839,62 @@ def test_conv_block_bf16_refuses_other_shapes_on_card():
                              1e-5)
     assert (conv.conv_block_residual.launches,
             conv.conv_block_residual.bwd_launches) == before
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_simple_loss_through_the_lattice_kernel_on_card(ragged):
+    """rnnt_loss_simple (the pruned loss's first half) with its lattice
+    through K9, one launch, against autograd through the plain alpha_scan
+    on the same card tensors: the loss within 1e-5 relative, the am and
+    lm gradients within 1e-3 relative Frobenius; the ranges of
+    rnnt_loss_simple_and_ranges equal to get_rnnt_prune_ranges'."""
+    g = torch.Generator().manual_seed(86)
+    b, t, u1, v = 8, 43, 17, 300
+    am = (2 * torch.randn(b, t, v, generator=g)).cuda().requires_grad_()
+    lm = (2 * torch.randn(b, u1, v, generator=g)).cuda().requires_grad_()
+    labels = torch.randint(1, v, (b, u1 - 1), generator=g).cuda()
+    il, ll = torch.full((b,), t).cuda(), torch.full((b,), u1 - 1).cuda()
+    if ragged:
+        il = torch.randint(1, t + 1, (b,), generator=g).cuda()
+        ll = torch.randint(0, u1, (b,), generator=g).cuda()
+    before = rnnt_loss.alpha_beta.launches
+    loss, ranges = rnnt_loss.rnnt_loss_simple_and_ranges(am, lm, labels, il,
+                                                         ll, 5)
+    got = torch.autograd.grad(loss.sum(), (am, lm))
+    assert rnnt_loss.alpha_beta.launches == before + 1
+    blank, emit = rnnt_loss.factored_planes(am, lm, labels, 0)
+    alpha = rnnt_loss.alpha_scan(blank, emit)
+    rows = torch.arange(b).cuda()
+    ref = -(alpha[rows, il - 1, ll] + blank[rows, il - 1, ll])
+    want = torch.autograd.grad(ref.sum(), (am, lm))
+    assert float(((loss - ref).abs() / ref.abs()).max()) <= 1e-5
+    for a, r in zip(got, want):
+        assert float((a - r).norm()) <= 1e-3 * float(r.norm())
+    assert torch.equal(ranges, rnnt_loss.get_rnnt_prune_ranges(
+        am.detach(), lm.detach(), labels, il, ll, 5))
+
+
+@pytest.mark.parametrize("n,f", [(8 * 5, 1024), (10, 512)])
+def test_k1_at_the_context_towers_shapes_on_card(n, f):
+    """K1 in fp32 at the transformer extractor's (F = 1024 over 8 phrases
+    of 4 tokens and a CLS) and the transformer bias encoder's (F = 512
+    over 10 phrase slots) rows, D = 256, relu: forward and every gradient
+    against autograd through the plain version."""
+    g = torch.Generator().manual_seed(n)
+    d = 256
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (mean + torch.randn(*shape, generator=g) * std).cuda()
+    args = [rnd(n, d), rnd(d, std=0.1, mean=1.0), rnd(d, std=0.1),
+            rnd(f, d, std=d ** -0.5), rnd(f, std=0.1),
+            rnd(d, f, std=f ** -0.5), rnd(d, std=0.1)]
+    dy = rnd(n, d)
+    ins = [a.requires_grad_() for a in args]
+    y = ffn.ln_ffn_residual(*ins, "relu")
+    got = torch.autograd.grad(y, ins, dy)
+    ref_ins = [a.detach().clone().requires_grad_() for a in args]
+    ref = ffn.ln_ffn_residual_ref(*ref_ins, "relu")
+    want = torch.autograd.grad(ref, ref_ins, dy)
+    assert float((y - ref).abs().max()) <= 1e-4
+    for a, r in zip(got, want):
+        assert float((a - r).norm()) <= 1e-4 * float(r.norm()) + 1e-6

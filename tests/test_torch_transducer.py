@@ -18,9 +18,9 @@ the JAX parameter tree, carried to the port by the weight bridge.
   phrase slot valid (no ``context_n_valid``);
 - the weight bridge maps each mode's tree whole;
 - the loss terms with ``rnnt_impl`` scan, fused and pallas (the
-  materialised joint; the JAX pallas loss in interpret mode) to 1e-5
-  relative, and every gradient through the pallas loss (K9's plain
-  version and the closed-form gradient) as above.
+  materialised joint; the JAX pallas loss in interpret mode) and pruned
+  to 1e-5 relative, and every gradient through the pallas loss (K9's
+  plain version and the closed-form gradient) as above.
 """
 
 import copy
@@ -79,7 +79,7 @@ def _pair(loss_mode="both", rnnt_impl="streaming"):
     loss implementation changes no weight)."""
     cfg = _cfg(loss_mode, rnnt_impl)
     jm = jax_init_model(cfg)
-    if rnnt_impl == "streaming":
+    if rnnt_impl in ("streaming", "pruned"):   # pruned adds two layers
         shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
                                 *init_example(cfg, frames=16, labels=2))
         variables = _fill(shapes, seed=0)
@@ -255,11 +255,25 @@ def test_bridge_maps_every_loss_mode_tree(loss_mode):
     assert ("hw_bias" in heads) == (loss_mode != "sep")
 
 
-def test_other_rnnt_impls_are_not_ported():
-    """``pruned`` is the one ``rnnt_impl`` of the JAX package not ported:
-    the factory refuses it, naming the roadmap."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        init_model(_cfg(rnnt_impl="pruned"), device="cpu")
+def test_pruned_rnnt_impl_builds_and_matches_jax():
+    """``rnnt_impl: "pruned"`` builds (with the simple loss's two
+    projections, which the weight bridge maps) and its loss terms match
+    the JAX package's through make_eval_fn (the simple loss's lattice
+    through K9's plain version, the pruned lattice in plain torch)."""
+    _, _, v, tm = _pair("both", "pruned")
+    assert tm.rnnt_impl == "pruned" and tm.prune_range == 5
+    assert {"simple_am_proj.weight", "simple_lm_proj.weight"} <= \
+        set(params_from_jax(v))
+    eval_fn = _jax_fns("both", "pruned")[3]
+    batch = _batch()
+    j_state = jax_train.TrainState(step=jnp.zeros((), jnp.int32),
+                                   params=v["params"], opt_state=None)
+    want = eval_fn(j_state, batch)
+    got = train.make_eval_fn(tm)(train.TrainState(0, tm, None),
+                                 _torch_batch(batch))
+    for k in LOSSES:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5,
+                                   err_msg=k)
 
 
 def test_fused_rnnt_loss_alias_selects_fused():

@@ -214,7 +214,8 @@ class Worker:
             model.predictor_step, model.joint_step,
             model.predictor_init_state(beam), enc[None],
             torch.tensor([t], device=self.device), beam=beam,
-            topk=min(beam, 10), blank=model.blank)
+            topk=min(beam, 10), blank=model.blank,
+            state_gather=model.predictor_gather_state)
         toks, lens, scores = (res[k][0].cpu() for k in
                               ("tokens", "lens", "scores"))
         return [([int(x) for x in toks[i, :lens[i]]], float(scores[i]))

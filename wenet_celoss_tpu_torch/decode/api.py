@@ -360,7 +360,7 @@ class Decoder:
             model.predictor_init_state(b * beam), enc_use, mask.sum(dim=1),
             beam=beam, topk=min(beam, 10), ctc_log_probs=ctc_lp,
             transducer_weight=transducer_weight, ctc_weight=ctc_weight,
-            blank=model.blank)
+            blank=model.blank, state_gather=model.predictor_gather_state)
         return res, enc_use, mask
 
     def rnnt_beam_to_lists(self, res) -> List[List[int]]:

@@ -5,7 +5,8 @@ Breadth-first over frames, at most one emission a frame, shallow fusion
 ``log(w_t e^logp_t + w_ctc e^ctc_t)``, prefix merging by the same
 hash-equality log-sum-exp as the CTC prefix beam, and a predictor state
 per hypothesis: a flat [B·N] predictor step on the parents' gathered
-states, kept only for the hypotheses that extended. The JAX package's
+states (gathered by the predictor's layout), kept only for the
+hypotheses that extended. The JAX package's
 ``lax.scan`` over frames is a Python loop here, with no host sync inside;
 every top-k orders ties by index, as ``jax.lax.top_k`` does.
 """
@@ -33,14 +34,18 @@ def rnnt_prefix_beam_search(predictor_step: Callable, joint_step: Callable,
                             ctc_log_probs: Optional[torch.Tensor] = None,
                             transducer_weight: float = 0.7,
                             ctc_weight: float = 0.3, blank: int = 0,
-                            u_max: int = 0) -> Dict[str, torch.Tensor]:
+                            u_max: int = 0, *, state_gather: Callable
+                            ) -> Dict[str, torch.Tensor]:
     """Run the search.
 
     predictor_step: (token [B·N], state, padding [B·N]) → (out, state).
     joint_step: (enc [B·N, E], pred [B·N, P]) → logits [B·N, V].
-    init_state: the RNN predictor's state for B·N rows, a dict of
-    [L, B·N, H] entries. encoder_out [B, T, E]; ctc_log_probs: [B, T, V]
-    to fuse, or None.
+    init_state: the predictor's state for B·N rows, a dict of tensors.
+    state_gather: (state, flat_idx [B·N]) → the state of those rows
+    (``Transducer.predictor_gather_state``: the RNN predictor's
+    [L, B·N, H] entries hold their rows on dim 1, the stateless
+    predictors' history on dim 0). encoder_out [B, T, E]; ctc_log_probs:
+    [B, T, V] to fuse, or None.
     Returns tokens [B, N, U], lens [B, N], scores [B, N], best first."""
     b, t_max, _ = encoder_out.shape
     dev = encoder_out.device
@@ -108,8 +113,7 @@ def rnnt_prefix_beam_search(predictor_step: Callable, joint_step: Callable,
         par_pred = pred_out[parent_flat]
         do = (sel_is_ext & valid_t).reshape(-1)
         new_pred, state = predictor_step(
-            sel_tok.reshape(-1),
-            {key: x[:, parent_flat] for key, x in state.items()},
+            sel_tok.reshape(-1), state_gather(state, parent_flat),
             (~do).long())
         keep = do[:, None].to(par_pred.dtype)
         pred_out = new_pred * keep + par_pred * (1 - keep)

@@ -1,8 +1,15 @@
 """Contextual biasing (hotwords) (port of
-``wenet_celoss_tpu/models/context_bias.py``: the BLSTM phrase extractor,
-the ``linear`` context encoder, the encoder/predictor bias branches with
-the optional ``n_valid`` key mask, and the hotword-presence heads of the
-three loss modes).
+``wenet_celoss_tpu/models/context_bias.py``: the BLSTM, LSTM and
+transformer phrase extractors, the ``linear`` and ``transformer`` context
+(bias) encoders, the encoder/predictor bias branches with the optional
+``n_valid`` key mask, and the hotword-presence heads of the three loss
+modes).
+
+The transformer extractor and the transformer bias encoder are the
+port's ``TransformerEncoder`` with a ``linear`` front end (absolute and no
+positional encoding), so each pre-norm FFN block of theirs is one K1
+launch on the card; both run without dropout, as the JAX package calls
+them (deterministic) whatever the step.
 
 The whole module runs in fp32 whatever the model's compute dtype, as the
 JAX package's does (its layers carry no dtype). The heads it holds depend
@@ -19,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from wenet_celoss_tpu_torch.models.attention import MultiHeadedAttention
+from wenet_celoss_tpu_torch.models.encoder import TransformerEncoder
 from wenet_celoss_tpu_torch.models.layers import (Dense, LayerNorm,
                                                   LSTMCellParams)
 from wenet_celoss_tpu_torch.utils.common import reverse_pad_list
@@ -71,6 +79,44 @@ class BLSTMExtractor(nn.Module):
         return torch.cat([h_f, h_b, c_f, c_b], dim=-1)
 
 
+class LSTMExtractor(nn.Module):
+    """[N, L] phrases → [N, 4e]: linear([h, c]) of a masked LSTM's last
+    layer."""
+
+    def __init__(self, vocab_size: int, hidden_dim: int, num_layers: int):
+        super().__init__()
+        self.embed = nn.Embedding(vocab_size, hidden_dim)
+        self.rnn = MaskedLSTM(hidden_dim, num_layers)
+        self.linear = Dense(2 * hidden_dim, 4 * hidden_dim)
+
+    def forward(self, phrases: torch.Tensor, lengths: torch.Tensor):
+        h, c = self.rnn(self.embed(phrases.clamp_min(0)), lengths)
+        return self.linear(torch.cat([h, c], dim=-1))
+
+
+class TransformerExtractor(nn.Module):
+    """[N, L] phrases → [N, 4e]: a CLS token (id 1) prepended, the -1
+    padding clamped to 0, a 3-block pre-norm transformer encoder (linear
+    front end, absolute encoding, 8 heads, F = 4e) over ``lengths + 1``
+    frames, and ``linear`` of the CLS position."""
+
+    def __init__(self, vocab_size: int, hidden_dim: int,
+                 num_layers: int = 3, attention_heads: int = 8):
+        super().__init__()
+        self.embed = nn.Embedding(vocab_size, hidden_dim)
+        self.encoder = TransformerEncoder(
+            hidden_dim, hidden_dim, attention_heads, 4 * hidden_dim,
+            num_layers, input_layer="linear", pos_enc_layer_type="abs_pos",
+            dropout_rate=0.1)
+        self.linear = Dense(hidden_dim, 4 * hidden_dim)
+
+    def forward(self, phrases: torch.Tensor, lengths: torch.Tensor):
+        cls = torch.ones_like(phrases[:, :1])
+        toks = torch.cat([cls, phrases.clamp_min(0)], dim=1)
+        out, _ = self.encoder(self.embed(toks), lengths + 1)
+        return self.linear(out[:, 0])
+
+
 class ContextBias(nn.Module):
 
     def __init__(self, output_size: int, vocab_size: int,
@@ -82,21 +128,36 @@ class ContextBias(nn.Module):
                  unified_hw_odim: int = 100, unified_hw_heads: int = 4,
                  loss_mode: str = "both"):
         # linear_units / num_block / dropout_rate configure the
-        # transformer context encoder, which is not ported.
+        # transformer bias encoder (its dropout never runs: the JAX
+        # package calls it deterministic).
         super().__init__()
-        if context_extractor != "BLSTM" or bias_encoder_type != "linear":
-            raise NotImplementedError(
-                f"context_extractor={context_extractor!r}, "
-                f"bias_encoder_type={bias_encoder_type!r}: only BLSTM + "
-                "linear are ported")
+        if context_extractor not in ("BLSTM", "LSTM", "transformer"):
+            raise ValueError(f"unknown context_extractor "
+                             f"{context_extractor!r}")
+        if bias_encoder_type not in ("linear", "transformer"):
+            raise ValueError(f"unknown bias_encoder_type "
+                             f"{bias_encoder_type!r}")
         if loss_mode not in ("both", "pred", "sep"):
             raise ValueError(f"unknown loss_mode {loss_mode!r}")
         # Registration order is the order in which the factory draws the
         # seeded weights; ``both`` keeps the decode model's order.
         e = embedding_size
-        self.extractor = BLSTMExtractor(vocab_size, e, num_layers)
-        self.context_proj = Dense(4 * e, e)
-        self.context_norm = LayerNorm(e)
+        if context_extractor == "transformer":
+            self.extractor = TransformerExtractor(vocab_size, e)
+        elif context_extractor == "LSTM":
+            self.extractor = LSTMExtractor(vocab_size, e, num_layers)
+        else:
+            self.extractor = BLSTMExtractor(vocab_size, e, num_layers)
+        if bias_encoder_type == "transformer":
+            self.context_encoder = TransformerEncoder(
+                4 * e, e, attention_heads, linear_units, num_block,
+                input_layer="linear", pos_enc_layer_type="no_pos",
+                dropout_rate=dropout_rate, positional_dropout_rate=0.0,
+                attention_dropout_rate=0.0)
+        else:
+            self.context_encoder = None
+            self.context_proj = Dense(4 * e, e)
+            self.context_norm = LayerNorm(e)
         self.encoder_bias = MultiHeadedAttention(attention_heads, e)
         self.predictor_bias = MultiHeadedAttention(attention_heads, e)
         if loss_mode != "sep":
@@ -121,10 +182,19 @@ class ContextBias(nn.Module):
             self.hw_pred_proj = Dense(e, unified_hw_odim)
 
     def forward_bias_hidden(self, context_list: torch.Tensor,
-                            context_lengths: torch.Tensor) -> torch.Tensor:
-        """[N, L] phrase ids (-1 padded) + [N] lengths → [1, N, e]."""
+                            context_lengths: torch.Tensor,
+                            n_valid=None) -> torch.Tensor:
+        """[N, L] phrase ids (-1 padded) + [N] lengths → [1, N, e]. The
+        transformer bias encoder attends over the first ``n_valid``
+        phrases (all N without it); the linear one reads each alone."""
         vec = self.extractor(context_list, context_lengths)
-        return self.context_norm(self.context_proj(vec))[None]
+        if self.context_encoder is None:
+            return self.context_norm(self.context_proj(vec))[None]
+        n = context_list.shape[0]
+        lens = (torch.as_tensor(n_valid, device=vec.device).reshape(1)
+                if n_valid is not None
+                else torch.full((1,), n, device=vec.device))
+        return self.context_encoder(vec[None], lens)[0]
 
     def _cross_bias(self, attn, stream, bias_hidden, n_valid=None):
         """Cross-attention of ``stream`` over the phrases; with ``n_valid``

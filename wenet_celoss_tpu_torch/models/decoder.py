@@ -4,8 +4,10 @@ decoder and the bidirectional (U2++) wrapper with its right-to-left
 decoder. Pre-norm layers (``normalize_before``): each FFN block is one
 launch of the K1 kernel (relu, ff_scale 1), and the self-attention's
 pre-norm and QKV projection one launch of K7 when ``LNMM_PALLAS`` routes
-"attn". Post-norm layers: each FFN is one launch of K6, and no
-``after_norm`` exists. ``forward_one_step`` is the attention beam
+"attn" (never under ``concat_after``, as in the JAX package). Post-norm
+layers: each FFN is one launch of K6, and no ``after_norm`` exists.
+Without ``use_output_layer`` a decoder returns its normalised hidden
+states. ``forward_one_step`` is the attention beam
 search's step. Dropout runs when the caller passes a generator
 (training).
 """
@@ -30,13 +32,18 @@ from wenet_celoss_tpu_torch.utils.mask import (make_non_pad_mask,
 
 class DecoderLayer(nn.Module):
     """Self-attention → cross-attention → FFN, each with a residual, pre-norm
-    or post-norm (``normalize_before``)."""
+    or post-norm (``normalize_before``). With ``concat_after`` each
+    attention's output is ``concat_linear{1,2}([x, att])`` (x the
+    attention's input; linears without a compute dtype, as in the JAX
+    package), and the self-attention's pre-norm is never fused into its
+    projection (K7), as the JAX package fuses it only without
+    concat_after."""
 
     def __init__(self, size: int, attention_heads: int, linear_units: int,
                  dropout_rate: float = 0.1,
                  self_attention_dropout_rate: float = 0.0,
                  src_attention_dropout_rate: float = 0.0,
-                 normalize_before: bool = True,
+                 normalize_before: bool = True, concat_after: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout_rate = dropout_rate
@@ -50,23 +57,36 @@ class DecoderLayer(nn.Module):
         self.norm1 = LayerNorm(size, dtype=dtype)
         self.norm2 = LayerNorm(size, dtype=dtype)
         self.norm3 = LayerNorm(size, dtype=dtype)
+        self.concat_linear1 = self.concat_linear2 = None
+        if concat_after:
+            self.concat_linear1 = Dense(2 * size, size)
+            self.concat_linear2 = Dense(2 * size, size)
 
     def forward(self, tgt, tgt_mask, memory, memory_mask, gen=None):
         """tgt [B, U, D]; tgt_mask [B, U, U] bool; memory [B, T, D];
         memory_mask [B, 1, T] bool."""
         def drop(h):
             return dropout(h, self.dropout_rate, gen)
-        if self.normalize_before:
+        pre = self.normalize_before
+        if pre and self.concat_linear1 is None:
             x = tgt + drop(self.self_attn(tgt, tgt, tgt, tgt_mask, gen=gen,
                                           ln=self.norm1))
-            xn = self.norm2(x)
-            x = x + drop(self.src_attn(xn, memory, memory, memory_mask,
-                                       gen=gen))
+        else:
+            xn = self.norm1(tgt) if pre else tgt
+            sa = self.self_attn(xn, xn, xn, tgt_mask, gen=gen)
+            if self.concat_linear1 is not None:
+                sa = self.concat_linear1(torch.cat([xn, sa], dim=-1))
+            x = tgt + drop(sa)
+            if not pre:
+                x = self.norm1(x)
+        xn = self.norm2(x) if pre else x
+        ca = self.src_attn(xn, memory, memory, memory_mask, gen=gen)
+        if self.concat_linear2 is not None:
+            ca = self.concat_linear2(torch.cat([xn, ca], dim=-1))
+        x = x + drop(ca)
+        if pre:
             return self.feed_forward(x, ln=self.norm3, ff_scale=1.0, gen=gen)
-        x = self.norm1(tgt + drop(self.self_attn(tgt, tgt, tgt, tgt_mask,
-                                                 gen=gen)))
-        x = self.norm2(x + drop(self.src_attn(x, memory, memory, memory_mask,
-                                              gen=gen)))
+        x = self.norm2(x)
         return self.norm3(x + drop(self.feed_forward(x, gen=gen)))
 
 
@@ -78,7 +98,8 @@ class TransformerDecoder(nn.Module):
                  positional_dropout_rate: float = 0.1,
                  self_attention_dropout_rate: float = 0.0,
                  src_attention_dropout_rate: float = 0.0,
-                 normalize_before: bool = True,
+                 use_output_layer: bool = True,
+                 normalize_before: bool = True, concat_after: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         d = encoder_output_size
@@ -87,10 +108,17 @@ class TransformerDecoder(nn.Module):
         self.decoders = nn.ModuleList([DecoderLayer(
             d, attention_heads, linear_units, dropout_rate,
             self_attention_dropout_rate, src_attention_dropout_rate,
-            normalize_before, dtype=dtype) for _ in range(num_blocks)])
+            normalize_before, concat_after, dtype=dtype)
+            for _ in range(num_blocks)])
         self.after_norm = (LayerNorm(d, dtype=dtype) if normalize_before
                            else None)
-        self.output_layer = Dense(d, vocab_size, dtype=dtype)
+        self.output_layer = (Dense(d, vocab_size, dtype=dtype)
+                             if use_output_layer else None)
+
+    def _output(self, x: torch.Tensor) -> torch.Tensor:
+        if self.after_norm is not None:
+            x = self.after_norm(x)
+        return x if self.output_layer is None else self.output_layer(x)
 
     def forward(self, memory, memory_pad_mask, ys_in_pad, ys_in_lens,
                 gen=None):
@@ -104,9 +132,7 @@ class TransformerDecoder(nn.Module):
         mem_mask = memory_pad_mask[:, None, :]
         for layer in self.decoders:
             x = layer(x, tgt_mask, memory, mem_mask, gen)
-        if self.after_norm is not None:
-            x = self.after_norm(x)
-        return self.output_layer(x)
+        return self._output(x)
 
     def forward_one_step(self, memory, memory_pad_mask, ys_buffer,
                          pos: int) -> torch.Tensor:
@@ -125,10 +151,7 @@ class TransformerDecoder(nn.Module):
         mem_mask = memory_pad_mask[:, None, :]
         for layer in self.decoders:
             x = layer(x, tgt_mask, memory, mem_mask)
-        x = x[:, pos]
-        if self.after_norm is not None:
-            x = self.after_norm(x)
-        logits = self.output_layer(x)
+        logits = self._output(x[:, pos])
         return torch.log_softmax(logits.to(acc_dtype(logits.dtype)), dim=-1)
 
 
@@ -143,7 +166,8 @@ class BiTransformerDecoder(nn.Module):
                  positional_dropout_rate: float = 0.1,
                  self_attention_dropout_rate: float = 0.0,
                  src_attention_dropout_rate: float = 0.0,
-                 normalize_before: bool = True,
+                 use_output_layer: bool = True,
+                 normalize_before: bool = True, concat_after: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         kw = dict(vocab_size=vocab_size,
@@ -153,7 +177,9 @@ class BiTransformerDecoder(nn.Module):
                   positional_dropout_rate=positional_dropout_rate,
                   self_attention_dropout_rate=self_attention_dropout_rate,
                   src_attention_dropout_rate=src_attention_dropout_rate,
-                  normalize_before=normalize_before, dtype=dtype)
+                  use_output_layer=use_output_layer,
+                  normalize_before=normalize_before,
+                  concat_after=concat_after, dtype=dtype)
         self.left_decoder = TransformerDecoder(num_blocks=num_blocks, **kw)
         self.right_decoder = (TransformerDecoder(num_blocks=r_num_blocks,
                                                  **kw)

@@ -1,7 +1,7 @@
-"""Positional encodings (port of ``wenet_celoss_tpu/models/embedding.py``),
-with their dropout when the caller passes a generator (training), and the
-streaming ``offset``: a chunk's table continues from the frames before it
-(``pos_emb(offset, size)``)."""
+"""Positional encodings (port of ``wenet_celoss_tpu/models/embedding.py``:
+relative, absolute and none), with their dropout when the caller passes a
+generator (training), and the streaming ``offset``: a chunk's table
+continues from the frames before it (``pos_emb(offset, size)``)."""
 
 from __future__ import annotations
 
@@ -57,3 +57,19 @@ class PositionalEncoding(RelPositionalEncoding):
         pe = self.pos_emb(offset, x.shape[1], x.device).to(x.dtype)
         x = x * torch.tensor(self.d_model ** 0.5, dtype=x.dtype) + pe
         return dropout(x, self.dropout_rate, gen), pe
+
+
+class NoPositionalEncoding(RelPositionalEncoding):
+    """No encoding: ``dropout(x)`` (no sqrt(d) scale) and a zero table."""
+
+    def pos_emb(self, offset: int, size: int, device=None) -> torch.Tensor:
+        return torch.zeros(1, size, self.d_model, device=device)
+
+    def forward(self, x: torch.Tensor, gen=None, offset: int = 0):
+        pe = self.pos_emb(offset, x.shape[1], x.device).to(x.dtype)
+        return dropout(x, self.dropout_rate, gen), pe
+
+
+POS_ENC_CLASSES = {"abs_pos": PositionalEncoding,
+                   "rel_pos": RelPositionalEncoding,
+                   "no_pos": NoPositionalEncoding}

@@ -22,28 +22,29 @@ import torch.nn as nn
 
 from wenet_celoss_tpu_torch.models.attention import NEG_INF
 from wenet_celoss_tpu_torch.models.cmvn import apply_cmvn
-from wenet_celoss_tpu_torch.models.embedding import (PositionalEncoding,
-                                                     RelPositionalEncoding)
+from wenet_celoss_tpu_torch.models.embedding import POS_ENC_CLASSES
 from wenet_celoss_tpu_torch.models.encoder_layer import (
     ConformerEncoderLayer, TransformerEncoderLayer)
 from wenet_celoss_tpu_torch.models.layers import LayerNorm
-from wenet_celoss_tpu_torch.models.subsampling import Conv2dSubsampling4
+from wenet_celoss_tpu_torch.models.subsampling import SUBSAMPLE_CLASSES
 from wenet_celoss_tpu_torch.utils.mask import (add_optional_chunk_mask,
                                                make_non_pad_mask)
 
 
 class TransformerEncoder(nn.Module):
-    """conv2d subsampling with the absolute positional encoding, then
-    ``num_blocks`` transformer layers. ``after_norm`` exists and runs only
-    with ``normalize_before``, as in the JAX package, whose post-norm tree
-    has no after_norm parameters."""
-    pos_enc_layer_type = "abs_pos"
+    """A subsampling front end (``input_layer``: linear, conv2d, conv2d6
+    or conv2d8) with its positional encoding (``pos_enc_layer_type``:
+    abs_pos, rel_pos or no_pos; abs_pos by default, as in the JAX
+    package, whichever the encoder), then ``num_blocks`` transformer
+    layers. ``after_norm`` exists and runs only with ``normalize_before``,
+    as in the JAX package, whose post-norm tree has no after_norm
+    parameters."""
 
     def __init__(self, input_size: int, output_size: int = 256,
                  attention_heads: int = 4, linear_units: int = 2048,
                  num_blocks: int = 6, input_layer: str = "conv2d",
-                 pos_enc_layer_type: Optional[str] = None,
-                 normalize_before: bool = True,
+                 pos_enc_layer_type: str = "abs_pos",
+                 normalize_before: bool = True, concat_after: bool = False,
                  cmvn: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                  dtype: Optional[torch.dtype] = None,
                  dropout_rate: float = 0.1,
@@ -53,12 +54,11 @@ class TransformerEncoder(nn.Module):
                  use_dynamic_chunk: bool = False,
                  use_dynamic_left_chunk: bool = False, **layer_conf):
         super().__init__()
-        pos_enc = pos_enc_layer_type or self.pos_enc_layer_type
-        if input_layer != "conv2d" or pos_enc != self.pos_enc_layer_type:
-            raise NotImplementedError(
-                f"input_layer={input_layer!r}, pos_enc_layer_type="
-                f"{pos_enc!r}: only conv2d + {self.pos_enc_layer_type} are "
-                f"ported for {type(self).__name__}")
+        if input_layer not in SUBSAMPLE_CLASSES:
+            raise ValueError(f"unknown input_layer {input_layer!r}")
+        if pos_enc_layer_type not in POS_ENC_CLASSES:
+            raise ValueError(f"unknown pos_enc_layer_type "
+                             f"{pos_enc_layer_type!r}")
         self.input_layer = input_layer
         self.compute_dtype = dtype
         self.output_size = output_size
@@ -67,17 +67,18 @@ class TransformerEncoder(nn.Module):
         self.static_chunk_size = static_chunk_size
         self.use_dynamic_chunk = use_dynamic_chunk
         self.use_dynamic_left_chunk = use_dynamic_left_chunk
-        enc = (RelPositionalEncoding if pos_enc == "rel_pos"
-               else PositionalEncoding)
-        self.embed = Conv2dSubsampling4(
-            input_size, output_size, enc(output_size,
-                                         positional_dropout_rate),
-            dtype=dtype)
+        self.embed = SUBSAMPLE_CLASSES[input_layer](
+            input_size, output_size,
+            POS_ENC_CLASSES[pos_enc_layer_type](output_size,
+                                                positional_dropout_rate),
+            dropout_rate, dtype=dtype)
         self.layers = nn.ModuleList([
             self._layer(output_size, attention_heads, linear_units,
                         dropout_rate=dropout_rate,
                         attention_dropout_rate=attention_dropout_rate,
-                        normalize_before=normalize_before, dtype=dtype,
+                        normalize_before=normalize_before,
+                        concat_after=concat_after,
+                        pos_enc_layer_type=pos_enc_layer_type, dtype=dtype,
                         **layer_conf)
             for _ in range(num_blocks)])
         self.after_norm = (LayerNorm(output_size, dtype=dtype)
@@ -91,7 +92,9 @@ class TransformerEncoder(nn.Module):
             self.cmvn_mean = self.cmvn_istd = None
 
     @staticmethod
-    def _layer(*args, **kw) -> nn.Module:
+    def _layer(*args, pos_enc_layer_type: str, **kw) -> nn.Module:
+        # The transformer layer's attention is plain MHA whatever the
+        # encoding, as in the JAX package.
         return TransformerEncoderLayer(*args, **kw)
 
     @property
@@ -212,18 +215,23 @@ class TransformerEncoder(nn.Module):
 
 
 class ConformerEncoder(TransformerEncoder):
-    """conv2d subsampling with the rel-pos encoding, then ``num_blocks``
-    conformer layers. The layers are pre-norm whatever
-    ``normalize_before`` says (the JAX package's conformer layer does not
-    read it); it decides only whether ``after_norm`` exists and runs."""
-    pos_enc_layer_type = "rel_pos"
+    """A front end and encoding as the transformer's, then
+    ``num_blocks`` conformer layers, whose self-attention is the rel-pos
+    one under ``rel_pos`` and plain MHA otherwise. The layers are
+    pre-norm whatever ``normalize_before`` says (the JAX package's
+    conformer layer does not read it); it decides only whether
+    ``after_norm`` exists and runs. ``concat_after``,
+    ``selfattention_layer_type`` and ``positionwise_conv_kernel_size``
+    are accepted and not read, as in the JAX package."""
 
     def __init__(self, input_size: int, output_size: int = 256,
                  attention_heads: int = 4, linear_units: int = 2048,
                  num_blocks: int = 6, macaron_style: bool = True,
                  activation_type: str = "swish", use_cnn_module: bool = True,
                  cnn_module_kernel: int = 15, causal: bool = False,
-                 cnn_module_norm: str = "batch_norm", **kw):
+                 cnn_module_norm: str = "batch_norm",
+                 selfattention_layer_type: str = "rel_selfattn",
+                 positionwise_conv_kernel_size: int = 1, **kw):
         super().__init__(
             input_size, output_size, attention_heads, linear_units,
             num_blocks, macaron_style=macaron_style,
@@ -235,7 +243,8 @@ class ConformerEncoder(TransformerEncoder):
         self.cnn_module_kernel = cnn_module_kernel
 
     @staticmethod
-    def _layer(*args, normalize_before: bool, **kw) -> nn.Module:
+    def _layer(*args, normalize_before: bool, concat_after: bool,
+               **kw) -> nn.Module:
         return ConformerEncoderLayer(*args, **kw)
 
     @property

@@ -89,12 +89,15 @@ class TransformerEncoderLayer(nn.Module):
     (``normalize_before``): LN → attention, and the FFN block as one K1
     call. Post-norm: the residual sums are normalised after each sublayer,
     and the FFN is one K6 call with the outer dropout (stream 0) after
-    it."""
+    it. With ``concat_after`` the attention's output is
+    ``concat_linear([x, att])`` (x the attention's input), a linear
+    without a compute dtype, as in the JAX package; its streaming step
+    adds the attention's output alone, as the JAX package's does."""
 
     def __init__(self, size: int, attention_heads: int, linear_units: int,
                  dropout_rate: float = 0.1,
                  attention_dropout_rate: float = 0.0,
-                 normalize_before: bool = True,
+                 normalize_before: bool = True, concat_after: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout_rate = dropout_rate
@@ -105,6 +108,8 @@ class TransformerEncoderLayer(nn.Module):
             size, linear_units, "relu", dropout_rate, dtype=dtype)
         self.norm1 = LayerNorm(size, dtype=dtype)
         self.norm2 = LayerNorm(size, dtype=dtype)
+        self.concat_linear = (Dense(2 * size, size) if concat_after
+                              else None)
 
     def forward(self, x: torch.Tensor, att_bias: torch.Tensor,
                 pos_emb: torch.Tensor,
@@ -114,11 +119,14 @@ class TransformerEncoderLayer(nn.Module):
         read (the absolute encoding is added before the first layer)."""
         def drop(h):
             return dropout(h, self.dropout_rate, gen)
+        xn = self.norm1(x) if self.normalize_before else x
+        att = self.self_attn(xn, xn, xn, att_bias, gen=gen)
+        if self.concat_linear is not None:
+            att = self.concat_linear(torch.cat([xn, att], dim=-1))
+        x = x + drop(att)
         if self.normalize_before:
-            xn = self.norm1(x)
-            x = x + drop(self.self_attn(xn, xn, xn, att_bias, gen=gen))
             return self.feed_forward(x, ln=self.norm2, gen=gen)
-        x = self.norm1(x + drop(self.self_attn(x, x, x, att_bias, gen=gen)))
+        x = self.norm1(x)
         return self.norm2(x + drop(self.feed_forward(x, gen=gen)))
 
     def forward_with_cache(self, x: torch.Tensor, att_cache: torch.Tensor,
@@ -147,11 +155,15 @@ class ConformerEncoderLayer(nn.Module):
                  cnn_module_norm: str = "batch_norm", causal: bool = False,
                  activation: str = "swish", dropout_rate: float = 0.1,
                  attention_dropout_rate: float = 0.0,
+                 pos_enc_layer_type: str = "rel_pos",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout_rate = dropout_rate
-        self.self_attn = RelPositionMultiHeadedAttention(
-            attention_heads, size, attention_dropout_rate, dtype=dtype)
+        # The rel-pos attention under rel_pos, plain MHA otherwise.
+        attn = (RelPositionMultiHeadedAttention
+                if pos_enc_layer_type == "rel_pos" else MultiHeadedAttention)
+        self.self_attn = attn(attention_heads, size, attention_dropout_rate,
+                              dtype=dtype)
         self.feed_forward = PositionwiseFeedForward(
             size, linear_units, activation, dropout_rate, dtype=dtype)
         self.feed_forward_macaron = None

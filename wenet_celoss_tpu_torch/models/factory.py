@@ -1,11 +1,15 @@
 """Model factory (port of ``wenet_celoss_tpu/models/factory.py``).
 
 ``init_model(cfg)`` builds, from the same config dicts as the JAX package,
-the hybrid CTC/attention ``ASRModel`` (no ``predictor`` in the config) or
-the RNN-T ``Transducer`` with context bias; both carry the encoder
-(conformer, or transformer pre- or post-norm), the bidirectional attention
-decoder and the CTC head, so a JAX weight tree maps onto either whole. It initialises the weights from a
-seeded ``torch.Generator`` and puts the model on the card.
+every model the JAX factory builds: the hybrid CTC/attention ``ASRModel``
+(no ``predictor`` in the config) or the RNN-T ``Transducer`` (an RNN,
+embedding or conv predictor; ``rnnt_impl`` streaming, scan, fused, pallas
+or pruned) with or without context bias (a BLSTM, LSTM or transformer
+phrase extractor; a linear or transformer bias encoder); both carry the
+encoder (conformer or transformer, pre- or post-norm, any front end and
+positional encoding, ``concat_after``), the attention decoder and the CTC
+head, so a JAX weight tree maps onto either whole. It initialises the
+weights from a seeded ``torch.Generator`` and puts the model on the card.
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ from wenet_celoss_tpu_torch.models.decoder import BiTransformerDecoder
 from wenet_celoss_tpu_torch.models.encoder import (ConformerEncoder,
                                                    TransformerEncoder)
 from wenet_celoss_tpu_torch.models.joint import TransducerJoint
-from wenet_celoss_tpu_torch.models.layers import LayerNorm, LSTMCellParams
-from wenet_celoss_tpu_torch.models.predictor import RNNPredictor
+from wenet_celoss_tpu_torch.models.layers import (GRUCellParams, LayerNorm,
+                                                  LSTMCellParams)
+from wenet_celoss_tpu_torch.models.predictor import (EmbeddingPredictor,
+                                                     PREDICTOR_CLASSES)
 from wenet_celoss_tpu_torch.models.transducer import Transducer
 
 _DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
@@ -96,21 +102,27 @@ def build_model(cfg: Dict[str, Any]) -> Model:
             lsm_weight=model_conf.get("lsm_weight", 0.1),
             length_normalized_loss=model_conf.get("length_normalized_loss",
                                                   False))
-    if cfg.get("predictor", "rnn") != "rnn":
-        raise NotImplementedError("only the RNN predictor is ported")
     model_conf = cfg.get("model_conf", {})
     # fused_rnnt_loss is the JAX package's alias of rnnt_impl "fused".
     rnnt_impl = ("fused" if model_conf.get("fused_rnnt_loss", False)
                  else model_conf.get("rnnt_impl", "scan"))
-    if rnnt_impl == "pruned":
-        raise NotImplementedError("rnnt_impl 'pruned' is not ported (see "
-                                  "ROADMAP.md)")
+    pred_type = cfg.get("predictor", "rnn")
     pred_conf = dict(cfg.get("predictor_conf", {}))
-    predictor = RNNPredictor(voca_size=vocab, dtype=dtype, **pred_conf)
+    if pred_type == "rnn":
+        pred_out = pred_conf.get("output_size", enc_out)
+        pred_conf["dtype"] = dtype
+    else:
+        # The stateless predictors drop the RNN's keys, and their output
+        # is the embedding, as in the JAX factory.
+        for k in ("output_size", "hidden_size", "num_layers", "rnn_type",
+                  "dropout"):
+            pred_conf.pop(k, None)
+        pred_out = pred_conf.get("embed_size", enc_out)
+    predictor = PREDICTOR_CLASSES[pred_type](voca_size=vocab, **pred_conf)
     joint = TransducerJoint(
         voca_size=vocab, enc_output_size=enc_out,
-        pred_output_size=pred_conf.get("output_size", enc_out),
-        dtype=dtype, **cfg.get("joint_conf", {}))
+        pred_output_size=pred_out, dtype=dtype,
+        **cfg.get("joint_conf", {}))
     context_bias = None
     if cfg.get("context", "nobias") != "nobias":
         ctx_conf = dict(cfg.get("context_conf", {}))
@@ -132,6 +144,8 @@ def build_model(cfg: Dict[str, Any]) -> Model:
         hw_weight=model_conf.get("hw_weight", 0.4),
         loss_mode=model_conf.get("loss_mode", "both"),
         rnnt_impl=rnnt_impl,
+        prune_range=model_conf.get("prune_range", 5),
+        simple_loss_scale=model_conf.get("simple_loss_scale", 0.5),
         lsm_weight=model_conf.get("lsm_weight", 0.0),
         reverse_weight=model_conf.get("reverse_weight", 0.0),
         length_normalized_loss=model_conf.get("length_normalized_loss",
@@ -153,20 +167,28 @@ def init_params(model: nn.Module, seed: int = 0) -> None:
     generator, with the JAX package's initialiser families: lecun-normal
     scale (std 1/sqrt(fan_in)) for dense and conv kernels, zero biases,
     unit norms, std 1/sqrt(vocab) embeddings, orthogonal per-gate
-    recurrent kernels, xavier-uniform rel-pos biases."""
+    recurrent kernels (LSTM and GRU), xavier-uniform rel-pos biases."""
     g = torch.Generator().manual_seed(seed)
-    lstm_parts = {id(m) for cell in model.modules()
-                  if isinstance(cell, LSTMCellParams)
-                  for m in cell.children()}
+    cells = (LSTMCellParams, GRUCellParams)
+    cell_parts = {id(m) for cell in model.modules()
+                  if isinstance(cell, cells) for m in cell.children()}
     for mod in model.modules():
-        if id(mod) in lstm_parts:
+        if id(mod) in cell_parts:
             continue
-        if isinstance(mod, LSTMCellParams):
+        if isinstance(mod, cells):
             w = mod.wi.weight
             w.copy_(_normal(w.shape, 1.0 / math.sqrt(w.shape[1]), g))
+            gates = w.shape[0] // mod.hidden
             mod.wh.weight.copy_(torch.cat([_orthogonal(mod.hidden, g)
-                                           for _ in range(4)]))
-            mod.wh.bias.zero_()
+                                           for _ in range(gates)]))
+            for b in (mod.wi.bias, mod.wh.bias, getattr(mod, "bhn", None)):
+                if b is not None:
+                    b.zero_()
+        elif isinstance(mod, EmbeddingPredictor):
+            # flax's lecun_normal over [n_head, C, E]: fan_in n_head * C.
+            p = mod.pos_embed
+            p.copy_(_normal(p.shape, 1.0 / math.sqrt(p.shape[0]
+                                                     * p.shape[1]), g))
         elif isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             # weight[0] spans the fan-in: in, or I*KH*KW, or K (depthwise).
             fan_in = mod.weight[0].numel()

@@ -1,8 +1,9 @@
 """Transducer joint network (port of ``wenet_celoss_tpu/models/joint.py``:
 ``project_enc``, ``frames`` and ``single`` for decoding; ``project`` and
 ``output_params`` for the streaming loss, which applies the output layer
-itself (``ops/rnnt_loss.py``); and the materialised ``forward``, which
-the losses of ``rnnt_impl`` scan, fused and pallas take)."""
+itself (``ops/rnnt_loss.py``); the materialised ``forward``, which the
+losses of ``rnnt_impl`` scan, fused and pallas take; and ``pruned``, the
+joint of the pruned loss's windows)."""
 
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ class TransducerJoint(nn.Module):
                 enc_output_size == pred_output_size == join_dim):
             raise ValueError("without pre/post-join linears the encoder, "
                              "predictor and join dims must agree")
+        self.enc_output_size = enc_output_size
+        self.pred_output_size = pred_output_size
         self.prejoin_linear = prejoin_linear
         self.postjoin_linear = postjoin_linear
         self.activation = activation
@@ -54,6 +57,16 @@ class TransducerJoint(nn.Module):
             enc_out = self.enc_ffn(enc_out)
             pred_out = self.pred_ffn(pred_out)
         return self._combine(enc_out[:, :, None, :], pred_out[:, None, :, :])
+
+    def pruned(self, enc_out: torch.Tensor,
+               pred_w: torch.Tensor) -> torch.Tensor:
+        """enc_out [B, T, E], pred_w [B, T, S, P] (the predictor rows of
+        each frame's window) → logits [B, T, S, V]; the full
+        [B, T, U+1, V] joint never exists."""
+        if self.prejoin_linear:
+            enc_out = self.enc_ffn(enc_out)
+            pred_w = self.pred_ffn(pred_w)
+        return self._combine(enc_out[:, :, None, :], pred_w)
 
     def project(self, enc_out: torch.Tensor, pred_out: torch.Tensor):
         """The pre-join projections only → (enc_j [B, T, J],

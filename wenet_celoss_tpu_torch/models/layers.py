@@ -80,3 +80,35 @@ class LSTMCellParams(nn.Module):
         c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h2 = torch.sigmoid(o) * torch.tanh(c2)
         return c2, h2
+
+
+class GRUCellParams(nn.Module):
+    """One GRU layer as flax's ``GRUCell`` computes it, gate order r, z, n:
+    ``wi`` [3H, E] with the input-side biases b_ir, b_iz, b_in; ``wh``
+    [3H, H] without a bias; ``bhn`` [H], the one hidden-side bias, inside
+    the reset gate's product (flax places no b_hr or b_hz, so
+    ``nn.GRU``'s six biases would not map)."""
+
+    def __init__(self, in_size: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.wi = nn.Linear(in_size, 3 * hidden, bias=True)
+        self.wh = nn.Linear(hidden, 3 * hidden, bias=False)
+        self.bhn = nn.Parameter(torch.zeros(hidden))
+
+    def input_proj(self, x: torch.Tensor) -> torch.Tensor:
+        """x [..., E] → the input-side pre-activations [..., 3H], hoisted
+        out of the recurrence."""
+        return self.wi(x)
+
+    def step(self, xw: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """One recurrence step from the hoisted ``xw`` → the new h:
+        r = σ(x_r + h W_hr), z = σ(x_z + h W_hz),
+        n = tanh(x_n + r (h W_hn + b_hn)), h' = (1 - z) n + z h."""
+        hw = F.linear(h, self.wh.weight)
+        xr, xz, xn = torch.split(xw, self.hidden, dim=-1)
+        hr, hz, hn = torch.split(hw, self.hidden, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * (hn + self.bhn))
+        return (1.0 - z) * n + z * h

@@ -13,8 +13,11 @@ chosen by ``rnnt_impl`` as in the JAX package: "streaming" (K2, K9 and K3
 on the card), or on the materialised joint "scan" (the plain wavefront,
 autograd through it, as the JAX package's XLA scan; no kernel) and
 "fused" and "pallas" (K9 on the card) (the factory maps
-``fused_rnnt_loss`` to "fused").
-"pruned" is not ported (``ROADMAP.md``).
+``fused_rnnt_loss`` to "fused"), or "pruned": ``simple_loss_scale`` times
+the simple loss of the factored joint ``simple_am_proj(encoder_out) +
+simple_lm_proj(predictor_out)`` (K9 on the card) plus the exact loss over
+the ``prune_range`` label positions of each frame that the simple
+lattice picks (plain torch; the joint's ``pruned`` windows).
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ from wenet_celoss_tpu_torch.models.asr_model import ASRModel
 from wenet_celoss_tpu_torch.models.context_bias import ContextBias
 from wenet_celoss_tpu_torch.models.encoder import TransformerEncoder
 from wenet_celoss_tpu_torch.models.joint import TransducerJoint
-from wenet_celoss_tpu_torch.models.predictor import RNNPredictor
-from wenet_celoss_tpu_torch.ops.rnnt_loss import LOSSES, rnnt_loss_streaming
+from wenet_celoss_tpu_torch.models.layers import Dense
+from wenet_celoss_tpu_torch.ops.rnnt_loss import (
+    LOSSES, rnnt_loss_pruned, rnnt_loss_simple_and_ranges,
+    rnnt_loss_streaming)
 from wenet_celoss_tpu_torch.utils.common import IGNORE_ID, add_blank
 
 
@@ -44,13 +49,14 @@ def cross_entropy_mean(logits: torch.Tensor,
 class Transducer(ASRModel):
 
     def __init__(self, vocab_size: int, encoder: TransformerEncoder,
-                 predictor: RNNPredictor, joint: TransducerJoint,
+                 predictor: nn.Module, joint: TransducerJoint,
                  context_bias: Optional[ContextBias] = None,
                  blank: int = 0, decoder: Optional[nn.Module] = None,
                  ctc: Optional[nn.Module] = None,
                  transducer_weight: float = 1.0, ctc_weight: float = 0.0,
                  hw_weight: float = 0.0, loss_mode: str = "both",
                  rnnt_impl: str = "streaming", streaming_chunk: int = 16,
+                 prune_range: int = 5, simple_loss_scale: float = 0.5,
                  lsm_weight: float = 0.0, reverse_weight: float = 0.0,
                  length_normalized_loss: bool = False,
                  ignore_id: int = IGNORE_ID):
@@ -63,6 +69,11 @@ class Transducer(ASRModel):
         self.predictor = predictor
         self.joint = joint
         self.context_bias = context_bias
+        if rnnt_impl not in ("streaming", "pruned", *LOSSES):
+            raise ValueError(f"unknown rnnt_impl {rnnt_impl!r}")
+        if rnnt_impl == "pruned":
+            self.simple_am_proj = Dense(joint.enc_output_size, vocab_size)
+            self.simple_lm_proj = Dense(joint.pred_output_size, vocab_size)
         # Registration order is the order in which the factory draws the
         # seeded weights: the decode path's modules first, then the
         # training-only heads, so that the heads do not change them.
@@ -74,6 +85,8 @@ class Transducer(ASRModel):
         self.loss_mode = loss_mode
         self.rnnt_impl = rnnt_impl
         self.streaming_chunk = streaming_chunk
+        self.prune_range = prune_range
+        self.simple_loss_scale = simple_loss_scale
 
     @property
     def device(self) -> torch.device:
@@ -87,15 +100,11 @@ class Transducer(ASRModel):
         'loss_rnnt', 'hw_loss'}; with ``gen`` every dropout runs, and a
         ``use_dynamic_chunk`` encoder in training mode draws its chunk
         from it (as ``ASRModel.forward``)."""
-        if self.rnnt_impl not in ("streaming", *LOSSES):
-            raise NotImplementedError(
-                f"rnnt_impl={self.rnnt_impl!r} is not ported (see "
-                f"ROADMAP.md)")
         use_bias = self.context_bias is not None and context_list is not None
         bias_hidden = None
         if use_bias:
             bias_hidden = self.context_bias.forward_bias_hidden(
-                context_list, context_lengths)
+                context_list, context_lengths, context_n_valid)
         encoder_out, enc_pad_mask = self.encoder(speech, speech_lengths, gen)
         encoder_lens = enc_pad_mask.sum(dim=1)
         enc_bias = pred_bias = None
@@ -120,6 +129,10 @@ class Transducer(ASRModel):
                 enc_j, pred_j, w_out, b_out, rnnt_text, encoder_lens,
                 text_lengths, self.blank, activation=self.joint.activation,
                 chunk=self.streaming_chunk)
+        elif self.rnnt_impl == "pruned":
+            losses = self._pruned_losses(encoder_out, predictor_out,
+                                         rnnt_text, encoder_lens,
+                                         text_lengths)
         else:
             losses = LOSSES[self.rnnt_impl](
                 self.joint(encoder_out, predictor_out), rnnt_text,
@@ -147,6 +160,25 @@ class Transducer(ASRModel):
         return {"loss": loss, "loss_att": loss_att, "loss_ctc": loss_ctc,
                 "loss_rnnt": loss_rnnt, "hw_loss": hw_loss}
 
+    def _pruned_losses(self, encoder_out, predictor_out, labels,
+                       encoder_lens, label_lengths):
+        """simple_loss_scale * the simple loss + the pruned loss, [B]."""
+        am = self.simple_am_proj(encoder_out)                  # [B, T, V]
+        lm = self.simple_lm_proj(predictor_out)                # [B, U+1, V]
+        simple, ranges = rnnt_loss_simple_and_ranges(
+            am, lm, labels, encoder_lens, label_lengths, self.prune_range,
+            self.blank)
+        u1 = predictor_out.shape[1]
+        b = encoder_out.shape[0]
+        abs_u = (ranges[:, :, None] + torch.arange(
+            self.prune_range, device=ranges.device)).clamp(0, u1 - 1)
+        pred_w = predictor_out[torch.arange(b, device=abs_u.device)[
+            :, None, None], abs_u]                             # [B, T, S, P]
+        pruned = rnnt_loss_pruned(self.joint.pruned(encoder_out, pred_w),
+                                  ranges, labels, encoder_lens,
+                                  label_lengths, self.blank)
+        return self.simple_loss_scale * simple + pruned
+
     def _calc_hw_loss(self, bias_hidden, predictor_out_unbiased, enc_bias,
                       pred_bias, hw_label):
         """hw_label [B, U] (ignore_id padded) → the hotword CE."""
@@ -166,9 +198,10 @@ class Transducer(ASRModel):
         return cross_entropy_mean(dec_hw, target)
 
     def bias_hidden(self, context_list: torch.Tensor,
-                    context_lengths: torch.Tensor) -> torch.Tensor:
-        return self.context_bias.forward_bias_hidden(context_list,
-                                                     context_lengths)
+                    context_lengths: torch.Tensor,
+                    context_n_valid=None) -> torch.Tensor:
+        return self.context_bias.forward_bias_hidden(
+            context_list, context_lengths, context_n_valid)
 
     def encode_transducer(self, speech: torch.Tensor,
                           speech_lengths: torch.Tensor,
@@ -189,6 +222,11 @@ class Transducer(ASRModel):
 
     def predictor_step(self, token, state, padding=None):
         return self.predictor.forward_step(token, state, padding)
+
+    def predictor_gather_state(self, state, idx: torch.Tensor):
+        """The predictor state of rows ``idx`` (the beam's parents): the
+        RNN's rows lie on dim 1, the stateless predictors' on dim 0."""
+        return self.predictor.gather_state(state, idx)
 
     def predictor_bias_step(self, bias_hidden: torch.Tensor,
                             pred_out: torch.Tensor):
@@ -247,7 +285,8 @@ class Transducer(ASRModel):
         """Per-hypothesis transducer log-probability, -RNN-T loss of each
         label sequence given the plain encoder output, over the whole
         n-best at once with the streaming loss (the [B·N, T, U, V] joint
-        never materialises; on the card: K4, then K2, then K9).
+        never materialises; on the card: K4 for a 2-layer LSTM predictor,
+        then K2, then K9).
 
         encoder_out [B, T, E]; enc_pad_mask [B, T]; hyps [B, N, U]
         (padding arbitrary); hyps_lens [B, N] → scores [B, N]. Every

@@ -34,6 +34,19 @@ from the row's planes staged in shared memory where they fit and from
 per-lane rings of diagonals where they do not (the kernel chooses by
 the row's size).
 
+The pruned loss (``rnnt_impl: "pruned"``, the k2 formulation):
+``rnnt_loss_simple`` over the factored joint am[t, v] + lm[u, v]
+(``factored_planes``; its log-normaliser is one matmul) runs its lattice
+through K9 (``_RnntLossSimple``: the loss from alpha, the gradient of the
+planes minus the occupancies); ``get_rnnt_prune_ranges`` picks each
+frame's window of ``s_range`` label positions from the simple lattice's
+emit occupancies; ``rnnt_loss_pruned`` runs the exact lattice over the
+[B, T, S, V] joint of those windows. The pruned lattice is plain torch
+(autograd through a frame loop with the S window positions unrolled), as
+the JAX package composes it in XLA outside any Pallas kernel.
+``rnnt_loss_simple_and_ranges`` gives the loss and the ranges from one K9
+launch.
+
 The output layer's weight is in ``torch.nn.Linear`` layout [V, H] (the JAX
 package's kernel is [H, V]); labels are [B, U] ids (0 where padded), not
 the TPU kernels' one-hot. Activations: tanh, relu, swish.
@@ -585,6 +598,186 @@ def rnnt_loss_pallas(logits, labels, input_lengths, label_lengths,
     plain lattice on the CPU) with the closed-form gradient."""
     return _RnntLossPallas.apply(logits, labels, input_lengths,
                                  label_lengths, int(blank))
+
+
+# ------------------------------------------------------- pruned loss ---
+
+def factored_planes(am, lm, labels, blank: int):
+    """(blank_lp, emit_lp) [B, T, U1] fp32 of the factored joint
+    logit(v | t, u) = am[t, v] + lm[u, v] (port of ``_factored_planes``):
+    the log-normaliser logsumexp_v is log(exp(am - max) @ exp(lm - max)^T)
+    plus both maxima; row U of emit_lp is LOG_ZERO. am [B, T, V],
+    lm [B, U1, V], labels [B, >= U1 - 1]."""
+    am, lm = am.float(), lm.float()
+    b, t_max, v = am.shape
+    u1 = lm.shape[1]
+    am_max = am.max(dim=-1, keepdim=True).values
+    lm_max = lm.max(dim=-1, keepdim=True).values
+    inner = torch.exp(am - am_max) @ torch.exp(lm - lm_max).transpose(1, 2)
+    denom = (torch.log(inner.clamp_min(torch.finfo(torch.float32).tiny))
+             + am_max + lm_max.transpose(1, 2))
+    blank_lp = am[:, :, None, blank] + lm[:, None, :, blank] - denom
+    if u1 == 1:
+        return blank_lp, torch.full_like(blank_lp, LOG_ZERO)
+    lab = labels[:, :u1 - 1].long()
+    am_y = torch.gather(am, 2, lab[:, None, :].expand(b, t_max, u1 - 1))
+    lm_y = torch.gather(lm[:, :u1 - 1], 2, lab[..., None])[..., 0]
+    emit = am_y + lm_y[:, None, :] - denom[..., :u1 - 1]
+    last = torch.full((b, t_max, 1), LOG_ZERO, device=am.device)
+    return blank_lp, torch.cat([emit, last], dim=-1)
+
+
+class _RnntLossSimple(torch.autograd.Function):
+    """The lattice of the simple loss through K9: loss −(alpha at the
+    terminal cell + its blank), gradient −occupancy on each plane (the
+    planes' own gradient comes by autograd through factored_planes). Also
+    returns alpha and beta, which take no gradient."""
+
+    @staticmethod
+    def forward(ctx, blank_lp, emit_lp, input_lengths, label_lengths):
+        blank_lp = blank_lp.contiguous()
+        emit_lp = emit_lp.contiguous()
+        alpha, beta = alpha_beta(blank_lp, emit_lp, input_lengths,
+                                 label_lengths)
+        ctx.save_for_backward(blank_lp, emit_lp, alpha, beta, input_lengths,
+                              label_lengths)
+        ctx.mark_non_differentiable(alpha, beta)
+        loss = -(_final(alpha, input_lengths, label_lengths)
+                 + _final(blank_lp, input_lengths, label_lengths))
+        return loss, alpha, beta
+
+    @staticmethod
+    def backward(ctx, g, _ga, _gb):
+        blank_lp, emit_lp, alpha, beta, input_lengths, label_lengths = \
+            ctx.saved_tensors
+        occ_b, occ_e = occupancies(blank_lp, emit_lp, alpha, beta,
+                                   input_lengths, label_lengths)
+        gc = g.float()[:, None, None]
+        return -occ_b * gc, -occ_e * gc, None, None
+
+
+def prune_ranges(emit_lp, alpha, beta, input_lengths, label_lengths,
+                 s_range: int):
+    """Window starts [B, T] from the simple lattice (see
+    get_rnnt_prune_ranges): each frame's argmax of the emit occupancy
+    summed over ``s_range`` consecutive label positions, then k2's
+    feasibility rules (start 0 at frame 0, non-decreasing, steps of at
+    most ``s_range``, the last frame's window covering U_b, no window past
+    U_b + 1)."""
+    b, t_max, u1 = emit_lp.shape
+    dev = emit_lp.device
+    log_z = beta[:, 0, 0][:, None, None]
+    beta_right = torch.cat([beta[:, :, 1:], torch.full(
+        (b, t_max, 1), LOG_ZERO, device=dev)], 2)
+    t_idx = torch.arange(t_max, device=dev)[None, :, None]
+    u_idx = torch.arange(u1, device=dev)[None, None, :]
+    in_lat = ((t_idx <= (input_lengths - 1)[:, None, None])
+              & (u_idx < label_lengths[:, None, None]))
+    occ_e = torch.exp(torch.where(in_lat, alpha + emit_lp + beta_right
+                                  - log_z, LOG_ZERO))
+    csum = torch.cat([torch.zeros(b, t_max, 1, device=dev),
+                      torch.cumsum(occ_e, dim=2)], dim=2)      # [B, T, U1+1]
+    k = torch.arange(max(u1 - s_range + 1, 1), device=dev)
+    win = csum[:, :, (k + s_range).clamp(max=u1)] - csum[:, :, k]
+    start = torch.argmax(win, dim=2)                           # [B, T]
+    u_hi = (label_lengths[:, None] - s_range + 1).clamp_min(0)
+    start = torch.minimum(start, u_hi)
+    end = torch.arange(t_max, device=dev)[None, :] >= \
+        (input_lengths - 1)[:, None]
+    start = torch.where(end, u_hi, start)
+    # start[t] >= start[t'] - s_range (t' - t) for every t' > t.
+    sr_t = s_range * torch.arange(t_max, device=dev)[None, :]
+    y = torch.flip(torch.cummax(torch.flip(start - sr_t, [1]), 1).values,
+                   [1])
+    start = torch.cummax(y + sr_t, dim=1).values
+    start = torch.minimum(start.clamp_min(0), u_hi)
+    start[:, 0] = 0
+    return start
+
+
+def rnnt_loss_simple_and_ranges(am, lm, labels, input_lengths,
+                                label_lengths, s_range: int,
+                                blank: int = 0):
+    """(rnnt_loss_simple [B], get_rnnt_prune_ranges [B, T]) from one K9
+    launch; the ranges take no gradient."""
+    blank_lp, emit_lp = factored_planes(am, lm, labels, blank)
+    loss, alpha, beta = _RnntLossSimple.apply(blank_lp, emit_lp,
+                                              input_lengths, label_lengths)
+    return loss, prune_ranges(emit_lp.detach(), alpha, beta, input_lengths,
+                              label_lengths, s_range)
+
+
+def rnnt_loss_simple(am, lm, labels, input_lengths, label_lengths,
+                     blank: int = 0):
+    """k2's "simple" transducer loss [B] over the factored joint
+    am [B, T, V] + lm [B, U+1, V] (no joint network)."""
+    blank_lp, emit_lp = factored_planes(am, lm, labels, blank)
+    return _RnntLossSimple.apply(blank_lp, emit_lp, input_lengths,
+                                 label_lengths)[0]
+
+
+@torch.no_grad()
+def get_rnnt_prune_ranges(am, lm, labels, input_lengths, label_lengths,
+                          s_range: int, blank: int = 0):
+    """Window starts [B, T] (int64) for the pruned loss from the simple
+    lattice's emit occupancies (see prune_ranges)."""
+    blank_lp, emit_lp = factored_planes(am, lm, labels, blank)
+    alpha, beta = alpha_beta(blank_lp, emit_lp, input_lengths,
+                             label_lengths)
+    return prune_ranges(emit_lp, alpha, beta, input_lengths, label_lengths,
+                        s_range)
+
+
+def rnnt_loss_pruned(logits, ranges, labels, input_lengths, label_lengths,
+                     blank: int = 0):
+    """Transducer loss [B] over the pruned joint logits [B, T, S, V]
+    (``logits[b, t, k]`` is cell (t, ranges[b, t] + k)), plain torch with
+    its gradient by autograd: a loop over frames, the blank move a gather
+    of the previous frame's window shifted by the range's step, the emit
+    chain unrolled over the S positions."""
+    b, t_max, s, _ = logits.shape
+    dev = logits.device
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    blank_w = lp[..., blank]                                   # [B, T, S]
+    k_idx = torch.arange(s, device=dev)
+    abs_u = ranges[:, :, None] + k_idx                         # [B, T, S]
+    lab = torch.cat([labels.long(), torch.zeros(b, 1, dtype=torch.long,
+                                                device=dev)], 1)
+    u = labels.shape[1]
+    lab = torch.gather(lab, 1, abs_u.clamp(max=u).reshape(b, -1)
+                       ).reshape(b, t_max, s)
+    emit_w = torch.gather(lp, 3, lab[..., None])[..., 0]
+    lens = label_lengths[:, None, None]
+    emit_w = torch.where(abs_u < lens, emit_w, LOG_ZERO)
+    cell_valid = abs_u <= lens
+    neg = torch.full((b,), LOG_ZERO, device=dev)
+
+    def emit_chain(from_below, emit_row):
+        row = [from_below[:, 0]]
+        for kk in range(1, s):
+            row.append(torch.logaddexp(from_below[:, kk],
+                                       row[-1] + emit_row[:, kk - 1]))
+        return torch.stack(row, dim=1)
+
+    below = torch.stack([torch.zeros(b, device=dev)]
+                        + [neg] * (s - 1), dim=1)
+    alpha = torch.where(cell_valid[:, 0], emit_chain(below, emit_w[:, 0]),
+                        LOG_ZERO)
+    alphas = [alpha]
+    for t in range(1, t_max):
+        src = k_idx[None, :] + (ranges[:, t] - ranges[:, t - 1])[:, None]
+        src_c = src.clamp(max=s - 1)
+        gathered = (torch.gather(alpha, 1, src_c)
+                    + torch.gather(blank_w[:, t - 1], 1, src_c))
+        below = torch.where(src < s, gathered, LOG_ZERO)
+        alpha = torch.where(cell_valid[:, t],
+                            emit_chain(below, emit_w[:, t]), LOG_ZERO)
+        alphas.append(alpha)
+    alphas = torch.stack(alphas, dim=1)                        # [B, T, S]
+    bi = torch.arange(b, device=dev)
+    t_fin = (input_lengths - 1).clamp_min(0)
+    k_fin = (label_lengths - ranges[bi, t_fin]).clamp(0, s - 1)
+    return -(alphas[bi, t_fin, k_fin] + blank_w[bi, t_fin, k_fin])
 
 
 # rnnt_impl → loss on materialised logits. The JAX package's "fused" and
