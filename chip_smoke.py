@@ -3,13 +3,22 @@
 
     python3 chip_smoke.py
 
-Phases, in the order they run, each printing JSON lines:
+Phases, each printing JSON lines, in the order below, except that the
+untimed card-against-CPU checks run beside processes that would leave
+this one waiting: decode_modes, stream_slice, tools' A1, L1 and LM1 and
+the training checks T0-check to BN-check run while serve_runs' processes
+and E1's int8 export do (``checks``); recognize, train_cli_check and
+train_resume while the D ranks do (``beside_d``); and F1 follows the
+serving runs:
   env       torch and CUDA versions, the card's name and power limit;
   build     every hand-written kernel, one nvcc per source, all at once,
             and beside them decoder_main from runtime/core with g++ (one
             process a source, then the link; no CMake); then S3's CPU side
             starts in a process of its own (s3_setup: the recognize CLI's
-            runs with --device cpu, read by the recognize phase);
+            runs with --device cpu, read by the recognize phase), and the
+            CPU references in another (refs_setup, refs_child: the CPU
+            side of every other card-against-CPU phase, S1's decodes to
+            V3's step, each read by its phase as it is done);
   k1, k1_bwd  ln_ffn_residual forward and backward with dropout 0 and
             0.1 against its plain version (fp32, bf16, main-path and
             ragged shapes; the same bits on a second call), the weight
@@ -100,11 +109,18 @@ Phases, in the order they run, each printing JSON lines:
   serve_runs  decoder_main (built above) over the 16 WAVs, card worker
             against CPU worker, equal result lines: R1 default (CTC
             prefix beam and attention rescoring), R2 rnnt_greedy_search,
-            rnnt_beam_search (beam 4) and default; and bin/export.py on
-            the card on R1's model, fp32 and --quantize int8; all at once;
+            rnnt_beam_search (beam 4) and default; W1: decoder_main in
+            WFST mode (--fst_path, an LG from bin.build_lg over R1's units
+            and the transcripts' words and unigram ARPA) with R1's card
+            worker, its K1 launches counted in the worker; and
+            bin/export.py on the card on R1's configuration at 3 + 1 + 1
+            blocks (E1_DEPTH), fp32 and --quantize int8; all at once;
   export    E1: each .pt2 loaded back and run on the card against the live
-            model's entry point, its K1 operator nodes counted (24, 24,
-            9), the bundle sizes and the int8 / fp32 ratio;
+            model's entry point, its K1 operator nodes counted (6, 6, 2:
+            two a block), the bundle sizes and the int8 / fp32 ratio;
+  tools (w1)  W1's 16 lines against the port's wfst_beam_decode over the
+            log-probs the tee recorded (the same beam and scales, its
+            n-best ranked by the attention scores decoder_main got);
   bench_modes  B3: bench.py's decode keys ctc_greedy,
             attention_rescoring, rnnt_beam, ctc_beam_td_attn_rescoring
             (beams 10, 5, 10) and attention (beam 10) at B1's shape and
@@ -113,7 +129,19 @@ Phases, in the order they run, each printing JSON lines:
   bench_stream  B4: bench.py's streaming key, the U2++ model at vocab
             1024, bf16, B=64 × 512 frames, 7 chunks, 168 K1 launches a
             batch, timed;
-  recognize S3: the port's CLI (bin/recognize.main, in process) with S1's
+  tools     A1: the alignment CLI (bin/alignment.main, --gen_praat) on
+            S3's files on the card against --device cpu: ali.txt and the
+            16 TextGrids; L1: the label checker CLI on the same model,
+            wav.scp and text, result and timestamps; a file may differ
+            only at an utterance whose search margin on the CPU is
+            provably under NEAR_TIE, the search redone on the card's
+            log-probs giving the card's line; LM1: S1's CTC prefix-beam
+            n-best, card and CPU, rescored by lm_rescore_nbest with the
+            transcripts' ARPA, the same orders; F1: the batched fbank and
+            MFCC on the card over the 16 WAVs and at B = 64 x 512 frames
+            against the numpy path (fbank_close, mfcc_close), ms a batch
+            beside the host path's; K1 launches counted on A1, L1, LM1;
+  recognize S3 (after the training phases below): the port's CLI (bin/recognize.main, in process) with S1's
             model saved as a .pt, its config written by save_config, a
             symbol table and a data.list of the 16 WAVs: all 8 modes with
             S1's 8 hotwords (context mode 2) under "off",
@@ -140,11 +168,12 @@ Phases, in the order they run, each printing JSON lines:
             gradient all-reduce's ms, the card's idle share; D3 the
             recognize CLI with --sharded on S3's inputs in three modes,
             byte-equal to S3's card files, rank 1 writing nothing; D4 the
-            train CLI with --distributed on T12's lists for one epoch
-            (accum_grad 1): both ranks stop at the same joined batch count,
-            bit for bit equal, launches as derived, only rank 0 writes;
+            train CLI with --distributed on the first 96 of T12's train
+            WAVs for one epoch (accum_grad 1): both ranks stop at the
+            same joined batch count, bit for bit equal, launches as
+            derived, only rank 0 writes;
   train_check, train, train_wavs  T0-T2: conformer_ctc_aed, one fp32 step
-            card against CPU, bf16 steps at B=256 T=512 U=32 timed, 24
+            card against CPU, bf16 steps at B=256 T=512 U=32 timed, 12
             steps on the committed train-clean-100 WAVs (the loss falls);
   postnorm_train_check  T9-check: T0 for the post-norm transformer
             CTC/AED (18 + 18 K6 launches, no K1), each limit at least
@@ -186,7 +215,7 @@ Phases, in the order they run, each printing JSON lines:
   u2pp_train, u2pp_conv_train  T11, T11-conv: the U2++ conformer at T1's
             point with its dynamic chunk, and under CONV_PALLAS=1 (K8
             causal, 12 + 12 a step), timed;
-  rnnt_train_wavs, bn_train_wavs  T5 and T10's curve: 24 flagship steps
+  rnnt_train_wavs, bn_train_wavs  T5 and T10's curve: 12 flagship steps
             on the WAVs (the loss falls);
   train_cli  T12: the train CLI (bin/train.main, in process) on the yaml
             flagship as it stands plus two loader processes and a record a
@@ -236,6 +265,7 @@ import contextlib
 import copy
 import hashlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -249,7 +279,12 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
-import torch
+
+# Idle OpenMP threads sleep rather than spin, here and in every process
+# started from here: S3's and the CPU references' processes, the serving
+# workers and the loaders share the host's 8 cores with the phases.
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 DATA_DIR = ROOT / "examples" / "librispeech" / "data_hw"
@@ -1954,11 +1989,12 @@ def compare(card, cpu, trace):
     return same, ties, bad
 
 
-def phase_slice(init_model, Decoder, conformer_rnnt_bias, ffn):
+def phase_slice(init_model, Decoder, conformer_rnnt_bias, ffn, refs):
     """Full-width fp32 decode of the committed WAVs on the card, held
-    against the same model on the CPU. Returns the kernel launches of the
-    main path and what conv_decode needs to decode the same WAVs with the
-    same model and compare with the same CPU run."""
+    against the same model on the CPU (its runs from the CPU references'
+    process, ``refs_s1``). Returns the kernel launches of the main path
+    and what conv_decode needs to decode the same WAVs with the same
+    model and compare with the same CPU run."""
     cfg = conformer_rnnt_bias()
     names, feats, lens = load_wavs()
     check(len(names) == 16, f"slice: {len(names)} WAVs in {WAV_DIR}, want 16")
@@ -1981,25 +2017,17 @@ def phase_slice(init_model, Decoder, conformer_rnnt_bias, ffn):
               f"slice {mode}: {n} K1 launches, want "
               f"{passes * K1_PER_ENCODER_PASS}")
 
-    torch.set_num_threads(os.cpu_count() or 1)
-    cpu_model = init_model(cfg, device="cpu", seed=0)
-    cpu_model.load_state_dict({k: v.cpu()
-                               for k, v in model.state_dict().items()})
-    cpu_dec = Decoder(cpu_model, device="cpu")
     with torch.no_grad():
         enc_card, _, _, mask = model.encode_transducer(
             torch.as_tensor(feats, device="cuda"),
             torch.as_tensor(lens, device="cuda"))
-        enc_cpu, _, _, _ = cpu_model.encode_transducer(
-            torch.as_tensor(feats), torch.as_tensor(lens))
+    ref = refs_result(refs, "s1")
     mask = mask.cpu()
-    enc_err = float((enc_card.cpu() - enc_cpu)[mask].abs().max())
+    enc_err = float((enc_card.cpu() - ref["enc"])[mask].abs().max())
     check(enc_err <= 1e-3, f"slice encoder card vs CPU max abs {enc_err}")
-    cpu_runs = {}
+    cpu_runs = ref["runs"]
     for mode in MODES:
-        trace: list = []
-        cpu = decode(cpu_dec, feats, lens, ctx, ctx_lens, mode, trace)
-        cpu_runs[mode] = (cpu, trace)
+        cpu, trace = cpu_runs[mode]
         same, ties, bad = compare(card[mode], cpu, trace)
         check(not bad, f"slice {mode}: card and CPU differ away from a "
                        f"near tie: {bad}")
@@ -2016,7 +2044,35 @@ def phase_slice(init_model, Decoder, conformer_rnnt_bias, ffn):
          blank_bias=SLICE_BLANK_BIAS, audio_s=float(lens.sum() * 0.01),
          card_decode_s=seconds,
          k1_launches=total, first_hyp=card["gated_on"][0][0][:12])
-    return total, (dec, feats, lens, ctx, ctx_lens, cpu_runs, cpu_dec)
+    return total, (dec, feats, lens, ctx, ctx_lens, cpu_runs, refs)
+
+
+def refs_s1(spec: dict):
+    """S1's and S1-lnmm's CPU side (in the CPU references' process): S1's
+    model (seed 0, blank bias +3.0) on the CPU, its encoder output over
+    the 16 WAVs and each mode's decode with its top-2 gaps; the same
+    under LNMM_PALLAS=1 (K7's plain version)."""
+    from wenet_celoss_tpu_torch.configs import conformer_rnnt_bias
+    from wenet_celoss_tpu_torch.decode.api import Decoder
+    from wenet_celoss_tpu_torch.models.factory import init_model
+    cfg = conformer_rnnt_bias()
+    _, feats, lens = load_wavs()
+    ctx, ctx_lens = hotwords(cfg["output_dim"])
+    model = with_blank_bias(init_model(cfg, device="cpu", seed=0),
+                            SLICE_BLANK_BIAS)
+    cpu_dec = Decoder(model, device="cpu")
+    with torch.no_grad():
+        enc = model.encode_transducer(torch.as_tensor(feats),
+                                      torch.as_tensor(lens))[0]
+    for key, env in (("s1", {}), ("s1_lnmm", LNMM)):
+        runs = {}
+        with routes(**env):
+            for mode in MODES:
+                trace: list = []
+                runs[mode] = (decode(cpu_dec, feats, lens, ctx, ctx_lens,
+                                     mode, trace), trace)
+        yield key, {"runs": runs, **({"enc": enc} if key == "s1" else {})}
+
 
 
 @contextlib.contextmanager
@@ -2079,40 +2135,39 @@ def phase_lnmm_decode(slice_run, lnmm, conv) -> int:
     """S1-lnmm: S1 with LNMM_PALLAS=1, the same model and WAVs decoded on
     the card with every self-attention's pre-norm and QKV projection and
     every conv block's pre-norm and pointwise conv1 through K7, held
-    against the CPU run under the same switch (K7's plain version) by S1's
-    flip rule; 24 K7 launches per encoder pass. Then a plain decode with
-    CONV_PALLAS=1 as well, where K8 takes the conv blocks first: 12 K7 and
-    12 K8 launches. Returns K7's launches with LNMM_PALLAS=1 alone."""
-    dec, feats, lens, ctx, ctx_lens, s1_cpu_runs, cpu_dec = slice_run
-    cpu_runs = {}
-    with routes(**LNMM):
-        for mode in MODES:
-            trace: list = []
-            cpu_runs[mode] = (decode(cpu_dec, feats, lens, ctx, ctx_lens,
-                                     mode, trace), trace)
+    against the CPU run under the same switch (K7's plain version, from
+    the CPU references' process) by S1's flip rule; 24 K7 launches per
+    encoder pass. Then a plain decode with CONV_PALLAS=1 as well, where
+    K8 takes the conv blocks first: 12 K7 and 12 K8 launches. Returns
+    K7's launches with LNMM_PALLAS=1 alone."""
+    dec, feats, lens, ctx, ctx_lens, s1_cpu_runs, refs = slice_run
     lm = lnmm.ln_matmul
     lm.launches = lm.bwd_launches = 0          # the path starts here
+    cards = {}
     with routes(**LNMM):
         for mode in MODES:
             before = lm.launches
-            card = decode(dec, feats, lens, ctx, ctx_lens, mode)
+            cards[mode] = (decode(dec, feats, lens, ctx, ctx_lens, mode),
+                           lm.launches - before)
             torch.cuda.synchronize()
-            n = lm.launches - before
-            cpu, trace = cpu_runs[mode]
-            same, ties, bad = compare(card, cpu, trace)
-            passes = 1 if mode == "plain" else 2
-            check(not bad, f"lnmm_decode {mode}: card and CPU differ away "
-                           f"from a near tie: {bad}")
-            check(n == passes * K7_PER_ENCODER_PASS,
-                  f"lnmm_decode {mode}: {n} K7 launches, want "
-                  f"{passes * K7_PER_ENCODER_PASS}")
-            emit("lnmm_decode", mode=mode, utterances=len(lens),
-                 tokens=sum(map(len, card[0])), identical_to_cpu=same,
-                 near_tie_flips=ties, other_diffs=bad, k7_launches=n,
-                 k7_bwd_launches=lm.bwd_launches,
-                 cpu_same_as_unswitched_cpu=cpu_runs[mode][0]
-                 == s1_cpu_runs[mode][0])
     total = lm.launches                        # ... and ends here
+    cpu_runs = refs_result(refs, "s1_lnmm")["runs"]
+    for mode in MODES:
+        card, n = cards[mode]
+        cpu, trace = cpu_runs[mode]
+        same, ties, bad = compare(card, cpu, trace)
+        passes = 1 if mode == "plain" else 2
+        check(not bad, f"lnmm_decode {mode}: card and CPU differ away "
+                       f"from a near tie: {bad}")
+        check(n == passes * K7_PER_ENCODER_PASS,
+              f"lnmm_decode {mode}: {n} K7 launches, want "
+              f"{passes * K7_PER_ENCODER_PASS}")
+        emit("lnmm_decode", mode=mode, utterances=len(lens),
+             tokens=sum(map(len, card[0])), identical_to_cpu=same,
+             near_tie_flips=ties, other_diffs=bad, k7_launches=n,
+             k7_bwd_launches=lm.bwd_launches,
+             cpu_same_as_unswitched_cpu=cpu_runs[mode][0]
+             == s1_cpu_runs[mode][0])
     check(lm.bwd_launches == 0, "lnmm_decode launched K7's backward")
     k8 = conv.conv_block_residual
     before = (lm.launches, k8.launches)
@@ -2129,6 +2184,7 @@ def phase_lnmm_decode(slice_run, lnmm, conv) -> int:
          k8_launches=both[1], identical_to_cpu=same, near_tie_flips=ties,
          other_diffs=bad)
     return total
+
 
 
 def card_intervals(prof) -> list:
@@ -2682,32 +2738,43 @@ def compare_nbest(card_lists, cpu_nbest, key=None):
     return same, ties, bad
 
 
-def ctc_greedy_check(dec, cpu_dec, feats, lens, **stream) -> dict:
-    """CTC greedy card against CPU: a token list may differ only where
-    each frame whose argmax differs has a CPU top-2 log-prob gap under
-    NEAR_TIE. ``stream``: STREAM_KW for the simulated-streaming decode
-    (its chunk-by-chunk encode), else the full context."""
+def ctc_greedy_cpu(cpu_dec, feats, lens, **stream) -> dict:
+    """ctc_greedy_check's CPU side: the hypotheses, each frame's argmax,
+    the mask and each frame's top-2 log-prob gap."""
     from wenet_celoss_tpu_torch.decode.ctc_greedy import ctc_greedy_frames
+    hyps = cpu_dec.ctc_greedy_search(feats, lens, **stream)
+    if stream:
+        _, mask, lp = cpu_dec.encode_ctc_streaming(
+            feats, lens, stream["decoding_chunk_size"],
+            stream["num_decoding_left_chunks"])
+    else:
+        _, mask, lp = cpu_dec.encode_ctc(feats, lens)
+    top2 = torch.topk(lp, 2, dim=-1).values
+    return {"hyps": hyps, "ids": ctc_greedy_frames(lp, mask), "mask": mask,
+            "gap": top2[..., 0] - top2[..., 1]}
 
-    def encode(d):
-        if stream:
-            return d.encode_ctc_streaming(
-                feats, lens, stream["decoding_chunk_size"],
-                stream["num_decoding_left_chunks"])
-        return d.encode_ctc(feats, lens)
+
+def ctc_greedy_check(dec, cpu, feats, lens, **stream) -> dict:
+    """CTC greedy card against CPU (``cpu``: ctc_greedy_cpu's result): a
+    token list may differ only where each frame whose argmax differs has
+    a CPU top-2 log-prob gap under NEAR_TIE. ``stream``: STREAM_KW for the
+    simulated-streaming decode (its chunk-by-chunk encode), else the full
+    context."""
+    from wenet_celoss_tpu_torch.decode.ctc_greedy import ctc_greedy_frames
     reset_counts()
     card = dec.ctc_greedy_search(feats, lens, **stream)
     torch.cuda.synchronize()
     launches = read_counts()
-    cpu = cpu_dec.ctc_greedy_search(feats, lens, **stream)
-    _, c_mask, c_lp = encode(dec)
-    _, r_mask, r_lp = encode(cpu_dec)
+    if stream:
+        _, c_mask, c_lp = dec.encode_ctc_streaming(
+            feats, lens, stream["decoding_chunk_size"],
+            stream["num_decoding_left_chunks"])
+    else:
+        _, c_mask, c_lp = dec.encode_ctc(feats, lens)
     c_ids = ctc_greedy_frames(c_lp, c_mask).cpu()
-    r_ids = ctc_greedy_frames(r_lp, r_mask)
-    top2 = torch.topk(r_lp, 2, dim=-1).values
-    gap = top2[..., 0] - top2[..., 1]
+    r_ids, r_mask, gap = cpu["ids"], cpu["mask"], cpu["gap"]
     same, ties, bad = 0, [], []
-    for i, (a, b) in enumerate(zip(card, cpu)):
+    for i, (a, b) in enumerate(zip(card, cpu["hyps"])):
         if a == b:
             same += 1
             continue
@@ -2721,16 +2788,17 @@ def ctc_greedy_check(dec, cpu_dec, feats, lens, **stream) -> dict:
                 min_cpu_top2_gap=float(gap[r_mask].min()))
 
 
-def transducer_score_check(dec, cpu_dec, feats, lens, nbest) -> dict:
-    """transducer_score on the card against the CPU on the same inputs:
-    the CPU's encoder output and the CPU's prefix-beam n-best that
-    ctc_beam_td_attn_rescoring scores (K4, K2 and K9 at the n-best's
-    shapes, fp32): one launch of each, every score within 1e-3 +
-    1e-5*|cpu| (K9's tolerance: fp32 log-add chains in another order)."""
-    enc, mask, _ = cpu_dec.encode_ctc(feats, lens)
-    hyps, hyp_lens = nbest["tokens"].cpu(), nbest["lens"].cpu()
+
+def transducer_score_check(dec, ref) -> dict:
+    """transducer_score on the card against the CPU on the same inputs
+    (``ref``: the CPU's encoder output and mask, the CPU's prefix-beam
+    n-best that ctc_beam_td_attn_rescoring scores, and the CPU's scores
+    of it; K4, K2 and K9 at the n-best's shapes, fp32): one launch of
+    each, every score within 1e-3 + 1e-5*|cpu| (K9's tolerance: fp32
+    log-add chains in another order)."""
+    enc, mask, want = ref["enc"], ref["mask"], ref["want"]
+    hyps, hyp_lens = ref["tokens"], ref["lens"]
     with torch.no_grad():
-        want = cpu_dec.model.transducer_score(enc, mask, hyps, hyp_lens)
         reset_counts()
         got = dec.model.transducer_score(enc.cuda(), mask.cuda(),
                                          hyps.cuda(), hyp_lens.cuda())
@@ -2746,29 +2814,32 @@ def transducer_score_check(dec, cpu_dec, feats, lens, nbest) -> dict:
         launches=launches, tolerance="1e-3 + 1e-5*|cpu| per score")
 
 
+
 def phase_decode_modes(slice_run) -> dict:
     """S1 for the beam and rescoring modes: S1's fp32 model (the flagship,
     blank bias +3.0) decodes the 16 WAVs through each mode of S1_MODES
-    and CTC greedy on the card, held against the CPU: top-1 tokens
+    and CTC greedy on the card, held against the CPU (its runs from the
+    CPU references' process, ``refs_decode_modes``): top-1 tokens
     identical, a flip only where the CPU's score gap between the two
     hypotheses is under NEAR_TIE; the prefix beam's best score within
     1e-3 and its emission times identical where the hypothesis is. Every
     count is set to 0 just before each mode's card call and read just
     after, and held to mode_want. transducer_score alone, card against
-    CPU on the same n-best (transducer_score_check)."""
-    dec, feats, lens, ctx, ctx_lens, _, cpu_dec = slice_run
+    CPU on the same n-best (transducer_score_check). Returns the CPU's
+    prefix-beam n-best (LM1's)."""
+    dec, feats, lens, ctx, ctx_lens, _, refs = slice_run
     hw = (ctx, ctx_lens)
-    out = {"ctc_greedy": ctc_greedy_check(dec, cpu_dec, feats, lens)}
-    for name, card_fn, cpu_fn in S1_MODES:
+    ref = refs_result(refs, "decode_modes")
+    out = {"ctc_greedy": ctc_greedy_check(dec, ref["ctc_greedy"], feats,
+                                          lens)}
+    for name, card_fn, _ in S1_MODES:
         reset_counts()
         t0 = time.perf_counter()
         card = card_fn(dec, feats, lens, hw)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
         launches = read_counts()
-        t0 = time.perf_counter()
-        cpu = cpu_fn(cpu_dec, feats, lens, hw)
-        cpu_s = time.perf_counter() - t0
+        cpu, cpu_s = ref[name]
         same, ties, bad = compare_nbest(card, cpu)
         rec = dict(identical_to_cpu=same, near_tie_flips=ties,
                    other_diffs=bad, tokens=sum(map(len, card)),
@@ -2795,7 +2866,9 @@ def phase_decode_modes(slice_run) -> dict:
         out[name] = rec
         if name == "ctc_beam_td_attn_rescoring":
             emit("decode_modes", mode="transducer_score", **
-                 transducer_score_check(dec, cpu_dec, feats, lens, cpu))
+                 transducer_score_check(dec, {**ref["transducer_score"],
+                                              "tokens": cpu["tokens"],
+                                              "lens": cpu["lens"]}))
     frames = subsampled(feats.shape[1])
     for name, rec in out.items():
         want = mode_want(name.replace("_hotwords", ""), frames,
@@ -2807,11 +2880,36 @@ def phase_decode_modes(slice_run) -> dict:
         check(rec["tokens"] > 0, f"decode_modes {name}: no token emitted")
         emit("decode_modes", mode=name, utterances=len(lens), dtype="float32",
              **rec)
+    return ref["ctc_prefix_beam"][0]
 
 
-# S3: the recognize CLI on the card against the CPU. The CPU n-best of
-# each beam and rescoring mode at the CLI's default weights and beam 10,
-# to judge a line that differs: (decoder, feats, lens, ctx, ctx_lens).
+def refs_decode_modes(spec: dict):
+    """phase_decode_modes' CPU side (in the CPU references' process):
+    S1's model on the CPU, CTC greedy (ctc_greedy_cpu) and each mode of
+    S1_MODES (its n-best and seconds), and transducer_score on the CPU's
+    encoder output over ctc_beam_td_attn_rescoring's n-best."""
+    from wenet_celoss_tpu_torch.configs import conformer_rnnt_bias
+    from wenet_celoss_tpu_torch.decode.api import Decoder
+    from wenet_celoss_tpu_torch.models.factory import init_model
+    cfg = conformer_rnnt_bias()
+    _, feats, lens = load_wavs()
+    hw = hotwords(cfg["output_dim"])
+    model = with_blank_bias(init_model(cfg, device="cpu", seed=0),
+                            SLICE_BLANK_BIAS)
+    cpu_dec = Decoder(model, device="cpu")
+    out = {"ctc_greedy": ctc_greedy_cpu(cpu_dec, feats, lens)}
+    for name, _, cpu_fn in S1_MODES:
+        t0 = time.perf_counter()
+        out[name] = (cpu_fn(cpu_dec, feats, lens, hw),
+                     time.perf_counter() - t0)
+    enc, mask, _ = cpu_dec.encode_ctc(feats, lens)
+    nbest = out["ctc_beam_td_attn_rescoring"][0]
+    with torch.no_grad():
+        want = model.transducer_score(enc, mask, nbest["tokens"],
+                                      nbest["lens"])
+    out["transducer_score"] = {"enc": enc, "mask": mask, "want": want}
+    yield "decode_modes", out
+
 S3_STATES = ("off", "on", "exact")
 S3_NBEST = {
     "attention": lambda d, f, l, c, cl: d.attention_nbest(f, l, beam=10),
@@ -2839,6 +2937,73 @@ def write_units(path: Path, vocab: int) -> None:
     syms += [f"<t{i}>" for i in range(len(syms), vocab - 1)] + ["<sos/eos>"]
     path.write_text("".join(f"{sym} {i}\n" for i, sym in enumerate(syms)),
                     encoding="utf8")
+
+
+def unigram_arpa(sentences) -> str:
+    """An ARPA unigram model of the words of ``sentences``: each word's
+    count plus one, </s> once a sentence plus one, <unk> one, over their
+    total (add-one), log10 to 6 places."""
+    counts: dict = {}
+    for sent in sentences:
+        for w in sent.split() + ["</s>"]:
+            counts[w] = counts.get(w, 0) + 1
+    counts["<unk>"] = counts.get("<unk>", 0)
+    total = sum(counts.values()) + len(counts)
+    lines = [f"{math.log10((c + 1) / total):.6f}\t{w}"
+             for w, c in sorted(counts.items())]
+    return ("\\data\\\n" f"ngram 1={len(lines)}\n\n\\1-grams:\n"
+            + "\n".join(lines) + "\n\n\\end\\\n")
+
+
+# The batched fbank against a reference: rtol and atol of the log-mel
+# (the bound of tests/test_data.py, on white noise). A mel bin under
+# FBANK_QUIET of its frame's largest energy is ill-conditioned in fp32
+# (the FFT's rounding is absolute in the frame's scale; on the committed
+# WAVs the JAX package's own batched and numpy paths differ past 1e-3 in
+# the log of such bins): it is held in the energy domain to FBANK_QUIET
+# of that largest energy instead.
+FBANK_TOL = 1e-3
+FBANK_QUIET = 1e-6
+
+
+def fbank_close(got, want) -> dict:
+    """Log-mel ``got`` against ``want`` (numpy [..., T, M], padded frames
+    0 in both) by the rule above: the count of elements beyond it, and
+    the worst differences."""
+    got, want = (np.asarray(x, np.float64) for x in (got, want))
+    diff = np.abs(got - want)
+    loud = diff <= FBANK_TOL + FBANK_TOL * np.abs(want)
+    e_want = np.exp(want)
+    top = e_want.max(axis=-1, keepdims=True)
+    quiet = e_want < FBANK_QUIET * top
+    quiet_err = np.abs(np.exp(got) - e_want) / top
+    ok = loud | (quiet & (quiet_err <= FBANK_QUIET))
+    return {"elements": int(ok.size), "beyond": int((~ok).sum()),
+            "beyond_1e-3_log": int((~loud).sum()),
+            "max_abs_log": float(diff.max()),
+            "quiet_held_in_energy": int((quiet & ~loud).sum()),
+            "max_quiet_energy_share": float(
+                quiet_err[quiet].max()) if quiet.any() else 0.0}
+
+
+def mfcc_close(got, want, got_fb, want_fb, cfg) -> dict:
+    """MFCC ``got`` against ``want``, each the DCT and lifter of the
+    log-mel beside it (``got_fb``, ``want_fb``, held by fbank_close): each
+    coefficient within FBANK_TOL (rtol and atol) plus the log-mel
+    difference of its frame carried through |lifter · DCT|."""
+    from wenet_celoss_tpu_torch.ops.fbank import _dct_matrix, _lifter
+    mix = np.abs(_dct_matrix(cfg.num_ceps, cfg.num_mel_bins).astype(
+        np.float64) * _lifter(cfg)[:, None])
+    got, want = (np.asarray(x, np.float64) for x in (got, want))
+    carried = np.abs(np.asarray(got_fb, np.float64)
+                     - np.asarray(want_fb, np.float64)) @ mix.T
+    diff = np.abs(got - want)
+    ok = diff <= FBANK_TOL + FBANK_TOL * np.abs(want) + carried
+    return {"elements": int(ok.size), "beyond": int((~ok).sum()),
+            "beyond_1e-3": int((diff > FBANK_TOL + FBANK_TOL
+                                * np.abs(want)).sum()),
+            "max_abs": float(diff.max()),
+            "max_carried": float(carried.max())}
 
 
 def s3_files(tmp: Path, init_model, conformer_rnnt_bias):
@@ -2965,8 +3130,8 @@ class S3Judge:
         """(near-tie flips, other differences) of the utterances ``utts``
         (indexes into the batch) of a mode's result file."""
         if mode == "ctc_greedy_search":
-            rec = ctc_greedy_check(self.dec, self.cpu_dec, self.feats,
-                                   self.lens)
+            cpu = ctc_greedy_cpu(self.cpu_dec, self.feats, self.lens)
+            rec = ctc_greedy_check(self.dec, cpu, self.feats, self.lens)
             return ([d for d in rec["near_tie_flips"] if d["utt"] in utts],
                     [d for d in rec["other_diffs"] if d["utt"] in utts])
         if mode == "rnnt_greedy_search":
@@ -3015,7 +3180,7 @@ def s3_extra(s3: dict, modes, context_mode: str, state: str) -> list:
                         context_mode, "--context_filter_state", state]
 
 
-S3_CPU_THREADS = 4   # of the card machine's 8 cores, beside the phases
+S3_CPU_THREADS = 3   # of the card machine's 8 cores, beside the phases
 
 
 def s3_setup(work: Path, init_model, conformer_rnnt_bias) -> dict:
@@ -3070,6 +3235,413 @@ def s3_cpu_results(s3: dict) -> dict:
     emit("recognize_cpu_side", seconds_since_start=time.perf_counter()
          - s3["cpu_started"], threads=S3_CPU_THREADS)
     return json.loads((s3["dir"] / "cpu.json").read_text())
+
+
+# -------------------------------------------- the CPU references ---
+REFS_CPU_THREADS = 2   # of the card machine's 8 cores, beside S3's 3
+
+
+def refs_setup(work: Path, s3: dict) -> dict:
+    """The CPU side of every card-against-CPU phase but S3's (the fp32
+    runs each card phase is held against), started after the build in a
+    process of its own (``refs_child``) beside S3's, so that it runs while
+    the card phases do. Each result is built from the same seeds,
+    configs and inputs as its card side and lands in ``work/refs`` as it
+    is done, in the order the phases read them (``refs_result``)."""
+    tmp = work / "refs"
+    tmp.mkdir()
+    spec = {"dir": str(tmp), "tools": tools_files(s3)}
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "chip_smoke.refs_child(json.loads(sys.argv[2]))")
+    with open(tmp / "child.log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code, str(ROOT), json.dumps(spec)],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT),
+                     CUDA_VISIBLE_DEVICES="",
+                     OMP_NUM_THREADS=str(REFS_CPU_THREADS)))
+    return {"dir": tmp, "proc": proc, "tools": spec["tools"], "kept": {}}
+
+
+REFS = ("refs_s1", "refs_decode_modes", "refs_stream", "refs_tools",
+        "refs_steps")
+
+
+def refs_child(spec: dict) -> None:
+    """The CPU references' process: each generator of REFS in turn (each
+    takes ``spec``: the results' directory and the tools' arguments),
+    each result saved as ``<name>.pt`` (written whole, then renamed) with
+    the wall-clock time it was done."""
+    import logging
+    logging.basicConfig(level=logging.WARNING)
+    torch.set_num_threads(REFS_CPU_THREADS)
+    register_counters()
+    tmp = Path(spec["dir"])
+    for fn in REFS:
+        for name, result in globals()[fn](spec):
+            result = dict(result, _done_at=time.time())
+            torch.save(result, tmp / f"{name}.part")
+            os.replace(tmp / f"{name}.part", tmp / f"{name}.pt")
+
+
+def refs_result(refs: dict, name: str, keep: bool = False):
+    """A result of the CPU references' process: waits for it (raises if
+    the process ended without it) and emits how long it waited. With
+    ``keep`` it is kept for the next reader."""
+    if name in refs["kept"]:
+        return refs["kept"][name]
+    path = refs["dir"] / f"{name}.pt"
+    t0 = time.perf_counter()
+    while not path.exists():
+        if refs["proc"].poll() is not None and not path.exists():
+            log = (refs["dir"] / "child.log").read_text()[-3000:]
+            raise RuntimeError(f"cpu_refs: the process exited "
+                               f"{refs['proc'].returncode} before "
+                               f"{name}:\n{log}")
+        time.sleep(0.1)
+    out = torch.load(path, weights_only=False)
+    path.unlink()
+    emit("cpu_refs", part=name, waited_s=time.perf_counter() - t0,
+         done_s_before_read=time.time() - out.pop("_done_at"))
+    if keep:
+        refs["kept"][name] = out
+    return out
+
+
+# ------------------------------------------------------- the tools ---
+TOOLS_LM_WEIGHT = 0.5   # LM1's weight of the ARPA's natural-log score
+
+
+def tools_files(s3: dict) -> dict:
+    """The tools' inputs beside S3's files (S1's model as final.pt, its
+    config, units and data.list): a wav.scp and the transcripts of the 16
+    WAVs, their words one a line and a unigram ARPA of them
+    (unigram_arpa), and the arguments of A1 (the alignment CLI,
+    --gen_praat, one batch of 16) and L1 (the label checker) by side,
+    the CPU's with --device cpu."""
+    d = s3["dir"]
+    tmp = d / "tools"
+    tmp.mkdir()
+    text = (WAV_DIR.parent / "text").read_text()
+    (tmp / "text").write_text(text)
+    (tmp / "wav.scp").write_text("".join(
+        f"{p.stem} {p}\n" for p in sorted(WAV_DIR.glob("*.wav"))))
+    sents = [line.split(" ", 1)[1] for line in text.splitlines()]
+    (tmp / "words.txt").write_text("".join(
+        w + "\n" for w in sorted({w for s in sents for w in s.split()})))
+    (tmp / "lm.arpa").write_text(unigram_arpa(sents))
+    model = ["--config", str(d / "train.yaml"), "--checkpoint",
+             str(d / "final.pt"), "--symbol_table", str(d / "units.txt")]
+    out = {"dir": str(tmp), "arpa": str(tmp / "lm.arpa"),
+           "wordlist": str(tmp / "words.txt"), "a1": {}, "l1": {}}
+    for side in ("card", "cpu"):
+        dev = ["--device", "cpu"] if side == "cpu" else []
+        out["a1"][side] = model + [
+            "--input_data", str(d / "data.list"), "--result_file",
+            str(tmp / "a1" / side / "ali.txt"), "--gen_praat",
+            "--batch_size", "16"] + dev
+        out["l1"][side] = model + [
+            "--wav_scp", str(tmp / "wav.scp"), "--text", str(tmp / "text"),
+            "--result", str(tmp / "l1" / side / "result.txt"),
+            "--timestamp", str(tmp / "l1" / side / "ts.txt")] + dev
+    return out
+
+
+def tools_batches(d: Path, model, device):
+    """What A1 and L1 fed their searches: the CLIs' test-time pipeline
+    over S3's data.list (dither 0), ``model``'s CTC log-probs of the one
+    batch of 16 (A1's) and of each utterance alone (L1's), with the
+    labels. → dict of host tensors and lists."""
+    from wenet_celoss_tpu_torch.bin import recognize
+    from wenet_celoss_tpu_torch.data.dataset import Dataset
+    from wenet_celoss_tpu_torch.utils.config import load_config
+    from wenet_celoss_tpu_torch.utils.file_utils import read_symbol_table
+    table = read_symbol_table(str(d / "units.txt"))
+    conf = dict(recognize.eval_dataset_conf(
+        load_config(str(d / "train.yaml")), 16), context_mode=0)
+    (batch,) = list(Dataset("raw", str(d / "data.list"), table, conf,
+                            partition=False))
+    feats = torch.as_tensor(batch["feats"], device=device)
+    lens = torch.as_tensor(batch["feat_lengths"], dtype=torch.long,
+                           device=device)
+    with torch.no_grad():
+        _, mask, lp = model.encode_ctc(feats, lens)
+        alone = [model.encode_ctc(feats[i:i + 1, :int(n)], lens[i:i + 1])[2]
+                 [0].cpu() for i, n in enumerate(batch["feat_lengths"])]
+    return {"lp": lp.cpu(), "frames": mask.long().sum(1).cpu(),
+            "labels": [[int(x) for x in y[:n]] for y, n in
+                       zip(batch["labels"], batch["label_lengths"])],
+            "alone": alone, "keys": batch["keys"]}
+
+
+def refs_tools(spec: dict):
+    """A1's and L1's CPU sides (in the CPU references' process): each CLI
+    with --device cpu (its files under tools/<part>/cpu), and the CPU
+    model's log-probs they searched (tools_batches)."""
+    from wenet_celoss_tpu_torch.bin import alignment, label_checker
+    from wenet_celoss_tpu_torch.configs import conformer_rnnt_bias
+    from wenet_celoss_tpu_torch.models.factory import init_model
+    from wenet_celoss_tpu_torch.utils.checkpoint import load_into
+    tools = spec["tools"]
+    seconds = {}
+    for part, cli in (("a1", alignment), ("l1", label_checker)):
+        t0 = time.perf_counter()
+        cli.main(tools[part]["cpu"])
+        seconds[part] = time.perf_counter() - t0
+    d = Path(tools["dir"]).parent
+    model = init_model(conformer_rnnt_bias(), device="cpu")
+    load_into(model, str(d / "final.pt"))
+    yield "tools", {"seconds": seconds, **tools_batches(d, model, "cpu")}
+
+
+def tool_files(out: Path) -> dict:
+    return {p.name: p.read_text(encoding="utf8")
+            for p in sorted(out.iterdir())}
+
+
+def parted(card: dict, cpu: dict, name: str) -> list:
+    """The keys whose line differs between the card's and the CPU's file
+    ``name`` (lines "<key> ..."), or, for a TextGrid, whose file does."""
+    if name.endswith(".TextGrid"):
+        return [name[:-len(".TextGrid")]] if card.get(name) != cpu.get(
+            name) else []
+    a = dict(line.split(" ", 1) if " " in line else (line, "")
+             for line in card.get(name, "").splitlines())
+    b = dict(line.split(" ", 1) if " " in line else (line, "")
+             for line in cpu.get(name, "").splitlines())
+    return sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+
+
+def tool_near_tie(card_lp, cpu_lp, frames: int) -> dict:
+    """The bound on a search's margin that a card-against-CPU difference
+    of one utterance implies: every hypothesis of a CTC search (the
+    Viterbi path, a label checker's edit path) scores one log-prob a
+    frame plus fixed costs, so between the two runs each score moves by
+    at most T'·max|Δ log-prob|, and a decision that flips had a margin
+    under twice that on the CPU."""
+    delta = float((card_lp[:frames] - cpu_lp[:frames]).abs().max())
+    bound = 2 * frames * delta
+    return {"frames": frames, "max_abs_log_prob": delta,
+            "cpu_margin_at_most": bound, "near_tie": bound < NEAR_TIE}
+
+
+def phase_tools(s3: dict, refs: dict, slice_run, lm1_cpu_nbest) -> dict:
+    """The tools on the card (S1's model, fp32, the 16 WAVs), each against
+    its CPU side: A1 the alignment CLI (ali.txt and the 16 TextGrids), L1
+    the label checker CLI (result and timestamps), both in process with
+    every count set to 0 just before and read just after (24 K1 launches
+    an encoder pass); a file may differ from the CPU's only at an
+    utterance whose search margin on the CPU is provably under NEAR_TIE
+    (tool_near_tie), and the search redone on the card's log-probs on the
+    host must give the card's line. LM1: S1's CTC prefix-beam n-best
+    (beam 10) on the card and the CPU's, each rescored by
+    lm_rescore_nbest with the transcripts' ARPA: the same orders (F1 and
+    W1: phase_f1, phase_w1). Returns the launches by path."""
+    from wenet_celoss_tpu_torch.bin import alignment, label_checker
+    from wenet_celoss_tpu_torch.decode.label_check import check_labels, \
+        render
+    from wenet_celoss_tpu_torch.ops.ctc_loss import ctc_forced_align
+    from wenet_celoss_tpu_torch.utils.file_utils import read_symbol_table
+    t_phase = time.perf_counter()
+    tools = refs["tools"]
+    tmp = Path(tools["dir"])
+    launches = {}
+    for part, cli in (("a1", alignment), ("l1", label_checker)):
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.main(tools[part]["card"])
+        torch.cuda.synchronize()
+        launches[part] = (read_counts(), time.perf_counter() - t0)
+    ref = refs_result(refs, "tools")
+    card = tools_batches(s3["dir"], s3["model"], "cuda")
+    keys = card["keys"]
+    id2sym = {v: k for k, v in read_symbol_table(
+        str(s3["dir"] / "units.txt")).items()}
+    texts = dict(line.split(" ", 1) for line in
+                 (tmp / "text").read_text().splitlines())
+
+    def l1_line(key, lp, id2sym):
+        """L1's result text of one utterance, searched on the host over
+        ``lp`` as the CLI searches (its labels, its default penalties and
+        beam)."""
+        sym2id = {v: k for k, v in id2sym.items()}
+        labels = [sym2id["▁" if c == " " else c] for c in texts[key]
+                  if ("▁" if c == " " else c) in sym2id]
+        items = check_labels(lp.numpy(), labels)
+        return "" if items is None else render(items, id2sym, 10, 4)[0]
+    for part in ("a1", "l1"):
+        got, want = (tool_files(tmp / part / side) for side in
+                     ("card", "cpu"))
+        passes = 1 if part == "a1" else len(keys)
+        want_k1 = {**NO_LAUNCHES, "k1": passes * K1_PER_ENCODER_PASS}
+        counts, seconds = launches[part]
+        check(counts == want_k1, f"tools {part}: launches {counts}, want "
+                                 f"{want_k1}")
+        check(sorted(got) == sorted(want), f"tools {part}: files "
+              f"{sorted(got)} on the card, {sorted(want)} on the CPU")
+        diffs = {}
+        for name in want:
+            for key in parted(got, want, name):
+                i = keys.index(key)
+                if part == "a1":
+                    n = int(ref["frames"][i])
+                    lp_card, lp_cpu = card["lp"][i], ref["lp"][i]
+                    redo = ctc_forced_align(
+                        lp_card[None, :n], torch.tensor([card["labels"][i]]),
+                        torch.tensor([n]), torch.tensor(
+                            [len(card["labels"][i])]))[0].tolist()
+                    redone = " ".join(map(str, redo)) == dict(
+                        line.split(" ", 1) for line in
+                        got["ali.txt"].splitlines())[key]
+                else:
+                    lp_card, lp_cpu = card["alone"][i], ref["alone"][i]
+                    n = lp_card.shape[0]
+                    redone = l1_line(key, lp_card, id2sym) == dict(
+                        (line.split(" ", 1) + [""])[:2] for line in
+                        got["result.txt"].splitlines())[key]
+                rec = tool_near_tie(lp_card, lp_cpu, n)
+                diffs.setdefault(key, {**rec, "files": [],
+                                       "search_redone_matches": redone})
+                diffs[key]["files"].append(name)
+        bad = {k: v for k, v in diffs.items()
+               if not (v["near_tie"] and v["search_redone_matches"])}
+        check(not bad, f"tools {part}: card and CPU differ away from a "
+                       f"near tie: {bad}")
+        rec = {"files": len(want), "files_equal": sum(
+            got.get(k) == v for k, v in want.items()),
+            "near_tie_flips": diffs, "launches": counts,
+            "card_s": seconds, "cpu_s": ref["seconds"][part]}
+        if part == "a1":
+            rec["utterances_aligned"] = len(got["ali.txt"].splitlines())
+            check(rec["utterances_aligned"] == len(keys) and len(want) ==
+                  len(keys) + 1, f"tools a1: {len(want)} files")
+        else:
+            lines = got["result.txt"].splitlines()
+            rec.update(lines=len(lines), aligned=sum(" " in line
+                                                     for line in lines),
+                       edits=sum(line.count("<del>") + line.count("<is>")
+                                 for line in lines))
+            check(len(lines) == len(keys), f"tools l1: {len(lines)} lines")
+        emit("tools", part=part, **rec)
+    launches = {part: counts for part, (counts, _) in launches.items()}
+    launches["lm1"] = phase_lm1(slice_run, tools, lm1_cpu_nbest)
+    emit("tools", part="a1_l1_lm1", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def nbest_words(nbest, i: int, id2sym: dict) -> list:
+    """Utterance i's hypotheses of a prefix-beam n-best as word lists
+    (the units of write_units; ▁ starts a word)."""
+    toks = nbest["tokens"][i].cpu().tolist()
+    lens = nbest["lens"][i].cpu().tolist()
+    return ["".join(id2sym.get(t, "<unk>") for t in row[:n]).replace(
+        "▁", " ").split() for row, n in zip(toks, lens)]
+
+
+def phase_lm1(slice_run, tools: dict, cpu_nbest) -> dict:
+    """LM1: S1's CTC prefix-beam n-best on the card (every count set to 0
+    just before, read just after: 24 K1) and the CPU's (from
+    decode_modes), each hypothesis rescored by lm_rescore_nbest (the
+    transcripts' unigram ARPA, weight TOOLS_LM_WEIGHT, on the prefix
+    beam's score): per utterance the rescored orders, as token lists,
+    equal; a difference only where the CPU's rescored scores at the
+    first differing rank lie within NEAR_TIE. Returns the launches."""
+    from wenet_celoss_tpu_torch.lm.arpa import ArpaLM, lm_rescore_nbest
+    dec, feats, lens = slice_run[:3]
+    lm = ArpaLM(tools["arpa"])
+    syms = ["<blank>", "▁"] + [chr(c) for c in range(65, 91)]
+    id2sym = dict(enumerate(syms))
+    reset_counts()
+    _, card, _, _ = dec.ctc_prefix_beam_search(feats, lens, beam=10)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    same, ties, bad, moved = 0, [], [], 0
+    for i in range(len(lens)):
+        orders = []
+        for nb in (card, cpu_nbest):
+            words = nbest_words(nb, i, id2sym)
+            toks = [tuple(r[:n]) for r, n in zip(
+                nb["tokens"][i].cpu().tolist(), nb["lens"][i].cpu().tolist())]
+            total = lm_rescore_nbest(lm, words, nb["scores"][i].cpu().tolist(),
+                                     TOOLS_LM_WEIGHT)
+            rank = sorted(range(len(toks)), key=lambda j: -total[j])
+            orders.append(([toks[j] for j in rank], [total[j] for j in rank]))
+        (a, _), (b, b_total) = orders
+        moved += int(b != [tuple(r[:n]) for r, n in zip(
+            cpu_nbest["tokens"][i].tolist(), cpu_nbest["lens"][i].tolist())])
+        if a == b:
+            same += 1
+            continue
+        k = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        gap = abs(b_total[k] - b_total[b.index(a[k])]) if a[k] in b \
+            else float("inf")
+        (ties if gap < NEAR_TIE else bad).append(
+            {"utt": i, "rank": k, "cpu_rescored_gap": gap})
+    want = {**NO_LAUNCHES, "k1": K1_PER_ENCODER_PASS}
+    check(not bad and launches == want, f"tools lm1: orders differ away "
+          f"from a near tie {bad}; launches {launches}, want {want}")
+    emit("tools", part="lm1", utterances=len(lens), beam=10,
+         lm_weight=TOOLS_LM_WEIGHT, orders_identical=same,
+         near_tie_flips=ties, other_diffs=bad,
+         utterances_reordered_by_the_lm=moved, launches=launches)
+    return launches
+
+
+def phase_f1(iters: int = 10) -> None:
+    """F1: the batched fbank and MFCC (ops/fbank.py compute_fbank,
+    compute_mfcc; plain torch, torch.fft.rfft) on the card over the 16
+    WAVs padded to a batch and at bench.py's decode shape (B = 64 × 512
+    frames of seeded white noise), against the port's numpy path per
+    utterance (fbank_close, mfcc_close); ms a batch on the card (CUDA
+    events, mean of ``iters``) beside the numpy path's (host, the whole
+    batch once)."""
+    from wenet_celoss_tpu_torch.data.wav import read_wav
+    from wenet_celoss_tpu_torch.ops import fbank
+    rng = np.random.default_rng(21)
+    n512 = (512 - 1) * 160 + 400
+    batches = {
+        "wavs16": [read_wav(str(p))[0] for p in sorted(WAV_DIR.glob("*.wav"))],
+        "b64_t512": [(rng.standard_normal(n512) * 8000).astype(np.float32)
+                     for _ in range(64)]}
+    fb_cfg, mf_cfg = fbank.FbankConfig(), fbank.MfccConfig()
+    for name, wavs in batches.items():
+        lens = np.array([len(w) for w in wavs])
+        pad = np.zeros((len(wavs), lens.max()), np.float32)
+        for i, w in enumerate(wavs):
+            pad[i, :len(w)] = w
+        x = torch.as_tensor(pad, device="cuda")
+        n = torch.as_tensor(lens, device="cuda")
+        rec = {"batch": len(wavs), "frames_max": int(
+            fbank.num_frames(lens.max(), fb_cfg))}
+        for kind, fn, cfg, host_fn in (
+                ("fbank", fbank.compute_fbank, fb_cfg,
+                 fbank.compute_fbank_np),
+                ("mfcc", fbank.compute_mfcc, mf_cfg,
+                 fbank.compute_mfcc_np)):
+            got, got_n = fn(x, n, cfg)
+            got, got_n = got.cpu().numpy(), got_n.cpu().numpy()
+            t0 = time.perf_counter()
+            host = [host_fn(w, cfg) for w in wavs]
+            host_ms = (time.perf_counter() - t0) * 1e3
+            want = np.zeros_like(got)
+            for i, h in enumerate(host):
+                want[i, :len(h)] = h
+            check(got_n.tolist() == [len(h) for h in host],
+                  f"tools f1 {name} {kind}: frame counts {got_n.tolist()}")
+            if kind == "fbank":
+                judge = fbank_close(got, want)
+                got_fb, want_fb = got, want
+            else:
+                judge = mfcc_close(got, want, got_fb, want_fb, cfg)
+            check(judge["beyond"] == 0, f"tools f1 {name} {kind}: {judge}")
+            rec[kind] = {**judge, "card_ms": cuda_ms(
+                lambda: fn(x, n, cfg), iters=iters), "host_ms": host_ms}
+        emit("tools", part="f1", shape=name, **rec,
+             rule=f"log-mel {FBANK_TOL} rtol and atol, bins under "
+                  f"{FBANK_QUIET} of their frame's largest energy in the "
+                  f"energy domain; MFCC {FBANK_TOL} plus the log-mel "
+                  f"difference through |lifter x DCT|")
 
 
 def phase_recognize(init_model, Decoder, conformer_rnnt_bias,
@@ -3411,26 +3983,24 @@ def phase_stream_slice(init_model, Decoder, u2pp_conformer,
     """S2: the full-width fp32 U2++ conformer (seeded weights) decodes
     S1's 16 WAVs chunk by chunk (STREAM_KW) through CTC greedy and
     attention rescoring (beam 10, ctc 0.5, reverse 0.3) on the card, held
-    against the CPU by S1's flip rules; 24 K1 launches a chunk (every
-    count set to 0 just before the greedy decode, the stream_decode path,
-    and read just after), 9 more in the rescoring. The streamed encoder
-    output card against CPU. Then U2's contract on the card: with
-    ``static_chunk_size: 16`` the streamed output equals the chunk-masked
-    full forward on the valid frames within 1e-4 relative Frobenius, and
-    the masks are equal. Returns the stream_decode path's K1 launches."""
+    against the CPU (``refs_stream``) by S1's flip rules; 24 K1 launches a
+    chunk (every count set to 0 just before the greedy decode, the
+    stream_decode path, and read just after), 9 more in the rescoring.
+    The streamed encoder output card against CPU. Then U2's contract on
+    the card: with ``static_chunk_size: 16`` the streamed output equals
+    the chunk-masked full forward on the valid frames within 1e-4
+    relative Frobenius, and the masks are equal. Returns the
+    stream_decode path's K1 launches."""
     _, feats, lens = slice_run[:3]
+    ref = refs_result(slice_run[-1], "stream")
     cfg = u2pp_conformer()
     model = init_model(cfg, seed=0)
     dec = Decoder(model)
-    torch.set_num_threads(os.cpu_count() or 1)
-    cpu_model = init_model(cfg, device="cpu", seed=0)
-    cpu_model.load_state_dict({k: v.cpu()
-                               for k, v in model.state_dict().items()})
-    cpu_dec = Decoder(cpu_model, device="cpu")
     chunks = stream_chunks(feats.shape[1])
     t0 = time.perf_counter()
-    greedy = ctc_greedy_check(dec, cpu_dec, feats, lens, **STREAM_KW)
-    greedy["seconds_card_and_cpu"] = time.perf_counter() - t0
+    greedy = ctc_greedy_check(dec, ref["ctc_greedy"], feats, lens,
+                              **STREAM_KW)
+    greedy["seconds_card"] = time.perf_counter() - t0
     want = {**NO_LAUNCHES, "k1": K1_PER_ENCODER_PASS * chunks}
     check(greedy["launches"] == want, f"stream_slice ctc_greedy: launches "
           f"{greedy['launches']}, want {want}")
@@ -3439,7 +4009,7 @@ def phase_stream_slice(init_model, Decoder, u2pp_conformer,
     card = dec.attention_rescoring(feats, lens, **kw)
     torch.cuda.synchronize()
     r_launches = read_counts()
-    cpu = cpu_dec.attention_rescoring_nbest(feats, lens, **kw)
+    cpu = ref["rescoring"]
     same, ties, bad = compare_nbest(card, cpu)
     rescoring = dict(identical_to_cpu=same, near_tie_flips=ties,
                      other_diffs=bad, tokens=sum(map(len, card)),
@@ -3457,7 +4027,7 @@ def phase_stream_slice(init_model, Decoder, u2pp_conformer,
         emit("stream_slice", mode=name, model="u2pp_conformer",
              dtype="float32", utterances=len(lens), chunks=chunks, **rec)
     ys, mask, _ = dec.encode_ctc_streaming(feats, lens, 16, 4)
-    ys_cpu, mask_cpu, _ = cpu_dec.encode_ctc_streaming(feats, lens, 16, 4)
+    ys_cpu, mask_cpu = ref["ys"], ref["mask"]
     enc_err = float((ys.cpu() - ys_cpu)[mask_cpu].abs().max())
     check(torch.equal(mask.cpu(), mask_cpu) and enc_err <= 1e-3,
           f"stream_slice streamed encoder card vs CPU max abs {enc_err}")
@@ -3481,6 +4051,25 @@ def phase_stream_slice(init_model, Decoder, u2pp_conformer,
          tolerance="relative Frobenius <= 1e-4 on the valid frames; "
                    "card vs CPU max abs <= 1e-3")
     return greedy["launches"]["k1"]
+
+
+def refs_stream(spec: dict):
+    """S2's CPU side (in the CPU references' process): the U2++ model
+    (seed 0) on the CPU, its streamed CTC greedy, attention rescoring
+    n-best and streamed encoder output over S1's WAVs."""
+    from wenet_celoss_tpu_torch.configs import u2pp_conformer
+    from wenet_celoss_tpu_torch.decode.api import Decoder
+    from wenet_celoss_tpu_torch.models.factory import init_model
+    _, feats, lens = load_wavs()
+    cpu_dec = Decoder(init_model(u2pp_conformer(), device="cpu", seed=0),
+                      device="cpu")
+    kw = dict(beam=10, ctc_weight=0.5, reverse_weight=0.3, **STREAM_KW)
+    ys, mask, _ = cpu_dec.encode_ctc_streaming(feats, lens, 16, 4)
+    yield "stream", {
+        "ctc_greedy": ctc_greedy_cpu(cpu_dec, feats, lens, **STREAM_KW),
+        "rescoring": cpu_dec.attention_rescoring_nbest(feats, lens, **kw),
+        "ys": ys, "mask": mask}
+
 
 
 def phase_bench_stream(init_model, Decoder, u2pp_conformer, b: int = 64,
@@ -3543,23 +4132,17 @@ def no_dropout(cfg):
     return cfg
 
 
-def float64_check(what, cpu, batch, train, names, card_g, cpu_g,
-                  card_m, cpu_m) -> dict:
-    """The port's CPU path in float64 (a float64 copy of ``cpu``, the same
-    batch) as the reference of one step. Per gradient, the fp32 error of
-    the card and of the CPU against it (relative Frobenius, the scale
-    floored at 1e-6 of the reference's global norm); the card passes where
-    its error is at most twice the CPU's plus 1e-6. The key projections'
-    biases, whose exact gradient is 0 (softmax ignores a shift shared by
-    all keys), are held to 1e-6 of the global norm on both instead. A
-    gradient that fails is a fault of the port."""
-    m64 = copy.deepcopy(cpu).double()
-    b64 = on(batch, "cpu")
-    b64["feats"] = b64["feats"].double()
-    t0 = time.perf_counter()
-    ref, ref_m = train.make_grad_fn(m64)(train.TrainState(0, m64, None),
-                                         b64, torch.Generator())
-    seconds = time.perf_counter() - t0
+def float64_check(what, ref64, names, card_g, cpu_g, card_m, cpu_m) -> dict:
+    """The port's CPU path in float64 (``ref64``: a float64 copy of the
+    CPU's model after its step, its gradients and metrics on the same
+    batch, from ``cpu_step``) as the reference of one step. Per gradient,
+    the fp32 error of the card and of the CPU against it (relative
+    Frobenius, the scale floored at 1e-6 of the reference's global norm);
+    the card passes where its error is at most twice the CPU's plus 1e-6.
+    The key projections' biases, whose exact gradient is 0 (softmax
+    ignores a shift shared by all keys), are held to 1e-6 of the global
+    norm on both instead. A gradient that fails is a fault of the port."""
+    ref, ref_m = ref64["g"], ref64["m"]
     gnorm = float(torch.sqrt(sum((r ** 2).sum() for r in ref)))
     rows = {}
     for name, a, b, r in zip(names, card_g, cpu_g, ref):
@@ -3584,50 +4167,80 @@ def float64_check(what, cpu, batch, train, names, card_g, cpu_g,
             "median_card_over_cpu": float(np.median(
                 [v["card"] / max(v["cpu"], 1e-30) for v in rows.values()
                  if not v["exact_zero"]])),
-            "loss_abs_errors": losses, "float64_cpu_seconds": seconds,
+            "loss_abs_errors": losses,
+            "float64_cpu_seconds": ref64["seconds"],
             "rule": "card error <= 2 * CPU error + 1e-6 per gradient "
                     "(relative Frobenius against the float64 CPU step, "
                     "scale floored at 1e-6 of its global norm); key "
                     "biases <= 1e-6 of the global norm"}
 
 
-def card_vs_cpu(what, init_model, cfg, train, model, batch, card,
-                loss_rtol: float = 1e-4, spread: bool = False,
-                start_state=None, gen_seed=None) -> dict:
-    """The CPU's run of one gradient step of ``model`` (same weights, same
-    batch) against the card's ``card`` = (grads, metrics): every loss term
-    to ``loss_rtol`` relative, the gradient norm to 1e-4 relative, each
-    parameter's gradient to 1e-3 relative Frobenius. The CPU's model
-    starts from ``start_state`` (the card model's state before its step;
-    default its state now) and its step generator from ``gen_seed`` (a
-    U2++ model draws its dynamic chunk from it: the card's step must have
-    used the same seed; the default is torch.Generator()'s own). A
-    batch_norm model's running statistics after
-    both steps: each mean and variance to 1e-4 of its tensor's largest
-    element.
-
-    With ``spread`` the CPU runs the step a second time on 3 threads
-    (another summation order), and the limits become the larger of those
-    and twice the CPU's own difference between its two runs: a model whose
-    fp32 gradients move by more than the limits under another summation
-    order on the same CPU cannot be held tighter than that; and the card's
-    and the CPU's gradients are both held to the port's CPU path in
-    float64 (float64_check). Returns the fields of the phase's line."""
-    card_g, card_m = card
-    torch.set_num_threads(os.cpu_count() or 1)
+def cpu_step(cfg, batch, gen_seed=None, spread=False) -> dict:
+    """card_vs_cpu's reference (in the CPU references' process): one fp32
+    gradient step of ``init_model(cfg, seed=0)`` on the CPU, the batch
+    and generator seed the card's step used (None: torch.Generator()'s
+    own) → its gradients, metrics, running statistics and seconds. With
+    ``spread`` the step runs on 8 threads and again on 3 (another
+    summation order, ``alt_g``), and a float64 copy of the model runs the
+    same batch (``float64``: float64_check's reference)."""
+    from wenet_celoss_tpu_torch.models.factory import init_model
+    from wenet_celoss_tpu_torch.parallel import train
     cpu = init_model(cfg, device="cpu", seed=0)
-    cpu.load_state_dict(start_state or {
-        k: v.cpu() for k, v in model.state_dict().items()})
 
-    def cpu_step():
+    def run():
         gen = torch.Generator()
         if gen_seed is not None:
             gen.manual_seed(gen_seed)
         return train.make_grad_fn(cpu)(
             train.TrainState(0, cpu, None), on(batch, "cpu"), gen)
-    cpu_g, cpu_m = cpu_step()
-    fields = {}
-    stats = [(n, b, cpu.get_buffer(n)) for n, b in model.named_buffers()
+    threads = torch.get_num_threads()
+    t0 = time.perf_counter()
+    if spread:
+        torch.set_num_threads(8)
+    g, m = run()
+    out = {"g": g, "m": {k: float(v) for k, v in m.items()},
+           "buffers": {n: b.clone() for n, b in cpu.named_buffers()
+                       if n.endswith(("running_mean", "running_var"))},
+           "seconds": time.perf_counter() - t0}
+    if spread:
+        torch.set_num_threads(3)
+        out["alt_g"] = run()[0]
+        torch.set_num_threads(threads)
+        m64 = copy.deepcopy(cpu).double()
+        b64 = on(batch, "cpu")
+        b64["feats"] = b64["feats"].double()
+        t0 = time.perf_counter()
+        ref, ref_m = train.make_grad_fn(m64)(
+            train.TrainState(0, m64, None), b64, torch.Generator())
+        out["float64"] = {"g": ref, "m": {k: float(v) for k, v in
+                                          ref_m.items()},
+                          "seconds": time.perf_counter() - t0}
+    return out
+
+
+
+def card_vs_cpu(what, model, card, cpu, loss_rtol: float = 1e-4,
+                spread: bool = False, start_state=None) -> dict:
+    """The CPU's run of one gradient step of ``model`` (same weights, same
+    batch; ``cpu``: ``cpu_step``'s result) against the card's ``card`` =
+    (grads, metrics): every loss term to ``loss_rtol`` relative, the
+    gradient norm to 1e-4 relative, each parameter's gradient to 1e-3
+    relative Frobenius. ``start_state``: the card model's state before its
+    step. A batch_norm model's running statistics after both steps: each
+    mean and variance to 1e-4 of its tensor's largest element.
+
+    With ``spread`` (the CPU ran the step on 8 and on 3 threads, another
+    summation order) the limits become the larger of those and twice the
+    CPU's own difference between its two runs: a model whose fp32
+    gradients move by more than the limits under another summation order
+    on the same CPU cannot be held tighter than that; and the card's and
+    the CPU's gradients are both held to the port's CPU path in float64
+    (float64_check). Returns the fields of the phase's line."""
+    from wenet_celoss_tpu_torch.parallel import train
+    card_g, card_m = card
+    cpu_g, cpu_m = cpu["g"], cpu["m"]
+    fields = {"cpu_step_seconds": cpu["seconds"]}
+    stats = [(n, b, cpu["buffers"][n]) for n, b in model.named_buffers()
              if n.endswith(("running_mean", "running_var"))]
     if stats:
         errs = {n: float((a.cpu() - c).abs().max() / c.abs().max())
@@ -3640,11 +4253,7 @@ def card_vs_cpu(what, init_model, cfg, train, model, batch, card,
                       running_stats_moved=any(
                           not torch.equal(a.cpu(), start_state[n])
                           for n, a, _ in stats) if start_state else None)
-    alt_g = None
-    if spread:
-        torch.set_num_threads(3)
-        alt_g = cpu_step()[0]
-        torch.set_num_threads(os.cpu_count() or 1)
+    alt_g = cpu.get("alt_g") if spread else None
     losses = {k: (float(card_m[k]), float(cpu_m[k])) for k in card_m}
     for k, (a, b) in losses.items():
         check(abs(a - b) <= loss_rtol * abs(b),
@@ -3694,12 +4303,68 @@ def card_vs_cpu(what, init_model, cfg, train, model, batch, card,
     if spread:
         fields["limits_raised_by_cpu_spread"] = raised
         fields["float64_reference"] = float64_check(
-            what, cpu, batch, train, [n for n, _ in model.named_parameters()],
+            what, cpu["float64"], [n for n, _ in model.named_parameters()],
             card_g, cpu_g, card_m, cpu_m)
     return dict(losses_card_cpu=losses, gnorm_card=gn_card,
                 gnorm_cpu=gn_cpu, worst_grad_rel_fro=worst_rel,
                 worst_grad_over_limit=worst, worst_grad=worst_name,
                 **fields)
+
+
+# The card-against-CPU training steps in the order the phases take them,
+# and the CPU step each reads (the CPU runs no switch: CONV and LNMM's
+# checks share the plain flagship's).
+CHECK_STEPS = ("train_check", "postnorm_train_check", "u2pp_train_check",
+               "rnnt_train_check", "rnnt_pallas_train_check",
+               "bn_train_check", "v1_check", "v2_check", "v3_check")
+CPU_STEP_OF = {"conv_train_check": "rnnt_train_check",
+               "lnmm_train_check": "rnnt_train_check"}
+
+
+def check_recipe(what: str, wavs) -> tuple:
+    """(config, batch, generator seed or None, spread) of the
+    card-against-CPU step ``what``: dropout 0, T0's 16 WAVs (the
+    flagship's with hotwords from their transcripts; V1-V3 4 of S1's WAVs
+    with word labels), the same on the card and in ``cpu_step``."""
+    from wenet_celoss_tpu_torch.configs import (conformer_ctc_aed,
+                                                conformer_rnnt_bias,
+                                                u2pp_conformer)
+    what = CPU_STEP_OF.get(what, what)
+    if what == "train_check":
+        return no_dropout(conformer_ctc_aed()), head(wavs, 16), None, False
+    if what == "postnorm_train_check":
+        return (no_dropout(postnorm_aed(conformer_ctc_aed)), head(wavs, 16),
+                None, True)
+    if what == "u2pp_train_check":
+        return (no_dropout(u2pp_conformer()), head(wavs, 16),
+                limited_chunk_seed(wavs), False)
+    if what.startswith("v"):
+        overrides = {v: o for v, o, _ in VARIANTS}[what[:2]]
+        batch4, starts = s1_word_batch(4)
+        return (no_dropout_rnnt(variant_config(conformer_rnnt_bias,
+                                               overrides)()),
+                with_hotwords(batch4, starts=starts), None, False)
+    base = batch_norm_flagship(conformer_rnnt_bias) \
+        if what == "bn_train_check" else conformer_rnnt_bias
+    cfg = no_dropout_rnnt(base())
+    if what == "rnnt_pallas_train_check":
+        cfg["model_conf"]["rnnt_impl"] = "pallas"
+        cfg["output_dim"] = CHAR_VOCAB
+    else:
+        cfg["model_conf"]["rnnt_impl"] = "streaming"
+    return cfg, with_hotwords(head(wavs, 16)), None, False
+
+
+def refs_steps(spec: dict):
+    """Every CPU step of CHECK_STEPS (in the CPU references' process),
+    with the V1-V3 decodes' CPU side after each variant's step."""
+    wavs, _ = load_train_wavs()
+    for what in CHECK_STEPS:
+        cfg, batch, gen_seed, spread = check_recipe(what, wavs)
+        yield "step_" + what, cpu_step(cfg, batch, gen_seed, spread)
+        if what.startswith("v"):
+            yield from refs_variant_decodes(what[:2], cfg)
+
 
 
 def postnorm_aed(conformer_ctc_aed):
@@ -3716,17 +4381,16 @@ def postnorm_aed(conformer_ctc_aed):
     return cfg
 
 
-def phase_train_check(init_model, cfg, train, wavs, what="train_check",
-                      model_name="conformer_ctc_aed",
-                      want=None, spread=False, gen_seed=None) -> None:
-    """One fp32 step of the full-width model of ``cfg``, dropout 0, on the
-    card and on the CPU with the same weights and batch; every kernel's
-    launches as ``want``; ``spread`` as card_vs_cpu's. ``gen_seed``: both
-    steps' generator seed (a dynamic-chunk model's chunk is its first
-    draw, reported as ``chunk_drawn``); default torch.Generator()'s."""
+def phase_train_check(init_model, train, wavs, refs, what="train_check",
+                      model_name="conformer_ctc_aed", want=None) -> None:
+    """One fp32 step of the full-width model of ``check_recipe(what)``,
+    dropout 0, on the card and on the CPU (``cpu_step``, in the CPU
+    references' process) with the same weights, batch and generator seed;
+    every kernel's launches as ``want``; the recipe's ``spread`` as
+    card_vs_cpu's. A dynamic-chunk model's chunk is its generator's first
+    draw, reported as ``chunk_drawn``."""
     from wenet_celoss_tpu_torch.utils.mask import draw_dynamic_chunk
-    cfg = no_dropout(cfg)
-    batch = head(wavs, 16)
+    cfg, batch, gen_seed, spread = check_recipe(what, wavs)
     model = init_model(cfg, seed=0)
     seed = torch.Generator().initial_seed() if gen_seed is None \
         else gen_seed
@@ -3744,8 +4408,8 @@ def phase_train_check(init_model, cfg, train, wavs, what="train_check",
     torch.cuda.synchronize()
     launches = read_counts()
     check(launches == want, f"{what}: launches {launches}, want {want}")
-    fields = card_vs_cpu(what, init_model, cfg, train, model, batch,
-                         (card_g, card_m), spread=spread, gen_seed=seed)
+    fields = card_vs_cpu(what, model, (card_g, card_m),
+                         refs_result(refs, "step_" + what), spread=spread)
     emit(what, model=model_name, dtype="float32",
          dropout=0.0, utterances=len(batch["feat_lengths"]),
          frames_max=int(batch["feat_lengths"].max()),
@@ -3757,6 +4421,7 @@ def phase_train_check(init_model, cfg, train, wavs, what="train_check",
                    + ("; gnorm and each gradient at least twice the CPU's "
                       "own difference between 8 and 3 threads" if spread
                       else ""))
+
 
 
 def timed_steps(step, state, batch, gen, warm: int = 2, iters: int = 5):
@@ -3780,8 +4445,11 @@ def timed_steps(step, state, batch, gen, warm: int = 2, iters: int = 5):
     return state, losses, times, m, gnorm
 
 
-def train_curve(what, init_model, train, cfg, batch, steps: int = 24,
-                warmup: int = 4):
+TRAIN_CURVE_STEPS = 12   # the loss falls within the first 5
+
+
+def train_curve(what, init_model, train, cfg, batch,
+                steps: int = TRAIN_CURVE_STEPS, warmup: int = 4):
     """``steps`` bf16 steps of ``cfg``'s model from seed 0 on one batch,
     warmup cut to ``warmup`` steps so that the learning rate peaks within
     the run; the median of the last 5 losses must be below the first.
@@ -4013,23 +4681,19 @@ def no_dropout_rnnt(cfg):
     return cfg
 
 
-def phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs,
-                           what="rnnt_train_check", impl="streaming",
-                           env=None, want=RNNT_PER_STEP,
-                           vocab=None) -> dict:
-    """One fp32 step of the full-width flagship, dropout 0, on the card
-    and on the CPU with the same weights and batch (16 committed WAVs,
-    hotwords and hw labels from their transcripts): every loss term, the
-    gradient norm, every parameter's gradient and the launches of every
-    kernel. ``impl`` is the rnnt_impl, ``env`` the card's switches (CONV,
-    LNMM; the CPU runs the unfused modules), ``vocab`` overrides the output
-    size. Returns the launch counts."""
+def phase_rnnt_train_check(init_model, train, wavs, refs,
+                           what="rnnt_train_check", env=None,
+                           want=RNNT_PER_STEP) -> dict:
+    """One fp32 step of the full-width flagship of ``check_recipe(what)``
+    (the streaming loss; "pallas" with a character vocabulary; the
+    batch_norm conv module), dropout 0, on the card and on the CPU with
+    the same weights and batch (16 committed WAVs, hotwords and hw labels
+    from their transcripts): every loss term, the gradient norm, every
+    parameter's gradient and the launches of every kernel. ``env`` is the
+    card's switches (CONV, LNMM; the CPU runs the unfused modules, the
+    plain flagship's step). Returns the launch counts."""
     env = env or {}
-    cfg = no_dropout_rnnt(conformer_rnnt_bias())
-    cfg["model_conf"]["rnnt_impl"] = impl
-    if vocab:
-        cfg["output_dim"] = vocab
-    batch = with_hotwords(head(wavs, 16))
+    cfg, batch, _, _ = check_recipe(what, wavs)
     model = init_model(cfg, seed=0)
     start = {k: v.cpu().clone() for k, v in model.state_dict().items()}
     reset_counts()
@@ -4040,12 +4704,14 @@ def phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs,
         torch.cuda.synchronize()
     launches = read_counts()
     check(launches == want, f"{what}: launches {launches}, want {want}")
-    fields = card_vs_cpu(what, init_model, cfg, train, model,
-                         batch, (card_g, card_m), loss_rtol=1e-5,
-                         start_state=start)
+    fields = card_vs_cpu(what, model, (card_g, card_m), refs_result(
+        refs, "step_" + CPU_STEP_OF.get(what, what),
+        keep=what in CPU_STEP_OF.values()), loss_rtol=1e-5,
+        start_state=start)
     emit(what, model="conformer_rnnt_bias", dtype="float32",
          cnn_module_norm=cfg["encoder_conf"]["cnn_module_norm"],
-         rnnt_impl=impl, switches=env, vocab=cfg["output_dim"],
+         rnnt_impl=cfg["model_conf"]["rnnt_impl"], switches=env,
+         vocab=cfg["output_dim"],
          dropout=0.0, utterances=len(batch["feat_lengths"]),
          frames_max=int(batch["feat_lengths"].max()),
          labels_max=int(batch["label_lengths"].max()),
@@ -4061,6 +4727,7 @@ def phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs,
                    "both); running statistics 1e-4 of each tensor's "
                    "largest element")
     return launches
+
 
 
 def phase_rnnt_train(init_model, conformer_rnnt_bias, train, b: int = 256,
@@ -4293,22 +4960,20 @@ def phase_variant_kernels(ffn, rnnt) -> None:
 
 
 def phase_variant(name, overrides, frames, init_model, conformer_rnnt_bias,
-                  train, Decoder) -> tuple:
+                  train, Decoder, refs) -> tuple:
     """One of V1-V3 (see VARIANTS): one fp32 step on 4 of S1's WAVs with
     hotwords and dropout 0, card against CPU with T3's bounds; two bf16
     steps at B=64 x ``frames`` with dropout 0.1, the second timed; the
     gated ("on") greedy and the RNN-T beam (beam 4) decodes of S1's 16
-    WAVs (blank bias +3.0, as S1), card against CPU by S1's flip rules.
-    Each
+    WAVs (blank bias +3.0, as S1), card against CPU by S1's flip rules
+    (the CPU sides from the CPU references' process). Each
     training run's launches against variant_want. Returns the bf16 run's
     (launches, want) and what its profile needs."""
     t0 = time.perf_counter()
     cfg_fn = variant_config(conformer_rnnt_bias, overrides)
     want = variant_want(cfg_fn())
     impl = cfg_fn()["model_conf"]["rnnt_impl"]
-    cfg = no_dropout_rnnt(cfg_fn())
-    batch4, starts = s1_word_batch(4)
-    batch = with_hotwords(batch4, starts=starts)
+    cfg, batch, _, _ = check_recipe(name + "_check", None)
     model = init_model(cfg, seed=0)
     start = {k: v.cpu().clone() for k, v in model.state_dict().items()}
     reset_counts()
@@ -4318,8 +4983,8 @@ def phase_variant(name, overrides, frames, init_model, conformer_rnnt_bias,
     launches = read_counts()
     check(launches == want, f"{name} fp32 step: launches {launches}, want "
                             f"{want}")
-    fields = card_vs_cpu(f"{name}_check", init_model, cfg, train, model,
-                         batch, card, start_state=start)
+    fields = card_vs_cpu(f"{name}_check", model, card, refs_result(
+        refs, f"step_{name}_check"), start_state=start)
     t_check = time.perf_counter() - t0
     emit(f"{name}_check", dtype="float32", rnnt_impl=impl, dropout=0.0,
          utterances=4, labels=batch["label_lengths"].tolist(),
@@ -4331,10 +4996,7 @@ def phase_variant(name, overrides, frames, init_model, conformer_rnnt_bias,
     _, feats, lens = load_wavs()
     ctx, ctx_lens = hotwords(cfg["output_dim"])
     with_blank_bias(model, SLICE_BLANK_BIAS)
-    cpu_model = init_model(cfg, device="cpu", seed=0)
-    cpu_model.load_state_dict({k: v.cpu()
-                               for k, v in model.state_dict().items()})
-    dec, cpu_dec = Decoder(model), Decoder(cpu_model, device="cpu")
+    dec = Decoder(model)
     decodes = {}
     reset_counts()
     t1 = time.perf_counter()
@@ -4346,21 +5008,20 @@ def phase_variant(name, overrides, frames, init_model, conformer_rnnt_bias,
     decode_ms = {"gated_on": (t2 - t1) * 1e3,
                  "rnnt_beam": (time.perf_counter() - t2) * 1e3}
     decode_launches = read_counts()
-    trace: list = []
-    g_cpu = decode(cpu_dec, feats, lens, ctx, ctx_lens, "gated_on", trace)
-    b_cpu, _, _ = cpu_dec.rnnt_beam_search(feats, lens, beam=4)
+    ref = refs_result(refs, f"{name}_decodes")
+    g_cpu, trace = ref["gated_on"]
     for mode, (same, ties, bad), toks in (
             ("gated_on", compare(g_card, g_cpu, trace), g_card[0]),
             ("rnnt_beam", compare_nbest(dec.rnnt_beam_to_lists(b_card),
-                                        b_cpu), dec.rnnt_beam_to_lists(
-                                            b_card))):
+                                        ref["rnnt_beam"]),
+             dec.rnnt_beam_to_lists(b_card))):
         check(not bad, f"{name} {mode}: card and CPU differ away from a "
                        f"near tie: {bad}")
         check(sum(map(len, toks)) > 0, f"{name} {mode}: no token emitted")
         decodes[mode] = dict(identical_to_cpu=same, near_tie_flips=ties,
                              tokens=sum(map(len, toks)),
                              card_ms=decode_ms[mode])
-    del dec, cpu_dec, cpu_model, model
+    del dec, model
 
     cfg_bf16 = variant_config(conformer_rnnt_bias, overrides)
     run, launches = phase_rnnt_train(
@@ -4371,6 +5032,24 @@ def phase_variant(name, overrides, frames, init_model, conformer_rnnt_bias,
          decodes=decodes, train_ms_per_step=run[-1], frames=frames,
          blank_bias=SLICE_BLANK_BIAS, utterances_decoded=len(lens))
     return (launches, want), run
+
+
+def refs_variant_decodes(name: str, cfg: dict):
+    """A variant's decodes on the CPU (in the CPU references' process):
+    its fp32 model (seed 0, dropout 0, blank bias +3.0) over S1's WAVs,
+    gated "on" with its top-2 gaps and the RNN-T beam (beam 4)."""
+    from wenet_celoss_tpu_torch.decode.api import Decoder
+    from wenet_celoss_tpu_torch.models.factory import init_model
+    _, feats, lens = load_wavs()
+    ctx, ctx_lens = hotwords(cfg["output_dim"])
+    cpu_dec = Decoder(with_blank_bias(init_model(cfg, device="cpu", seed=0),
+                                      SLICE_BLANK_BIAS), device="cpu")
+    trace: list = []
+    yield f"{name}_decodes", {
+        "gated_on": (decode(cpu_dec, feats, lens, ctx, ctx_lens, "gated_on",
+                            trace), trace),
+        "rnnt_beam": cpu_dec.rnnt_beam_search(feats, lens, beam=4)[0]}
+
 
 
 def phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train,
@@ -5206,8 +5885,21 @@ SERVE_PIECE = SERVE_CHUNK * 4
 SERVE_LOG_TOL = 1e-3    # an O reply, card against CPU, fp32, max abs
 SERVE_SCORE_RTOL = 1e-4  # an S reply, card against CPU, relative
 EXPORT_TOL = 1e-4       # a .pt2 against the live model on the card, max abs
-EXPORT_K1 = {"encoder_ctc": 24, "encoder_chunk_ctc": 24,
-             "decoder_scores": U2PP_DECODER_K1}
+# E1 exports R1's configuration at a smaller depth (encoder blocks,
+# decoder blocks, reverse decoder blocks), every check the same. Its
+# programs hold a K1 operator node per FFN block.
+E1_DEPTH = (3, 1, 1)
+EXPORT_K1 = {"encoder_ctc": 2 * E1_DEPTH[0], "encoder_chunk_ctc":
+             2 * E1_DEPTH[0], "decoder_scores": E1_DEPTH[1] + E1_DEPTH[2]}
+
+
+def e1_config(u2pp_conformer) -> dict:
+    """R1's configuration (the full-width U2++ conformer) at E1_DEPTH."""
+    cfg = u2pp_conformer()
+    cfg["encoder_conf"]["num_blocks"] = E1_DEPTH[0]
+    cfg["decoder_conf"].update(num_blocks=E1_DEPTH[1],
+                               r_num_blocks=E1_DEPTH[2])
+    return cfg
 # decoder_main's modes by served model (R1: the U2++ conformer, R2: the
 # flagship).
 SERVE_MODES = (("r1", "default"), ("r2", "rnnt_greedy_search"),
@@ -5855,16 +6547,60 @@ def explained(diff: dict) -> bool:
             and diff.get("cpu_margin", float("inf")) < NEAR_TIE)
 
 
+# The port's worker whose K1 launches are counted: at its exit it writes
+# them to argv[1] as JSON; the worker's own arguments follow.
+COUNTED_WORKER = '''\
+import atexit
+import json
+import sys
+
+from wenet_celoss_tpu_torch.bin import runtime_worker
+from wenet_celoss_tpu_torch.ops import ffn
+
+
+def dump():
+    with open(sys.argv[1], "w") as f:
+        json.dump({"k1": ffn.ln_ffn_residual.launches}, f)
+
+
+atexit.register(dump)
+runtime_worker.main(sys.argv[2:])
+'''
+W1_BLANK_SKIP = 1.1     # W1's --blank_skip_thresh: no frame skipped
+
+
+def w1_lang(served: dict, tools: dict) -> Path:
+    """W1's graph: ``python -m wenet_celoss_tpu_torch.bin.build_lg`` over
+    R1's units (write_units: ▁ and A-Z), the transcripts' words and their
+    unigram ARPA → lang/lg.bin and lang/words.txt beside R1's files."""
+    lang = served["r1"]["dir"] / "lang"
+    res = subprocess.run(
+        [sys.executable, "-m", "wenet_celoss_tpu_torch.bin.build_lg",
+         "--units", str(served["r1"]["dir"] / "units.txt"), "--arpa",
+         tools["arpa"], "--wordlist", tools["wordlist"], "--out_dir",
+         str(lang)], capture_output=True, text=True, env=serve_env(),
+        timeout=120)
+    if res.returncode != 0:
+        raise RuntimeError(f"build_lg exited {res.returncode}:\n"
+                           f"{res.stderr[-3000:]}")
+    emit("tools", part="w1_graph", report=res.stdout.strip())
+    return lang
+
+
 def phase_serve_runs(binary: Path, served: dict, tmp: Path, during,
-                     beside):
+                     beside, lang: Path):
     """R1's and R2's decoder_main runs, started together after the timed
     parts: decoder_main over the 16 WAVs for each of SERVE_MODES with the
     card worker (one CPU thread) and with the --device cpu worker (two),
-    each behind TEE_WORKER; ``during()`` (E1) runs in this process
-    meanwhile, and ``beside()`` (R1's CPU client) in a thread. The result lines must be equal card against CPU, or differ
-    only where S1's rule allows (``explained``: the CPU search's margin
-    under NEAR_TIE where the two searches part). Returns what ``during``
-    returns."""
+    each behind TEE_WORKER; ``during()`` (E1, and the checks beside its
+    int8 export) runs in this process meanwhile, and ``beside()`` (R1's
+    CPU client) in a thread. The
+    result lines must be equal card against CPU, or differ only where
+    S1's rule allows (``explained``: the CPU search's margin under
+    NEAR_TIE where the two searches part). W1 beside them:
+    decoder_main in WFST mode over ``lang`` (R1's card worker, its K1
+    launches counted by COUNTED_WORKER, behind TEE_WORKER), judged by
+    ``phase_w1``. Returns what ``during`` returns."""
     t0 = time.perf_counter()
     tee = tmp / "tee_worker.py"
     tee.write_text(TEE_WORKER)
@@ -5885,6 +6621,19 @@ def phase_serve_runs(binary: Path, served: dict, tmp: Path, during,
                  str(SERVE_CHUNK), "--num_bins", "80", *extra],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 env=serve_env(OMP_NUM_THREADS=threads))
+    counted = tmp / "counted_worker.py"
+    counted.write_text(COUNTED_WORKER)
+    wcmd = [sys.executable, str(tee), str(tmp / "w1.tee"), sys.executable,
+            str(counted), str(tmp / "w1_counts.json"),
+            *worker_cmd(served["r1"])[3:]]
+    procs[("r1", "wfst", "card")] = subprocess.Popen(
+        [str(binary), "--wav_scp", str(served["r1"]["dir"] / "wav.scp"),
+         "--symbol_table", str(lang / "words.txt"), "--worker_cmd",
+         " ".join(wcmd), "--chunk_size", str(SERVE_CHUNK), "--num_bins",
+         "80", "--fst_path", str(lang / "lg.bin"), "--blank_skip_thresh",
+         str(W1_BLANK_SKIP)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=serve_env(OMP_NUM_THREADS="1"))
     ended = {}
 
     def wait(key, proc):   # each run's own end, its pipes drained
@@ -5928,27 +6677,143 @@ def phase_serve_runs(binary: Path, served: dict, tmp: Path, during,
              symbols=sum(len("".join(line.split()[1:])) for line in card),
              card_s=ended[(model, mode, "card")][2],
              cpu_s=ended[(model, mode, "cpu")][2])
+    out, _, seconds = ended[("r1", "wfst", "card")]
+    served["w1"] = {"lines": out.splitlines(), "card_s": seconds,
+                    "tee": tmp / "w1.tee", "counts": tmp / "w1_counts.json",
+                    "lang": lang}
     emit("serve_runs", seconds=time.perf_counter() - t0)
     return result
 
 
-def phase_export(init_model, u2pp_conformer, files: dict, tmp: Path,
-                 dev: str = "cuda"):
-    """E1: bin/export.py on the card writes R1's bundle (fp32 in this
-    process, its stdout to stderr here; --quantize int8 beside it by
-    ``python -m``). Each .pt2 is loaded back
+def phase_w1(w1: dict) -> dict:
+    """W1: decoder_main's 16 WFST lines (R1's card worker; --beam 16,
+    --lm_scale 1, --blank_skip_thresh W1_BLANK_SKIP, its default n-best
+    of 10 rescored by the worker's attention scores: score = att +
+    0.5·(−cost)) against the port's wfst_beam_decode over the log-probs
+    the tee recorded, with the same options, its n-best ranked the same
+    way by the attention scores decoder_main received: equal word lines
+    and the same n-best, except where the Python decoder's two best
+    finals (or the two best rescored scores) lie within NEAR_TIE. The
+    worker's K1 launches: 24 a chunk step, 6 a rescoring. Returns them."""
+    from wenet_celoss_tpu_torch.configs import u2pp_conformer
+    from wenet_celoss_tpu_torch.lm.fst import (LgGraph, WfstDecodeOptions,
+                                               wfst_beam_decode)
+    lg = LgGraph.read(str(w1["lang"] / "lg.bin"))
+    opts = WfstDecodeOptions(beam=16.0, lm_scale=1.0, max_active=7000,
+                             nbest=10, blank_skip_thresh=W1_BLANK_SKIP)
+    utts = tee_utterances(w1["tee"])
+    lines = w1["lines"]
+    check(len(lines) == len(utts) == 16, f"tools w1: {len(lines)} lines, "
+                                         f"{len(utts)} utterances teed")
+    same, ties, bad, words, t0 = 0, [], [], 0, time.perf_counter()
+    frames = rescorings = 0
+    for line, u in zip(lines, utts):
+        key, _, text = line.partition(" ")
+        frames += sum(o.shape[0] for o in u["o"])
+        rescorings += bool(u["hyps"])
+        hyps = wfst_beam_decode(lg, np.concatenate(u["o"]), opts)
+        att = dict(zip(map(tuple, u["hyps"]), u["att"].tolist())) \
+            if u["att"] is not None else {}
+        totals = [att.get(tuple(h.units), float("-inf")) - 0.5 * h.cost
+                  for h in hyps]
+        rank = sorted(range(len(hyps)), key=lambda j: -totals[j])
+        # decoder_main's post-processor lowercases latin words.
+        mine = " ".join(lg.words[w] for w in hyps[rank[0]].words).lower() \
+            if hyps else ""
+        units = [h.units for h in hyps]
+        words += len(mine.split())
+        if mine == text.strip() and units == u["hyps"]:
+            same += 1
+            continue
+        rec = {"utt": key, "decoder_main": text, "python": mine}
+        ok = True
+        if units != u["hyps"]:   # the first rank where the n-bests part
+            k = next((j for j, (a, b) in enumerate(zip(units, u["hyps"]))
+                      if a != b), min(len(units), len(u["hyps"])))
+            rec["nbest_parts_at"] = k
+            rec["nbest_cost_gap"] = abs(
+                hyps[units.index(u["hyps"][k])].cost - hyps[k].cost) \
+                if k < len(u["hyps"]) and k < len(units) and \
+                u["hyps"][k] in units else float("inf")
+            ok = rec["nbest_cost_gap"] < NEAR_TIE
+        if mine != text.strip():
+            rec["cost_gap"] = hyps[1].cost - hyps[0].cost \
+                if len(hyps) > 1 else float("inf")
+            rec["rescored_gap"] = totals[rank[0]] - totals[rank[1]] \
+                if len(hyps) > 1 else float("inf")
+            ok = ok and min(rec["cost_gap"], rec["rescored_gap"]) < NEAR_TIE
+        (ties if ok else bad).append(rec)
+    counts = json.loads(w1["counts"].read_text()) \
+        if w1["counts"].exists() else {"k1": 0}
+    launches = {**NO_LAUNCHES, "k1": counts["k1"]}
+    # A window of SERVE_CHUNK encoder frames is one chunk step (24 K1); an
+    # R request one pass of the left-to-right decoder over its n-best
+    # (decoder_main's reverse_weight is 0).
+    windows = frames // SERVE_CHUNK
+    per_r = u2pp_conformer()["decoder_conf"]["num_blocks"]
+    want_k1 = K1_PER_ENCODER_PASS * windows + per_r * rescorings
+    check(not bad and counts["k1"] == want_k1,
+          f"tools w1: lines differ from the port's WFST decode away from "
+          f"a near tie {bad}; worker K1 {counts['k1']}, want {want_k1} (24 "
+          f"a chunk step of {windows}, {per_r} a rescoring of "
+          f"{rescorings})")
+    emit("tools", part="w1", lines=len(lines), identical=same,
+         near_tie_flips=ties, other_diffs=bad, words=words,
+         encoder_frames=frames, chunk_steps=windows, rescorings=rescorings,
+         decoder_main_s=w1["card_s"], python_decode_s=time.perf_counter()
+         - t0, launches=launches, graph_states=lg.ngram.num_states,
+         trie_nodes=lg.trie.num_nodes)
+    return launches
+
+
+def start_export(init_model, u2pp_conformer, tmp: Path,
+                 dev: str = "cuda") -> dict:
+    """E1's bundles: R1's model at E1_DEPTH (its weights seed 0, saved as
+    service_files saves R1's) written by ``python -m
+    wenet_celoss_tpu_torch.bin.export`` on the card, fp32 and --quantize
+    int8, two processes started at once; ``phase_export`` checks them.
+    Each process's seconds to its end are kept by a thread."""
+    cfg = e1_config(u2pp_conformer)
+    files = service_files(tmp / "e1_model", cfg, init_model(cfg, seed=0))
+    runs = {}
+    for quant in ("none", "int8"):
+        argv = ["--config", files["config"], "--checkpoint",
+                files["checkpoint"], "--output_dir", str(tmp / "e1" / quant),
+                "--chunk_size", str(SERVE_CHUNK), "--num_left_chunks",
+                str(SERVE_LEFT), "--quantize", quant, "--device", dev]
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "wenet_celoss_tpu_torch.bin.export",
+             *argv], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=serve_env())
+        end: list = []
+
+        def wait(proc=proc, end=end, t0=time.perf_counter()):
+            end.append((proc.communicate(timeout=900),
+                        time.perf_counter() - t0))
+        waiter = threading.Thread(target=wait)
+        waiter.start()
+        runs[quant] = (proc, waiter, end)
+    return {"cfg": cfg, "tmp": tmp, "runs": runs, "dev": dev}
+
+
+def phase_export(init_model, started: dict, meanwhile=None):
+    """E1: ``meanwhile()`` first (it runs while start_export's processes
+    write the bundles), then each bundle's .pt2 programs are loaded back
     and run on the card against the live model's entry point on the same
     inputs (the int8 programs against the model loaded from
     params_int8.pt), within EXPORT_TOL; each graph's
     wenet_torch::ln_ffn_residual_fwd nodes counted against EXPORT_K1. The
     programs' runs are counted (every count set to 0 before the first,
     read after the last). Seconds a bundle, sizes and the int8 / fp32
-    ratio. Returns the launches."""
+    ratio. Returns the launches and what ``meanwhile`` returned."""
     from wenet_celoss_tpu_torch.bin import export
     from wenet_celoss_tpu_torch.utils.checkpoint import load_into
     from wenet_celoss_tpu_torch.utils.quantize import load_quantized
+    t_meanwhile = time.perf_counter()
+    beside = meanwhile() if meanwhile is not None else None
+    t_meanwhile = time.perf_counter() - t_meanwhile
     t_phase = time.perf_counter()
-    cfg = u2pp_conformer()
+    cfg, tmp, dev = started["cfg"], started["tmp"], started["dev"]
     op = torch.ops.wenet_torch.ln_ffn_residual_fwd.default
     rng = np.random.default_rng(11)
     feat_dim, vocab = cfg["input_dim"], cfg["output_dim"]
@@ -5972,37 +6837,16 @@ def phase_export(init_model, u2pp_conformer, files: dict, tmp: Path,
     dec_args = (memory, mask, hyps, hlens, hyps.flip(1).contiguous())
     out = {"card": smi()}
     launches = dict(NO_LAUNCHES)
-    argv = {quant: ["--config", files["config"], "--checkpoint",
-                    files["checkpoint"], "--output_dir",
-                    str(tmp / "e1" / quant), "--chunk_size",
-                    str(SERVE_CHUNK), "--num_left_chunks", str(SERVE_LEFT),
-                    "--quantize", quant, "--device", dev]
-            for quant in ("none", "int8")}
-    # The int8 bundle by `python -m` beside the fp32 one in this process.
-    t0 = time.perf_counter()
-    int8 = subprocess.Popen(
-        [sys.executable, "-m", "wenet_celoss_tpu_torch.bin.export",
-         *argv["int8"]], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, env=serve_env())
-    int8_end = []
-    waiter = threading.Thread(target=lambda: int8_end.append(
-        (int8.communicate(timeout=600), time.perf_counter() - t0)))
-    waiter.start()
     live = init_model(cfg, seed=1, device=dev)
     for quant in ("none", "int8"):
         out_dir = tmp / "e1" / quant
-        if quant == "none":
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(sys.stderr):
-                export.main(argv[quant])
-            out["none_export_s"] = time.perf_counter() - t0
-        else:
-            waiter.join()
-            (_, err), seconds = int8_end[0]
-            if int8.returncode != 0:
-                raise RuntimeError(f"export --quantize int8 exited "
-                                   f"{int8.returncode}:\n{err[-3000:]}")
-            out["int8_export_s"] = seconds
+        proc, waiter, end = started["runs"][quant]
+        waiter.join()
+        (_, err), seconds = end[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"export --quantize {quant} exited "
+                               f"{proc.returncode}:\n{err[-3000:]}")
+        out[f"{quant}_export_s"] = seconds
         manifest = (out_dir / "manifest.yaml").read_text()
         params = "params.pt" if quant == "none" else "params_int8.pt"
         check(f"quantize: {quant}" in manifest and params in manifest,
@@ -6057,14 +6901,20 @@ def phase_export(init_model, u2pp_conformer, files: dict, tmp: Path,
         del progs, mods
     out["int8_over_fp32_params"] = (out["int8_params_bytes"]
                                     / out["none_params_bytes"])
-    emit("export", model="u2pp_conformer", tolerance=f"max abs "
-         f"{EXPORT_TOL}", seconds=time.perf_counter() - t_phase, **out)
-    return launches
+    emit("export", model="u2pp_conformer", depth=dict(zip(
+        ("encoder_blocks", "decoder_blocks", "reverse_blocks"), E1_DEPTH)),
+        tolerance=f"max abs {EXPORT_TOL}",
+        check_seconds=time.perf_counter() - t_phase,
+        meanwhile_s=t_meanwhile, **out)
+    return launches, beside
 
 
 
 # ------------------------------------------------------ scale-out (D) ---
 D_RANKS = 2
+# D4 trains on the first of T12's train WAVs (its 200 took 4 batches a
+# rank; these 2): the same checks at a smaller depth.
+D4_TRAIN_WAVS = 96
 # D3's modes: a subset of S3's "mode2_off" run (context mode 2, "off"),
 # whose card files it must equal byte for byte.
 D3_MODES = ("ctc_greedy_search", "rnnt_greedy_search", "attention_rescoring")
@@ -6236,11 +7086,13 @@ def dist_rank_child(spec_path: str, rank: int) -> None:
     Path(spec["out"].format(rank=rank)).write_text(json.dumps(out))
 
 
-def dist_ranks(spec: dict, tmp: Path, timeout_s: int = 400) -> list:
+def dist_ranks(spec: dict, tmp: Path, timeout_s: int = 400,
+               meanwhile=None) -> list:
     """``dist_rank_child`` on D_RANKS processes started at once (torchrun's
     environment, a ``file://`` rendezvous under ``tmp``) → each rank's
-    results. Raises if a rank fails or runs past ``timeout_s``; every
-    rank's process group (with its loader workers) is killed then."""
+    results; ``meanwhile()`` runs in this process while they do. Raises if
+    a rank fails or runs past ``timeout_s``; every rank's process group
+    (with its loader workers) is killed then."""
     import signal
     spec = dict(spec, init=f"file://{tmp}/rendezvous",
                 out=str(tmp / "rank{rank}.json"))
@@ -6258,6 +7110,8 @@ def dist_ranks(spec: dict, tmp: Path, timeout_s: int = 400) -> list:
     deadline = time.perf_counter() + timeout_s
     errs = []
     try:
+        if meanwhile is not None:
+            meanwhile()
         for p in procs:
             errs.append(p.communicate(
                 timeout=max(deadline - time.perf_counter(), 1))[1])
@@ -6300,14 +7154,15 @@ def grad_errors(names, got, want, gnorm) -> dict:
 
 
 def phase_dist(init_model, conformer_rnnt_bias, train, wavs, s3: dict,
-               t12, work: Path) -> dict:
+               t12, work: Path, meanwhile=None) -> dict:
     """D1-D4, the data-parallel path over D_RANKS processes: both ranks on
     cuda:0 over gloo on a one-card machine (two ranks sharing a card
     measure the code path, not a speed-up), one rank a card otherwise.
     D1 against the one-process card step here first; then every rank
-    runs D1, D2, D3 and D4 (``dist_rank_child``); with two cards or more,
-    D1 again over nccl. Returns {path: (launches, want)} for the kernels
-    line."""
+    runs D1, D2, D3 and D4 (``dist_rank_child``), ``meanwhile()`` in this
+    process beside them (so that D2's and D4's times are taken beside it);
+    with two cards or more, D1 again over nccl. Returns {path: (launches,
+    want)} for the kernels line."""
     tmp = work / "dist"
     tmp.mkdir()
     # D1's one-process reference on the card: the whole of T3's batch.
@@ -6339,8 +7194,13 @@ def phase_dist(init_model, conformer_rnnt_bias, train, wavs, s3: dict,
     # accum_grad 1: each joined micro-batch is an optimizer step, so that
     # the epoch's steps all-reduce gradients (T12's 4 would leave its ~3
     # micro-batches a rank without a step).
+    d4_base = list(t12_base)
+    at = d4_base.index("--train_data") + 1
+    lines = Path(d4_base[at]).read_text().splitlines()[:D4_TRAIN_WAVS]
+    d4_base[at] = str(tmp / "d4_train.list")
+    Path(d4_base[at]).write_text("".join(x + "\n" for x in lines))
     d4_argv = ["--config", str(t12_cfg), "--num_epochs", "1",
-               "--override_config", "accum_grad 1"] + t12_base
+               "--override_config", "accum_grad 1"] + d4_base
     spec = dict(backend="gloo", devices=["cuda:0"] * D_RANKS,
                 phases=["d1", "d2", "d3", "d4"],
                 d1_batch=str(tmp / "d1_batch.npz"),
@@ -6349,7 +7209,7 @@ def phase_dist(init_model, conformer_rnnt_bias, train, wavs, s3: dict,
                 d4_out=str(tmp / "d4"))
     (tmp / "d4").mkdir()
     t0 = time.perf_counter()
-    ranks = dist_ranks(spec, tmp)
+    ranks = dist_ranks(spec, tmp, meanwhile=meanwhile)
     spawn_s = time.perf_counter() - t0
     d1_check(ranks, tmp, names, want_g, want_buf, want_m, gnorm, init_sha,
              one_launches, backend="gloo",
@@ -6428,7 +7288,7 @@ def phase_dist(init_model, conformer_rnnt_bias, train, wavs, s3: dict,
               f"{[r['launches'] for r in d4]}, want {want4}, shas equal "
               f"{d4[0]['model_sha'] == d4[1]['model_sha']}, infos {info}")
     emit("d4", model="conformer_rnnt_bias (yaml)", epochs=1,
-         train_wavs=200, ranks=D_RANKS, backend="gloo",
+         train_wavs=D4_TRAIN_WAVS, ranks=D_RANKS, backend="gloo",
          batches_per_rank=batches, optimizer_steps=steps,
          cv_batches_by_rank=[r["cv_batches"] for r in d4],
          epoch_s_by_rank=[r["epoch_s"] for r in d4],
@@ -6553,17 +7413,20 @@ def run(work: Path) -> int:
          decoder_main=str(decoder_main.relative_to(ROOT)),
          decoder_main_s=decoder_main_build.seconds)
     s3 = s3_setup(work, init_model, conformer_rnnt_bias)
+    refs = refs_setup(work, s3)
     try:
-        return run_phases(work, s3, decoder_main, name, card)
+        return run_phases(work, s3, refs, decoder_main, name, card)
     finally:
-        if s3["cpu_proc"].poll() is None:
-            s3["cpu_proc"].kill()
-            s3["cpu_proc"].communicate()
+        for proc in (s3["cpu_proc"], refs["proc"]):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
 
 
-def run_phases(work: Path, s3: dict, decoder_main: Path, name: str,
-               card: str) -> int:
-    """The phases after the build, S3's CPU side already running."""
+def run_phases(work: Path, s3: dict, refs: dict, decoder_main: Path,
+               name: str, card: str) -> int:
+    """The phases after the build, S3's CPU side and the CPU references
+    already running."""
     from wenet_celoss_tpu_torch.configs import (conformer_ctc_aed,
                                                 conformer_rnnt_bias,
                                                 u2pp_conformer)
@@ -6584,9 +7447,7 @@ def run_phases(work: Path, s3: dict, decoder_main: Path, name: str,
     k6, k6_bwd = phase_k6(ffn, bounds, dropout)
     phase_row_base(ffn, lstm, conv, dropout)
     decode_launches, slice_run = phase_slice(init_model, Decoder,
-                                             conformer_rnnt_bias, ffn)
-    conv_decode = phase_conv_decode(slice_run, conv)
-    lnmm_decode = phase_lnmm_decode(slice_run, ln_matmul, conv)
+                                             conformer_rnnt_bias, ffn, refs)
     to_profile = []
     for bias in BENCH_BLANK_BIASES:
         to_profile += phase_bench(init_model, Decoder, conformer_rnnt_bias,
@@ -6594,65 +7455,69 @@ def run_phases(work: Path, s3: dict, decoder_main: Path, name: str,
     lnmm_bench = phase_bench_lnmm(init_model, Decoder, conformer_rnnt_bias,
                                   BENCH_BLANK_BIASES[0])
     phase_op_dispatch(to_profile[0], slice_run, ffn, ln_matmul, conv)
-    phase_decode_modes(slice_run)
-    stream_decode = phase_stream_slice(init_model, Decoder, u2pp_conformer,
-                                       slice_run)
+    wavs, dropped = load_train_wavs()
+    emit("train_wavs_loaded", utterances=len(wavs["feat_lengths"]),
+         left_out_unalignable=dropped)
+
+    def checks():
+        """The card-against-CPU checks that run in this process while the
+        serving runs' processes and E1's exports do (their CPU sides are
+        the CPU references'): S1-conv, S1-lnmm, S1-modes, S2, A1, L1 and
+        LM1, then the training steps T0-check to BN-check. → (the tools'
+        launches, S1-conv's K8, S1-lnmm's K7 and S2's K1 launches)."""
+        conv_decode = phase_conv_decode(slice_run, conv)
+        lnmm_decode = phase_lnmm_decode(slice_run, ln_matmul, conv)
+        lm1_cpu_nbest = phase_decode_modes(slice_run)
+        stream = phase_stream_slice(init_model, Decoder, u2pp_conformer,
+                                    slice_run)
+        launches = phase_tools(s3, refs, slice_run, lm1_cpu_nbest)
+        phase_train_check(init_model, train, wavs, refs, want=CTC_PER_STEP)
+        phase_train_check(init_model, train, wavs, refs,
+                          what="postnorm_train_check",
+                          model_name="postnorm_transformer_aed",
+                          want=POSTNORM_PER_STEP)
+        phase_train_check(init_model, train, wavs, refs,
+                          what="u2pp_train_check",
+                          model_name="u2pp_conformer", want=U2PP_PER_STEP)
+        phase_rnnt_train_check(init_model, train, wavs, refs)
+        for what, env, want in (
+                ("rnnt_pallas_train_check", {}, PALLAS_PER_STEP),
+                ("conv_train_check", CONV, CONV_PER_STEP),
+                ("lnmm_train_check", LNMM, LNMM_PER_STEP),
+                ("bn_train_check", {}, RNNT_PER_STEP)):
+            phase_rnnt_train_check(init_model, train, wavs, refs, what=what,
+                                   env=env, want=want)
+        return launches, (conv_decode, lnmm_decode, stream)
+
     with tempfile.TemporaryDirectory() as serve_tmp:
         serve_tmp = Path(serve_tmp)
         t_serve = time.perf_counter()
+        exports = start_export(init_model, u2pp_conformer, serve_tmp)
         svc = start_services(init_model, u2pp_conformer,
                              conformer_rnnt_bias, serve_tmp)
         emit("serve_start", seconds=time.perf_counter() - t_serve)
         serve_u2pp = phase_serve_u2pp(svc)
         serve_rnnt = phase_serve_rnnt(svc)
         del svc["workers"]
-        export_run = phase_serve_runs(
+        lang = w1_lang(svc["files"], refs["tools"])
+        export_run, (tools_launches, (conv_decode, lnmm_decode,
+                                      stream_decode)) = phase_serve_runs(
             decoder_main, svc["files"], serve_tmp,
-            lambda: phase_export(init_model, u2pp_conformer,
-                                 svc["files"]["r1"], serve_tmp),
-            lambda: r1_cpu_compare(svc))
+            lambda: phase_export(init_model, exports, meanwhile=checks),
+            lambda: r1_cpu_compare(svc), lang)
         emit("serve_all", seconds=time.perf_counter() - t_serve)
+        tools_launches["wfst"] = phase_w1(svc["files"]["w1"])
+    phase_f1()
     b3_paths, b3_profile = phase_bench_modes(
         init_model, Decoder, conformer_rnnt_bias, BENCH_BLANK_BIASES[0])
     b4_profile = phase_bench_stream(init_model, Decoder, u2pp_conformer)
-    # S3 this late: its CPU side, started after the build, has run beside
-    # every phase before it.
-    recognize_launches = phase_recognize(init_model, Decoder,
-                                         conformer_rnnt_bias, s3)
-    wavs, dropped = load_train_wavs()
-    emit("train_wavs_loaded", utterances=len(wavs["feat_lengths"]),
-         left_out_unalignable=dropped)
     t12_dir = work / "t12"
     t12_dir.mkdir()
     t12 = t12_inputs(t12_dir)
-    dist_paths = phase_dist(init_model, conformer_rnnt_bias, train, wavs, s3,
-                            t12, work)
-    phase_train_check(init_model, conformer_ctc_aed(), train, wavs,
-                      want=CTC_PER_STEP)
-    phase_train_check(init_model, postnorm_aed(conformer_ctc_aed), train,
-                      wavs, what="postnorm_train_check",
-                      model_name="postnorm_transformer_aed",
-                      want=POSTNORM_PER_STEP, spread=True)
-    phase_train_check(init_model, u2pp_conformer(), train, wavs,
-                      what="u2pp_train_check", model_name="u2pp_conformer",
-                      want=U2PP_PER_STEP,
-                      gen_seed=limited_chunk_seed(wavs))
     train_profile, t1 = phase_train(init_model, conformer_ctc_aed(), train,
                                     want=CTC_PER_STEP)
     phase_train_wavs(init_model, conformer_ctc_aed, train, wavs)
-    phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs)
-    phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs,
-                           what="rnnt_pallas_train_check", impl="pallas",
-                           want=PALLAS_PER_STEP, vocab=CHAR_VOCAB)
-    phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs,
-                           what="conv_train_check", env=CONV,
-                           want=CONV_PER_STEP)
-    phase_rnnt_train_check(init_model, conformer_rnnt_bias, train, wavs,
-                           what="lnmm_train_check", env=LNMM,
-                           want=LNMM_PER_STEP)
     bn_flagship = batch_norm_flagship(conformer_rnnt_bias)
-    phase_rnnt_train_check(init_model, bn_flagship, train, wavs,
-                           what="bn_train_check")
     rnnt_profile, rnnt = phase_rnnt_train(init_model, conformer_rnnt_bias,
                                           train)
     conv_profile, conv_run = phase_rnnt_train(
@@ -6670,7 +7535,8 @@ def run_phases(work: Path, s3: dict, decoder_main: Path, name: str,
     t_v = time.perf_counter()
     phase_variant_kernels(ffn, rnnt_loss)
     variant_runs = {v: phase_variant(v, overrides, frames, init_model,
-                                     conformer_rnnt_bias, train, Decoder)
+                                     conformer_rnnt_bias, train, Decoder,
+                                     refs)
                     for v, overrides, frames in VARIANTS}
     emit("variants", seconds=time.perf_counter() - t_v)
     postnorm_profile, t9 = phase_train(
@@ -6686,9 +7552,20 @@ def run_phases(work: Path, s3: dict, decoder_main: Path, name: str,
     phase_rnnt_train_wavs(init_model, conformer_rnnt_bias, train, wavs)
     phase_rnnt_train_wavs(init_model, bn_flagship, train, wavs,
                           what="bn_train_wavs")
+    # S3 and D this late: S3's CPU side, started after the build, has run
+    # beside every phase before them. S3 and the T12 checks run beside the
+    # D ranks (D3 is held to S3's card files after both).
+    beside_dist = {}
+
+    def beside_d():
+        beside_dist["recognize"] = phase_recognize(
+            init_model, Decoder, conformer_rnnt_bias, s3)
+        phase_train_cli_check()
+        phase_train_resume()
+    dist_paths = phase_dist(init_model, conformer_rnnt_bias, train, wavs, s3,
+                            t12, work, meanwhile=beside_d)
+    recognize_launches = beside_dist["recognize"]
     train_cli = phase_train_cli(t12_dir, t12)
-    phase_train_cli_check()
-    phase_train_resume()
     phase_exact_bench(init_model, Decoder, conformer_rnnt_bias)
     for args in to_profile:
         phase_profile(*args)
@@ -6728,6 +7605,10 @@ def run_phases(work: Path, s3: dict, decoder_main: Path, name: str,
              "serve_u2pp": (serve_u2pp, SERVE_KERNELS),
              "serve_rnnt": (serve_rnnt, SERVE_KERNELS),
              "export": (export_run, SERVE_KERNELS),
+             "tools_alignment": (tools_launches["a1"], SERVE_KERNELS),
+             "tools_label_checker": (tools_launches["l1"], SERVE_KERNELS),
+             "tools_lm_rescore": (tools_launches["lm1"], SERVE_KERNELS),
+             "tools_wfst": (tools_launches["wfst"], SERVE_KERNELS),
              **{"decode_" + n: v for n, v in b3_paths.items()},
              **{n + "_train": v[0] for n, v in variant_runs.items()},
              **{"dist_" + n: v for n, v in dist_paths.items()}}

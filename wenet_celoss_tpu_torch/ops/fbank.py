@@ -1,13 +1,19 @@
-"""Kaldi-compatible log-mel filterbank and MFCC on the host, in numpy
+"""Kaldi-compatible log-mel filterbank and MFCC: on the host in numpy
 (copy of the numpy half of ``wenet_celoss_tpu/ops/fbank.py``:
 ``FbankConfig``, ``num_frames``, ``_window``, ``mel_banks``, the dither
-noise table, ``compute_fbank_np``, ``MfccConfig`` and ``compute_mfcc_np``).
+noise table, ``compute_fbank_np``, ``MfccConfig`` and
+``compute_mfcc_np``), and batched in torch on the tensors' device (its
+device half: ``frame_signal``, ``compute_fbank``, ``compute_mfcc``).
 
 The DSP chain matches kaldi: snip_edges framing, dither, DC removal, 0.97
 preemphasis, povey window, pow2 rFFT, power spectrum, triangular mel bins
 with low=20Hz/high=nyquist, natural log with an eps floor; MFCC is the
-DCT-II of the log-mel energies, liftered. It is the front end for real
-requests and for training; the on-device fbank comes with a later slice.
+DCT-II of the log-mel energies, liftered. The numpy path is the front end
+for real requests and for training; the batched path is a library
+function (a padded [B, S] batch with lengths → [B, T, M], frames past
+each utterance's count zero) that no config key selects. torch is
+imported inside the batched functions only, so a loader worker that runs
+the numpy path does not pay for it.
 """
 
 from __future__ import annotations
@@ -51,9 +57,12 @@ class FbankConfig:
 
 
 def num_frames(num_samples, cfg: FbankConfig):
-    """Kaldi snip_edges frame count of ints or numpy arrays."""
+    """Kaldi snip_edges frame count of ints, numpy arrays or torch
+    tensors."""
     if cfg.snip_edges:
         n = (num_samples - cfg.frame_length) // cfg.frame_shift + 1
+        if hasattr(n, "clamp"):   # a torch tensor, on its device
+            return n.clamp(min=0)
         return np.maximum(n, 0)
     return (num_samples + cfg.frame_shift // 2) // cfg.frame_shift
 
@@ -204,3 +213,84 @@ def compute_mfcc_np(wav: np.ndarray, cfg: MfccConfig = MfccConfig(),
     logmel = compute_fbank_np(wav, cfg, rng)
     ceps = logmel @ _dct_matrix(cfg.num_ceps, cfg.num_mel_bins).T
     return (ceps * _lifter(cfg)).astype(np.float32)
+
+
+def frame_signal(wav, max_frames: int, cfg: FbankConfig):
+    """[..., S] → [..., max_frames, frame_length]: frame t is samples
+    [t·shift, t·shift + length); samples past S repeat the last one (the
+    JAX path's edge padding)."""
+    import torch
+    need = (max_frames - 1) * cfg.frame_shift + cfg.frame_length
+    s = wav.shape[-1]
+    if need > s:
+        wav = torch.cat([wav, wav[..., -1:].expand(
+            *wav.shape[:-1], need - s)], dim=-1)
+    return wav[..., :need].unfold(-1, cfg.frame_length, cfg.frame_shift)
+
+
+def _fbank_batch(wav, lengths, cfg: FbankConfig, max_frames: int,
+                 generator):
+    import torch
+    dev = wav.device
+    frames = frame_signal(wav.to(torch.float32), max_frames, cfg)
+    if cfg.dither > 0.0 and generator is not None:
+        frames = frames + cfg.dither * torch.randn(
+            frames.shape, generator=generator, dtype=torch.float32,
+            device=dev)
+    if cfg.remove_dc_offset:
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+    if cfg.preemphasis > 0.0:
+        shifted = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+        frames = frames - cfg.preemphasis * shifted
+    frames = frames * torch.as_tensor(_window(cfg), device=dev)
+    spec = torch.fft.rfft(frames, n=cfg.fft_size, dim=-1)
+    power = spec.real ** 2 + spec.imag ** 2
+    mel = power @ torch.as_tensor(mel_banks(cfg), device=dev).T
+    feats = torch.log(torch.clamp_min(mel, np.finfo(np.float32).tiny))
+    feat_lens = num_frames(lengths, cfg)
+    valid = torch.arange(max_frames, device=dev)[None, :] < \
+        feat_lens[..., None]
+    return torch.where(valid[..., None], feats, 0.0), feat_lens
+
+
+def compute_fbank(wav, lengths=None, cfg: FbankConfig = FbankConfig(),
+                  generator=None):
+    """Batched log-mel features on ``wav``'s device (plain torch,
+    ``torch.fft.rfft``).
+
+    Args:
+      wav: [S] or [B, S] float tensor of int16-range samples (kaldi
+        convention), zero-padded past each length.
+      lengths: [B] valid sample counts (default: the full length).
+      generator: a ``torch.Generator`` on ``wav``'s device; dither
+        (``cfg.dither > 0``) is drawn from it, and there is none without.
+
+    Returns (feats [B, T, M] or [T, M], frame counts [B] or a scalar);
+    frames past an utterance's count are 0.
+    """
+    import torch
+    squeeze = wav.dim() == 1
+    if squeeze:
+        wav = wav[None]
+    if lengths is None:
+        lengths = torch.full((wav.shape[0],), wav.shape[-1],
+                             dtype=torch.long, device=wav.device)
+    max_frames = max(int(num_frames(wav.shape[-1], cfg)), 1)
+    feats, feat_lens = _fbank_batch(wav, torch.as_tensor(
+        lengths, device=wav.device), cfg, max_frames, generator)
+    if squeeze:
+        return feats[0], feat_lens[0]
+    return feats, feat_lens
+
+
+def compute_mfcc(wav, lengths=None, cfg: MfccConfig = MfccConfig(),
+                 generator=None):
+    """Batched MFCC on ``wav``'s device: :func:`compute_fbank`'s log-mel
+    energies → DCT → lifter, M = ``cfg.num_ceps``."""
+    import torch
+    feats, feat_lens = compute_fbank(wav, lengths, cfg, generator)
+    dev = feats.device
+    dct = torch.as_tensor(_dct_matrix(cfg.num_ceps, cfg.num_mel_bins),
+                          device=dev)
+    return (feats @ dct.T) * torch.as_tensor(_lifter(cfg), device=dev), \
+        feat_lens
